@@ -1,0 +1,58 @@
+"""Parameters between the JAX package's pytree and the port's modules.
+
+The pytree, as numpy (a checkpoint's "model" entry, or
+`jax.tree_util.tree_map(np.asarray, params)`):
+
+    {"ln_s": [1],
+     "implicit_surface": {"layers": [{"v", "g", "b"} or {"w", "b"}, ...]},
+     "radiance_net": {"layers": [...]}}
+
+Both sides store linear weights as [out, in], so values copy one to one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _layers_to_tree(layers):
+    out = []
+    for layer in layers:
+        names = ("v", "g", "b") if layer.weight_norm else ("w", "b")
+        out.append({n: getattr(layer, n).detach().cpu().numpy().copy()
+                    for n in names})
+    return {"layers": out}
+
+
+def model_to_tree(model) -> dict:
+    """The NeuS model's parameters as the JAX pytree of numpy arrays."""
+    return {"ln_s": model.ln_s.detach().cpu().numpy().copy(),
+            "implicit_surface": _layers_to_tree(model.implicit_surface.layers),
+            "radiance_net": _layers_to_tree(model.radiance_net.layers)}
+
+
+@torch.no_grad()
+def _load_layers(layers, tree, what):
+    if len(tree["layers"]) != len(layers):
+        raise ValueError(f"{what}: {len(tree['layers'])} layers in the tree, "
+                         f"{len(layers)} in the model")
+    for i, (layer, p) in enumerate(zip(layers, tree["layers"])):
+        names = ("v", "g", "b") if layer.weight_norm else ("w", "b")
+        if set(p) != set(names):
+            raise ValueError(f"{what}.layers[{i}]: keys {sorted(p)}, want {names}")
+        for n in names:
+            dst = getattr(layer, n)
+            src = torch.tensor(np.asarray(p[n], np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{what}.layers[{i}].{n}: shape "
+                                 f"{tuple(src.shape)}, want {tuple(dst.shape)}")
+            dst.copy_(src)
+
+
+@torch.no_grad()
+def load_tree(model, tree: dict) -> None:
+    """Copy a JAX NeuS pytree (numpy) into the port's model, in place."""
+    model.ln_s.copy_(torch.tensor(np.asarray(tree["ln_s"], np.float32)))
+    _load_layers(model.implicit_surface.layers, tree["implicit_surface"],
+                 "implicit_surface")
+    _load_layers(model.radiance_net.layers, tree["radiance_net"], "radiance_net")

@@ -1,0 +1,31 @@
+"""File helpers of the render tools (port of part of `neurecon_tpu/utils/io.py`).
+`imageio` is imported only when a video is written."""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from neurecon_tpu_torch.utils.console import log
+
+
+def cond_mkdir(path: str):
+    os.makedirs(path, exist_ok=True)
+
+
+def save_video(imgs: np.ndarray, fname: str, fps: int = 24, quality: int = 8):
+    """imgs: [N, H, W, 3] float in [0, 1] or uint8 -> mp4; an animated GIF at
+    the same basename where no mp4 backend is installed."""
+    import imageio.v2 as imageio
+
+    imgs = np.asarray(imgs)
+    if imgs.dtype != np.uint8:
+        imgs = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+    try:
+        imageio.mimwrite(fname, imgs, fps=fps, quality=quality)
+    except Exception:  # no ffmpeg plugin: imageio raises various types
+        gif_path = os.path.splitext(fname)[0] + ".gif"
+        imageio.mimwrite(gif_path, imgs, duration=1000.0 / fps, loop=0)
+        log.warning(f"no mp4 backend; wrote {gif_path} instead")
+        fname = gif_path
+    return fname
