@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The port's smoke run on one CUDA card (an H100): `python3 chip_smoke.py`.
+"""The port's smoke run on one CUDA card (an H100):
+`python3 chip_smoke.py [--seed N]`.
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,8 +12,12 @@ Phases, in order; any failure exits non-zero:
 3. kernel 2 (`neus_upsample`) against its plain version on 4,096 rays, det
    and perturb uniforms: |d_all diff| <= 1e-3 (far - near) on >= 99.9% of
    entries (the s = 512 sigmoid can move a sample when an fp32 sum order
-   changes). In det mode the u = 1.0 samples, which tie with cdf[-1] = 1,
-   are held to the last coarse section instead.
+   changes). In det mode, per ray, up to one entry per round in the last
+   coarse section is exempt: the u = 1.0 sample, which ties with cdf[-1] = 1.
+   Phases 2 and 3 (and the patch of phase 4) run on the flagship surface with
+   seeded noise on every weight (`perturb_parameters`): the geometric init
+   zeroes the octave columns, so it could not show an error in the
+   positional encoding or its pullback.
 4. the slice through the port's render_view frame function: a flagship NeuS
    from the port's geometric init, saved with the port's CheckpointIO, two
    120x160 views of the synthetic sphere scene at rayschunk 4096; both kernel
@@ -20,13 +25,19 @@ Phases, in order; any failure exits non-zero:
    finite, and a 2,048-ray patch must match a render through the plain
    versions (rgb atol 2e-3).
 5. times from CUDA events (median of 10 after warm-up) of each kernel and its
-   plain version, and seconds per frame, with the card's name and power limit.
+   plain version; seconds per frame; one frame split into the two kernels,
+   the radiance MLP and the rest, by CUDA events around each; all with the
+   card's name and power limit.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Needs the repository checkout beside it; it
 imports no JAX.
 """
+import argparse
+import copy
+import functools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -92,7 +103,58 @@ def _surface_macs(surface, sdf_only):
     return hidden + i_D * o_D + hidden
 
 
-def main():
+def _octave_effect(surface, x):
+    """Largest change of (sdf, nablas, h) at x when the octave columns of
+    layer 0 and of the skip layers are zeroed: what an error in the encoding
+    could move, beside the tolerances."""
+    from neurecon_tpu_torch.ops import fused_nablas
+
+    bare = copy.deepcopy(surface)
+    with torch.no_grad():
+        for l in (0, *surface.skips):
+            bare.layers[l].v[:, -(surface.input_ch - 3):] = 0.0
+        a = fused_nablas.forward_with_nablas_plain(surface, x)
+        b = fused_nablas.forward_with_nablas_plain(bare, x)
+    return [float((p - q).abs().max()) for p, q in zip(a, b)]
+
+
+def _frame_split(render_frames, vargs, n_chunks):
+    """Render two frames with CUDA events around each call of the two kernel
+    wrappers and of the radiance MLP; return the second frame's wall ms and
+    the device ms of each part."""
+    from neurecon_tpu_torch.models.base import RadianceNet
+    from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
+
+    spans = {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)  # carries the launch counter the wrapper bumps
+        def wrapper(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans.setdefault(name, []).append(ev)
+            return out
+        return wrapper
+
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                           timed("nablas_forward", fused_nablas.fused_forward_with_nablas)), \
+            mock.patch.object(fused_upsample, "fused_neus_upsample",
+                              timed("neus_upsample", fused_upsample.fused_neus_upsample)), \
+            mock.patch.object(RadianceNet, "forward",
+                              timed("radiance_net", RadianceNet.forward)):
+        frames = render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v[n_chunks:]) for k, v in spans.items()}
+    return 1e3 * frames["seconds"][1], ms
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights (init, and the checked copy's noise)")
+    seed = ap.parse_args(argv).seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -102,8 +164,10 @@ def main():
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import perturb_parameters
     from neurecon_tpu_torch.models.frameworks import get_model
-    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, _uniforms
+    from neurecon_tpu_torch.models.frameworks.neus import (_prepare_rays, _uniforms,
+                                                           make_volume_render_fn)
     from neurecon_tpu_torch.ops import _build, fused_nablas, fused_upsample, get_rays
     from neurecon_tpu_torch.tools import render_view
     from neurecon_tpu_torch.training import render_full_image
@@ -125,9 +189,11 @@ def main():
                 print(f"  {name}: {ln.strip()}")
 
     args = ConfigDict(FLAGSHIP)
-    seed = 0
-    model, _, kw_test, factory = get_model(args, dev, seed=seed)
-    surface = model.implicit_surface
+    model, _, kw_test, _ = get_model(args, dev, seed=seed)
+    # the kernels are checked on a copy with noise on every weight
+    checked = copy.deepcopy(model)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    surface = checked.implicit_surface
     scene = make_synthetic_scene(n_images=1, H=120, W=160)
     o_all, d_all_dirs, _ = get_rays(torch.tensor(scene["c2w"][0], device=dev),
                                     torch.tensor(scene["intrinsics"][0], device=dev),
@@ -154,6 +220,9 @@ def main():
     nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
     print(f"phase 2: nablas_forward on {x.shape[0]} points: max|diff| sdf {errs[0]:.3e}, "
           f"nablas {errs[1]:.3e}, h {errs[2]:.3e}")
+    octave = _octave_effect(surface, x[:65536])
+    print("phase 2: zeroing the octave columns would move sdf, nablas, h by up to "
+          + ", ".join(f"{v:.3e}" for v in octave))
     if not (errs[0] <= 1e-4 and errs[2] <= 1e-4 and nab_ok
             and all(torch.isfinite(g).all() for g in got)):
         print("FAIL phase 2: nablas_forward disagrees with its plain version", file=sys.stderr)
@@ -175,22 +244,23 @@ def main():
         off = diff > 1e-3 * span
         frac = float(off.float().mean())
         p999 = float(torch.quantile(diff.flatten(), 0.999))
-        # The det uniforms include u = 1.0, which meets cdf[-1] = 1 +- an ulp:
-        # whether that sample lands at `far` or just past d_coarse[-2] flips
-        # with the fp32 summation order. Those samples are the entries in the
-        # last coarse section; they are held to that section, and the rest
-        # to the share above.
-        tail = (got >= d_coarse[:, -2:-1]) | (ref >= d_coarse[:, -2:-1])
-        frac_body = float((off & ~tail).float().sum() / (~tail).float().sum())
-        tail_in = bool(((got >= d_coarse[:, -2:-1]) | ~tail).all()
-                       and (got <= far + 1e-6).all())
+        # The det uniforms end in u = 1.0, which meets cdf[-1] = 1 +- an ulp:
+        # when the last cdf step is below the 1e-5 eps, whether that sample
+        # lands at `far` or just past the second-to-last sample flips with
+        # the fp32 summation order. So in det mode, per ray, up to one entry
+        # per round that lies in the last coarse section on both sides is
+        # exempt; every other entry is held to the share.
+        tie = off & (got >= d_coarse[:, -2:-1]) & (ref >= d_coarse[:, -2:-1])
+        exempt = (tie & (tie.sum(1, keepdim=True) <= 4) if mode == "det"
+                  else torch.zeros_like(off))
+        frac_rest = float((off & ~exempt).float().mean())
+        inside = bool(((got >= near - 1e-6) & (got <= far + 1e-6)).all())
         k2_err[mode] = float(diff.max())
         print(f"phase 3: neus_upsample {mode}: max|diff| {float(diff.max()):.3e}, "
-              f"p99.9 {p999:.3e}, share beyond 1e-3(far-near) {frac:.5f} "
-              f"(outside the last coarse section {frac_body:.5f}; last-section "
-              f"entries inside it: {tail_in})")
-        if (frac_body > 1e-3 or not tail_in or (mode == "perturb" and frac > 1e-3)
-                or not torch.isfinite(got).all()):
+              f"p99.9 {p999:.3e}, share beyond 1e-3(far-near) {frac:.5f}, "
+              f"{int(exempt.sum())} u=1.0 tie entries exempt on "
+              f"{int(exempt.any(1).sum())} rays, share of the rest {frac_rest:.5f}")
+        if frac_rest > 1e-3 or not inside or not torch.isfinite(got).all():
             ok = False
     if not ok:
         print("FAIL phase 3: neus_upsample disagrees with its plain version", file=sys.stderr)
@@ -219,8 +289,8 @@ def main():
         return 1
 
     # 2,048-ray patch: kernels vs the plain versions called by name
-    render_fn = factory(detailed_output=False, calc_normal=True,
-                        **{k: v for k, v in kw_test.items() if k != "rayschunk"})
+    render_fn = make_volume_render_fn(checked, detailed_output=False, calc_normal=True,
+                                      **kw_test)
     patch = torch.arange(60 * 160 - 1024, 60 * 160 + 1024, device=dev)
     out_k = render_full_image(render_fn, o_all[patch], d_all_dirs[patch], rayschunk=4096)
     with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
@@ -258,6 +328,16 @@ def main():
     print(f"phase 5: neus_upsample 4096 rays: {ms2:.3f} ms (plain {pms2:.3f} ms, "
           f"fp32 bound {b2:.3f} ms, {flops2 / 1e9:.1f} GFLOP) {tag}")
     print(f"phase 5: render_view s/frame {frames['seconds']} {tag}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        vargs["load_pt"] = CheckpointIO(tmp).save("latest.pt", 0,
+                                                  model=bridge.model_to_tree(model))
+        n_chunks = math.ceil(120 * 160 / 4096)
+        frame_ms, split = _frame_split(render_view.render_frames, vargs, n_chunks)
+    rest = frame_ms - sum(split.values())
+    print(f"phase 5: one 120x160 frame ({n_chunks} chunks) {frame_ms:.2f} ms wall: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", everything else (rays, glue, compositing, host copies) {rest:.2f} ms "
+          f"({100 * rest / frame_ms:.1f}%) {tag}")
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -281,7 +361,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except Exception:  # any phase failing: report and exit non-zero
         traceback.print_exc()
         rc = 1

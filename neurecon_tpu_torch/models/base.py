@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from neurecon_tpu_torch.ops import fused_nablas
+from neurecon_tpu_torch.ops.fused_nablas import effective_weight
 
 
 class Embedder:
@@ -53,13 +54,6 @@ class Embedder:
 def get_embedder(multires: int, input_dim: int = 3):
     emb = Embedder(input_dim, multires)
     return emb, emb.out_dim
-
-
-def effective_weight(layer: "DenseLayer") -> torch.Tensor:
-    """The layer's [out, in] weight, weight norm resolved."""
-    if layer.weight_norm:
-        return layer.g * layer.v / torch.linalg.norm(layer.v, dim=1, keepdim=True)
-    return layer.w
 
 
 class DenseLayer(nn.Module):
@@ -97,6 +91,35 @@ def _torch_linear_default(in_dim: int, out_dim: int, gen: torch.Generator):
     w = (torch.rand(out_dim, in_dim, generator=gen) * 2 - 1) * bound
     b = (torch.rand(out_dim, generator=gen) * 2 - 1) * bound
     return w, b
+
+
+@torch.no_grad()
+def perturb_parameters(module: nn.Module, gen: torch.Generator, scale: float = 0.1):
+    """Add seeded noise to every DenseLayer of `module`, in place: to each
+    weight entry `scale` times the RMS of the layer's nonzero weights, to each
+    bias 0.1 * `scale`, and under weight norm a factor 1 + 0.1 N(0, 1) on g.
+
+    A stand-in for trained weights where a check must see every weight. The
+    geometric init is not one: it zeroes the octave columns of layer 0 and of
+    the skip layer and gives all final rows nearly the same weights, so the
+    positional encoding and the geometry-feature rows contribute nothing a
+    comparison could catch. At the default scale the flagship surface stays a
+    bumpy sphere (|grad sdf| about 0.8 on average), and zeroing its octave
+    columns moves sdf by up to ~0.2."""
+    for layer in module.modules():
+        if not isinstance(layer, DenseLayer):
+            continue
+        dev = layer.b.device
+
+        def noise(*shape):
+            return torch.randn(*shape, generator=gen).to(dev)
+
+        w = effective_weight(layer)
+        std = scale * float(w[w != 0].square().mean().sqrt())
+        layer.set_weight(w + std * noise(*w.shape),
+                         layer.b + 0.1 * scale * noise(layer.out_dim))
+        if layer.weight_norm:
+            layer.g.mul_(1 + 0.1 * noise(layer.out_dim, 1))
 
 
 def softplus100(x):

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet
 from neurecon_tpu_torch.ops import fused_upsample, near_far_from_sphere
+from neurecon_tpu_torch.ops.sampling import alpha_to_w
 
 
 def cdf_Phi_s(x, s):
@@ -30,15 +31,6 @@ def sdf_to_alpha(sdf, s):
     cdf = cdf_Phi_s(sdf, s)
     opacity_alpha = (cdf[..., :-1] - cdf[..., 1:]) / (cdf[..., :-1] + 1e-10)
     return cdf, torch.clamp(opacity_alpha, min=0.0)
-
-
-def alpha_to_w(alpha):
-    """alpha [..., P] -> visibility weights: alpha * exclusive cumprod of
-    max(1 - alpha, 0) + 1e-10."""
-    shifted_transparency = torch.cat(
-        [torch.ones_like(alpha[..., :1]),
-         torch.clamp(1.0 - alpha, min=0.0) + 1e-10], dim=-1)
-    return alpha * torch.cumprod(shifted_transparency, dim=-1)[..., :-1]
 
 
 class NeuS(nn.Module):

@@ -26,6 +26,13 @@ _THREADS = 256   # threads per block: the widest hidden layer (csrc)
 _STAGE_LD = 264  # widest padded weight row the kernels stage (csrc)
 
 
+def effective_weight(layer) -> torch.Tensor:
+    """A DenseLayer's [out, in] weight, weight norm resolved."""
+    if layer.weight_norm:
+        return layer.g * layer.v / torch.linalg.norm(layer.v, dim=1, keepdim=True)
+    return layer.w
+
+
 def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
@@ -37,8 +44,6 @@ def pack_surface(surface):
     aligned) and b; an int32 table [D+1, 8] of (in_dim, out_dim, offset of
     W^T, offset of W, offset of b, skip flag, ld_wT, ld_w); and the widest
     activation row count. Everything stays on the parameters' device."""
-    from neurecon_tpu_torch.models.base import effective_weight
-
     if 0 in surface.skips:
         raise ValueError("a skip at layer 0 is not supported by the kernels")
     pieces, meta, off = [], [], 0

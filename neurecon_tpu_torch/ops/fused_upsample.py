@@ -24,7 +24,7 @@ import torch
 
 from neurecon_tpu_torch.ops import _build
 from neurecon_tpu_torch.ops.fused_nablas import pack_surface
-from neurecon_tpu_torch.ops.sampling import sample_pdf
+from neurecon_tpu_torch.ops.sampling import alpha_to_w, sample_pdf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +35,6 @@ def neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     """Plain version: the official_solution loop. rays [N, 3] (d unit),
     d_coarse [N, Bc] sorted, u_rounds [N, n_iters * n_per_iter]. Returns the
     sorted d_all [N, Bc + n_iters * n_per_iter]."""
-    from neurecon_tpu_torch.models.frameworks.neus import alpha_to_w
-
     def query_sdf(d):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * d[..., None]
         return surface.forward(pts)

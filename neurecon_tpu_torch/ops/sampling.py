@@ -3,6 +3,9 @@
 The uniforms are always supplied by the caller: the det linspace or sorted
 draws from a `torch.Generator` are made where the sampler is called, so the
 same u can be handed to the JAX package and to the port.
+
+`alpha_to_w` (opacities to visibility weights) lives here because both the
+renderer and the upsampler's plain version weight their samples with it.
 """
 from __future__ import annotations
 
@@ -50,3 +53,12 @@ def sample_pdf(bins, weights, u, eps: float = 1e-5):
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     return _invert_cdf(bins, cdf, u, eps)
+
+
+def alpha_to_w(alpha):
+    """alpha [..., P] -> visibility weights: alpha * exclusive cumprod of
+    max(1 - alpha, 0) + 1e-10."""
+    shifted_transparency = torch.cat(
+        [torch.ones_like(alpha[..., :1]),
+         torch.clamp(1.0 - alpha, min=0.0) + 1e-10], dim=-1)
+    return alpha * torch.cumprod(shifted_transparency, dim=-1)[..., :-1]

@@ -10,7 +10,7 @@ from neurecon_tpu.models.base import get_embedder as jax_get_embedder
 from neurecon_tpu.models.frameworks.neus import NeuS as JaxNeuS
 
 from neurecon_tpu_torch import bridge
-from neurecon_tpu_torch.models.base import get_embedder
+from neurecon_tpu_torch.models.base import get_embedder, perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS
 from neurecon_tpu_torch.ops import fused_nablas
 
@@ -30,7 +30,10 @@ FLAGSHIP = dict(surface=dict(D=8, W=256, skips=[4], radius_init=0.5,
 ATOL = 1e-5
 
 
-def _pair(cfg, sphere_residual=False, seed=0):
+def _pair(cfg, sphere_residual=False, seed=0, perturb=False):
+    """The JAX model and the port's, with the same weights: the JAX init, or
+    (`perturb`) that init with seeded noise on every weight, so that the
+    octave columns and the geometry-feature rows take part."""
     surf = dict(cfg["surface"], sphere_residual=sphere_residual)
     jm = JaxNeuS(W_geo_feat=cfg["geo"], surface_cfg=surf,
                  radiance_cfg=cfg["radiance"], speed_factor=10.0)
@@ -38,6 +41,9 @@ def _pair(cfg, sphere_residual=False, seed=0):
     tm = NeuS(W_geo_feat=cfg["geo"], surface_cfg=surf,
               radiance_cfg=cfg["radiance"], speed_factor=10.0)
     bridge.load_tree(tm, jax.tree_util.tree_map(np.asarray, params))
+    if perturb:
+        perturb_parameters(tm, torch.Generator().manual_seed(seed + 1))
+        params = jax.tree_util.tree_map(jnp.asarray, bridge.model_to_tree(tm))
     return jm, params, tm
 
 
@@ -55,11 +61,13 @@ def test_embedder(multires):
                                np.asarray(fj(jnp.asarray(x))), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("cfg,sphere_residual", [
-    (SMALL, False), (SMALL, True), (FLAGSHIP, False)],
-    ids=["W64", "W64-sphere_residual", "W256"])
-def test_surface_forward_and_nablas(cfg, sphere_residual):
-    jm, params, tm = _pair(cfg, sphere_residual)
+@pytest.mark.parametrize("cfg,sphere_residual,perturb", [
+    (SMALL, False, False), (SMALL, True, False), (FLAGSHIP, False, False),
+    (SMALL, True, True), (FLAGSHIP, False, True)],
+    ids=["W64", "W64-sphere_residual", "W256", "W64-sphere_residual-perturbed",
+         "W256-perturbed"])
+def test_surface_forward_and_nablas(cfg, sphere_residual, perturb):
+    jm, params, tm = _pair(cfg, sphere_residual, perturb=perturb)
     x = _points(1500)
     sj, hj = jax.jit(lambda p, x: jm.implicit_surface.forward(
         p, x, return_h=True))(params["implicit_surface"], jnp.asarray(x))

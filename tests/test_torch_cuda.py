@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
 from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
 from neurecon_tpu_torch.ops.ray import near_far_from_sphere
@@ -27,10 +28,13 @@ def cuda():
 
 
 def _model(surface_cfg, W_geo, device, seed=0):
+    """Geometric init plus seeded noise on every weight: the init alone zeroes
+    the octave columns, which would hide an error in the encoding."""
     model = NeuS(W_geo_feat=W_geo, surface_cfg=surface_cfg,
                  radiance_cfg=dict(D=1, W=32, skips=[], embed_multires=-1,
                                    embed_multires_view=-1))
     model.reset_parameters(torch.Generator().manual_seed(seed))
+    perturb_parameters(model, torch.Generator().manual_seed(seed + 1))
     return model.to(device)
 
 

@@ -21,6 +21,7 @@ from neurecon_tpu.ops import near_far_from_sphere as jax_near_far
 from neurecon_tpu.ops.fused_nablas import fused_forward_with_nablas as jax_fused_nablas
 
 from neurecon_tpu_torch import bridge
+from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
 from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
 
@@ -29,11 +30,16 @@ FLAGSHIP = dict(D=8, W=256, skips=[4], radius_init=0.5, embed_multires=6)
 RADIANCE = dict(D=1, W=32, skips=[], embed_multires=-1, embed_multires_view=-1)
 
 
-def _pair(surface_cfg, geo, seed=0):
+def _pair(surface_cfg, geo, seed=0, perturb=False):
+    """JAX and port models with the same weights; `perturb` adds seeded noise
+    to every weight (see tests/test_torch_base.py)."""
     jm = JaxNeuS(W_geo_feat=geo, surface_cfg=surface_cfg, radiance_cfg=RADIANCE)
     params = jax.jit(jm.init)(jax.random.PRNGKey(seed))  # eager init takes ~5 s
     tm = NeuS(W_geo_feat=geo, surface_cfg=surface_cfg, radiance_cfg=RADIANCE)
     bridge.load_tree(tm, jax.tree_util.tree_map(np.asarray, params))
+    if perturb:
+        perturb_parameters(tm, torch.Generator().manual_seed(seed + 1))
+        params = jax.tree_util.tree_map(jnp.asarray, bridge.model_to_tree(tm))
     return jm, params, tm
 
 
@@ -53,8 +59,16 @@ def _rays(n, seed=0):
 class TestNablasPlain:
     def test_matches_jax_pallas_kernel_interpret(self):
         """The JAX kernel's own fast case (tests/test_fused_nablas.py)."""
+        self._check(perturb=False)
+
+    def test_matches_jax_pallas_kernel_interpret_perturbed_weights(self):
+        """The same with noise on every weight: octave columns included."""
+        self._check(perturb=True)
+
+    @staticmethod
+    def _check(perturb):
         cfg = dict(D=3, W=64, skips=[], radius_init=0.5, embed_multires=2)
-        jm, params, tm = _pair(cfg, 32)
+        jm, params, tm = _pair(cfg, 32, perturb=perturb)
         x = np.random.RandomState(1).randn(128, 3).astype(np.float32) * 0.8
         want = jax_fused_nablas(jm.implicit_surface, params["implicit_surface"],
                                 jnp.asarray(x), tile=128, interpret=True)
@@ -99,7 +113,14 @@ def _assert_depths_close(got, ref, d_coarse, frac_tol):
 
 class TestUpsamplePlain:
     def test_det(self):
-        jm, params, tm = _pair(SMALL, 64)
+        self._det(perturb=False)
+
+    def test_det_perturbed_weights(self):
+        self._det(perturb=True)
+
+    @staticmethod
+    def _det(perturb):
+        jm, params, tm = _pair(SMALL, 64, perturb=perturb)
         o, d, dc = _rays(64)
         ref = _jax_upsample(jm, params, o, d, dc, jax.random.PRNGKey(7), False)
         u = _uniforms(64, 4, 16, False, None, torch.device("cpu"))
@@ -112,7 +133,16 @@ class TestUpsamplePlain:
 
     @pytest.mark.parametrize("sphere_residual", [False, True])
     def test_perturb_same_uniforms(self, sphere_residual):
-        jm, params, tm = _pair(dict(SMALL, sphere_residual=sphere_residual), 64)
+        self._perturb(sphere_residual, perturb_weights=False)
+
+    @pytest.mark.parametrize("sphere_residual", [False, True])
+    def test_perturb_same_uniforms_perturbed_weights(self, sphere_residual):
+        self._perturb(sphere_residual, perturb_weights=True)
+
+    @staticmethod
+    def _perturb(sphere_residual, perturb_weights):
+        jm, params, tm = _pair(dict(SMALL, sphere_residual=sphere_residual), 64,
+                               perturb=perturb_weights)
         o, d, dc = _rays(64, seed=1)
         key = jax.random.PRNGKey(3)
         ref = _jax_upsample(jm, params, o, d, dc, key, True)

@@ -25,6 +25,7 @@ from neurecon_tpu.utils.checkpoints import CheckpointIO as JaxCheckpointIO
 
 from neurecon_tpu_torch import bridge
 from neurecon_tpu_torch.config import ConfigDict
+from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks import get_model
 from neurecon_tpu_torch.tools import render_view
 from neurecon_tpu_torch.utils.checkpoints import CheckpointIO, load_checkpoint
@@ -53,13 +54,16 @@ def _cfg(sphere_residual=False):
     }
 
 
-def _models(sphere_residual=False):
+def _models(sphere_residual=False, perturb=False):
     jm, _, jkw_train, jkw_test, jfactory = jax_get_model(JaxConfigDict(_cfg(sphere_residual)))
     params = jax.jit(jm.init)(jax.random.PRNGKey(0))
     # a trained-looking sharp s, so the render is not a blur
     params["ln_s"] = jnp.asarray([0.45], jnp.float32)
     tm, _, tkw_test, tfactory = get_model(ConfigDict(_cfg(sphere_residual)), "cpu")
     bridge.load_tree(tm, jax.tree_util.tree_map(np.asarray, params))
+    if perturb:  # noise on every weight, octave columns included
+        perturb_parameters(tm, torch.Generator().manual_seed(1))
+        params = jax.tree_util.tree_map(jnp.asarray, bridge.model_to_tree(tm))
     return jm, params, jkw_test, jfactory, tm, tkw_test, tfactory
 
 
@@ -75,7 +79,15 @@ def _rays(n, seed=0):
 
 
 def test_volume_render_rays_matches_jax():
-    jm, params, jkw, jfactory, tm, tkw, tfactory = _models()
+    _check_volume_render(perturb=False)
+
+
+def test_volume_render_rays_matches_jax_perturbed_weights():
+    _check_volume_render(perturb=True)
+
+
+def _check_volume_render(perturb):
+    jm, params, jkw, jfactory, tm, tkw, tfactory = _models(perturb=perturb)
     kw = {k: v for k, v in jkw.items() if k not in ("rayschunk",)}
     o, d = _rays(96)
     key = jax.random.PRNGKey(4)
