@@ -50,9 +50,30 @@ def _load_layers(layers, tree, what):
 
 
 @torch.no_grad()
-def load_tree(model, tree: dict) -> None:
-    """Copy a JAX NeuS pytree (numpy) into the port's model, in place."""
-    model.ln_s.copy_(torch.tensor(np.asarray(tree["ln_s"], np.float32)))
-    _load_layers(model.implicit_surface.layers, tree["implicit_surface"],
-                 "implicit_surface")
-    _load_layers(model.radiance_net.layers, tree["radiance_net"], "radiance_net")
+def load_tree(model, tree: dict, strict: bool = True) -> None:
+    """Copy a JAX NeuS pytree (numpy) into the port's model, in place. With
+    strict=False, top-level entries missing from the tree are left as they
+    are (a checkpoint loaded with ignore_keys / only_use_keys)."""
+    for name in ("ln_s", "implicit_surface", "radiance_net"):
+        if name not in tree and not strict:
+            continue
+        if name == "ln_s":
+            model.ln_s.copy_(torch.tensor(np.asarray(tree["ln_s"], np.float32)))
+        else:
+            _load_layers(getattr(model, name).layers, tree[name], name)
+
+
+def grads_to_tree(model) -> dict:
+    """The parameters' .grad as the JAX pytree of numpy arrays (zeros where a
+    parameter has none), to compare leaf by leaf with jax.grad."""
+    def g(p):
+        return (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                else p.grad.detach().cpu().numpy().copy())
+
+    def layers(mod):
+        return {"layers": [{n: g(getattr(layer, n)) for n in
+                            (("v", "g", "b") if layer.weight_norm else ("w", "b"))}
+                           for layer in mod.layers]}
+    return {"ln_s": g(model.ln_s),
+            "implicit_surface": layers(model.implicit_surface),
+            "radiance_net": layers(model.radiance_net)}

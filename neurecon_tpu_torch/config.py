@@ -6,8 +6,9 @@ overrides — the config surface of `neurecon_tpu.config`, kept as its own copy.
   * `--section:key value` CLI args with type coercion from the existing value
   * `--resume_dir` mode reloads `exp_dir/config.yaml`
 
-`yaml` is imported inside the functions that read or write YAML, so the
-package imports on a machine without PyYAML.
+`yaml` is imported inside the functions that read YAML, so the package
+imports on a machine without PyYAML; `save_config` writes YAML with an
+emitter of its own and needs no PyYAML at all.
 """
 from __future__ import annotations
 
@@ -96,6 +97,80 @@ def load_yaml(path: str, default_path: Optional[str] = None) -> ConfigDict:
         main.update(config)
         config = main
     return config
+
+
+def save_config(config: ConfigDict, path: str):
+    """Write the run's config as YAML (block style; `yaml.safe_load` reads it
+    back to the same dict). `ckpt_file` is reset and `exp_dir` dropped, as
+    the JAX package does."""
+    config = copy.deepcopy(config)
+    if "training" in config:
+        config.training["ckpt_file"] = None
+        config.training.pop("exp_dir", None)
+    with open(path, "w", encoding="utf8") as f:
+        f.write(dump_yaml(config.to_dict()))
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        mant, _, exp = r.partition("e")
+        if exp and "." not in mant:  # YAML 1.1 floats need the dot: 1.0e-05
+            r = f"{mant}.0e{exp}"
+        return r
+    return "'" + str(v).replace("'", "''") + "'"
+
+
+def dump_yaml(d: dict, indent: int = 0) -> str:
+    """Block-style YAML of nested dicts of scalars and lists."""
+    pad = " " * indent
+    out = []
+    for k, v in d.items():
+        key = _yaml_key(k)
+        if isinstance(v, dict) and v:
+            out.append(f"{pad}{key}:\n{dump_yaml(v, indent + 2)}")
+        elif isinstance(v, dict):
+            out.append(f"{pad}{key}: {{}}\n")
+        elif isinstance(v, (list, tuple)) and any(isinstance(x, (dict, list, tuple)) for x in v):
+            out.append(f"{pad}{key}:\n")
+            for x in v:
+                if isinstance(x, dict) and x:
+                    body = dump_yaml(x, indent + 4)
+                    out.append(f"{pad}  - {body[indent + 4:]}")
+                else:
+                    out.append(f"{pad}  - {_yaml_flow(x)}\n")
+        elif isinstance(v, (list, tuple)):
+            out.append(f"{pad}{key}: {_yaml_flow(v)}\n")
+        else:
+            out.append(f"{pad}{key}: {_yaml_scalar(v)}\n")
+    return "".join(out)
+
+
+def _yaml_key(k) -> str:
+    k = str(k)
+    plain = (k.replace("_", "a").isalnum() and k.isascii() and not k[0].isdigit()
+             and k.lower() not in ("true", "false", "null", "yes", "no", "on",
+                                   "off", "y", "n"))
+    return k if plain else _yaml_scalar(k)
+
+
+def _yaml_flow(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_yaml_key(k)}: {_yaml_flow(x)}"
+                               for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow(x) for x in v) + "]"
+    return _yaml_scalar(v)
 
 
 def _coerce(old_value: Any, raw: str) -> Any:

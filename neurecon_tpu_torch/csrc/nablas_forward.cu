@@ -10,32 +10,36 @@
 // 2 MFLOP (forward plus reverse sweep) against 16 bytes of input and 1 KB of
 // output, far above the card's fp32 ridge point.
 //
-// Design. One block of 256 threads owns a tile of 16 points. The reverse
-// sweep needs every hidden layer's activation slope; the TPU kernel kept them
-// in VMEM. Here they are stored, not recomputed: D x wmax x 16 floats (128 KB
-// at D=8, W=256) in dynamic shared memory beside two activation buffers and
-// the weight stage, ~196 KB, so one block runs per SM. Weights (W^T for the
-// forward, W for the reverse sweep, ~2.1 MB fp32 each) stream from L2 through
-// the double-buffered shared-memory stage of surface_mlp.cuh, each weight
-// used for 16 FMAs. A faster kernel (tensor cores, more points per weight
-// load) is later work.
+// Design. One block of 256 threads works on a tile of 16 points at a time.
+// The reverse sweep needs every hidden layer's activation slope; the TPU
+// kernel kept them in VMEM. Here they are stored, not recomputed: D x wmax x
+// 16 floats (128 KB at D=8, W=256) in a device-memory scratch of the block's
+// own, reused from tile to tile by a persistent grid (as many blocks as are
+// resident at once; ~50 MB in all, so it stays mostly in L2). Shared memory
+// then holds two activation buffers and the weight stage, ~69 KB, and three
+// blocks share an SM to hide the latency of the weight stream: weights (W^T
+// for the forward, W for the reverse sweep, ~2.1 MB fp32 each) stream from
+// L2 through the double-buffered shared-memory stage of surface_mlp.cuh,
+// each weight used for 16 FMAs. (Until the port's second slice the slopes
+// sat in shared memory, one block per SM.) A faster kernel (tensor cores,
+// more points per weight load) is later work.
 #include "surface_mlp.cuh"
 
 namespace ntt {
 
-__global__ void __launch_bounds__(THREADS)
-nablas_forward_kernel(Mlp m, const float* __restrict__ x, int M,
-                      float* __restrict__ sdf, float* __restrict__ nablas,
-                      float* __restrict__ hgeo, int geo_dim) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [4][TILE]
+// Point tile T, with the block's shared memory at `xs` and its slope
+// scratch at `deriv` ([D][wmax][TILE]).
+__device__ __forceinline__ void
+nablas_forward_tile(const Mlp& m, const float* __restrict__ x, int M,
+                    float* __restrict__ sdf, float* __restrict__ nablas,
+                    float* __restrict__ hgeo, int geo_dim, int T, float* deriv,
+                    float* xs) {                 // xs: [4][TILE]
   float* emb = xs + 4 * TILE;                    // [in_ch][TILE]
   float* bufA = emb + m.in_ch * TILE;            // [wmax][TILE]
   float* bufB = bufA + m.wmax * TILE;            // [wmax][TILE]
   float* stage = bufB + m.wmax * TILE;           // STAGE_FLOATS
-  float* deriv = stage + STAGE_FLOATS;           // [D][wmax][TILE]
   const int D = m.n_layers - 1;
-  const long p0 = (long)blockIdx.x * TILE;
+  const long p0 = (long)T * TILE;
 
   for (int idx = threadIdx.x; idx < 3 * TILE; idx += blockDim.x) {
     const int c = idx / TILE, p = idx % TILE;
@@ -132,32 +136,67 @@ nablas_forward_kernel(Mlp m, const float* __restrict__ x, int M,
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 3)
+nablas_forward_kernel(Mlp m, const float* __restrict__ x, int M,
+                      float* __restrict__ sdf, float* __restrict__ nablas,
+                      float* __restrict__ hgeo, int geo_dim, float* slopes) {
+  extern __shared__ float4 smem4[];
+  float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.wmax * TILE;
+  const int tiles = (M + TILE - 1) / TILE;
+  for (int T = blockIdx.x; T < tiles; T += gridDim.x) {
+    nablas_forward_tile(m, x, M, sdf, nablas, hgeo, geo_dim, T, deriv,
+                        reinterpret_cast<float*>(smem4));
+    __syncthreads();  // the next tile overwrites shared memory
+  }
+}
+
 }  // namespace ntt
 
-extern "C" size_t ntt_nablas_forward_smem_bytes(int n_layers, int in_ch, int wmax) {
-  return (ntt::mlp_smem_floats(in_ch, wmax) +
-          (size_t)(n_layers - 1) * wmax * ntt::TILE) * sizeof(float);
+extern "C" size_t ntt_nablas_forward_smem_bytes(int in_ch, int wmax) {
+  return ntt::mlp_smem_floats(in_ch, wmax) * sizeof(float);
+}
+
+// Blocks of the persistent grid for M points: as many as are resident on the
+// card at once, at most one per tile (the caller sizes the slope scratch,
+// blocks x (n_layers - 1) x wmax x 16 floats, by it). Returns a negative
+// cudaError_t on failure.
+extern "C" int ntt_nablas_forward_blocks(int in_ch, int wmax, int M) {
+  const size_t smem = ntt_nablas_forward_smem_bytes(in_ch, wmax);
+  cudaError_t err = cudaFuncSetAttribute(
+      ntt::nablas_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ntt::nablas_forward_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ntt::nablas_forward_kernel, ntt::THREADS, smem);
+  if (err != cudaSuccess) return -(int)err;
+  const int tiles = (M + ntt::TILE - 1) / ntt::TILE;
+  return per_sm * sms < tiles ? per_sm * sms : tiles;
 }
 
 // x [M,3] -> sdf [M], nablas [M,3], hgeo [M,geo_dim]; all fp32, contiguous,
-// on the device. Returns the cudaError_t of the launch.
+// on the device; `slopes` is scratch for `blocks` blocks (from
+// ntt_nablas_forward_blocks, which also sets the kernel's attributes).
+// Returns the cudaError_t of the launch.
 extern "C" int ntt_nablas_forward(const void* x, int M, const void* params,
                                   const void* meta, int n_layers, int in_ch,
                                   int multires, int wmax, void* sdf,
                                   void* nablas, void* hgeo, int geo_dim,
-                                  void* stream) {
+                                  int blocks, void* slopes, void* stream) {
   if (M <= 0) return 0;
-  const size_t smem = ntt_nablas_forward_smem_bytes(n_layers, in_ch, wmax);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt::nablas_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem = ntt_nablas_forward_smem_bytes(in_ch, wmax);
   ntt::Mlp m{static_cast<const float*>(params), static_cast<const int*>(meta),
              n_layers, in_ch, multires, wmax};
-  const int blocks = (M + ntt::TILE - 1) / ntt::TILE;
   ntt::nablas_forward_kernel<<<blocks, ntt::THREADS, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       m, static_cast<const float*>(x), M, static_cast<float*>(sdf),
-      static_cast<float*>(nablas), static_cast<float*>(hgeo), geo_dim);
+      static_cast<float*>(nablas), static_cast<float*>(hgeo), geo_dim,
+      static_cast<float*>(slopes));
   return (int)cudaGetLastError();
 }

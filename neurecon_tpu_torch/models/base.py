@@ -9,9 +9,11 @@
     sphere init, Softplus(beta=100), final layer = sdf row + geometry rows,
     optional sphere_residual prior sdf = (|x| - r) + f(x)
   * RadianceNet: [x_emb, view_emb, normals, geo] -> ReLU MLP -> sigmoid rgb
+  * make_schedule / make_optimizer: the per-iteration lr factor and Adam with
+    per-module learning rates
 
 SIREN activations and the NeRF-like (W_geo_feat < 0) surface head are not in
-this slice (ROADMAP Queue A, item 3).
+the port yet (ROADMAP Queue A, item 3).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from neurecon_tpu_torch.ops import fused_nablas
+from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
 from neurecon_tpu_torch.ops.fused_nablas import effective_weight
 
 
@@ -42,12 +44,12 @@ class Embedder:
             self.out_dim = input_dim + input_dim * multires * 2
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.freq_bands is None:
+        if not self.freq_bands:  # multires < 0 (none) or 0 (no octaves)
             return x
-        freqs = torch.tensor(self.freq_bands, dtype=x.dtype, device=x.device)
-        phases = x[..., None, :] * freqs[:, None]                # [..., F, C]
+        # Python scalars: exact, and no host-to-device copy of a table
+        phases = torch.stack([x * f for f in self.freq_bands], dim=-2)  # [..., F, C]
         sc = torch.stack([torch.sin(phases), torch.cos(phases)], dim=-2)
-        sc = sc.reshape(*x.shape[:-1], -1)
+        sc = sc.reshape(*x.shape[:-1], self.out_dim - self.input_dim)
         return torch.cat([x, sc], dim=-1)
 
 
@@ -197,15 +199,18 @@ class ImplicitSurface(nn.Module):
                         w[:, -(self.input_ch - 3):] = 0.0
             self.layers[l].set_weight(w, b)
 
-    def mlp(self, x: torch.Tensor):
-        """The MLP alone on flat points: x [M, 3] -> (sdf [M], h [M, W_geo])."""
+    def mlp(self, x: torch.Tensor, weights=None):
+        """The MLP alone on flat points: x [M, 3] -> (sdf [M], h [M, W_geo]);
+        `weights` (lists of effective [out, in] weights and of biases)
+        replaces the layers' own."""
+        ws, bs = weights if weights is not None else fused_nablas.surface_weights(self)
         emb = self.embed_fn(x)
         h = emb
         for i in range(self.D):
             if i in self.skips:
                 h = torch.cat([h, emb], dim=-1) / np.sqrt(2)
-            h = softplus100(self.layers[i](h))
-        out = self.layers[self.D](h)
+            h = softplus100(F.linear(h, ws[i], bs[i]))
+        out = F.linear(h, ws[self.D], bs[self.D])
         return out[:, 0], out[:, 1:]
 
     def forward(self, x: torch.Tensor, return_h: bool = False):
@@ -218,12 +223,18 @@ class ImplicitSurface(nn.Module):
         return (sdf, h.reshape(prefix + h.shape[-1:])) if return_h else sdf
 
     def forward_with_nablas(self, x: torch.Tensor):
-        """(sdf, nablas, h) at points x [..., 3]; gradient-free (render)."""
+        """(sdf, nablas, h) at points x [..., 3]. With grad on and trainable
+        parameters (or x), through the differentiable op (forward kernel 1,
+        backward kernel 3); otherwise kernel 1 alone, building no graph (the
+        render)."""
         prefix = x.shape[:-1]
-        sdf, nablas, h = fused_nablas.fused_forward_with_nablas(
-            self, x.reshape(-1, 3))
+        x_flat = x.reshape(-1, 3)
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            sdf, nablas, h = fused_nablas_vjp.forward_with_nablas_vjp(self, x_flat)
+        else:
+            sdf, nablas, h = fused_nablas.fused_forward_with_nablas(self, x_flat)
         if self.sphere_residual:
-            x_flat = x.reshape(-1, 3)
             sdf = sdf + sphere_sdf(x_flat, self.radius_init)
             nablas = nablas + sphere_nablas(x_flat)
         return (sdf.reshape(prefix), nablas.reshape(prefix + (3,)),
@@ -302,3 +313,83 @@ class RadianceNet(nn.Module):
             h = self.layers[i](h)
             h = torch.sigmoid(h) if i == self.D else torch.relu(h)
         return h.reshape(prefix + (3,))
+
+
+# ---------------------------------------------------------------------------
+# LR schedules & optimizer factory
+# ---------------------------------------------------------------------------
+
+def make_schedule(args):
+    """factor(step) multiplying the base lr, stepped per iteration: the JAX
+    package's `make_schedule`, in float32 like its jnp arithmetic."""
+    f32 = np.float32
+    stype = args.training.scheduler.type
+    total = int(args.training.num_iters)
+    if stype == "multistep":
+        milestones = np.asarray(sorted(args.training.scheduler.milestones))
+        gamma = f32(args.training.scheduler.gamma)
+
+        def factor(step):
+            return float(gamma ** int(np.sum(step >= milestones)))
+    elif stype == "warmupcosine":
+        warmup = int(args.training.scheduler.warmup_steps)
+        min_factor = float(args.training.scheduler.setdefault("min_factor", 0.1))
+
+        def factor(step):
+            step = f32(step)
+            if step < warmup:
+                return float(step / f32(warmup))
+            cos = f32(np.cos(f32(np.pi) * (step - f32(warmup)) / f32(total - warmup)))
+            return float((cos + f32(1.0)) * f32(0.5) * f32(1 - min_factor)
+                         + f32(min_factor))
+    elif stype == "exponential_step":
+        min_factor = float(args.training.scheduler.setdefault("min_factor", 0.1))
+
+        def factor(step):
+            t = np.clip(f32(step) / f32(total), f32(0), f32(1))
+            return float(np.exp(t * np.log(f32(min_factor))))
+    else:
+        raise NotImplementedError(stype)
+    return factor
+
+
+def make_optimizer(args, model: nn.Module):
+    """(Adam, LambdaLR) with the per-iteration schedule. `training.lr` is a
+    scalar or a dict of per-top-level-module rates with a 'default' entry
+    (`ln_s`, `implicit_surface`, `radiance_net`): one param group per named
+    module, the rest in the default group.
+
+    torch.optim.Adam with its defaults is optax.adam: b1 0.9, b2 0.999, eps
+    1e-8 added outside the square root, bias-corrected moments. LambdaLR
+    sets the lr to base * factor(0) at construction and is stepped after each
+    optimizer step, so step k runs at factor(k), as optax evaluates the
+    schedule at its count (step 0 of warmup-cosine moves nothing)."""
+    factor = make_schedule(args)
+    lr_cfg = args.training.lr
+    params = _top_level_params(model)
+    if isinstance(lr_cfg, dict):
+        lr_dict = dict(lr_cfg)
+        default_lr = float(lr_dict.pop("default"))
+        groups = [{"params": ps, "lr": float(lr_dict[name]), "name": name}
+                  for name, ps in params.items() if name in lr_dict]
+        rest = [p for name, ps in params.items() if name not in lr_dict for p in ps]
+        if rest:
+            groups.append({"params": rest, "lr": default_lr, "name": "default"})
+    else:
+        groups = [{"params": list(model.parameters()), "lr": float(lr_cfg),
+                   "name": "default"}]
+    optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+    return optimizer, scheduler
+
+
+def _top_level_params(model: nn.Module) -> dict:
+    """{name: [parameters]} per top-level entry of the JAX pytree."""
+    out = {}
+    for name, p in model.named_parameters():
+        out.setdefault(name.split(".")[0], []).append(p)
+    return out
+
+
+def count_parameters(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

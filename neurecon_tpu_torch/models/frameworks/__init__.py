@@ -12,6 +12,16 @@ def get_model(args, device=None, seed: int = 0):
     raise NotImplementedError(framework)
 
 
+def get_ray_loss_fn(args, model, render_kwargs_train):
+    """The framework's ray-batch loss: ray_loss(rb, generator=None, it=0,
+    d_all=None) -> (total, (losses, extras)). NeuS only, like get_model."""
+    if args.model.framework != "NeuS":
+        raise NotImplementedError(
+            f"{args.model.framework} is not ported yet (ROADMAP Queue A, items 7-8)")
+    from neurecon_tpu_torch.models.frameworks.neus import make_ray_loss_fn
+    return make_ray_loss_fn(model, args, render_kwargs_train)
+
+
 def checkpoint_render_kwargs(args, step=None):
     """Render kwargs that depend on the training step a checkpoint was saved
     at. NeuS has none (s lives in the parameters); UNISURF's decaying

@@ -1,12 +1,14 @@
 """NeuS volume rendering (port of `neurecon_tpu/models/frameworks/neus.py`).
 
-This slice carries the render: the `official_solution` hierarchical
-upsampler (CUDA kernel `neus_upsample`), one batched sdf + nablas + geometry
-query over sections and midpoints (CUDA kernel `nablas_forward`), the
-radiance net, and the sdf -> alpha -> visibility-weight compositor, for
-models without the NeRF++ background (`N_outside == 0`, `with_mask: true`).
-The other two upsample algorithms, the NeRF++ branch and the losses wait for
-later slices (ROADMAP Queue A, item 4).
+The port carries the render and the training loss: the `official_solution`
+hierarchical upsampler (CUDA kernel `neus_upsample`, gradient-free), one
+batched sdf + nablas + geometry query over sections and midpoints (CUDA
+kernel `nablas_forward`, and in training its backward `nablas_backward`
+through `ops/fused_nablas_vjp.py`), the radiance net, the sdf -> alpha ->
+visibility-weight compositor, and the L1 + eikonal + mask losses, for models
+without the NeRF++ background (`N_outside == 0`, `with_mask: true`). The
+other two upsample algorithms and the NeRF++ branch wait for later slices
+(ROADMAP Queue A, item 4).
 """
 from __future__ import annotations
 
@@ -121,62 +123,65 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
                        detailed_output: bool = True,
                        d_all_override=None,
                        **dummy_kwargs):
-    """Render a flat batch of rays [N, 3] -> dict of per-ray outputs.
-    Gradient-free (the render); rays_d need not be normalized."""
+    """Render a flat batch of rays [N, 3] -> dict of per-ray outputs;
+    rays_d need not be normalized. Differentiable in the model's parameters
+    where grad is on (training); the samples d_all never carry a gradient.
+    Under no_grad (the render) no graph is built and only the forward
+    kernels run."""
     if N_outside > 0:
         raise NotImplementedError(
             "the NeRF++ outside branch (N_outside > 0) is not ported yet "
             "(ROADMAP Queue A, item 4)")
-    with torch.no_grad():
-        rays_o, rays_d, near, far = _prepare_rays(
-            rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
+    rays_o, rays_d, near, far = _prepare_rays(
+        rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
 
-        if d_all_override is not None:
-            d_all = d_all_override.reshape(rays_o.shape[0], -1).float()
-        else:
-            _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
-            d_coarse = near * (1 - _t) + far * _t
+    if d_all_override is not None:
+        d_all = d_all_override.reshape(rays_o.shape[0], -1).float().detach()
+    else:
+        _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
+        d_coarse = near * (1 - _t) + far * _t
+        with torch.no_grad():  # the upsampler is gradient-free
             d_all = neus_upsample(
                 model, rays_o, rays_d, d_coarse, N_importance=N_importance,
                 N_upsample_iters=N_upsample_iters, perturb=perturb,
                 generator=generator, upsample_algo=upsample_algo)
 
-        # sdf on sections, radiance on midpoints; one batched query
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
-        d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
-        pts_mid = rays_o[:, None, :] + rays_d[:, None, :] * d_mid[..., None]
-        P = pts.shape[-2]
-        pts_all = torch.cat([pts, pts_mid], dim=-2)
-        sdf_all, nablas_all, h_all = model.implicit_surface.forward_with_nablas(pts_all)
-        sdf, nablas = sdf_all[:, :P], nablas_all[:, :P]
-        nablas_mid, h_mid = nablas_all[:, P:], h_all[:, P:]
-        cdf, opacity_alpha = sdf_to_alpha(sdf, model.forward_s())
-        view_dirs_mid = (rays_d[:, None, :].expand_as(pts_mid)
-                         if use_view_dirs else None)
-        radiances = model.radiance_net(pts_mid, view_dirs_mid, nablas_mid, h_mid)
+    # sdf on sections, radiance on midpoints; one batched query
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
+    d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
+    pts_mid = rays_o[:, None, :] + rays_d[:, None, :] * d_mid[..., None]
+    P = pts.shape[-2]
+    pts_all = torch.cat([pts, pts_mid], dim=-2)
+    sdf_all, nablas_all, h_all = model.implicit_surface.forward_with_nablas(pts_all)
+    sdf, nablas = sdf_all[:, :P], nablas_all[:, :P]
+    nablas_mid, h_mid = nablas_all[:, P:], h_all[:, P:]
+    cdf, opacity_alpha = sdf_to_alpha(sdf, model.forward_s())
+    view_dirs_mid = (rays_d[:, None, :].expand_as(pts_mid)
+                     if use_view_dirs else None)
+    radiances = model.radiance_net(pts_mid, view_dirs_mid, nablas_mid, h_mid)
 
-        visibility_weights = alpha_to_w(opacity_alpha)
-        rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
-        depth_map = torch.sum(
-            visibility_weights
-            / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_mid,
-            dim=-1)
-        acc_map = torch.sum(visibility_weights, dim=-1)
-        if white_bkgd:
-            rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    visibility_weights = alpha_to_w(opacity_alpha)
+    rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
+    depth_map = torch.sum(
+        visibility_weights
+        / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_mid,
+        dim=-1)
+    acc_map = torch.sum(visibility_weights, dim=-1)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
 
-        ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map}
-        if calc_normal:
-            normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True)
-                                    + 1e-10)
-            Pn = min(visibility_weights.shape[-1], normals_map.shape[-2])
-            ret["normals_volume"] = torch.sum(
-                normals_map[:, :Pn] * visibility_weights[:, :Pn, None], dim=-2)
-        if detailed_output:
-            ret.update({"implicit_nablas": nablas, "implicit_surface": sdf,
-                        "radiance": radiances, "alpha": opacity_alpha,
-                        "cdf": cdf, "visibility_weights": visibility_weights,
-                        "d_final": d_mid, "d_all": d_all})
+    ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map}
+    if calc_normal:
+        normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True)
+                                + 1e-10)
+        Pn = min(visibility_weights.shape[-1], normals_map.shape[-2])
+        ret["normals_volume"] = torch.sum(
+            normals_map[:, :Pn] * visibility_weights[:, :Pn, None], dim=-2)
+    if detailed_output:
+        ret.update({"implicit_nablas": nablas, "implicit_surface": sdf,
+                    "radiance": radiances, "alpha": opacity_alpha,
+                    "cdf": cdf, "visibility_weights": visibility_weights,
+                    "d_final": d_mid, "d_all": d_all})
     return ret
 
 
@@ -194,6 +199,81 @@ def make_volume_render_fn(model: NeuS, **render_kwargs):
         return ret["rgb"], ret["depth_volume"], ret
 
     return render
+
+
+def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
+                   w_eikonal: float, with_mask: bool, w_mask: float = 0.0,
+                   target_mask=None, mask_ignore=None, generator=None,
+                   d_all=None):
+    """NeuS training losses: L1 rgb + eikonal on the section points + the
+    mask BCE on the clamped accumulation map. Returns (total, (losses,
+    extras))."""
+    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all)
+
+    nablas = extras["implicit_nablas"]
+    nablas_norm = torch.linalg.norm(nablas, dim=-1)
+    # clamp against the exploding BCE gradient where pred ~ 1 but GT = 0
+    mask_volume = torch.clamp(extras["mask_volume"], 1e-3, 1 - 1e-3)
+    extras["mask_volume_clipped"] = mask_volume
+
+    losses = {}
+    loss_img = torch.abs(rgb - target_rgb)
+    losses["loss_eikonal"] = w_eikonal * torch.mean((nablas_norm - 1.0) ** 2)
+    if with_mask:
+        tm = target_mask.float()
+        bce = -(tm * torch.log(mask_volume) + (1 - tm) * torch.log(1 - mask_volume))
+        losses["loss_mask"] = w_mask * torch.mean(bce)
+        if mask_ignore is not None:
+            tm = (target_mask.bool() & mask_ignore.bool()).float()
+        losses["loss_img"] = torch.sum(loss_img * tm[..., None]) / (torch.sum(tm) + 1e-10)
+    elif mask_ignore is not None:
+        mi = mask_ignore.float()
+        losses["loss_img"] = torch.sum(loss_img * mi[..., None]) / (torch.sum(mi) + 1e-10)
+    else:
+        losses["loss_img"] = torch.mean(loss_img)
+
+    losses["total"] = sum(losses.values())
+    extras["implicit_nablas_norm"] = nablas_norm
+    extras["scalars"] = {"1/s": 1.0 / model.forward_s().detach()}
+    return losses["total"], (losses, extras)
+
+
+def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict):
+    """ray_loss(rb, generator=None, it=0, d_all=None) -> (total, (losses,
+    extras)) on a ray batch from `training.sample_ray_batch`."""
+    with_mask = bool(args.training.with_mask)
+    w_mask = float(args.training.setdefault("w_mask", 0.0))
+    w_eikonal = float(args.training.w_eikonal)
+    render_fn = make_volume_render_fn(
+        model, detailed_output=True, **{k: v for k, v in render_kwargs_train.items()
+                                        if k not in ("H", "W")})
+
+    def ray_loss(rb, generator=None, it=0, d_all=None):
+        return compute_losses(
+            model, rb["rays_o"], rb["rays_d"], rb["target_rgb"],
+            render_fn=render_fn, w_eikonal=w_eikonal, with_mask=with_mask,
+            w_mask=w_mask, target_mask=rb.get("target_mask"),
+            mask_ignore=rb.get("mask_ignore"), generator=generator, d_all=d_all)
+
+    return ray_loss
+
+
+def make_trainer(model: NeuS, args, render_kwargs_train: dict):
+    """loss_fn(batch, generator, it) -> (total, (losses, extras)); batch is
+    one image {'c2w' [1,4,4], 'intrinsics' [1,4,4], 'rgb' [1,H*W,3],
+    'object_mask' [1,H*W], ...} on the device, and N_rays pixels of it are
+    drawn from `generator`."""
+    from neurecon_tpu_torch.training import sample_ray_batch
+
+    H, W = render_kwargs_train["H"], render_kwargs_train["W"]
+    N_rays = int(args.data.N_rays)
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train)
+
+    def loss_fn(batch, generator, it):
+        rb = sample_ray_batch(generator, batch, H, W, N_rays)
+        return ray_loss(rb, generator, it)
+
+    return loss_fn
 
 
 def get_model(args, device=None, seed: int = 0):

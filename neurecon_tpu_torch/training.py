@@ -1,15 +1,110 @@
-"""Render-side training machinery (port of `neurecon_tpu/training.py`).
+"""Training-step machinery (port of `neurecon_tpu/training.py`).
 
-This slice carries `render_full_image`, which the validation render and
-`tools/render_view.py` use. The train step, `microchunk` and the multi-device
-render wait for the training slice (ROADMAP Queue A, item 5).
+One eager step: zero the grads, loss, backward, Adam step, scheduler step.
+Metrics stay on the device (the loop fetches them every `i_log` steps), so no
+step waits on the host. `render_full_image` is the chunked render of the
+validation images and `tools/render_view.py`. `microchunk` and the
+multi-device render are not ported (ROADMAP Queue A, items 5 and 10).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+
+def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
+    """N_rays random pixels of an image batch, drawn on its device.
+
+    batch: {'c2w' [B,4,4], 'intrinsics' [B,4,4], 'rgb' [B,H*W,3], optional
+    'object_mask' / 'mask_ignore' [B,H*W]}. Returns a ray batch whose arrays
+    all have the ray axis at dim 1."""
+    from neurecon_tpu_torch.ops import get_rays
+
+    rays_o, rays_d, select_inds = get_rays(batch["c2w"], batch["intrinsics"], H, W,
+                                           N_rays=N_rays, generator=generator)
+    rb = {"rays_o": rays_o, "rays_d": rays_d,
+          "target_rgb": torch.gather(
+              batch["rgb"], -2, select_inds[..., None].expand(*select_inds.shape, 3))}
+    for k, out in (("object_mask", "target_mask"), ("mask_ignore", "mask_ignore")):
+        if k in batch:
+            rb[out] = torch.gather(batch[k], -1, select_inds)
+    return rb
+
+
+def grad_norms_by_module(model) -> Dict[str, torch.Tensor]:
+    """Global grad norm per top-level entry of the JAX pytree (`ln_s`,
+    `implicit_surface`, `radiance_net`), as a device tensor each."""
+    sq = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            top = name.split(".")[0]
+            sq[top] = sq.get(top, 0.0) + torch.sum(p.grad.float() ** 2)
+    return {k: torch.sqrt(v) for k, v in sq.items()}
+
+
+# intermediates whose mean/min/max/norm are logged (as the JAX package does)
+_EXTRAS_STAT_KEYS = ("radiance", "alpha", "implicit_surface",
+                     "implicit_nablas_norm", "sigma_out", "radiance_out")
+
+
+def extras_stats(extras) -> Dict[str, torch.Tensor]:
+    """mean/min/max/norm of the render intermediates, on the device."""
+    out = {}
+    if not isinstance(extras, dict):
+        return out
+    for n in _EXTRAS_STAT_KEYS:
+        v = extras.get(n)
+        if v is None:
+            continue
+        v = v.detach().float()
+        out[f"{n}.mean"] = v.mean()
+        out[f"{n}.min"] = v.min()
+        out[f"{n}.max"] = v.max()
+        out[f"{n}.norm"] = torch.sqrt(torch.sum(v * v))
+    return out
+
+
+def make_train_step(loss_fn: Callable, model, optimizer, scheduler) -> Callable:
+    """loss_fn(batch, generator, it) -> (total, (losses, extras)).
+
+    Returns step(batch, generator, it) -> metrics: the step's losses,
+    per-module grad norms, extras['scalars'] and the intermediates' stats,
+    all as device tensors (nothing is fetched here)."""
+
+    def step(batch, generator, it):
+        optimizer.zero_grad(set_to_none=True)
+        total, (losses, extras) = loss_fn(batch, generator, it)
+        total.backward()
+        metrics = {"losses": {k: v.detach() for k, v in losses.items()},
+                   "grad_norms": grad_norms_by_module(model),
+                   "extras_stats": extras_stats(extras)}
+        optimizer.step()
+        scheduler.step()
+        if isinstance(extras, dict) and "scalars" in extras:
+            metrics["scalars"] = extras["scalars"]
+        return metrics
+
+    return step
+
+
+def fast_forward_schedule(optimizer, scheduler, step: int) -> None:
+    """Resume the lr schedule at `step` for a checkpoint that brings
+    parameters but no optimizer state, as the JAX package sets every optax
+    `count` to `step`: the scheduler's count and each group's lr, and Adam's
+    per-parameter step (its bias correction) with fresh zero moments."""
+    scheduler.last_epoch = step
+    for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs,
+                               scheduler.lr_lambdas):
+        group["lr"] = base * fn(step)
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            optimizer.state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
 
 
 def render_full_image(render_fn, rays_o, rays_d, *, rayschunk: int = 4096,

@@ -4,15 +4,20 @@ a pickled dict {"global_step", "epoch_idx", "model": pytree of numpy arrays,
 
 A checkpoint written by the JAX trainer also pickles its optax optimizer
 state, whose classes would import optax (and JAX) on a plain `pickle.load`.
-`load_checkpoint` therefore unpickles with a restricted class lookup: numpy
-and builtins resolve as usual, every other class becomes an inert stub, and
-only "model" and "global_step" are returned.
+Checkpoints are therefore unpickled with a restricted class lookup: numpy
+and builtins resolve as usual, and every other class becomes an inert stub.
+So the JAX trainer's optax state cannot be restored here: a resume from such
+a checkpoint takes the parameters and `global_step` and restarts Adam's
+moments. The port's own trainer saves its torch optimizer state, as numpy,
+under `torch_opt_state`, a key the JAX trainer does not read.
 """
 from __future__ import annotations
 
 import os
 import pickle
-from typing import List
+from typing import List, Optional
+
+import numpy as np
 
 from neurecon_tpu_torch.utils.console import log
 
@@ -63,10 +68,14 @@ def sorted_ckpts(ckpt_dir: str) -> List[str]:
     return out
 
 
+def _read(path: str) -> dict:
+    with open(path, "rb") as f:
+        return _RestrictedUnpickler(f).load()
+
+
 def load_checkpoint(path: str) -> dict:
     """{"model": numpy pytree, "global_step": int} of a checkpoint file."""
-    with open(path, "rb") as f:
-        data = _RestrictedUnpickler(f).load()
+    data = _read(path)
     if not isinstance(data, dict) or "model" not in data:
         raise ValueError(f"{path} is not a model checkpoint")
     log.info(f"CheckpointIO: loaded {path} (step {data.get('global_step')})")
@@ -74,11 +83,90 @@ def load_checkpoint(path: str) -> dict:
             "global_step": int(data.get("global_step", -1))}
 
 
+def _filter_keys(d: dict, ignore_keys=None, only_use_keys=None) -> dict:
+    ignore_keys = ignore_keys or []
+    if only_use_keys is not None and not isinstance(only_use_keys, (list, tuple)):
+        only_use_keys = [only_use_keys]
+    keep = ((lambda k: k in only_use_keys) if only_use_keys is not None
+            else (lambda k: k not in ignore_keys))
+    out = {k: v for k, v in d.items() if keep(k)}
+    for k in d:
+        if k not in out:
+            log.info(f"CheckpointIO: ignoring key '{k}'")
+    return out
+
+
+def optimizer_state_to_numpy(optimizer) -> dict:
+    """A torch optimizer's state_dict with every tensor as a numpy array."""
+    def conv(v):
+        if hasattr(v, "detach"):
+            return v.detach().cpu().numpy().copy()
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return v
+    return conv(optimizer.state_dict())
+
+
+def load_optimizer_state(optimizer, state: dict) -> None:
+    """Restore `optimizer_state_to_numpy`'s output into `optimizer`."""
+    import torch
+
+    def conv(v):
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(v.copy())
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return v
+    optimizer.load_state_dict(conv(state))
+
+
 class CheckpointIO:
     def __init__(self, checkpoint_dir: str = "./ckpts", allow_mkdir: bool = True):
         self.checkpoint_dir = checkpoint_dir
         if allow_mkdir:
             os.makedirs(checkpoint_dir, exist_ok=True)
+
+    def load_file(self, filename: Optional[str] = None, ignore_keys=None,
+                  only_use_keys=None) -> dict:
+        """The checkpoint's dict ("model" filtered by top-level key), or {}
+        when `filename` is None and the directory holds none. With no
+        filename, the candidate with the highest global_step is taken: after
+        a crash between a numbered backup and the next `latest`, the backup
+        can be ahead of `latest`."""
+        if filename is None:
+            ckpts = sorted_ckpts(self.checkpoint_dir)
+            if not ckpts:
+                log.info("CheckpointIO: no checkpoint found, starting fresh")
+                return {}
+            path = self._newest_by_step(ckpts)
+        elif os.path.isabs(filename) or os.path.exists(filename):
+            path = filename
+        else:
+            path = os.path.join(self.checkpoint_dir, filename)
+        data = _read(path)
+        log.info(f"CheckpointIO: loaded {path} (step {data.get('global_step')})")
+        if "model" in data and (ignore_keys or only_use_keys):
+            data["model"] = _filter_keys(data["model"], ignore_keys, only_use_keys)
+        return data
+
+    @staticmethod
+    def _newest_by_step(ckpts: List[str]) -> str:
+        """Only the last three candidates can hold the highest step
+        (numbered ones are ascending); ties keep the listed order."""
+        best, best_step = ckpts[-1], -1
+        for path in ckpts[-3:]:
+            try:
+                step = int(_read(path).get("global_step", 0))
+            except Exception as e:  # a file truncated by a crash mid-save
+                log.warning(f"CheckpointIO: skipping unreadable {path}: {e}")
+                continue
+            if step >= best_step:
+                best, best_step = path, step
+        return best
 
     def save(self, filename: str, global_step: int = 0, epoch_idx: int = 0,
              **pytrees):

@@ -1,8 +1,9 @@
-"""File helpers of the render tools (port of part of `neurecon_tpu/utils/io.py`).
-`imageio` is imported only when a video is written."""
+"""File helpers (port of part of `neurecon_tpu/utils/io.py`). `imageio` is
+imported only when a video is written."""
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
 
@@ -11,6 +12,23 @@ from neurecon_tpu_torch.utils.console import log
 
 def cond_mkdir(path: str):
     os.makedirs(path, exist_ok=True)
+
+
+def backup(backup_dir: str, source_root: str = None):
+    """Copy the package's .py sources into `backup_dir` (the experiment's
+    record of the code it ran)."""
+    if source_root is None:
+        source_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cond_mkdir(backup_dir)
+    for dirpath, dirnames, filenames in os.walk(source_root):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        rel = os.path.relpath(dirpath, source_root)
+        for fname in filenames:
+            if fname.endswith(".py"):
+                dst_dir = os.path.join(backup_dir, rel)
+                cond_mkdir(dst_dir)
+                shutil.copyfile(os.path.join(dirpath, fname),
+                                os.path.join(dst_dir, fname))
 
 
 def save_video(imgs: np.ndarray, fname: str, fps: int = 24, quality: int = 8):

@@ -11,7 +11,7 @@ import torch
 
 from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
-from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
+from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample
 from neurecon_tpu_torch.ops.ray import near_far_from_sphere
 
 SMALL = dict(W=64, D=4, skips=[2], radius_init=0.5, embed_multires=4)
@@ -94,6 +94,48 @@ def test_upsample_kernel_matches_plain(cuda, cfg, geo, perturb, sphere):
     off = (got - ref).abs() > 1e-3 * span
     frac = 1e-3 if perturb else 5e-3
     assert float(off.float().mean()) <= frac, float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo,M", [(dict(SMALL), 64, 1000),
+                                      (dict(SMALL, skips=[1, 3]), 64, 37),
+                                      (FLAGSHIP, 256, 4096),
+                                      (FLAGSHIP, 256, 4099),
+                                      (FLAGSHIP, 256, 0)])
+def test_backward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 3 against its plain version: every weight and bias grad and
+    x_bar, max|diff| <= 5e-4 max|ref| per leaf (fp32 sums over all points
+    in another order; the JAX package's full-step bound). M = 4099 and 37
+    leave a ragged last tile; M = 0 gives zeros."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(M, 3).astype(np.float32) * 0.6, device=cuda)
+    cots = [torch.tensor(rng.randn(*s).astype(np.float32), device=cuda)
+            for s in ((M,), (M, 3), (M, geo))]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    before = fused_nablas_vjp.fused_nablas_vjp.launches
+    got = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    torch.cuda.synchronize()
+    assert fused_nablas_vjp.fused_nablas_vjp.launches == before + (M > 0)
+    ref = fused_nablas_vjp.nablas_vjp_plain(surf, x, ws, bs, *cots)
+    leaves = [(got[0], ref[0])] + list(zip(got[1], ref[1])) + list(zip(got[2], ref[2]))
+    for i, (g, r) in enumerate(leaves):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), i
+        err = float((g - r).abs().max()) if g.numel() else 0.0
+        assert err <= 5e-4 * float(r.abs().max()) if M else err == 0.0, (i, err)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic(cuda):
+    surf = _model(SMALL, 64, cuda).implicit_surface
+    x = torch.rand(5000, 3, device=cuda) - 0.5
+    cots = [torch.ones(5000, device=cuda), torch.ones(5000, 3, device=cuda),
+            torch.ones(5000, 64, device=cuda)]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    a = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    b = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    for p, q in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
+        assert torch.equal(p, q)
 
 
 @pytest.mark.cuda

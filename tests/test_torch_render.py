@@ -1,7 +1,8 @@
 """The port's render slice against the JAX package: `volume_render_rays` on
 identical rays, and `render_view` on a checkpoint written by the JAX trainer's
 CheckpointIO (with its optax state), on the CPU. Also: the port imports
-without JAX, optax, PyYAML or the JAX package."""
+without JAX, optax, PyYAML, imageio, TensorBoard or the JAX package, and
+the trainer's logger and config writer work without them."""
 import functools
 import os
 import subprocess
@@ -97,7 +98,8 @@ def _check_volume_render(perturb):
     _, _, want = j_render(params, jnp.asarray(o), jnp.asarray(d), key)
     t_render = tfactory(detailed_output=True, calc_normal=True,
                         **{k: v for k, v in tkw.items() if k != "rayschunk"})
-    _, _, got = t_render(torch.tensor(o), torch.tensor(d))
+    with torch.no_grad():  # the render (training differentiates the same fn)
+        _, _, got = t_render(torch.tensor(o), torch.tensor(d))
 
     # the port's own upsampler: same samples but for rare det plateau moves
     # (see test_torch_kernels.py); rgb then agrees to the JAX package's
@@ -109,7 +111,8 @@ def _check_volume_render(perturb):
 
     # on JAX's own samples (the d_all seam) the compositor agrees tightly:
     # fp32 sums in another order through both MLPs
-    _, _, got = t_render(torch.tensor(o), torch.tensor(d), d_all=torch.tensor(d_all_j))
+    with torch.no_grad():
+        _, _, got = t_render(torch.tensor(o), torch.tensor(d), d_all=torch.tensor(d_all_j))
     for k, atol in (("rgb", 1e-5), ("mask_volume", 1e-5), ("depth_volume", 1e-4),
                     ("normals_volume", 1e-4), ("implicit_surface", 1e-5),
                     ("visibility_weights", 1e-5)):
@@ -190,13 +193,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(jax_checkpoint, tmp_path):
 
 def test_port_imports_without_jax(jax_checkpoint):
     code = (
-        "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'neurecon_tpu'):\n"
+        "import sys, pkgutil, importlib, tempfile\n"
+        "for m in ('jax', 'jaxlib', 'optax', 'yaml', 'neurecon_tpu', 'imageio',\n"
+        "          'tensorboard', 'torch.utils.tensorboard'):\n"
         "    sys.modules[m] = None\n"
         "import neurecon_tpu_torch as P\n"
         "for info in pkgutil.walk_packages(P.__path__, 'neurecon_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "import chip_smoke\n"
+        "import neurecon_tpu_torch.train, neurecon_tpu_torch.utils.logger as L\n"
+        "import numpy as np\n"
+        "lg = L.Logger(tempfile.mkdtemp(), monitoring='tensorboard')\n"
+        "lg.add_imgs(np.zeros((4, 5, 3)), 'val/x', 0)\n"
+        "from neurecon_tpu_torch.config import ConfigDict, save_config\n"
+        "save_config(ConfigDict({'a': {'b': [1, 2]}}), tempfile.mktemp())\n"
         "from neurecon_tpu_torch.utils.checkpoints import load_checkpoint\n"
         "ck = load_checkpoint(sys.argv[1])\n"
         "assert ck['global_step'] == 7 and 'implicit_surface' in ck['model']\n"
