@@ -4,8 +4,9 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. the card (nvidia-smi name and power limit, torch's count); build both
-   CUDA kernels from neurecon_tpu_torch/csrc with nvcc (sm_90a).
+1. the card (nvidia-smi name and power limit, torch's count); build the
+   four CUDA kernels from neurecon_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all at once.
 2. kernel 1 (`nablas_forward`) against its plain version on the points of
    one render chunk at the flagship widths (4,096 rays x 255 points along real
    rays): sdf and geometry features atol 1e-4, nablas rtol 2e-3 / atol 2e-4.
@@ -21,7 +22,8 @@ Phases, in order; any failure exits non-zero:
 4. the slice through the port's render_view frame function: a flagship NeuS
    from the port's geometric init, saved with the port's CheckpointIO, two
    120x160 views of the synthetic sphere scene at rayschunk 4096; both kernel
-   counters must rise (5 launches each per frame), every output must be
+   counters must rise (5 launches each per frame; the sdf-only kernel none),
+   every output must be
    finite, and a 2,048-ray patch must match a render through the plain
    versions (rgb atol 2e-3).
 5. times from CUDA events (median of 10 after warm-up) of each kernel and its
@@ -44,25 +46,57 @@ Phases, in order; any failure exits non-zero:
    at least 60 times in it, every logged loss be finite, the last 10 steps'
    mean loss be below the first 10's, and the final checkpoint render
    through render_view; median ms per step over steps 6-60, and rays/s.
+   The loop also extracts a mesh at step 30 (`i_val_mesh` 30, a 256^3
+   grid): `meshes/00000030.ply` must be non-empty, written through kernel 4,
+   and its seconds are printed on a line of their own.
 9. kernel 3's time at 130,560 points beside its plain version's and its
    bound, its workspace bytes, its four CUDA kernels' device times from
    torch.profiler, one training step split by CUDA events into kernel 2,
    kernel 1, kernel 3, the radiance forward, the Adam step and the rest, and
    the device's busy share over three steps (torch.profiler).
+10. kernel 4 (`sdf_forward`, the sdf-only forward) against its plain version
+   on the perturbed flagship surface: 2^20 points uniform in [-1, 1]^3 from
+   the seed, and 4,099 more (a ragged last tile); max|diff| <= 1e-5
+   max|sdf|, beside what zeroing the octave columns would move; times of
+   the kernel and its plain version at 2^20 points; one 4,096-point call
+   split into weight packing, the occupancy query and the launch.
+11. `extract_surface` through its `main_function` on the flagship
+   geometric-init checkpoint at the CLI default N = 512: grid, triangulation
+   and write seconds, kernel 4's launches and summed device ms, vertex and
+   face counts, vertex radii; the mesh must be non-empty and closed, and the
+   checkpoint's sdf at its vertices within a tenth of a grid cell of 0 (the
+   geometric init is a lumpy sphere: on the CPU at N = 40 its vertex radii
+   run from 0.41 to 1.01, so their mean is no check). At N = 256 the kernel's
+   grid against the plain grid (values within 1e-5 of max, sign flips
+   counted) and the two meshes by Chamfer (below 1e-3 of volume_size).
+12. `render_view --use_surface_render` through `render_frames`: two 120x160
+   frames each with sphere_tracing and root_finding, kernels 4 and 1 both
+   launched; a 2,048-ray patch on the perturbed model against the plain
+   versions (hit masks agree but for at most 0.1% of rays, depth and rgb
+   within 2e-3 where both hit); and a `--render_mesh` frame of phase 11's
+   mesh, which must not be blank.
+13. `eval_staged` on phase 8's checkpoints at steps 30 and 60 against a GT
+   mesh of the training scene's sphere made by `make_gt_mesh`: PSNR and
+   Chamfer, both finite.
 
-Prints one JSON line of per-kernel results (launches from phase 8's run,
-the training slice), then, as the last line,
+Every path above is driven with the kernels' launch counters set to 0 just
+before it and read just after. Prints one JSON line of per-kernel results
+(`launches` from phase 8's run, the training slice, which now meshes too;
+`launches_by_path` for each path), then, as the last line,
 {"ok": true, "device": {...}}. Needs the repository checkout beside it; it
 imports no JAX.
 """
 import argparse
+import contextlib
 import copy
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
+import time
 import traceback
 from unittest import mock
 
@@ -110,6 +144,20 @@ def _time_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def _wall_ms(fn, reps=50):
+    """Median host ms of `fn` followed by a device sync, over `reps` runs
+    after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
 def _bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -146,6 +194,29 @@ def _octave_effect(surface, x):
     return [float((p - q).abs().max()) for p, q in zip(a, b)]
 
 
+@contextlib.contextmanager
+def _spans(module, name, spans):
+    """Patch `module.name` (a kernel wrapper, a method) with a wrapper that
+    records CUDA events around each call into `spans`. While the patch
+    holds, a kernel wrapper bumps its launch counter on the wrapper (it
+    finds itself by its module name); the count is carried back after."""
+    fn = getattr(module, name)
+
+    @functools.wraps(fn)
+    def wrapper(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    with mock.patch.object(module, name, wrapper):
+        yield
+    if hasattr(fn, "launches"):
+        fn.launches = wrapper.launches
+
+
 def _frame_split(render_frames, vargs, n_chunks):
     """Render two frames with CUDA events around each call of the two kernel
     wrappers and of the radiance MLP; return the second frame's wall ms and
@@ -153,29 +224,22 @@ def _frame_split(render_frames, vargs, n_chunks):
     from neurecon_tpu_torch.models.base import RadianceNet
     from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
 
-    spans = {}
-
-    def timed(name, fn):
-        @functools.wraps(fn)  # carries the launch counter the wrapper bumps
-        def wrapper(*a, **k):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*a, **k)
-            ev[1].record()
-            spans.setdefault(name, []).append(ev)
-            return out
-        return wrapper
-
-    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
-                           timed("nablas_forward", fused_nablas.fused_forward_with_nablas)), \
-            mock.patch.object(fused_upsample, "fused_neus_upsample",
-                              timed("neus_upsample", fused_upsample.fused_neus_upsample)), \
-            mock.patch.object(RadianceNet, "forward",
-                              timed("radiance_net", RadianceNet.forward)):
+    spans = {"neus_upsample": [], "nablas_forward": [], "radiance_net": []}
+    with _spans(fused_upsample, "fused_neus_upsample", spans["neus_upsample"]), \
+            _spans(fused_nablas, "fused_forward_with_nablas", spans["nablas_forward"]), \
+            _spans(RadianceNet, "forward", spans["radiance_net"]):
         frames = render_frames(vargs, device="cuda")
     torch.cuda.synchronize()
     ms = {k: sum(a.elapsed_time(b) for a, b in v[n_chunks:]) for k, v in spans.items()}
     return 1e3 * frames["seconds"][1], ms
+
+
+def _closed(faces: torch.Tensor) -> bool:
+    """Every undirected edge of the triangle mesh is shared by two faces."""
+    f = faces.long()
+    e = torch.sort(torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), dim=1).values
+    _, counts = torch.unique(e[:, 0] * (int(f.max()) + 1) + e[:, 1], return_counts=True)
+    return bool((counts == 2).all())
 
 
 def _leaf_ratios(got, ref):
@@ -209,10 +273,10 @@ def _train_config(tmp, seed):
     cfg = copy.deepcopy(FLAGSHIP)
     cfg["expname"] = "chip_smoke_train"
     cfg["seed"] = seed
-    cfg["data"].update({"n_images": 8, "N_rays": 512, "val_downscale": 4})
+    cfg["data"].update({"n_images": 8, "N_rays": 512, "val_downscale": 4, "mesh_N": 256})
     cfg["training"].update({
         "num_iters": 60, "scheduler": {"type": "warmupcosine", "warmup_steps": 10},
-        "i_val": 30, "i_log": 10, "i_val_mesh": -1, "i_backup": -1, "i_save": 900,
+        "i_val": 30, "i_log": 10, "i_val_mesh": 30, "i_backup": 30, "i_save": 900,
         "monitoring": "none", "log_root_dir": tmp,
         "exp_dir": f"{tmp}/chip_smoke_train"})
     return cfg
@@ -242,28 +306,13 @@ def _step_split(args, dev, n_warm=3):
     gen = torch.Generator(device=dev).manual_seed(0)
     for i in range(n_warm):
         step(batch, gen, i)
-    spans = {}
-
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def wrapper(*a, **k):
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = fn(*a, **k)
-            ev[1].record()
-            spans.setdefault(name, []).append(ev)
-            return out
-        return wrapper
-
-    opt.step = timed("adam_step", opt.step)
-    with mock.patch.object(fused_upsample, "fused_neus_upsample",
-                           timed("neus_upsample", fused_upsample.fused_neus_upsample)), \
-            mock.patch.object(fused_nablas, "fused_forward_with_nablas",
-                              timed("nablas_forward", fused_nablas.fused_forward_with_nablas)), \
-            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
-                              timed("nablas_backward", fused_nablas_vjp.fused_nablas_vjp)), \
-            mock.patch.object(RadianceNet, "forward",
-                              timed("radiance_forward", RadianceNet.forward)):
+    spans = {k: [] for k in ("neus_upsample", "nablas_forward", "radiance_forward",
+                             "nablas_backward", "adam_step")}
+    with _spans(fused_upsample, "fused_neus_upsample", spans["neus_upsample"]), \
+            _spans(fused_nablas, "fused_forward_with_nablas", spans["nablas_forward"]), \
+            _spans(fused_nablas_vjp, "fused_nablas_vjp", spans["nablas_backward"]), \
+            _spans(RadianceNet, "forward", spans["radiance_forward"]), \
+            _spans(opt, "step", spans["adam_step"]):
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
@@ -310,13 +359,32 @@ def main(argv=None):
                                                            make_volume_render_fn)
     from neurecon_tpu_torch import train
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
-    from neurecon_tpu_torch.ops import (_build, fused_nablas, fused_nablas_vjp,
+    from neurecon_tpu_torch.ops import (_build, fused_mlp, fused_nablas, fused_nablas_vjp,
                                         fused_upsample, get_rays)
-    from neurecon_tpu_torch.tools import render_view
+    from neurecon_tpu_torch.models.ray_casting import make_surface_render_fn
+    from neurecon_tpu_torch.tools import extract_surface, render_view
+    from neurecon_tpu_torch.tools.eval_mesh import chamfer_distance
+    from neurecon_tpu_torch.tools.eval_staged import evaluate_ckpts
+    from neurecon_tpu_torch.tools.make_gt_mesh import make_gt_mesh
     from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
     from neurecon_tpu_torch.utils.checkpoints import CheckpointIO
 
     dev = torch.device("cuda")
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # removed at exit
+    counters = {"nablas_forward": fused_nablas.fused_forward_with_nablas,
+                "neus_upsample": fused_upsample.fused_neus_upsample,
+                "nablas_backward": fused_nablas_vjp.fused_nablas_vjp,
+                "sdf_forward": fused_mlp.fused_sdf_forward}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    by_path = {}
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -415,20 +483,18 @@ def main(argv=None):
         vargs = ConfigDict(FLAGSHIP)
         vargs.update({"load_pt": ckpt, "num_views": 2, "camera_path": "interpolation",
                       "rayschunk": 4096})
-        fused_nablas.fused_forward_with_nablas.launches = 0
-        fused_upsample.fused_neus_upsample.launches = 0
-        fused_nablas_vjp.fused_nablas_vjp.launches = 0
+        zero_counts()
         frames = render_view.render_frames(vargs, device="cuda")
         torch.cuda.synchronize()
-        launches = {"nablas_forward": fused_nablas.fused_forward_with_nablas.launches,
-                    "neus_upsample": fused_upsample.fused_neus_upsample.launches,
-                    "nablas_backward": fused_nablas_vjp.fused_nablas_vjp.launches}
+        launches = by_path["render_view"] = read_counts()
     print(f"phase 4: render_view 2 x 120x160: launches {launches}, "
           f"s/frame {[round(s, 4) for s in frames['seconds']]} {tag}")
     finite = all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))
     # 5 chunks of 4,096 rays per frame, one launch of each forward kernel per
-    # chunk; the render builds no graph, so the backward kernel never runs
-    if (launches != {"nablas_forward": 10, "neus_upsample": 10, "nablas_backward": 0}
+    # chunk; the render builds no graph, so the backward kernel never runs,
+    # and the volume render makes no gradient-free point query
+    if (launches != {"nablas_forward": 10, "neus_upsample": 10, "nablas_backward": 0,
+                     "sdf_forward": 0}
             or not finite
             or frames["rgb"].shape != (2, 120, 160, 3)):
         print("FAIL phase 4: render did not run through both kernels, or "
@@ -566,43 +632,41 @@ def main(argv=None):
         return 1
     checked.zero_grad(set_to_none=True)
 
-    # ---- phase 8: the training slice through train.py
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        targs = ConfigDict(_train_config(tmp, seed))
-        starts = []
-        real_make_step = train.make_train_step
+    # ---- phase 8: the training slice through train.py (its directory stays
+    # for phase 13)
+    targs = ConfigDict(_train_config(os.path.join(work.name, "train"), seed))
+    starts = []
+    real_make_step = train.make_train_step
 
-        def make_step_timed(*a, **k):
-            step = real_make_step(*a, **k)
+    def make_step_timed(*a, **k):
+        step = real_make_step(*a, **k)
 
-            def timed_step(*sa, **sk):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                starts.append(ev)
-                return step(*sa, **sk)
-            return timed_step
+        def timed_step(*sa, **sk):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return step(*sa, **sk)
+        return timed_step
 
-        for fn in (fused_nablas.fused_forward_with_nablas, fused_upsample.fused_neus_upsample,
-                   fused_nablas_vjp.fused_nablas_vjp):
-            fn.launches = 0
-        with mock.patch.object(train, "make_train_step", make_step_timed):
-            out = train.main_function(targs, device="cuda")
-        torch.cuda.synchronize()
-        launches = {"nablas_forward": fused_nablas.fused_forward_with_nablas.launches,
-                    "neus_upsample": fused_upsample.fused_neus_upsample.launches,
-                    "nablas_backward": fused_nablas_vjp.fused_nablas_vjp.launches}
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        torch.cuda.synchronize()
-        evs = starts + [end]
-        step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))]
-        ms_step = float(np.median(step_ms[5:]))
-        totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
-        logged = [v for _, v in out["stats"]["losses"]["total"]]
-        vargs = ConfigDict(FLAGSHIP)
-        vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
-                      "camera_path": "interpolation", "rayschunk": 4096})
-        view = render_view.render_frames(vargs, device="cuda")
+    zero_counts()
+    with mock.patch.object(train, "make_train_step", make_step_timed):
+        out = train.main_function(targs, device="cuda")
+    torch.cuda.synchronize()
+    launches = by_path["train"] = read_counts()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    evs = starts + [end]
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))]
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    logged = [v for _, v in out["stats"]["losses"]["total"]]
+    vargs = ConfigDict(FLAGSHIP)
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
+                  "camera_path": "interpolation", "rayschunk": 4096})
+    view = render_view.render_frames(vargs, device="cuda")
+    mesh30 = os.path.join(out["exp_dir"], "meshes", "00000030.ply")
+    n_f30 = len(mesh_util.read_ply(mesh30)[1]) if os.path.exists(mesh30) else 0
     first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
     finite_view = all(np.isfinite(view[k]).all() for k in ("rgb", "depth", "normal"))
     print(f"phase 8: train.py 60 flagship steps at 512 rays: launches {launches}; "
@@ -612,10 +676,15 @@ def main(argv=None):
     print(f"phase 8: median {ms_step:.2f} ms/step over steps 6-60 "
           f"({512e3 / ms_step:.0f} rays/s); all steps ms "
           f"{[round(v, 1) for v in step_ms]} {tag}")
-    if (min(launches.values()) < 60 or len(totals) != 60 or not np.isfinite(totals).all()
+    print(f"phase 8: in-loop mesh at step 30 (256^3 grid, kernel 4): "
+          f"{out['stats']['perf'].get('mesh_sec')} s (grid + triangulation + write), "
+          f"{n_f30} faces {tag}")
+    if (min(launches[k] for k in ("nablas_forward", "neus_upsample", "nablas_backward")) < 60
+            or launches["sdf_forward"] == 0 or n_f30 == 0
+            or len(totals) != 60 or not np.isfinite(totals).all()
             or not np.isfinite(logged).all() or not last < first or not finite_view):
         print("FAIL phase 8: training did not run through the kernels, diverged, "
-              "or did not lower the loss", file=sys.stderr)
+              "did not lower the loss, or wrote no mesh", file=sys.stderr)
         return 1
 
     # ---- phase 9: kernel 3's time, and one step split
@@ -640,6 +709,171 @@ def main(argv=None):
         busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
     print(f"phase 9: device over three steps under torch.profiler: {busy} {tag}")
 
+    # ---- phase 10: kernel 4 against its plain version
+    g10 = torch.Generator(dev).manual_seed(seed)
+    x10 = torch.rand(2 ** 20, 3, device=dev, generator=g10) * 2 - 1
+    x10_tail = torch.rand(4099, 3, device=dev, generator=g10) * 2 - 1
+    errs4, rel4, finite4 = [], [], True
+    for xs in (x10, x10_tail):
+        got4 = fused_mlp.fused_sdf_forward(surface, xs)
+        ref4 = fused_mlp.sdf_forward_plain(surface, xs)
+        torch.cuda.synchronize()
+        errs4.append(float((got4 - ref4).abs().max()))
+        rel4.append(errs4[-1] / float(ref4.abs().max()))
+        finite4 = finite4 and bool(torch.isfinite(got4).all())
+    print(f"phase 10: sdf_forward on 2^20 and 4,099 points: max|diff| {errs4[0]:.3e}, "
+          f"{errs4[1]:.3e} ({rel4[0]:.2e}, {rel4[1]:.2e} of max|sdf|); zeroing the octave "
+          f"columns would move sdf by up to {_octave_effect(surface, x10[:65536])[0]:.3e}")
+    if max(rel4) > 1e-5 or not finite4:
+        print("FAIL phase 10: sdf_forward disagrees with its plain version", file=sys.stderr)
+        return 1
+    M4 = x10.shape[0]
+    n_params = sum(p.numel() for p in surface.parameters())
+    ms4 = _time_ms(lambda: fused_mlp.fused_sdf_forward(surface, x10))
+    pms4 = _time_ms(lambda: fused_mlp.sdf_forward_plain(surface, x10))
+    flops4 = 2.0 * _surface_macs(surface, sdf_only=True) * M4
+    b4, by4 = _bound_ms(flops4, 4.0 * (M4 * (3 + 1) + n_params))
+    print(f"phase 10: sdf_forward {M4} points: {ms4:.3f} ms (plain {pms4:.3f} ms, "
+          f"fp32 bound {b4:.3f} ms, {flops4 / 1e9:.1f} GFLOP) {tag}")
+    # one call at a sphere-tracing step's size (a 4,096-ray chunk) split into
+    # the weight packing, the occupancy query (which the wrapper asks once
+    # and keeps), and the launch with packed weights
+    x4k = x10[:4096].contiguous()
+    packed = fused_nablas.pack_surface(surface)
+    query = _build.load("sdf_forward").ntt_sdf_forward_resident
+    split4 = {"whole call (host)": _wall_ms(lambda: fused_mlp.fused_sdf_forward(surface, x4k)),
+              "pack_surface (host)": _wall_ms(lambda: fused_nablas.pack_surface(surface)),
+              "occupancy query (host)": _wall_ms(lambda: query(surface.input_ch, packed[2])),
+              "launch, packed (host)": _wall_ms(
+                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, *packed)),
+              "kernel (device)": _time_ms(
+                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, *packed), reps=50)}
+    print("phase 10: sdf_forward on 4,096 points, median ms per call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split4.items()) + f" {tag}")
+
+    # ---- phase 11: extract_surface through its main_function, N = 512
+    ckpt0 = CheckpointIO(work.name).save("geometric_init.pt", 0,
+                                         model=bridge.model_to_tree(model))
+    ply512 = os.path.join(work.name, "surface_512.ply")
+    eargs = extract_surface.make_parser().parse_args(
+        ["--load_pt", ckpt0, "--out", ply512, "--init_r", "0.5"])
+    spans4 = []
+    zero_counts()
+    with _spans(fused_mlp, "fused_sdf_forward", spans4):
+        ext = extract_surface.main_function(eargs)
+    torch.cuda.synchronize()
+    by_path["extract_surface"] = read_counts()
+    ms4_grid = sum(a.elapsed_time(b) for a, b in spans4)
+    b4_grid, _ = _bound_ms(2.0 * _surface_macs(surface, sdf_only=True) * 512 ** 3,
+                           4.0 * (512 ** 3 * (3 + 1) + n_params))
+    v512, f512 = mesh_util.read_ply(ply512)
+    radii = np.linalg.norm(v512, axis=-1) if len(v512) else np.zeros(1)
+    closed = len(f512) > 0 and _closed(torch.as_tensor(f512, device=dev))
+    surf0 = model.implicit_surface
+    cell = 2.0 / 511
+    on_surface = float(surf0.forward_query(torch.as_tensor(v512, device=dev)).abs().max(
+    )) if len(v512) else float("inf")
+    print(f"phase 11: extract_surface N=512: grid {ext['grid_s']:.3f} s, triangulation "
+          f"{ext['triangulate_s']:.3f} s, write {ext['write_s']:.3f} s; launches "
+          f"{by_path['extract_surface']}; sdf_forward device time {ms4_grid:.1f} ms over "
+          f"{len(spans4)} calls (fp32 bound {b4_grid:.1f} ms); {len(v512)} verts, "
+          f"{len(f512)} faces, closed {closed}; vertex radius mean {radii.mean():.5f} "
+          f"std {radii.std():.5f}, min {radii.min():.5f}, max {radii.max():.5f}; max|sdf| at "
+          f"the vertices {on_surface:.3e} ({on_surface / cell:.3f} cells) {tag}")
+    g_k = mesh_util.query_grid(surf0.forward_query, 256, 2.0, device=dev)
+    g_p = mesh_util.query_grid(lambda x: fused_mlp.sdf_forward_plain(surf0, x), 256, 2.0,
+                               device=dev)
+    rel_g = float((g_k - g_p).abs().max() / g_p.abs().max())
+    flips = int((torch.sign(g_k) != torch.sign(g_p)).sum())
+    # Chamfer over the two meshes' vertices (world coordinates): sampling
+    # each mesh anew would add its own sampling distance
+    verts = [(mesh_util.marching_tetrahedra(g)[0] * (2.0 / 255) - 1.0).cpu().numpy()
+             for g in (g_k, g_p)]
+    cd = chamfer_distance(*verts)[0] if min(map(len, verts)) else float("inf")
+    print(f"phase 11: 256^3 grid, kernel vs plain: max|diff| {rel_g:.2e} of max, {flips} "
+          f"sign flips; meshes {len(verts[0])} / {len(verts[1])} verts, Chamfer {cd:.3e}")
+    del g_k, g_p
+    if (rel_g > 1e-5 or cd >= 1e-3 * 2.0 or not closed or on_surface > 0.1 * cell
+            or by_path["extract_surface"]["sdf_forward"] == 0):
+        print("FAIL phase 11: extract_surface's mesh or grid is off", file=sys.stderr)
+        return 1
+
+    # ---- phase 12: render_view --use_surface_render, and --render_mesh
+    surface_frames = {}
+    for algo in ("sphere_tracing", "root_finding"):
+        vargs = ConfigDict(FLAGSHIP)
+        vargs.update({"load_pt": ckpt0, "num_views": 2, "camera_path": "interpolation",
+                      "rayschunk": 4096, "use_surface_render": algo})
+        if algo == "sphere_tracing":
+            vargs["render_mesh"] = ply512
+        spans12 = {"sdf_forward (cast)": [], "nablas_forward (hit point)": []}
+        zero_counts()
+        with _spans(fused_mlp, "fused_sdf_forward", spans12["sdf_forward (cast)"]), \
+                _spans(fused_nablas, "fused_forward_with_nablas",
+                       spans12["nablas_forward (hit point)"]):
+            fr = surface_frames[algo] = render_view.render_frames(vargs, device="cuda")
+        torch.cuda.synchronize()
+        counts = by_path[f"surface_render_{algo}"] = read_counts()
+        print(f"phase 12: render_view --use_surface_render {algo} 2 x 120x160: launches "
+              f"{counts}, s/frame {[round(v, 4) for v in fr['seconds']]}; device ms per "
+              "frame " + ", ".join(f"{k} {sum(a.elapsed_time(b) for a, b in v) / 2:.2f}"
+                                   for k, v in spans12.items()) + f" {tag}")
+        if (counts["sdf_forward"] == 0 or counts["nablas_forward"] == 0
+                or fr["rgb"].shape != (2, 120, 160, 3)
+                or not all(np.isfinite(fr[k]).all() for k in ("rgb", "depth", "normal"))):
+            print(f"FAIL phase 12: the {algo} render missed a kernel or is not finite",
+                  file=sys.stderr)
+            return 1
+    cast = {"near": 0.0, "far": 1.2 * (float(np.linalg.norm(scene["c2w"][0][:3, 3])) + 1.0)}
+    for algo in ("sphere_tracing", "root_finding"):
+        fn = make_surface_render_fn(checked, algo,
+                                    dict(cast, **({"N_steps": 128} if algo == "root_finding"
+                                                  else {})))
+        out_k = render_full_image(fn, o_all[patch], d_all_dirs[patch], rayschunk=4096)
+        with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain), \
+                mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                                  fused_nablas.forward_with_nablas_plain):
+            out_p = render_full_image(fn, o_all[patch], d_all_dirs[patch], rayschunk=4096)
+        mk, mp = out_k["mask_surface"], out_p["mask_surface"]
+        both = mk & mp
+        e_d, e_c = (float(np.abs(out_k[k][both] - out_p[k][both]).max(initial=0))
+                    for k in ("depth_volume", "rgb"))  # misses hold inf
+        n_off = int((mk != mp).sum())
+        print(f"phase 12: 2048-ray patch {algo}, kernels vs plain: {int(both.sum())} rays hit "
+              f"in both, masks differ on {n_off}; max|diff| depth {e_d:.3e}, rgb {e_c:.3e}")
+        if n_off > 0.001 * len(mk) or not both.any() or e_d > 2e-3 or e_c > 2e-3:
+            print(f"FAIL phase 12: the {algo} patch disagrees with the plain path",
+                  file=sys.stderr)
+            return 1
+    mesh_img = surface_frames["sphere_tracing"]["mesh"]
+    covered = float((mesh_img < 0.999).any(-1).mean())
+    print(f"phase 12: --render_mesh frames {mesh_img.shape}: mesh covers {100 * covered:.1f}% "
+          f"of the pixels")
+    if covered < 0.01:
+        print("FAIL phase 12: the rasterized mesh frame is blank", file=sys.stderr)
+        return 1
+
+    # ---- phase 13: eval_staged on phase 8's checkpoints
+    gt = os.path.join(work.name, "gt_sphere.ply")
+    make_gt_mesh("sphere", 0.5, 256, 1.5, gt, device="cuda")
+    zero_counts()
+    rows = evaluate_ckpts(targs, [os.path.join(out["exp_dir"], "ckpts", "00000030.pt"),
+                                  out["final_ckpt"]],
+                          gt_mesh=gt, n_eval=4, rayschunk=4096, mesh_N=256, device="cuda")
+    torch.cuda.synchronize()
+    by_path["eval_staged"] = read_counts()
+    for r in rows:
+        print(f"phase 13: eval_staged {r['ckpt']} (step {r['step']}): psnr {r['psnr']:.4f} "
+              f"(min {r['psnr_min']:.4f}, max {r['psnr_max']:.4f}), chamfer {r.get('chamfer')}")
+    print(f"phase 13: launches {by_path['eval_staged']}")
+    if len(rows) != 2 or not all(np.isfinite(r["psnr"]) and r.get("chamfer") is not None
+                                 and np.isfinite(r["chamfer"]) for r in rows):
+        print("FAIL phase 13: eval_staged gave no finite PSNR or Chamfer", file=sys.stderr)
+        return 1
+
+    def per_path(name):
+        return {p: c[name] for p, c in by_path.items()}
+
     results = [
         {"name": "nablas_forward", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/nablas_forward.cu",
@@ -659,7 +893,16 @@ def main(argv=None):
          "launches": launches["nablas_backward"], "max_abs_err": k3_err,
          "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
          "library_ms": None},
+        {"name": "sdf_forward", "route": "cuda",
+         "source": "neurecon_tpu_torch/csrc/sdf_forward.cu",
+         "replaces": "neurecon_tpu/ops/fused_mlp.py:125",
+         "launches": launches["sdf_forward"], "max_abs_err": max(errs4),
+         "ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": by4,
+         "library_ms": None, "points": M4, "ms_grid512": ms4_grid,
+         "bound_ms_grid512": b4_grid, "ms_split_4096": split4},
     ]
+    for r in results:
+        r["launches_by_path"] = per_path(r["name"])
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

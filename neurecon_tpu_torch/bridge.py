@@ -77,3 +77,8 @@ def grads_to_tree(model) -> dict:
     return {"ln_s": g(model.ln_s),
             "implicit_surface": layers(model.implicit_surface),
             "radiance_net": layers(model.radiance_net)}
+
+
+def load_surface_tree(surface, tree: dict) -> None:
+    """Copy an `implicit_surface` subtree (numpy) into an ImplicitSurface."""
+    _load_layers(surface.layers, tree, "implicit_surface")

@@ -1,6 +1,7 @@
 // The surface MLP on a tile of points held in shared memory — the device
-// routine shared by the forward+nablas kernel (nablas_forward.cu) and the
-// NeuS upsampler kernel (neus_upsample.cu).
+// routine shared by the forward+nablas kernel (nablas_forward.cu), the NeuS
+// upsampler kernel (neus_upsample.cu) and the sdf-only kernel
+// (sdf_forward.cu).
 //
 // Layout. Activations live in shared memory feature-major, [rows][TILE]: one
 // row of TILE floats per channel, so the TILE values one weight multiplies are

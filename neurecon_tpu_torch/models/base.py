@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
+from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp
 from neurecon_tpu_torch.ops.fused_nablas import effective_weight
 
 
@@ -132,7 +132,8 @@ def softplus100(x):
 class ImplicitSurface(nn.Module):
     """SDF MLP. forward -> sdf (and geometry features); forward_with_nablas
     -> (sdf, d sdf / dx, geometry features), through the forward+nablas
-    kernel on a card and its plain version on the CPU."""
+    kernel on a card and its plain version on the CPU; forward_query -> sdf
+    alone, gradient-free, through the sdf-only kernel."""
 
     def __init__(self,
                  W: int = 256,
@@ -239,6 +240,20 @@ class ImplicitSurface(nn.Module):
             nablas = nablas + sphere_nablas(x_flat)
         return (sdf.reshape(prefix), nablas.reshape(prefix + (3,)),
                 h.reshape(prefix + h.shape[-1:]))
+
+    @torch.no_grad()
+    def forward_query(self, x: torch.Tensor) -> torch.Tensor:
+        """Gradient-free sdf at points x [..., 3]: the sdf-only kernel on a
+        card (its plain version on the CPU), plus the sphere_residual prior.
+        Serves the mesh grids, the ray casters and the eval tools."""
+        prefix = x.shape[:-1]
+        x_flat = x.reshape(-1, 3).contiguous()
+        sdf = fused_mlp.fused_sdf_forward(self, x_flat)
+        if self.sphere_residual:
+            sdf = sdf + sphere_sdf(x_flat, self.radius_init)
+        return sdf.reshape(prefix)
+
+    forward_fast = forward_query  # the JAX package's name for the kernel path
 
 
 def sphere_sdf(x: torch.Tensor, radius: float) -> torch.Tensor:

@@ -5,7 +5,9 @@ hierarchical upsampler (CUDA kernel `neus_upsample`, gradient-free), one
 batched sdf + nablas + geometry query over sections and midpoints (CUDA
 kernel `nablas_forward`, and in training its backward `nablas_backward`
 through `ops/fused_nablas_vjp.py`), the radiance net, the sdf -> alpha ->
-visibility-weight compositor, and the L1 + eikonal + mask losses, for models
+visibility-weight compositor, the L1 + eikonal + mask losses, and the model's
+point queries for the surface renderer and the mesh grids
+(`forward_surface_fast`, CUDA kernel `sdf_forward`), for models
 without the NeRF++ background (`N_outside == 0`, `with_mask: true`). The
 other two upsample algorithms and the NeRF++ branch wait for later slices
 (ROADMAP Queue A, item 4).
@@ -63,6 +65,23 @@ class NeuS(nn.Module):
 
     def forward_s(self):
         return torch.exp(self.ln_s[0] * self.speed_factor)
+
+    def forward_surface(self, x):
+        return self.implicit_surface(x)
+
+    def forward_surface_fast(self, x):
+        """Gradient-free sdf query (the sdf-only kernel on a card)."""
+        return self.implicit_surface.forward_query(x)
+
+    def forward_with_nablas(self, x):
+        return self.implicit_surface.forward_with_nablas(x)
+
+    def forward(self, x, view_dirs):
+        """(radiance, sdf, nablas) at points x [..., 3]: the surface
+        renderer's hit-point query (under no_grad, kernel 1 alone)."""
+        sdf, nablas, geo_feat = self.forward_with_nablas(x)
+        radiances = self.radiance_net(x, view_dirs, nablas, geo_feat)
+        return radiances, sdf, nablas
 
 
 def _uniforms(N, n_iters, n_per_iter, perturb, generator, device):

@@ -9,14 +9,18 @@ copy's kernels and prints one JSON line: the median of 10 CUDA-event runs
 after warm-up of the forward+nablas kernel at 130,560 and 1,044,480 points
 (one training step, one render chunk) and, where the copy has it, the
 eikonal backward at 130,560 points with its CUDA kernels' device times
-(torch.profiler) and its largest leaf error against its plain version. The
-flagship surface (D=8, W=256) with seeded noise on every weight, points and
-cotangents from `--seed`.
+(torch.profiler) and its largest leaf error against its plain version, and,
+where the copy has it, the sdf-only kernel at 2^20 points, the host time of
+one of its 4,096-point calls (what a sphere-tracing step makes), and the
+host time of sphere tracing 19,200 rays in chunks of 4,096 (one 120x160
+frame's casts). The flagship surface (D=8, W=256) with seeded noise on
+every weight, points and cotangents from `--seed`.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 
@@ -71,6 +75,35 @@ if fused_nablas_vjp is not None:
     res["nablas_backward_kernels_ms"] = {
         e.key.split("(")[0]: e.device_time_total / 1e3 for e in prof.key_averages()
         if e.device_time_total > 0 and "ntt::" in e.key}
+try:
+    from neurecon_tpu_torch.ops import fused_mlp
+    from neurecon_tpu_torch.models.ray_casting import sphere_tracing_surface_points
+except ImportError:
+    fused_mlp = None
+if fused_mlp is not None:
+    import time
+
+    def wall_ms(fn, reps=50):
+        fn(); torch.cuda.synchronize(); out = []
+        for _ in range(reps):
+            t0 = time.perf_counter(); fn(); torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    x = torch.rand(2 ** 20, 3, device=dev, generator=g) * 2 - 1
+    res["sdf_forward_ms_1048576"] = ms(lambda: fused_mlp.fused_sdf_forward(s, x))
+    x4 = x[:4096].contiguous()
+    res["sdf_forward_call_wall_ms_4096"] = wall_ms(lambda: fused_mlp.fused_sdf_forward(s, x4))
+    o = torch.tensor([0.0, 0.0, -3.0], device=dev).expand(19200, 3).contiguous()
+    d = torch.nn.functional.normalize(
+        torch.randn(19200, 3, device=dev, generator=g) * 0.15
+        + torch.tensor([0.0, 0.0, 1.0], device=dev), dim=-1)
+
+    def cast():
+        for c in range(0, 19200, 4096):
+            sphere_tracing_surface_points(s.forward_query, o[c:c + 4096], d[c:c + 4096],
+                                          near=0.0, far=4.8)
+    res["sphere_trace_wall_ms_19200_rays"] = wall_ms(cast, reps=10)
 print(json.dumps(res))
 '''
 
@@ -81,7 +114,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     rc = 0
-    for root in args.roots:
+    for root in map(os.path.abspath, args.roots):
         out = subprocess.run([sys.executable, "-c",
                               f"ROOT = {root!r}\nSEED = {args.seed}\n" + _CODE],
                              capture_output=True, text=True, timeout=900)

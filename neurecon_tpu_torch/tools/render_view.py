@@ -1,14 +1,19 @@
-"""Free-viewpoint rendering of a trained NeuS checkpoint (volume mode).
+"""Free-viewpoint rendering of a trained NeuS checkpoint.
 
   python -m neurecon_tpu_torch.tools.render_view --config configs/neus.yaml \
       --load_pt logs/neus_37/ckpts/latest.pt --camera_path small_circle \
-      --camera_inds 11,14,17 --num_views 60
+      --camera_inds 11,14,17 --num_views 60 \
+      [--use_surface_render sphere_tracing|root_finding] \
+      [--render_mesh surface.ply] [--alter_radiance other.pt]
 
 Runs on the CUDA card; `--device cpu` runs the plain PyTorch path on the CPU.
 `render_frames` returns the frames; `main_function` writes the rgb, depth,
-normal and rgb&normal videos. Checkpoints written by the JAX package load
-as they are. Surface rendering (`--use_surface_render`) and mesh compositing
-(`--render_mesh`) are not ported yet (ROADMAP Queue A, item 6).
+normal and rgb&normal videos (and rgb&mesh with `--render_mesh`, the mesh
+rasterized by `tools/mesh_raster.py` along the same path). Volume rendering
+by default; `--use_surface_render` casts rays to the surface
+(`models/ray_casting.py`) and queries the radiance once at the hit point.
+`--alter_radiance` swaps in the radiance net of another checkpoint.
+Checkpoints written by the JAX package load as they are.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from neurecon_tpu_torch.utils.console import log
 def render_frames(args, device=None) -> dict:
     """Render the camera path of `args` from its checkpoint. Returns
     {"rgb" [n,H,W,3], "depth" [n,H,W,1] (per-frame normalized), "normal"
-    [n,H,W,3] (mapped to [0,1]), "seconds" [n] wall time per frame}."""
+    [n,H,W,3] (mapped to [0,1]), "seconds" [n] wall time per frame, and
+    with `render_mesh` "mesh" [n,H,W,3], the rasterized mesh}."""
     from neurecon_tpu_torch import bridge, get_device
     from neurecon_tpu_torch.dataio import get_data
     from neurecon_tpu_torch.models.frameworks import (checkpoint_render_kwargs,
@@ -35,10 +41,6 @@ def render_frames(args, device=None) -> dict:
     from neurecon_tpu_torch.ops import get_rays
     from neurecon_tpu_torch.training import render_full_image
 
-    for opt in ("use_surface_render", "render_mesh", "alter_radiance"):
-        if args.get(opt, None):
-            raise NotImplementedError(
-                f"--{opt} is not ported yet (ROADMAP Queue A, item 6)")
     dev = get_device(device)
     model, _kw_train, render_kwargs_test, render_factory = get_model(args, dev)
 
@@ -50,6 +52,10 @@ def render_frames(args, device=None) -> dict:
     ckpt = load_checkpoint(ckpt_file)
     bridge.load_tree(model, ckpt["model"])
     step_kwargs = checkpoint_render_kwargs(args, ckpt["global_step"])
+    if args.get("alter_radiance", None) is not None:
+        alt = load_checkpoint(args.alter_radiance)
+        bridge.load_tree(model, {"radiance_net": alt["model"]["radiance_net"]}, strict=False)
+        log.info(f"=> Swapped radiance net from {args.alter_radiance}")
 
     if args.get("downscale", None):
         args.data["downscale"] = args.downscale
@@ -71,14 +77,38 @@ def render_frames(args, device=None) -> dict:
         args.get("camera_path", "interpolation"), np.asarray(dataset.c2w_all),
         int(args.get("num_views", 60)), args.get("camera_inds", "11,15"))
 
-    kwargs = {k: v for k, v in render_kwargs_test.items()
-              if k not in ("H", "W", "rayschunk")}
-    kwargs.update(step_kwargs)
-    render_fn = render_factory(detailed_output=False, calc_normal=True, **kwargs)
+    use_surface = args.get("use_surface_render", None)
+    if use_surface:
+        if use_surface not in ("sphere_tracing", "root_finding"):
+            raise ValueError(f"--use_surface_render {use_surface!r}: want "
+                             "sphere_tracing or root_finding")
+        from neurecon_tpu_torch.models.ray_casting import make_surface_render_fn
+        # the cast must reach from the farthest camera past the object
+        cam_dist = float(np.linalg.norm(np.asarray(render_c2ws)[:, :3, 3], axis=-1).max())
+        cast_cfg = {"near": 0.0,
+                    "far": 1.2 * (cam_dist + args.model.get("obj_bounding_radius", 1.0))}
+        if use_surface == "root_finding":
+            cast_cfg["N_steps"] = 128
+        render_fn = make_surface_render_fn(model, ray_casting_algo=use_surface,
+                                           ray_casting_cfgs=cast_cfg)
+        normal_key = "normals_surface"
+    else:
+        kwargs = {k: v for k, v in render_kwargs_test.items()
+                  if k not in ("H", "W", "rayschunk")}
+        kwargs.update(step_kwargs)
+        render_fn = render_factory(detailed_output=False, calc_normal=True, **kwargs)
+        normal_key = "normals_volume"
+    mesh = None
+    if args.get("render_mesh", None):
+        from neurecon_tpu_torch.tools.mesh_raster import rasterize_mesh
+        from neurecon_tpu_torch.utils.mesh import read_ply
+        mesh = read_ply(args.render_mesh)
+        log.info(f"=> Compositing mesh {args.render_mesh} "
+                 f"({len(mesh[0])} verts, {len(mesh[1])} faces)")
     cull_r = (float(args.model.get("obj_bounding_radius", 1.0))
               if args.get("cull_miss", False) else None)
     intr_t = torch.as_tensor(intrinsics, device=dev)
-    rgbs, depths, normals, seconds = [], [], [], []
+    rgbs, depths, normals, meshes, seconds = [], [], [], [], []
     for i, c2w in enumerate(render_c2ws):
         t0 = time.perf_counter()
         rays_o, rays_d, _ = get_rays(
@@ -92,10 +122,16 @@ def render_frames(args, device=None) -> dict:
         rgbs.append(ret["rgb"].reshape(H, W, 3))
         depth = np.nan_to_num(ret["depth_volume"].reshape(H, W, 1), posinf=0.0)
         depths.append(depth / (depth.max() + 1e-10))
-        normals.append(ret["normals_volume"].reshape(H, W, 3) / 2.0 + 0.5)
+        normals.append(ret[normal_key].reshape(H, W, 3) / 2.0 + 0.5)
+        if mesh is not None:
+            meshes.append(rasterize_mesh(mesh[0], mesh[1], np.asarray(c2w), intrinsics,
+                                         H, W)[0])
         log.info(f"  rendered view {i + 1}/{len(render_c2ws)} ({seconds[-1]:.2f}s)")
-    return {"rgb": np.stack(rgbs), "depth": np.stack(depths),
-            "normal": np.stack(normals), "seconds": seconds}
+    out = {"rgb": np.stack(rgbs), "depth": np.stack(depths),
+           "normal": np.stack(normals), "seconds": seconds}
+    if meshes:
+        out["mesh"] = np.stack(meshes)
+    return out
 
 
 def main_function(args):
@@ -106,10 +142,14 @@ def main_function(args):
     io_util.cond_mkdir(outdir)
     outbase = args.get("outbase", None) or args.expname
     post_fix = f"{H}x{W}_{n}_{args.get('camera_path', 'interpolation')}"
+    if args.get("use_surface_render", None):
+        post_fix += f"_{args.use_surface_render}"
     fps = int(args.get("fps", 30))
     videos = {"rgb": frames["rgb"], "depth": frames["depth"].repeat(3, -1),
               "normal": frames["normal"],
               "rgb&normal": np.concatenate([frames["rgb"], frames["normal"]], 1)}
+    if "mesh" in frames:  # side by side
+        videos["rgb&mesh"] = np.concatenate([frames["rgb"], frames["mesh"]], 2)
     for name, imgs in videos.items():
         io_util.save_video(imgs, os.path.join(outdir, f"{outbase}_{name}_{post_fix}.mp4"),
                            fps=fps)
@@ -132,8 +172,12 @@ def _extra_args(parser):
     parser.add_argument("--fps", type=int, default=30)
     parser.add_argument("--outbase", type=str, default=None)
     parser.add_argument("--outdir", type=str, default="./out")
-    parser.add_argument("--use_surface_render", type=str, default=None)
-    parser.add_argument("--render_mesh", type=str, default=None)
+    parser.add_argument("--alter_radiance", type=str, default=None,
+                        help="checkpoint whose radiance net replaces the model's")
+    parser.add_argument("--use_surface_render", type=str, default=None,
+                        help="sphere_tracing or root_finding (default: volume render)")
+    parser.add_argument("--render_mesh", type=str, default=None,
+                        help="extracted .ply to rasterize and composite")
 
 
 if __name__ == "__main__":

@@ -8,17 +8,18 @@ The loop of the JAX trainer on one device, eager: the dataset held on the
 device; the image order from `np.random.RandomState(seed + epoch)`; one step
 = sample rays, render (upsampler and forward kernels), loss, backward
 (through the eikonal backward kernel), Adam, schedule; validation renders at
-step 0 and every `i_val` steps; metrics fetched from the device only every
-`i_log` steps (one copy), with a NaN watchdog; `latest` (every `i_save`
-seconds), numbered backup and `final` checkpoints, and a save on
-KeyboardInterrupt. `training.steps_per_call` is read and only groups the
+step 0 and every `i_val` steps; meshes of the surface (`exp_dir/meshes/
+<step>.ply`, a `data.mesh_N`^3 grid over `data.volume_size`, queried through
+the sdf-only kernel) at steps 3000, 5000 and 7000 and every `i_val_mesh`
+steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
+the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
+(every `i_save` seconds), numbered backup and `final` checkpoints, and a save
+on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
 loop's checks: eager PyTorch has no dispatch to amortize.
 
 Not ported yet, and refused before the first step (ROADMAP.md): VolSDF and
-UNISURF, several devices, `training.overlap_sampler`, the profiler window
-(`training.profile_steps`), and mesh extraction in the loop (`i_val_mesh`
-and the fixed mesh steps 3000 / 5000 / 7000), which needs the forward-only
-MLP kernel of the eval slice.
+UNISURF, several devices, `training.overlap_sampler` and the profiler window
+(`training.profile_steps`).
 """
 from __future__ import annotations
 
@@ -45,11 +46,22 @@ from neurecon_tpu_torch.utils.checkpoints import (CheckpointIO,
                                                   optimizer_state_to_numpy)
 from neurecon_tpu_torch.utils.console import log
 from neurecon_tpu_torch.utils.logger import Logger
+from neurecon_tpu_torch.utils.mesh import extract_mesh
 
 _MESH_STEPS = (3000, 5000, 7000)  # the JAX trainer's fixed mesh extractions
 
 
-def _refuse_unported(args, num_iters: int, it: int) -> None:
+def mesh_steps(it: int, i_val_mesh: int, num_iters: int) -> list:
+    """The steps after `it` at which the loop extracts a mesh, in order: the
+    fixed steps 3000 / 5000 / 7000 and every `i_val_mesh` steps up to
+    `num_iters` (none of those when `i_val_mesh` <= 0). The loop runs a mesh
+    when it reaches a listed step, so steps >= num_iters never run."""
+    return sorted({m for m in _MESH_STEPS if m > it}
+                  | ({m for m in range(i_val_mesh, num_iters + 1, i_val_mesh) if m > it}
+                     if i_val_mesh > 0 else set()))
+
+
+def _refuse_unported(args) -> None:
     """Raise on any option of the JAX trainer that the port does not carry."""
     def refuse(what):
         raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
@@ -63,13 +75,6 @@ def _refuse_unported(args, num_iters: int, it: int) -> None:
         refuse("training.overlap_sampler")
     if args.training.get("profile_steps", None):
         refuse("the profiler window (training.profile_steps)")
-    i_val_mesh = int(args.training.get("i_val_mesh", 10000))
-    mesh_its = set(_MESH_STEPS) | (set(range(i_val_mesh, num_iters + 1, i_val_mesh))
-                                   if i_val_mesh > 0 else set())
-    due = sorted(m for m in mesh_its if it < m < num_iters)
-    if due:
-        refuse(f"mesh extraction in the training loop (due at steps {due[:3]}; "
-               "set training.i_val_mesh -1 and num_iters <= 3000)")
 
 
 def main_function(args, device=None) -> dict:
@@ -106,7 +111,7 @@ def main_function(args, device=None) -> dict:
     it = int(load_dict.get("global_step", 0))
     epoch_idx = int(load_dict.get("epoch_idx", 0))
     num_iters = int(args.training.num_iters)
-    _refuse_unported(args, num_iters, it)
+    _refuse_unported(args)
     if "model" in load_dict:
         bridge.load_tree(model, load_dict["model"], strict=False)
     resumed_opt = "torch_opt_state" in load_dict
@@ -169,6 +174,16 @@ def main_function(args, device=None) -> dict:
         logger.add_imgs(to_img(ret["normals_volume"] / 2.0 + 0.5),
                         "val/predicted_normals", it)
 
+    mesh_dir = os.path.join(exp_dir, "meshes")
+
+    def do_mesh(it):
+        io_util.cond_mkdir(mesh_dir)
+        out = extract_mesh(model.implicit_surface.forward_query,
+                           volume_size=float(args.data.get("volume_size", 2.0)),
+                           N=int(args.data.get("mesh_N", 256)),
+                           filepath=os.path.join(mesh_dir, f"{it:08d}.ply"), device=dev)
+        logger.add("perf", "mesh_sec", out["grid_s"] + out["triangulate_s"] + out["write_s"], it)
+
     # ---- loop ----
     i_save = args.training.get("i_save", 900)
     i_backup = int(args.training.get("i_backup", 50000))
@@ -187,6 +202,7 @@ def main_function(args, device=None) -> dict:
         return ((x // m) + (1 if x % m else 0)) * m if x > 0 else 0
 
     next_val = _next_multiple(it, i_val) if i_val > 0 else None
+    mesh_its = mesh_steps(it, int(args.training.get("i_val_mesh", 10000)), num_iters)
     next_log = it + i_log
     try:
         while it < num_iters:
@@ -194,6 +210,8 @@ def main_function(args, device=None) -> dict:
                 do_validation(it)
                 while next_val <= it:
                     next_val += i_val
+            while mesh_its and it >= mesh_its[0]:
+                do_mesh(mesh_its.pop(0))
 
             K_eff = min(K, num_iters - it)
             for _ in range(K_eff):

@@ -68,14 +68,16 @@ def sorted_ckpts(ckpt_dir: str) -> List[str]:
     return out
 
 
-def _read(path: str) -> dict:
+def read_restricted(path: str):
+    """The unpickled contents of `path`, classes outside numpy and builtins
+    stubbed."""
     with open(path, "rb") as f:
         return _RestrictedUnpickler(f).load()
 
 
 def load_checkpoint(path: str) -> dict:
     """{"model": numpy pytree, "global_step": int} of a checkpoint file."""
-    data = _read(path)
+    data = read_restricted(path)
     if not isinstance(data, dict) or "model" not in data:
         raise ValueError(f"{path} is not a model checkpoint")
     log.info(f"CheckpointIO: loaded {path} (step {data.get('global_step')})")
@@ -147,7 +149,7 @@ class CheckpointIO:
             path = filename
         else:
             path = os.path.join(self.checkpoint_dir, filename)
-        data = _read(path)
+        data = read_restricted(path)
         log.info(f"CheckpointIO: loaded {path} (step {data.get('global_step')})")
         if "model" in data and (ignore_keys or only_use_keys):
             data["model"] = _filter_keys(data["model"], ignore_keys, only_use_keys)
@@ -160,7 +162,7 @@ class CheckpointIO:
         best, best_step = ckpts[-1], -1
         for path in ckpts[-3:]:
             try:
-                step = int(_read(path).get("global_step", 0))
+                step = int(read_restricted(path).get("global_step", 0))
             except Exception as e:  # a file truncated by a crash mid-save
                 log.warning(f"CheckpointIO: skipping unreadable {path}: {e}")
                 continue

@@ -278,8 +278,12 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_options_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh extraction"):
-        train.main_function(_smoke_args(tmp_path, 3001))
+    # meshes in the loop are ported (tests/test_torch_mesh.py); the profiler
+    # window is not
+    args = _smoke_args(tmp_path, 4)
+    args.training["profile_steps"] = "2:3"
+    with pytest.raises(NotImplementedError, match="profiler window"):
+        train.main_function(args)
     with pytest.raises(NotImplementedError, match="overlap_sampler"):
         train.main_function(_smoke_args(tmp_path, 4, "--training:overlap_sampler", "true"))
 
