@@ -5,7 +5,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit, torch's count); build the
-   four CUDA kernels from neurecon_tpu_torch/csrc with nvcc (sm_90a), one
+   five CUDA sources from neurecon_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all at once.
 2. kernel 1 (`nablas_forward`) against its plain version on the points of
    one render chunk at the flagship widths (4,096 rays x 255 points along real
@@ -79,10 +79,36 @@ Phases, in order; any failure exits non-zero:
    mesh of the training scene's sphere made by `make_gt_mesh`: PSNR and
    Chamfer, both finite.
 
+14. kernels (a)-(c) of the VolSDF fine sampler (`volsdf_fine_sample`, with
+   kernel 4 for its queries) against the plain sampler on 1,024 rays of the
+   synthetic scene at configs/volsdf.yaml's widths (n0 = n_up = 512, 6
+   rounds, 3,584 depths a ray), perturbed surface, beta_net 0.1, 0.01 and
+   0.001, det and perturb uniforms: <= 2% of the fine depths beyond 1e-4 of the span,
+   beta maps within rtol 1e-3 / atol 1e-5 on >= 99% of the rays, iter_usage
+   equal on >= 90% (the JAX package's own bounds). Then each kernel on its
+   plain stage's inputs, in lockstep: merged depths equal, every state and
+   bounds share off at most 1%, the det draws sorted.
+15. `render_view` on a VolSDF checkpoint saved by the port: two 120x160
+   frames at rayschunk 4,096 through (a)-(c), kernel 4 and kernel 1 (exact
+   launch counts), finite; a 2,048-ray patch on the perturbed model against
+   a render through the plain versions (rgb atol 2e-3).
+16. the VolSDF step's gradient on 1,024 rays with fixed fine samples and
+   eikonal points, through the kernels and through the plain versions: loss
+   to rel 1e-5, every grad leaf (ln_beta included) within 5e-4 max|ref|.
+   Then `train.py` at configs/volsdf.yaml's widths on 8 synthetic images, 1,024
+   rays, 40 steps (cut from 100,000), a 128^3 mesh at step 20 (written,
+   possibly empty: its faces and the grid's sdf range are printed): every
+   loss finite, the last 10 steps' mean below the first 10's, kernels 1, 3
+   and (a)-(c) launched every step; median ms per step and rays/s.
+17. times of (a)-(c) summed over one sampler call beside their plain stages
+   and bounds; one VolSDF step split into the sampler (kernel 4, (a)-(c),
+   its glue), kernel 1, kernel 3, the radiance forward, Adam and the rest;
+   the device's busy share; one VolSDF frame split the same way.
+
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
-(`launches` from phase 8's run, the training slice, which now meshes too;
-`launches_by_path` for each path), then, as the last line,
+(`launches` from each slice's training run: phase 8 for kernels 1-4, phase
+16 for (a)-(c); `launches_by_path` for each path), then, as the last line,
 {"ok": true, "device": {...}}. Needs the repository checkout beside it; it
 imports no JAX.
 """
@@ -217,20 +243,18 @@ def _spans(module, name, spans):
         fn.launches = wrapper.launches
 
 
-def _frame_split(render_frames, vargs, n_chunks):
-    """Render two frames with CUDA events around each call of the two kernel
-    wrappers and of the radiance MLP; return the second frame's wall ms and
-    the device ms of each part."""
-    from neurecon_tpu_torch.models.base import RadianceNet
-    from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
-
-    spans = {"neus_upsample": [], "nablas_forward": [], "radiance_net": []}
-    with _spans(fused_upsample, "fused_neus_upsample", spans["neus_upsample"]), \
-            _spans(fused_nablas, "fused_forward_with_nablas", spans["nablas_forward"]), \
-            _spans(RadianceNet, "forward", spans["radiance_net"]):
+def _frame_split(render_frames, vargs, parts):
+    """Render two frames with CUDA events around each call of the `parts`
+    ({name: (module or class, attribute)}: kernel wrappers, the radiance
+    MLP); return the second frame's wall ms and the device ms of each part."""
+    spans = {k: [] for k in parts}
+    with contextlib.ExitStack() as stack:
+        for k, (mod, attr) in parts.items():
+            stack.enter_context(_spans(mod, attr, spans[k]))
         frames = render_frames(vargs, device="cuda")
     torch.cuda.synchronize()
-    ms = {k: sum(a.elapsed_time(b) for a, b in v[n_chunks:]) for k, v in spans.items()}
+    skip = {k: len(v) // 2 for k, v in spans.items()}  # the first frame's calls
+    ms = {k: sum(a.elapsed_time(b) for a, b in v[skip[k]:]) for k, v in spans.items()}
     return 1e3 * frames["seconds"][1], ms
 
 
@@ -282,44 +306,41 @@ def _train_config(tmp, seed):
     return cfg
 
 
-def _step_split(args, dev, n_warm=3):
-    """One flagship training step (512 rays) split by CUDA events around
-    each call of the three kernel wrappers, the radiance forward and the
-    Adam step, then the device's busy share over three more steps; returns
-    (step ms, {part: ms}, busy share)."""
+def _step_split(args, dev, parts, n_warm=3):
+    """One flagship training step split by CUDA events around each call of
+    the `parts` ({name: (module or class, attribute)}; "adam_step" is the
+    optimizer's step), then the device's busy share over three more steps;
+    returns (step ms, {part: ms}, busy share)."""
     from neurecon_tpu_torch.dataio import get_data
-    from neurecon_tpu_torch.models.base import RadianceNet, make_optimizer
-    from neurecon_tpu_torch.models.frameworks import get_model
-    from neurecon_tpu_torch.models.frameworks.neus import make_trainer
-    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample
+    from neurecon_tpu_torch.models.base import make_optimizer
+    from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
     from neurecon_tpu_torch.training import make_train_step
 
     ds = get_data(args)
     model, kw, _, _ = get_model(args, dev, seed=0)
     kw["H"], kw["W"] = ds.H, ds.W
     opt, sched = make_optimizer(args, model)
-    step = make_train_step(make_trainer(model, args, kw), model, opt, sched)
+    step = make_train_step(make_trainer(args, model, kw), model, opt, sched)
     batch = {"c2w": torch.tensor(ds.c2w_all[:1], device=dev),
              "intrinsics": torch.tensor(ds.intrinsics_all[:1], device=dev),
-             "rgb": torch.tensor(ds.rgb_images[:1], device=dev).reshape(1, -1, 3),
-             "object_mask": torch.tensor(ds.object_masks[:1], device=dev).reshape(1, -1)}
+             "rgb": torch.tensor(ds.rgb_images[:1], device=dev).reshape(1, -1, 3)}
+    if args.training.get("with_mask", False):
+        batch["object_mask"] = torch.tensor(ds.object_masks[:1], device=dev).reshape(1, -1)
     gen = torch.Generator(device=dev).manual_seed(0)
     for i in range(n_warm):
         step(batch, gen, i)
-    spans = {k: [] for k in ("neus_upsample", "nablas_forward", "radiance_forward",
-                             "nablas_backward", "adam_step")}
-    with _spans(fused_upsample, "fused_neus_upsample", spans["neus_upsample"]), \
-            _spans(fused_nablas, "fused_forward_with_nablas", spans["nablas_forward"]), \
-            _spans(fused_nablas_vjp, "fused_nablas_vjp", spans["nablas_backward"]), \
-            _spans(RadianceNet, "forward", spans["radiance_forward"]), \
-            _spans(opt, "step", spans["adam_step"]):
+    spans = {k: [] for k in (*parts, "adam_step")}
+    with contextlib.ExitStack() as stack:
+        for k, (mod, attr) in parts.items():
+            stack.enter_context(_spans(mod, attr, spans[k]))
+        stack.enter_context(_spans(opt, "step", spans["adam_step"]))
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         step(batch, gen, n_warm)
         b.record()
         torch.cuda.synchronize()
-    parts = {k: sum(x.elapsed_time(y) for x, y in v) for k, v in spans.items()}
+    parts_ms = {k: sum(x.elapsed_time(y) for x, y in v) for k, v in spans.items()}
     # the device's busy share over three steps: the summed device time of
     # everything it ran (one stream, so nothing overlaps) over their span
     from torch.autograd import DeviceType
@@ -336,7 +357,427 @@ def _step_split(args, dev, n_warm=3):
                    if e.device_type == DeviceType.CUDA) / 1e3 / c.elapsed_time(d)
     except Exception as e:  # the profiler is untried on some machines
         busy = f"not measured ({type(e).__name__}: {e})"
-    return a.elapsed_time(b), parts, busy
+    return a.elapsed_time(b), parts_ms, busy
+
+
+def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_final,
+              bg_r=3.0, eps=0.1, max_bisection=10):
+    """Each of kernels (a)-(c) against its plain version on the same inputs:
+    the plain sampler runs stage by stage (`init_plain`, `draw_plain`,
+    `checkpoint_plain`), and before each stage the kernel gets the plain
+    state as its input. Returns {kernel: {output: worst error}} over the
+    call (fine depths and new depths as max|diff|, new depths also as the
+    share beyond 1e-4 of the span, bounds as the share of entries beyond
+    rtol 1e-3 / atol 1e-6, beta as the share of rays beyond
+    rtol 1e-3 / atol 1e-5, the state flags as the share of rays that
+    differ), and whether the merged depths equal the plain sort's."""
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops.fused_mlp import sdf_forward_plain
+
+    N, n0 = d_init.shape
+    kw = {"n_final": n_final, "u_stride": u.shape[1], "eps": eps, "prior_r": -1.0,
+          "bg_r": bg_r}
+    if surface.sphere_residual:
+        kw["prior_r"] = float(surface.radius_init)
+    ws = ffs.workspace(N, n0 + max_iter * n_up, n_final, d_init.device)
+    err = {k: {} for k in ("volsdf_init", "volsdf_draw", "volsdf_checkpoint")}
+
+    def worst(name, key, v):
+        err[name][key] = max(err[name].get(key, 0.0), float(v))
+
+    def share_off(a, b, rtol, atol):
+        return ((a - b).abs() > atol + rtol * b.abs()).float().mean()
+
+    def compare(name, state, bounds_n):
+        worst(name, "fine", (ws["fine"] - state["fine"]).abs().max())
+        worst(name, "beta_share", share_off(ws["beta"], state["beta"][:, 0], 1e-3, 1e-5))
+        worst(name, "converged_share",
+              (ws["converged"].bool() != state["converged"]).float().mean())
+        worst(name, "iter_usage_share", (ws["iter_usage"] != state["iter_usage"]).float().mean())
+        if bounds_n:
+            worst(name, "bounds_share", share_off(ws["bounds"][:, :bounds_n],
+                                                  state["bounds"], 1e-3, 1e-6))
+
+    def query_raw(d):
+        """(the MLP's raw sdf [N * P], the kernels' input; the plain query's
+        sdf [N, P])"""
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * d[..., None]
+        raw = sdf_forward_plain(surface, pts.reshape(-1, 3)).contiguous()
+        return raw, ffs.background_min(surface.forward(pts), pts, bg_r)
+
+    raw, sdf = query_raw(d_init)
+    state = ffs.init_plain(d_init, sdf, far, ab[0], ab[1], u[:, :n_final], eps=eps)
+    ffs.launch_init(ws, rays_o, rays_d, d_init, raw, far, torch.stack(ab), u,
+                    beta_c=ffs.beta_plus_denominator(n0, eps), **kw)
+    worst("volsdf_init", "sdf", (ws["s"][0][:, :n0] - sdf).abs().max())
+    compare("volsdf_init", state, n0 - 1)
+    d, merged_equal = d_init, True
+    for it in range(1, max_iter + 1):
+        s_in, last = d.shape[1], it == max_iter
+        ws["d"][0][:, :s_in] = d
+        ws["s"][0][:, :s_in] = sdf
+        ws["bounds"][:, :s_in - 1] = state["bounds"]
+        nd, pts = ffs.launch_draw(ws, rays_o, rays_d, 0, s_in, n_up)
+        up = ffs.draw_plain(d, state["bounds"], n_up)
+        worst("volsdf_draw", "depths", (nd - up).abs().max())
+        worst("volsdf_draw", "depths_share", ((nd - up).abs() > 1e-4 * far).float().mean())
+        worst("volsdf_draw", "unsorted_rays", (nd[:, 1:] < nd[:, :-1]).any(1).float().mean())
+        raw_new, sdf_new = query_raw(up)
+        ws["beta"].copy_(state["beta"][:, 0])
+        ws["converged"].copy_(state["converged"].int())
+        ws["iter_usage"].copy_(state["iter_usage"])
+        ws["fine"].copy_(state["fine"])
+        ffs.launch_checkpoint(ws, rays_o, rays_d, 0, s_in, up, raw_new, torch.stack(ab), u,
+                              it=it, max_iter=max_iter, max_bisection=max_bisection, **kw)
+        d, sdf = ffs.checkpoint_plain(
+            d, sdf, up, sdf_new, state, ab[0], ab[1], u[:, it * n_final:(it + 1) * n_final],
+            u[:, (max_iter + 1) * n_final:], it=it, last=last, eps=eps,
+            max_bisection=max_bisection)
+        P = d.shape[1]
+        if not last:
+            merged_equal &= bool(torch.equal(ws["d"][1][:, :P], d))
+            worst("volsdf_checkpoint", "sdf", (ws["s"][1][:, :P] - sdf).abs().max())
+        compare("volsdf_checkpoint", state, 0 if last else P - 1)
+    worst("volsdf_checkpoint", "beta_out_share", share_off(ws["beta_out"], state["beta_out"],
+                                                           1e-3, 1e-5))
+    torch.cuda.synchronize()
+    return err, merged_equal
+
+
+def _sampler_bounds(surface, N, n0, n_up, max_iter, n_final, iter_usage):
+    """The least time of kernels (a), (b) and (c) over one sampler call, in
+    ms, from the bytes each must move and the fp32 operations this call's
+    data needs (about 30 per interval per error-bound sweep, 12 per opacity
+    sweep; a round's sweeps: the net-beta check, 10 bisection steps on each
+    ray not yet converged, the new bounds, a draw for each ray that
+    converges): {kernel: (ms, "bytes" or "operations")}."""
+    iu = iter_usage.long()
+    draws_d = math.log2(n0) + 10
+    out = {"volsdf_init": _bound_ms(
+        N * ((n0 - 1) * (2 * 30 + 12) + n_final * draws_d),
+        4.0 * N * (2 * n0 + n_final + 7 + 3 * n0 + n_final + 3))}
+    ops_b = bytes_b = ops_c = bytes_c = 0.0
+    for it in range(1, max_iter + 1):
+        s_in, P, last = n0 + (it - 1) * n_up, n0 + it * n_up, it == max_iter
+        ops_b += N * ((s_in - 1) * 6 + n_up * (2 * math.log2(s_in) + 10))
+        bytes_b += 4.0 * N * (2 * s_in + 6 + 4 * n_up)
+        bisect = int(((iu == -1) | (iu > it)).sum())
+        draws = int((iu == it).sum()) + (int((iu == -1).sum()) if last else 0)
+        sweeps = N * (1 + (0 if last else 1)) * 30 + bisect * 10 * 30 + draws * 12
+        ops_c += (P - 1) * sweeps + draws * n_final * (math.log2(P) + 10)
+        bytes_c += 4.0 * N * (2 * s_in + 2 * n_up + n_final + 7 + (0 if last else 3 * P)
+                              + n_final + 3)
+    out["volsdf_draw"] = _bound_ms(ops_b, bytes_b)
+    out["volsdf_checkpoint"] = _bound_ms(ops_c, bytes_c)
+    return out
+
+
+# configs/volsdf.yaml's model and training sections (the card machine has no
+# PyYAML; tests/test_torch_volsdf_train.py holds them equal to the file), on
+# the synthetic scene scaled as configs/synthetic_quality_volsdf.yaml scales
+# it (cameras inside the background sphere of radius 3).
+VOLSDF = {
+    "expname": "chip_smoke_volsdf", "device_ids": -1,
+    "data": {"type": "synthetic", "downscale": 1, "n_images": 8, "H": 120, "W": 160,
+             "scale_radius": 2.6, "near": 0.0, "far": 6.0, "N_rays": 1024,
+             "val_downscale": 8, "val_rayschunk": 256, "volume_size": 3.0},
+    "model": {"W_geometry_feature": 256, "framework": "VolSDF", "max_upsample_iter": 6,
+              "obj_bounding_radius": 3.0, "outside_scene": "builtin",
+              "radiance": {"D": 4, "embed_multires": -1, "embed_multires_view": -1,
+                           "skips": []},
+              "surface": {"D": 8, "embed_multires": 6, "radius_init": 1.0, "skips": [4]}},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0005, "overlap_sampler": False,
+                 "fused_samplers": True, "fused_nablas_vjp": True,
+                 "monitoring": "tensorboard", "num_iters": 100000,
+                 "scheduler": {"min_factor": 0.1, "type": "exponential_step"},
+                 "speed_factor": 10.0, "w_eikonal": 0.1},
+}
+VOLSDF_STEPS = 40  # phase 16's cut of configs/volsdf.yaml's 100,000 steps
+
+
+def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 14-17 (the VolSDF slice); returns (rc, kernel rows, train launches)."""
+    from neurecon_tpu_torch import bridge, train
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, volsdf
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, get_rays
+    from neurecon_tpu_torch.ops.sampling import linspace01
+    from neurecon_tpu_torch.tools import render_view
+    from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+    from neurecon_tpu_torch.utils.checkpoints import CheckpointIO, load_checkpoint
+
+    args = ConfigDict(copy.deepcopy(VOLSDF))
+    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
+    checked = copy.deepcopy(model)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    surface = checked.implicit_surface
+    ds = get_data(args)
+    o_all, d_all, _ = get_rays(torch.tensor(ds.c2w_all[0], device=dev),
+                               torch.tensor(ds.intrinsics_all[0], device=dev), 120, 160)
+    idx = torch.linspace(0, 120 * 160 - 1, 1024, device=dev).long()
+    rays_o, rays_d, _, far = volsdf._ray_bounds(o_all[idx], d_all[idx], 0.0, 6.0)
+    N, n0, n_up, max_iter, n_final = 1024, 512, 512, 6, 64
+    d_init = (far * linspace01(n0, dev)).contiguous()
+    kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
+          "n_up": n_up, "sphere_bg_r": 3.0}
+    span = 6.0
+
+    # ---- phase 14: kernels (a)-(c) against the plain sampler
+    k_err, ok, last_u = {}, True, None
+    # the init's beta; a sharper one (rays converge in round 2); one so sharp
+    # that no ray converges (six rounds of bisection, then the fallback draw)
+    for beta in (0.1, 0.01, 0.001):
+        ab = (torch.tensor(1.0 / beta, device=dev), torch.tensor(beta, device=dev))
+        for mode in ("det", "perturb"):
+            u = (ffs.det_uniforms(n_final, max_iter + 2, N, dev) if mode == "det"
+                 else torch.rand(N, (max_iter + 2) * n_final, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(seed + 3)))
+            got = ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far, *ab, u, **kw)
+            ref = ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far, *ab, u, **kw)
+            torch.cuda.synchronize()
+            (gd, gb, gi), (rd, rb, ri) = got, ref
+            dd = (gd - rd).abs()
+            fine_share = float((dd > 1e-4 * span).float().mean())
+            beta_off = int(((gb - rb).abs() > 1e-5 + 1e-3 * rb.abs()).sum())
+            iter_eq = float((gi == ri).float().mean())
+            rounds = torch.bincount((ri + 1).long(), minlength=max_iter + 2).tolist()
+            lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
+                                           n_up=n_up, max_iter=max_iter, n_final=n_final)
+            print(f"phase 14: sampler beta_net {beta} {mode}, 1,024 flagship rays, 3,584 depths: "
+                  f"fine max|diff| {float(dd.max()):.3e}, share beyond 1e-4 span "
+                  f"{fine_share:.5f}; beta map off on {beta_off} rays; iter_usage equal on "
+                  f"{iter_eq:.4f}; rounds (-1, 0..6) {rounds}")
+            print(f"phase 14: lockstep (each kernel on the plain stage's inputs): "
+                  f"{json.dumps(lock)}; merged depths equal {merged_equal}")
+            for name, e in lock.items():
+                k_err[name] = max(k_err.get(name, 0.0),
+                                  e.get("fine", 0.0), e.get("depths", 0.0))
+            finite = all(bool(torch.isfinite(t).all()) for t in (gd, gb))
+            shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
+            if (fine_share > 0.02 or beta_off > 0.01 * N or iter_eq < 0.9 or not finite
+                    or not merged_equal or max(shares) > 0.01
+                    or lock["volsdf_draw"]["unsorted_rays"] > 0):
+                ok = False
+            last_u, last_ab = u, ab
+    if not ok:
+        print("FAIL phase 14: the fine-sampler kernels disagree with their plain versions",
+              file=sys.stderr)
+        return 1, None, None
+
+    # ---- phase 15: render_view on a VolSDF checkpoint saved by the port
+    ckpt = CheckpointIO(workdir).save("volsdf_init.pt", 0, model=bridge.model_to_tree(model))
+    vargs = ConfigDict(copy.deepcopy(VOLSDF))
+    vargs.update({"load_pt": ckpt, "num_views": 2, "camera_path": "interpolation",
+                  "rayschunk": 4096})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    launches = by_path["volsdf_render_view"] = read_counts()
+    print(f"phase 15: render_view VolSDF 2 x 120x160: launches {launches}, s/frame "
+          f"{[round(v, 4) for v in frames['seconds']]} {tag}")
+    # 5 chunks of 4,096 rays per frame: per chunk one sampler call (1 + 6 + 6
+    # launches of (a)-(c), 7 of kernel 4) and one forward+nablas query
+    want = {"nablas_forward": 10, "neus_upsample": 0, "nablas_backward": 0,
+            "sdf_forward": 70, "volsdf_init": 10, "volsdf_draw": 60, "volsdf_checkpoint": 60}
+    if (launches != want or frames["rgb"].shape != (2, 120, 160, 3)
+            or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
+        print("FAIL phase 15: the VolSDF render missed a kernel or is not finite",
+              file=sys.stderr)
+        return 1, None, None
+    render_fn = volsdf.make_volume_render_fn(checked, detailed_output=False, calc_normal=True,
+                                             **kw_test)
+    patch = torch.arange(60 * 160 - 1024, 60 * 160 + 1024, device=dev)
+    out_k = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                           fused_nablas.forward_with_nablas_plain), \
+            mock.patch.object(ffs, "fused_fine_sample", ffs.fine_sample_plain):
+        out_p = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+    e = {k: float(np.abs(out_k[k] - out_p[k]).max())
+         for k in ("rgb", "depth_volume", "normals_volume", "mask_volume", "beta_map")}
+    e["iter_usage_equal"] = float((out_k["iter_usage"] == out_p["iter_usage"]).mean())
+    print(f"phase 15: 2048-ray patch, kernels vs plain: max|diff| {e}")
+    if e["rgb"] > 2e-3:
+        print("FAIL phase 15: the VolSDF patch disagrees with the plain render", file=sys.stderr)
+        return 1, None, None
+
+    # ---- phase 16: the step's gradient through the kernels against the plain
+    # versions (fixed fine samples and eikonal points), then train.py
+    batch = {"c2w": torch.tensor(ds.c2w_all[:1], device=dev),
+             "intrinsics": torch.tensor(ds.intrinsics_all[:1], device=dev),
+             "rgb": torch.tensor(ds.rgb_images[:1], device=dev).reshape(1, -1, 3)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, 120, 160, 1024)
+    eik = (torch.rand(1, 1024, 1, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + 4)) * 2 - 1) * 3.0
+    fine = volsdf.compute_ray_samples(checked, rb["rays_o"], rb["rays_d"],
+                                      **{**kw_train, "perturb": False})
+    ray_loss = get_ray_loss_fn(args, checked, kw_train)
+
+    def step_grads():
+        checked.zero_grad(set_to_none=True)
+        total, _ = ray_loss(rb, fine_override=fine, eik_pts=eik)
+        total.backward()
+        return total.item(), [p.grad.clone() for p in checked.parameters()]
+
+    loss_k, grads_k = step_grads()
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                           fused_nablas.forward_with_nablas_plain), \
+            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
+                              fused_nablas_vjp.nablas_vjp_plain):
+        loss_p, grads_p = step_grads()
+    checked.zero_grad(set_to_none=True)
+    names = [n for n, _ in checked.named_parameters()]
+    ratios = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(ratios, key=ratios.get)
+    print(f"phase 16: VolSDF step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad "
+          f"leaf {worst} {ratios[worst]:.2e} over {len(names)} leaves (ln_beta "
+          f"{ratios['ln_beta']:.2e})")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > 5e-4:
+        print("FAIL phase 16: the VolSDF step's gradient through the kernels disagrees",
+              file=sys.stderr)
+        return 1, None, None
+    targs = ConfigDict(copy.deepcopy(VOLSDF))
+    targs["expname"] = "chip_smoke_volsdf_train"
+    targs["seed"] = seed
+    targs.data["mesh_N"] = 128
+    tdir = os.path.join(workdir, "volsdf_train")
+    targs.training.update({"num_iters": VOLSDF_STEPS, "i_val": 20, "i_log": 10,
+                           "i_val_mesh": 20, "i_backup": 20, "monitoring": "none",
+                           "log_root_dir": tdir, "exp_dir": os.path.join(tdir, "run")})
+    starts = []
+    real_make_step = train.make_train_step
+
+    def make_step_timed(*a, **k):
+        step = real_make_step(*a, **k)
+
+        def timed_step(*sa, **sk):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return step(*sa, **sk)
+        return timed_step
+
+    zero_counts()
+    with mock.patch.object(train, "make_train_step", make_step_timed):
+        out = train.main_function(targs, device="cuda")
+    torch.cuda.synchronize()
+    t_launches = by_path["volsdf_train"] = read_counts()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    evs = starts + [end]
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))]
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    mesh20 = os.path.join(out["exp_dir"], "meshes", "00000020.ply")
+    n_f20 = len(mesh_util.read_ply(mesh20)[1]) if os.path.exists(mesh20) else -1
+    # the sdf range of step 20's surface over the mesh's grid, beside its face count
+    m20, *_ = get_model(ConfigDict(copy.deepcopy(VOLSDF)), dev)
+    bridge.load_tree(m20, load_checkpoint(os.path.join(out["exp_dir"], "ckpts",
+                                                       "00000020.pt"))["model"])
+    g20 = mesh_util.query_grid(m20.implicit_surface.forward_query, 128, 3.0, device=dev)
+    betas = [round(v, 5) for _, v in out["stats"]["scalars"]["beta"]]
+    print(f"phase 16: train.py {VOLSDF_STEPS} steps at configs/volsdf.yaml widths, 1,024 rays: "
+          f"launches {t_launches}; loss mean of steps 1-10 {first:.5f}, of the last 10 "
+          f"{last:.5f}; beta at the logs {betas}; in-loop 128^3 mesh at step 20 {n_f20} faces, "
+          f"{out['stats']['perf'].get('mesh_sec')} s, the grid's sdf from {float(g20.min()):.4f} "
+          f"to {float(g20.max()):.4f}")
+    print(f"phase 16: median {ms_step:.2f} ms/step over steps 6-{VOLSDF_STEPS} "
+          f"({1024e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
+    S = VOLSDF_STEPS
+    if (min(t_launches["nablas_forward"], t_launches["nablas_backward"],
+            t_launches["volsdf_init"]) < S
+            or min(t_launches["volsdf_draw"], t_launches["volsdf_checkpoint"]) < 6 * S
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first
+            or n_f20 < 0):
+        print("FAIL phase 16: VolSDF training missed a kernel, diverged, did not lower the "
+              "loss, or meshed no surface file", file=sys.stderr)
+        return 1, None, None
+
+    # ---- phase 17: the kernels' times, and a step and a frame split
+    parts = {"volsdf_init": (ffs, "launch_init"), "volsdf_draw": (ffs, "launch_draw"),
+             "volsdf_checkpoint": (ffs, "launch_checkpoint"),
+             "sdf_forward (sampler)": (ffs, "launch_sdf_forward")}
+    plain_parts = {"volsdf_init": (ffs, "init_plain"), "volsdf_draw": (ffs, "draw_plain"),
+                   "volsdf_checkpoint": (ffs, "checkpoint_plain")}
+
+    def per_call(fn, targets, reps=5):
+        fn()
+        runs = []
+        for _ in range(reps):
+            spans = {k: [] for k in targets}
+            with contextlib.ExitStack() as stack:
+                for k, (mod, attr) in targets.items():
+                    stack.enter_context(_spans(mod, attr, spans[k]))
+                res = fn()
+            torch.cuda.synchronize()
+            runs.append({k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()})
+        return res, {k: float(np.median([r[k] for r in runs])) for k in targets}
+
+    res, k_ms = per_call(lambda: ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far,
+                                                       *last_ab, last_u, **kw), parts)
+    _, p_ms = per_call(lambda: ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far,
+                                                     *last_ab, last_u, **kw), plain_parts,
+                       reps=3)
+    whole = _time_ms(lambda: ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far,
+                                                   *last_ab, last_u, **kw), reps=5)
+    whole_p = _time_ms(lambda: ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far,
+                                                     *last_ab, last_u, **kw), reps=3)
+    bounds = _sampler_bounds(surface, N, n0, n_up, max_iter, n_final, res[2])
+    mlp_flops = 2.0 * _surface_macs(surface, sdf_only=True) * N * (n0 + max_iter * n_up)
+    ws_bytes = sum(t.nbytes for t in ffs.workspace(N, n0 + max_iter * n_up, n_final,
+                                                   dev).values() if torch.is_tensor(t))
+    print(f"phase 17: one sampler call, 1,024 flagship rays (beta_net {float(last_ab[1]):g}, "
+          f"perturb): "
+          f"{whole:.3f} ms (plain {whole_p:.3f} ms); per kernel, summed over the call "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in k_ms.items())
+          + "; plain stages " + ", ".join(f"{k} {v:.3f} ms" for k, v in p_ms.items())
+          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
+          + f"; the sampler's MLP {mlp_flops / 1e12:.3f} TFLOP (fp32 bound "
+          f"{1e3 * mlp_flops / FP32_PEAK:.2f} ms); workspace "
+          f"{ws_bytes} bytes {tag}")
+    sampler_parts = {"sampler (whole)": (ffs, "fused_fine_sample"), **parts}
+    step_total, split, busy = _step_split(
+        targs, dev, {**sampler_parts,
+                     "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward")})
+    sampler_rest = split["sampler (whole)"] - sum(split[k] for k in parts)
+    rest = step_total - sum(v for k, v in split.items() if k not in parts)
+    print(f"phase 17: one VolSDF step (1,024 rays) {step_total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the sampler's own glue (packing, points, workspace) {sampler_rest:.2f} ms, "
+          f"the rest (radiance backward, loss, glue) {rest:.2f} ms {tag}")
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    print(f"phase 17: device over three VolSDF steps under torch.profiler: {busy} {tag}")
+    vargs["load_pt"] = out["final_ckpt"]
+    frame_ms, fsplit = _frame_split(
+        render_view.render_frames, vargs,
+        {**sampler_parts, "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+         "radiance_net": (RadianceNet, "forward")})
+    frest = frame_ms - sum(v for k, v in fsplit.items() if k not in parts)
+    print(f"phase 17: one 120x160 VolSDF frame (5 chunks, phase 16's final checkpoint) "
+          f"{frame_ms:.2f} ms wall: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fsplit.items())
+          + f", everything else {frest:.2f} ms {tag}")
+
+    rows = []
+    for name, line in (("volsdf_init", 118), ("volsdf_draw", 171), ("volsdf_checkpoint", 211)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "neurecon_tpu_torch/csrc/volsdf_fine_sample.cu",
+                     "replaces": f"neurecon_tpu/ops/fused_fine_sample.py:{line}",
+                     "launches": t_launches[name], "max_abs_err": k_err[name],
+                     "ms": k_ms[name], "plain_ms": p_ms[name], "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "library_ms": None,
+                     "per": "one sampler call of 1,024 flagship rays"})
+    return 0, rows, t_launches
 
 
 def main(argv=None):
@@ -353,14 +794,14 @@ def main(argv=None):
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
-    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
     from neurecon_tpu_torch.models.frameworks import get_model
     from neurecon_tpu_torch.models.frameworks.neus import (_prepare_rays, _uniforms,
                                                            make_volume_render_fn)
     from neurecon_tpu_torch import train
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
-    from neurecon_tpu_torch.ops import (_build, fused_mlp, fused_nablas, fused_nablas_vjp,
-                                        fused_upsample, get_rays)
+    from neurecon_tpu_torch.ops import (_build, fused_fine_sample, fused_mlp, fused_nablas,
+                                        fused_nablas_vjp, fused_upsample, get_rays)
     from neurecon_tpu_torch.models.ray_casting import make_surface_render_fn
     from neurecon_tpu_torch.tools import extract_surface, render_view
     from neurecon_tpu_torch.tools.eval_mesh import chamfer_distance
@@ -375,7 +816,10 @@ def main(argv=None):
     counters = {"nablas_forward": fused_nablas.fused_forward_with_nablas,
                 "neus_upsample": fused_upsample.fused_neus_upsample,
                 "nablas_backward": fused_nablas_vjp.fused_nablas_vjp,
-                "sdf_forward": fused_mlp.fused_sdf_forward}
+                "sdf_forward": fused_mlp.fused_sdf_forward,
+                "volsdf_init": fused_fine_sample.launch_init,
+                "volsdf_draw": fused_fine_sample.launch_draw,
+                "volsdf_checkpoint": fused_fine_sample.launch_checkpoint}
 
     def zero_counts():
         for fn in counters.values():
@@ -494,7 +938,8 @@ def main(argv=None):
     # chunk; the render builds no graph, so the backward kernel never runs,
     # and the volume render makes no gradient-free point query
     if (launches != {"nablas_forward": 10, "neus_upsample": 10, "nablas_backward": 0,
-                     "sdf_forward": 0}
+                     "sdf_forward": 0, "volsdf_init": 0, "volsdf_draw": 0,
+                     "volsdf_checkpoint": 0}
             or not finite
             or frames["rgb"].shape != (2, 120, 160, 3)):
         print("FAIL phase 4: render did not run through both kernels, or "
@@ -545,7 +990,11 @@ def main(argv=None):
         vargs["load_pt"] = CheckpointIO(tmp).save("latest.pt", 0,
                                                   model=bridge.model_to_tree(model))
         n_chunks = math.ceil(120 * 160 / 4096)
-        frame_ms, split = _frame_split(render_view.render_frames, vargs, n_chunks)
+        frame_ms, split = _frame_split(
+            render_view.render_frames, vargs,
+            {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
+             "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+             "radiance_net": (RadianceNet, "forward")})
     rest = frame_ms - sum(split.values())
     print(f"phase 5: one 120x160 frame ({n_chunks} chunks) {frame_ms:.2f} ms wall: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
@@ -700,7 +1149,11 @@ def main(argv=None):
           f"fp32 bound {b3:.3f} ms, {flops3 / 1e9:.1f} GFLOP, workspace {ws_bytes} bytes) {tag}")
     print(f"phase 9: nablas_backward's CUDA kernels (torch.profiler, one call): "
           f"{_profile_kernels(run3)} {tag}")
-    step_total, split, busy = _step_split(targs, dev)
+    step_total, split, busy = _step_split(
+        targs, dev, {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
+                     "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward")})
     rest = step_total - sum(split.values())
     print(f"phase 9: one flagship step (512 rays) {step_total:.2f} ms: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
@@ -871,6 +1324,11 @@ def main(argv=None):
         print("FAIL phase 13: eval_staged gave no finite PSNR or Chamfer", file=sys.stderr)
         return 1
 
+    rc, vol_rows, _ = _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path,
+                                     work.name)
+    if rc:
+        return rc
+
     def per_path(name):
         return {p: c[name] for p, c in by_path.items()}
 
@@ -900,7 +1358,7 @@ def main(argv=None):
          "ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": by4,
          "library_ms": None, "points": M4, "ms_grid512": ms4_grid,
          "bound_ms_grid512": b4_grid, "ms_split_4096": split4},
-    ]
+    ] + vol_rows
     for r in results:
         r["launches_by_path"] = per_path(r["name"])
     print(json.dumps({"kernels": results}))

@@ -3,7 +3,7 @@
 The pytree, as numpy (a checkpoint's "model" entry, or
 `jax.tree_util.tree_map(np.asarray, params)`):
 
-    {"ln_s": [1],
+    {"ln_s": [1] (NeuS) or "ln_beta": [1] (VolSDF),
      "implicit_surface": {"layers": [{"v", "g", "b"} or {"w", "b"}, ...]},
      "radiance_net": {"layers": [...]}}
 
@@ -24,9 +24,15 @@ def _layers_to_tree(layers):
     return {"layers": out}
 
 
+def _scalar(model) -> str:
+    """The name of the model's learnable scale: ln_s (NeuS), ln_beta (VolSDF)."""
+    return "ln_beta" if hasattr(model, "ln_beta") else "ln_s"
+
+
 def model_to_tree(model) -> dict:
-    """The NeuS model's parameters as the JAX pytree of numpy arrays."""
-    return {"ln_s": model.ln_s.detach().cpu().numpy().copy(),
+    """The model's parameters as the JAX pytree of numpy arrays."""
+    name = _scalar(model)
+    return {name: getattr(model, name).detach().cpu().numpy().copy(),
             "implicit_surface": _layers_to_tree(model.implicit_surface.layers),
             "radiance_net": _layers_to_tree(model.radiance_net.layers)}
 
@@ -51,14 +57,15 @@ def _load_layers(layers, tree, what):
 
 @torch.no_grad()
 def load_tree(model, tree: dict, strict: bool = True) -> None:
-    """Copy a JAX NeuS pytree (numpy) into the port's model, in place. With
-    strict=False, top-level entries missing from the tree are left as they
-    are (a checkpoint loaded with ignore_keys / only_use_keys)."""
-    for name in ("ln_s", "implicit_surface", "radiance_net"):
+    """Copy a JAX NeuS or VolSDF pytree (numpy) into the port's model, in
+    place. With strict=False, top-level entries missing from the tree are
+    left as they are (a checkpoint loaded with ignore_keys / only_use_keys)."""
+    scalar = _scalar(model)
+    for name in (scalar, "implicit_surface", "radiance_net"):
         if name not in tree and not strict:
             continue
-        if name == "ln_s":
-            model.ln_s.copy_(torch.tensor(np.asarray(tree["ln_s"], np.float32)))
+        if name == scalar:
+            getattr(model, name).copy_(torch.tensor(np.asarray(tree[name], np.float32)))
         else:
             _load_layers(getattr(model, name).layers, tree[name], name)
 
@@ -74,7 +81,8 @@ def grads_to_tree(model) -> dict:
         return {"layers": [{n: g(getattr(layer, n)) for n in
                             (("v", "g", "b") if layer.weight_norm else ("w", "b"))}
                            for layer in mod.layers]}
-    return {"ln_s": g(model.ln_s),
+    name = _scalar(model)
+    return {name: g(getattr(model, name)),
             "implicit_surface": layers(model.implicit_surface),
             "radiance_net": layers(model.radiance_net)}
 

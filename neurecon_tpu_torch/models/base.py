@@ -371,8 +371,8 @@ def make_schedule(args):
 def make_optimizer(args, model: nn.Module):
     """(Adam, LambdaLR) with the per-iteration schedule. `training.lr` is a
     scalar or a dict of per-top-level-module rates with a 'default' entry
-    (`ln_s`, `implicit_surface`, `radiance_net`): one param group per named
-    module, the rest in the default group.
+    (`ln_s` or `ln_beta`, `implicit_surface`, `radiance_net`): one param
+    group per named module, the rest in the default group.
 
     torch.optim.Adam with its defaults is optax.adam: b1 0.9, b2 0.999, eps
     1e-8 added outside the square root, bias-corrected moments. LambdaLR

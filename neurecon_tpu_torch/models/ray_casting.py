@@ -11,19 +11,9 @@ from __future__ import annotations
 
 from typing import Callable, Union
 
-import numpy as np
 import torch
 
-
-def linspace01(n: int, device=None) -> torch.Tensor:
-    """jnp.linspace(0, 1, n) to the bit: i * float32(1 / (n - 1)), the last
-    entry exactly 1 (torch.linspace rounds some entries the other way)."""
-    if n == 1:
-        return torch.zeros(1, device=device)
-    t = torch.arange(n, dtype=torch.float32, device=device) * float(
-        np.float32(1.0) / np.float32(n - 1))
-    t[-1] = 1.0
-    return t
+from neurecon_tpu_torch.ops.sampling import linspace01
 
 
 def run_secant(f_low, f_high, d_low, d_high, rays_o, rays_d,

@@ -1,7 +1,9 @@
 from neurecon_tpu_torch.ops.fused_mlp import fused_sdf_forward
 from neurecon_tpu_torch.ops.ray import (get_rays, get_rays_at, lift, lin2img,
                                         near_far_from_sphere)
-from neurecon_tpu_torch.ops.sampling import sample_pdf, searchsorted
+from neurecon_tpu_torch.ops.sampling import (linspace01, sample_cdf, sample_pdf,
+                                             searchsorted)
 
 __all__ = ["fused_sdf_forward", "get_rays", "get_rays_at", "lift", "lin2img",
-           "near_far_from_sphere", "sample_pdf", "searchsorted"]
+           "near_far_from_sphere", "linspace01", "sample_cdf", "sample_pdf",
+           "searchsorted"]

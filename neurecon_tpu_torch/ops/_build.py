@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neurecon_tpu_torch"
-SOURCES = ("nablas_forward", "neus_upsample", "nablas_backward", "sdf_forward")
+SOURCES = ("nablas_forward", "neus_upsample", "nablas_backward", "sdf_forward",
+           "volsdf_fine_sample")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -9,21 +9,47 @@ renderer and the upsampler's plain version weight their samples with it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# Above this many compares per row the [..., N, M] comparison matrix is too
+# large (the VolSDF fine sampler's would be ~1.9 GB per round at its flagship
+# widths): rows go through torch.searchsorted instead. The JAX package's
+# threshold (neurecon_tpu/ops/sampling.py, _COUNT_SEARCH_LIMIT).
+COUNT_SEARCH_LIMIT = 1 << 18
+
+
+def linspace01(n: int, device=None) -> torch.Tensor:
+    """jnp.linspace(0, 1, n) to the bit: i * float32(1 / (n - 1)), the last
+    entry exactly 1 (torch.linspace rounds some entries the other way)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    t = torch.arange(n, dtype=torch.float32, device=device) * float(
+        np.float32(1.0) / np.float32(n - 1))
+    t[-1] = 1.0
+    return t
 
 
 def searchsorted(a, v, side: str = "left"):
     """Batched insertion indices: a [..., M] (sorted), v [..., N] -> [..., N].
 
-    A comparison count, as the JAX package computes it: side="left" counts
-    the a < v, side="right" the a <= v.
+    As the JAX package computes it: side="left" counts the a < v,
+    side="right" the a <= v. A comparison count up to COUNT_SEARCH_LIMIT
+    compares per row, torch.searchsorted (the same counts on sorted rows)
+    above it.
     """
+    if side not in ("left", "right"):
+        raise ValueError(side)
+    M, N = a.shape[-1], v.shape[-1]
+    if M * N > COUNT_SEARCH_LIMIT:
+        batch = torch.broadcast_shapes(a.shape[:-1], v.shape[:-1])
+        return torch.searchsorted(a.expand(batch + (M,)).contiguous(),
+                                  v.expand(batch + (N,)).contiguous(),
+                                  right=side == "right")
     if side == "left":
         cmp = a[..., None, :] < v[..., :, None]
-    elif side == "right":
-        cmp = a[..., None, :] <= v[..., :, None]
     else:
-        raise ValueError(side)
+        cmp = a[..., None, :] <= v[..., :, None]
     return cmp.sum(dim=-1)
 
 
@@ -51,6 +77,14 @@ def sample_pdf(bins, weights, u, eps: float = 1e-5):
     weights = weights + 1e-5  # prevent nans
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    return _invert_cdf(bins, cdf, u, eps)
+
+
+def sample_cdf(bins, cdf, u, eps: float = 1e-5):
+    """Like sample_pdf, from an (unnormalized, monotone) CDF over the first
+    M-1 bins: cdf [..., M-1], a leading 0 prepended here. The uniforms are
+    taken as given (VolSDF's opacity draws pass them unsorted)."""
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     return _invert_cdf(bins, cdf, u, eps)
 

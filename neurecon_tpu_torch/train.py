@@ -1,14 +1,16 @@
-"""NeuS training on one CUDA card (port of `neurecon_tpu/train.py`):
+"""NeuS and VolSDF training on one CUDA card (port of `neurecon_tpu/train.py`):
 
     python -m neurecon_tpu_torch.train --config configs/synthetic_smoke.yaml
     python -m neurecon_tpu_torch.train --config configs/synthetic_smoke.yaml \
         --device cpu --training:num_iters 40   # the plain path, on the CPU
+    python -m neurecon_tpu_torch.train --config configs/synthetic_quality_volsdf.yaml
 
 The loop of the JAX trainer on one device, eager: the dataset held on the
 device; the image order from `np.random.RandomState(seed + epoch)`; one step
-= sample rays, render (upsampler and forward kernels), loss, backward
-(through the eikonal backward kernel), Adam, schedule; validation renders at
-step 0 and every `i_val` steps; meshes of the surface (`exp_dir/meshes/
+= sample rays, render (the framework's sampler and the forward kernels),
+loss, backward (through the eikonal backward kernel), Adam, schedule;
+validation renders at step 0 and every `i_val` steps (with VolSDF's beta
+heat-map and upsampling-round images); meshes of the surface (`exp_dir/meshes/
 <step>.ply`, a `data.mesh_N`^3 grid over `data.volume_size`, queried through
 the sdf-only kernel) at steps 3000, 5000 and 7000 and every `i_val_mesh`
 steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
@@ -17,9 +19,9 @@ the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
 on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
 loop's checks: eager PyTorch has no dispatch to amortize.
 
-Not ported yet, and refused before the first step (ROADMAP.md): VolSDF and
-UNISURF, several devices, `training.overlap_sampler` and the profiler window
-(`training.profile_steps`).
+Not ported yet, and refused before the first step (ROADMAP.md): UNISURF,
+VolSDF's NeRF++ background, SIREN nets, several devices,
+`training.overlap_sampler` and the profiler window (`training.profile_steps`).
 """
 from __future__ import annotations
 
@@ -35,8 +37,7 @@ from neurecon_tpu_torch import config as config_lib
 from neurecon_tpu_torch.dataio import get_data
 from neurecon_tpu_torch.models.base import (count_parameters, make_optimizer,
                                             make_schedule)
-from neurecon_tpu_torch.models.frameworks import get_model
-from neurecon_tpu_torch.models.frameworks.neus import make_trainer
+from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
 from neurecon_tpu_torch.ops import get_rays, lin2img
 from neurecon_tpu_torch.training import (fast_forward_schedule, make_train_step,
                                          render_full_image)
@@ -66,7 +67,7 @@ def _refuse_unported(args) -> None:
     def refuse(what):
         raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
-    if args.model.framework != "NeuS":
+    if args.model.framework not in ("NeuS", "VolSDF"):
         refuse(f"training {args.model.framework}")
     ids = args.get("device_ids", -1)
     if isinstance(ids, (list, tuple)) and len(ids) > 1:
@@ -135,7 +136,8 @@ def main_function(args, device=None) -> dict:
                                               device=dev),
                 "rgb": torch.as_tensor(np.asarray(dataset.rgb_images, np.float32),
                                        device=dev).reshape(len(dataset), -1, 3)}
-    if bool(args.training.with_mask) and getattr(dataset, "object_masks", None) is not None:
+    if (bool(args.training.get("with_mask", False))
+            and getattr(dataset, "object_masks", None) is not None):
         data_dev["object_mask"] = torch.as_tensor(
             np.asarray(dataset.object_masks), device=dev).reshape(len(dataset), -1)
     if getattr(dataset, "masks_ignore", None) is not None:
@@ -143,7 +145,7 @@ def main_function(args, device=None) -> dict:
             np.asarray(dataset.masks_ignore), device=dev).reshape(len(dataset), -1)
     n_images = int(data_dev["c2w"].shape[0])
     N_rays = int(args.data.N_rays)
-    step_fn = make_train_step(make_trainer(model, args, render_kwargs_train),
+    step_fn = make_train_step(make_trainer(args, model, render_kwargs_train),
                               model, optimizer, scheduler)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
@@ -173,6 +175,12 @@ def main_function(args, device=None) -> dict:
         logger.add_imgs(to_img(ret["mask_volume"][..., None]), "val/pred_mask_volume", it)
         logger.add_imgs(to_img(ret["normals_volume"] / 2.0 + 0.5),
                         "val/predicted_normals", it)
+        if "beta_map" in ret:  # VolSDF diagnostics (ref volsdf.py:647-683)
+            bm = ret["beta_map"][..., None]
+            logger.add_imgs(to_img(bm / (bm.max() + 1e-10)), "val/beta_heat_map", it)
+            iu = ret["iter_usage"][..., None].astype(np.float32)
+            iu[iu == -1] = iu.max() + 1
+            logger.add_imgs(to_img(iu / (iu.max() + 1e-10)), "val/upsample_iters", it)
 
     mesh_dir = os.path.join(exp_dir, "meshes")
 

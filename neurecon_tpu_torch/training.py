@@ -34,8 +34,8 @@ def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
 
 
 def grad_norms_by_module(model) -> Dict[str, torch.Tensor]:
-    """Global grad norm per top-level entry of the JAX pytree (`ln_s`,
-    `implicit_surface`, `radiance_net`), as a device tensor each."""
+    """Global grad norm per top-level entry of the JAX pytree (`ln_s` or
+    `ln_beta`, `implicit_surface`, `radiance_net`), as a device tensor each."""
     sq = {}
     for name, p in model.named_parameters():
         if p.grad is not None:

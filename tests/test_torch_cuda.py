@@ -11,8 +11,10 @@ import torch
 
 from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
-from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, fused_upsample
+from neurecon_tpu_torch.ops import (fused_fine_sample, fused_mlp, fused_nablas,
+                                    fused_nablas_vjp, fused_upsample)
 from neurecon_tpu_torch.ops.ray import near_far_from_sphere
+from neurecon_tpu_torch.ops.sampling import linspace01
 from neurecon_tpu_torch.utils import mesh
 
 SMALL = dict(W=64, D=4, skips=[2], radius_init=0.5, embed_multires=4)
@@ -215,3 +217,72 @@ def test_sdf_forward_raises_on_an_unsupported_shape(cuda):
     with pytest.raises(TypeError):
         fused_mlp.fused_sdf_forward(surf, torch.zeros(10, 3, device=cuda, dtype=torch.float64))
     assert fused_mlp.fused_sdf_forward.launches == before
+
+
+def _fine_sample_both(cuda, surface_cfg, geo, N, n0, n_up, max_iter, perturb, beta=0.35,
+                      n_final=16):
+    """The VolSDF fine sampler through kernels (a)-(c) and kernel 4, and its
+    plain version, on rays from (0, 0, -3) inside the background sphere."""
+    surf = _model(surface_cfg, geo, cuda).implicit_surface
+    rays_o, rays_d = _rays(N, cuda)
+    far = torch.full((N, 1), 6.0, device=cuda)
+    d_init = (far * linspace01(n0, cuda)).contiguous()
+    if perturb:
+        u = torch.rand(N, (max_iter + 2) * n_final, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(5))
+    else:
+        u = fused_fine_sample.det_uniforms(n_final, max_iter + 2, N, cuda)
+    kw = dict(eps=0.1, max_iter=max_iter, max_bisection=10, n_final=n_final, n_up=n_up,
+              sphere_bg_r=3.0)
+    ab = (torch.tensor(1.0 / beta, device=cuda), torch.tensor(beta, device=cuda))
+    fns = (fused_fine_sample.launch_init, fused_fine_sample.launch_draw,
+           fused_fine_sample.launch_checkpoint, fused_mlp.fused_sdf_forward)
+    before = [f.launches for f in fns]
+    got = fused_fine_sample.fused_fine_sample(surf, rays_o, rays_d, d_init, far, *ab, u, **kw)
+    torch.cuda.synchronize()
+    launched = [f.launches - b for f, b in zip(fns, before)]
+    assert launched == ([1, max_iter, max_iter, 1 + max_iter] if N else [0, 0, 0, 0])
+    ref = fused_fine_sample.fine_sample_plain(surf, rays_o, rays_d, d_init, far, *ab, u, **kw)
+    return got, ref
+
+
+def _assert_fine_samples_close(got, ref, span=6.0):
+    """The JAX package's own bounds between its Pallas and plain samplers
+    (tests/test_fused_fine_sample.py): <= 2% of the fine depths beyond 1e-4
+    of the span, the beta map to rtol 1e-3 / atol 1e-5 (on >= 99% of the
+    rays, as chip_smoke.py phase 14 holds it), iter_usage equal on >= 90% of
+    the rays. The kernels' prefix sums run in another order than the plain
+    cumsum, and kernel 4's MLP sums in another order than cuBLAS, so a bound
+    that sits at eps can flip a round or a bisection step."""
+    (gd, gb, gi), (rd, rb, ri) = got, ref
+    assert gd.shape == rd.shape and gi.dtype == torch.int32
+    assert bool(torch.isfinite(gd).all()) and bool(torch.isfinite(gb).all())
+    assert float(((gd - rd).abs() > 1e-4 * span).float().mean()) <= 0.02
+    assert float(((gb - rb).abs() > 1e-5 + 1e-3 * rb.abs()).float().mean()) <= 0.01
+    assert float((gi == ri).float().mean()) >= 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo,N,n0,n_up,max_iter,perturb,beta", [
+    (dict(SMALL, skips=[1, 3]), 64, 203, 32, 32, 3, False, 0.35),
+    (dict(SMALL, skips=[1, 3]), 64, 203, 32, 32, 3, True, 0.35),
+    (dict(SMALL, sphere_residual=True), 64, 64, 50, 37, 2, True, 0.35),  # S = 124
+    (FLAGSHIP, 256, 1024, 512, 512, 6, True, 0.1),
+    (FLAGSHIP, 256, 0, 512, 512, 6, False, 0.1)])
+def test_fine_sample_kernels_match_plain(cuda, cfg, geo, N, n0, n_up, max_iter, perturb,
+                                         beta):
+    """Kernels (a)-(c) with kernel 4 against the plain fine sampler: W=64
+    with two skips on a ragged 203 rays, a sphere_residual prior with a
+    buffer of 124 entries (not a multiple of 32), the flagship widths on
+    1,024 rays (n0 = n_up = 512, 6 rounds: 3,584 depths a ray), and N = 0
+    (empty outputs, no launch). At beta_net 0.01 or 0.001 on these rays
+    3.3% of the fine depths moved beyond 1e-4 of the span (an H100): many
+    rays run all 60 bisection steps, and the bounds scale kernel 4's ~1e-6
+    sdf differences from cuBLAS by 1 / beta, so one flipped decision moves a
+    ray's beta+ and its draws. Those betas are held by chip_smoke.py phase
+    14 instead: end to end on the synthetic scene, and kernel by kernel on
+    the plain stages' inputs."""
+    got, ref = _fine_sample_both(cuda, cfg, geo, N, n0, n_up, max_iter, perturb, beta=beta)
+    assert got[0].shape == (N, 16) and got[1].shape == (N,) and got[2].shape == (N,)
+    if N:
+        _assert_fine_samples_close(got, ref)
