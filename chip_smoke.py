@@ -50,8 +50,9 @@ Phases, in order; any failure exits non-zero:
    grid): `meshes/00000030.ply` must be non-empty, written through kernel 4,
    and its seconds are printed on a line of their own.
 9. kernel 3's time at 130,560 points beside its plain version's and its
-   bound, its workspace bytes, its four CUDA kernels' device times from
-   torch.profiler, one training step split by CUDA events into kernel 2,
+   fp32 and 3xTF32 bounds, its workspace bytes, its four CUDA kernels' device
+   times from torch.profiler, the same at a VolSDF step's 197,632 points,
+   one training step split by CUDA events into kernel 2,
    kernel 1, kernel 3, the radiance forward, the Adam step and the rest, and
    the device's busy share over three steps (torch.profiler).
 10. kernel 4 (`sdf_forward`, the sdf-only forward) against its plain version
@@ -59,7 +60,8 @@ Phases, in order; any failure exits non-zero:
    the seed, and 4,099 more (a ragged last tile); max|diff| <= 1e-5
    max|sdf|, beside what zeroing the octave columns would move; times of
    the kernel and its plain version at 2^20 points; one 4,096-point call
-   split into weight packing, the occupancy query and the launch.
+   split into weight packing, the kept pack's lookup, the occupancy query
+   and the launch (a repeated call with unchanged weights must not pack).
 11. `extract_surface` through its `main_function` on the flagship
    geometric-init checkpoint at the CLI default N = 512: grid, triangulation
    and write seconds, kernel 4's launches and summed device ms, vertex and
@@ -130,6 +132,7 @@ import numpy as np
 import torch
 
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
 FLAGSHIP = {
@@ -184,9 +187,23 @@ def _wall_ms(fn, reps=50):
     return float(np.median(times))
 
 
-def _bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def _bound_ms(flops, nbytes, peak=FP32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bounds(flops, nbytes):
+    """The fp32 bound (CUDA cores) and the split-fp32 tensor-core bound (three
+    TF32 MMAs a multiply-add) of the same work, each (ms, bound_by)."""
+    return _bound_ms(flops, nbytes), _bound_ms(3.0 * flops, nbytes, TF32_PEAK)
+
+
+def _bound_fields(fp32, tf32, held_to):
+    """The kernels line's bound keys: `bound_ms` is the bound the kernel is
+    held to (its arithmetic's type), beside both."""
+    held = tf32 if held_to == "3xtf32" else fp32
+    return {"bound_ms": held[0], "bound_by": held[1], "bound_held_to": held_to,
+            "bound_ms_fp32": fp32[0], "bound_ms_3xtf32": tf32[0]}
 
 
 def _surface_macs(surface, sdf_only=False, backward=False):
@@ -549,9 +566,10 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
             rounds = torch.bincount((ri + 1).long(), minlength=max_iter + 2).tolist()
             lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
                                            n_up=n_up, max_iter=max_iter, n_final=n_final)
+            was = " (the CUDA-core fp32 kernel 4 read 3)" if beta == 0.001 else ""
             print(f"phase 14: sampler beta_net {beta} {mode}, 1,024 flagship rays, 3,584 depths: "
                   f"fine max|diff| {float(dd.max()):.3e}, share beyond 1e-4 span "
-                  f"{fine_share:.5f}; beta map off on {beta_off} rays; iter_usage equal on "
+                  f"{fine_share:.5f}; beta map off on {beta_off} rays{was}; iter_usage equal on "
                   f"{iter_eq:.4f}; rounds (-1, 0..6) {rounds}")
             print(f"phase 14: lockstep (each kernel on the plain stage's inputs): "
                   f"{json.dumps(lock)}; merged depths equal {merged_equal}")
@@ -741,7 +759,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
           + "; plain stages " + ", ".join(f"{k} {v:.3f} ms" for k, v in p_ms.items())
           + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
           + f"; the sampler's MLP {mlp_flops / 1e12:.3f} TFLOP (fp32 bound "
-          f"{1e3 * mlp_flops / FP32_PEAK:.2f} ms); workspace "
+          f"{1e3 * mlp_flops / FP32_PEAK:.2f} ms, 3xTF32 bound "
+          f"{3e3 * mlp_flops / TF32_PEAK:.2f} ms); workspace "
           f"{ws_bytes} bytes {tag}")
     sampler_parts = {"sampler (whole)": (ffs, "fused_fine_sample"), **parts}
     step_total, split, busy = _step_split(
@@ -775,7 +794,7 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                      "replaces": f"neurecon_tpu/ops/fused_fine_sample.py:{line}",
                      "launches": t_launches[name], "max_abs_err": k_err[name],
                      "ms": k_ms[name], "plain_ms": p_ms[name], "bound_ms": bounds[name][0],
-                     "bound_by": bounds[name][1], "library_ms": None,
+                     "bound_by": bounds[name][1], "bound_held_to": "fp32", "library_ms": None,
                      "per": "one sampler call of 1,024 flagship rays"})
     return 0, rows, t_launches
 
@@ -801,7 +820,8 @@ def main(argv=None):
     from neurecon_tpu_torch import train
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
     from neurecon_tpu_torch.ops import (_build, fused_fine_sample, fused_mlp, fused_nablas,
-                                        fused_nablas_vjp, fused_upsample, get_rays)
+                                        fused_nablas_vjp, fused_upsample, get_rays,
+                                        surface_pack)
     from neurecon_tpu_torch.models.ray_casting import make_surface_render_fn
     from neurecon_tpu_torch.tools import extract_surface, render_view
     from neurecon_tpu_torch.tools.eval_mesh import chamfer_distance
@@ -972,7 +992,8 @@ def main(argv=None):
     flops1 = 2.0 * _surface_macs(surface, sdf_only=False) * M
     bytes1 = 4.0 * (M * 3 + M * (1 + 3 + surface.W_geo_feat)
                     + sum(p.numel() for p in surface.parameters()))
-    b1, by1 = _bound_ms(flops1, bytes1)
+    bb1 = _bounds(flops1, bytes1)
+    b1 = bb1[0][0]
     ms2 = _time_ms(lambda: fused_upsample.fused_neus_upsample(
         surface, rays_o, rays_d, d_coarse, u_det, n_iters=4, n_per_iter=16))
     pms2 = _time_ms(lambda: fused_upsample.neus_upsample_plain(
@@ -982,7 +1003,8 @@ def main(argv=None):
                     + sum(p.numel() for p in surface.parameters()))
     b2, by2 = _bound_ms(flops2, bytes2)
     print(f"phase 5: nablas_forward {M} points: {ms1:.3f} ms (plain {pms1:.3f} ms, "
-          f"fp32 bound {b1:.3f} ms, {flops1 / 1e9:.1f} GFLOP) {tag}")
+          f"fp32 bound {b1:.3f} ms, 3xTF32 bound {bb1[1][0]:.3f} ms, {flops1 / 1e9:.1f} "
+          f"GFLOP) {tag}")
     print(f"phase 5: neus_upsample 4096 rays: {ms2:.3f} ms (plain {pms2:.3f} ms, "
           f"fp32 bound {b2:.3f} ms, {flops2 / 1e9:.1f} GFLOP) {tag}")
     print(f"phase 5: render_view s/frame {frames['seconds']} {tag}")
@@ -1144,11 +1166,29 @@ def main(argv=None):
     flops3 = 2.0 * _surface_macs(surface, backward=True) * M3
     bytes3 = 4.0 * (M3 * (3 + 1 + 3 + surface.W_geo_feat + 3)
                     + 2 * sum(p.numel() for p in surface.parameters()))
-    b3, by3 = _bound_ms(flops3, bytes3)
+    bb3 = _bounds(flops3, bytes3)
     print(f"phase 9: nablas_backward {M3} points: {ms3:.3f} ms (plain {pms3:.3f} ms, "
-          f"fp32 bound {b3:.3f} ms, {flops3 / 1e9:.1f} GFLOP, workspace {ws_bytes} bytes) {tag}")
+          f"fp32 bound {bb3[0][0]:.3f} ms, 3xTF32 bound {bb3[1][0]:.3f} ms, "
+          f"{flops3 / 1e9:.1f} GFLOP, workspace {ws_bytes} bytes) {tag}")
     print(f"phase 9: nablas_backward's CUDA kernels (torch.profiler, one call): "
           f"{_profile_kernels(run3)} {tag}")
+    # a VolSDF step's 197,632 points (1,024 rays x 193, phase 16's shapes): the
+    # step's points and cotangents, then the first 67,072 of them again
+    M9 = 197632
+    x9 = torch.cat([x3, x3[:M9 - M3]])
+    cots9 = [torch.cat([c, c[:M9 - M3]]) for c in cots]
+
+    def run9():
+        fused_nablas_vjp.fused_nablas_vjp(surface, x9, ws3, bs3, *cots9)
+    ms9 = _time_ms(run9)
+    bb9 = _bounds(2.0 * _surface_macs(surface, backward=True) * M9,
+                  4.0 * (M9 * (3 + 1 + 3 + surface.W_geo_feat + 3)
+                         + 2 * sum(p.numel() for p in surface.parameters())))
+    print(f"phase 9: nablas_backward {M9} points: {ms9:.3f} ms (fp32 bound {bb9[0][0]:.3f} ms, "
+          f"3xTF32 bound {bb9[1][0]:.3f} ms, workspace "
+          f"{fused_nablas_vjp.fused_nablas_vjp.workspace_bytes} bytes); CUDA kernels "
+          f"{_profile_kernels(run9)} {tag}")
+    del x9, cots9
     step_total, split, busy = _step_split(
         targs, dev, {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
                      "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
@@ -1185,24 +1225,35 @@ def main(argv=None):
     ms4 = _time_ms(lambda: fused_mlp.fused_sdf_forward(surface, x10))
     pms4 = _time_ms(lambda: fused_mlp.sdf_forward_plain(surface, x10))
     flops4 = 2.0 * _surface_macs(surface, sdf_only=True) * M4
-    b4, by4 = _bound_ms(flops4, 4.0 * (M4 * (3 + 1) + n_params))
+    bb4 = _bounds(flops4, 4.0 * (M4 * (3 + 1) + n_params))
     print(f"phase 10: sdf_forward {M4} points: {ms4:.3f} ms (plain {pms4:.3f} ms, "
-          f"fp32 bound {b4:.3f} ms, {flops4 / 1e9:.1f} GFLOP) {tag}")
+          f"fp32 bound {bb4[0][0]:.3f} ms, 3xTF32 bound {bb4[1][0]:.3f} ms, "
+          f"{flops4 / 1e9:.1f} GFLOP) {tag}")
     # one call at a sphere-tracing step's size (a 4,096-ray chunk) split into
-    # the weight packing, the occupancy query (which the wrapper asks once
-    # and keeps), and the launch with packed weights
+    # the weight packing (a pack made anew, which the wrapper keeps while the
+    # weights are unchanged), the kept pack's lookup, the occupancy query
+    # (asked once and kept), and the launch with packed weights
     x4k = x10[:4096].contiguous()
-    packed = fused_nablas.pack_surface(surface)
+    packed = surface_pack.packed_surface(surface)
     query = _build.load("sdf_forward").ntt_sdf_forward_resident
+    packs0 = surface_pack.packed_surface.packs
     split4 = {"whole call (host)": _wall_ms(lambda: fused_mlp.fused_sdf_forward(surface, x4k)),
-              "pack_surface (host)": _wall_ms(lambda: fused_nablas.pack_surface(surface)),
-              "occupancy query (host)": _wall_ms(lambda: query(surface.input_ch, packed[2])),
+              "pack, made anew (host)": _wall_ms(lambda: surface_pack.pack(surface)),
+              "kept pack's lookup (host)": _wall_ms(
+                  lambda: surface_pack.packed_surface(surface)),
+              "occupancy query (host)": _wall_ms(lambda: query(packed.c_pad, packed.rows)),
               "launch, packed (host)": _wall_ms(
-                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, *packed)),
+                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, packed)),
               "kernel (device)": _time_ms(
-                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, *packed), reps=50)}
+                  lambda: fused_mlp.launch_sdf_forward(surface, x4k, packed), reps=50)}
+    repacks = surface_pack.packed_surface.packs - packs0
     print("phase 10: sdf_forward on 4,096 points, median ms per call: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in split4.items()) + f" {tag}")
+          + ", ".join(f"{k} {v:.4f}" for k, v in split4.items())
+          + f"; packs made by the wrapper during the split: {repacks} {tag}")
+    if repacks:
+        print("FAIL phase 10: a repeated call with unchanged weights packed them again",
+              file=sys.stderr)
+        return 1
 
     # ---- phase 11: extract_surface through its main_function, N = 512
     ckpt0 = CheckpointIO(work.name).save("geometric_init.pt", 0,
@@ -1217,8 +1268,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     by_path["extract_surface"] = read_counts()
     ms4_grid = sum(a.elapsed_time(b) for a, b in spans4)
-    b4_grid, _ = _bound_ms(2.0 * _surface_macs(surface, sdf_only=True) * 512 ** 3,
-                           4.0 * (512 ** 3 * (3 + 1) + n_params))
+    bb4_grid = _bounds(2.0 * _surface_macs(surface, sdf_only=True) * 512 ** 3,
+                       4.0 * (512 ** 3 * (3 + 1) + n_params))
+    b4_grid = bb4_grid[1][0]
     v512, f512 = mesh_util.read_ply(ply512)
     radii = np.linalg.norm(v512, axis=-1) if len(v512) else np.zeros(1)
     closed = len(f512) > 0 and _closed(torch.as_tensor(f512, device=dev))
@@ -1229,7 +1281,8 @@ def main(argv=None):
     print(f"phase 11: extract_surface N=512: grid {ext['grid_s']:.3f} s, triangulation "
           f"{ext['triangulate_s']:.3f} s, write {ext['write_s']:.3f} s; launches "
           f"{by_path['extract_surface']}; sdf_forward device time {ms4_grid:.1f} ms over "
-          f"{len(spans4)} calls (fp32 bound {b4_grid:.1f} ms); {len(v512)} verts, "
+          f"{len(spans4)} calls (fp32 bound {bb4_grid[0][0]:.1f} ms, 3xTF32 bound "
+          f"{b4_grid:.1f} ms); {len(v512)} verts, "
           f"{len(f512)} faces, closed {closed}; vertex radius mean {radii.mean():.5f} "
           f"std {radii.std():.5f}, min {radii.min():.5f}, max {radii.max():.5f}; max|sdf| at "
           f"the vertices {on_surface:.3e} ({on_surface / cell:.3f} cells) {tag}")
@@ -1244,7 +1297,8 @@ def main(argv=None):
              for g in (g_k, g_p)]
     cd = chamfer_distance(*verts)[0] if min(map(len, verts)) else float("inf")
     print(f"phase 11: 256^3 grid, kernel vs plain: max|diff| {rel_g:.2e} of max, {flips} "
-          f"sign flips; meshes {len(verts[0])} / {len(verts[1])} verts, Chamfer {cd:.3e}")
+          f"sign flips (the CUDA-core fp32 kernel 4 read 3); meshes {len(verts[0])} / "
+          f"{len(verts[1])} verts, Chamfer {cd:.3e}")
     del g_k, g_p
     if (rel_g > 1e-5 or cd >= 1e-3 * 2.0 or not closed or on_surface > 0.1 * cell
             or by_path["extract_surface"]["sdf_forward"] == 0):
@@ -1337,25 +1391,25 @@ def main(argv=None):
          "source": "neurecon_tpu_torch/csrc/nablas_forward.cu",
          "replaces": "neurecon_tpu/ops/fused_nablas.py:74",
          "launches": launches["nablas_forward"], "max_abs_err": max(errs),
-         "ms": ms1, "plain_ms": pms1, "bound_ms": b1, "bound_by": by1,
+         "ms": ms1, "plain_ms": pms1, **_bound_fields(*bb1, "fp32"),
          "library_ms": None},
         {"name": "neus_upsample", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/neus_upsample.cu",
          "replaces": "neurecon_tpu/ops/fused_upsample.py:272",
          "launches": launches["neus_upsample"], "max_abs_err": k2_err["det"],
          "ms": ms2, "plain_ms": pms2, "bound_ms": b2, "bound_by": by2,
-         "library_ms": None},
+         "bound_held_to": "fp32", "library_ms": None},
         {"name": "nablas_backward", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/nablas_backward.cu",
          "replaces": "neurecon_tpu/ops/fused_nablas_vjp.py:120",
          "launches": launches["nablas_backward"], "max_abs_err": k3_err,
-         "ms": ms3, "plain_ms": pms3, "bound_ms": b3, "bound_by": by3,
-         "library_ms": None},
+         "ms": ms3, "plain_ms": pms3, **_bound_fields(*bb3, "3xtf32"),
+         "library_ms": None, "ms_197632": ms9, "bound_ms_197632": bb9[1][0]},
         {"name": "sdf_forward", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/sdf_forward.cu",
          "replaces": "neurecon_tpu/ops/fused_mlp.py:125",
          "launches": launches["sdf_forward"], "max_abs_err": max(errs4),
-         "ms": ms4, "plain_ms": pms4, "bound_ms": b4, "bound_by": by4,
+         "ms": ms4, "plain_ms": pms4, **_bound_fields(*bb4, "3xtf32"),
          "library_ms": None, "points": M4, "ms_grid512": ms4_grid,
          "bound_ms_grid512": b4_grid, "ms_split_4096": split4},
     ] + vol_rows

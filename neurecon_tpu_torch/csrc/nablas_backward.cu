@@ -25,46 +25,64 @@
 //            ending in x_bar through the encoding (plus phase 3's
 //            n_bar * g_e * d^2 e / d x^2 term).
 //
-// What bounds it: arithmetic. Per point at the flagship widths, 4 passes
-// through the hidden chain plus the weight-gradient products, ~5.9 MFLOP,
-// against ~1 KB of cotangents in and 12 B out; the weight grads are summed
-// over all M points.
+// What bounds it. Per point at the flagship widths, 4 passes through the
+// hidden chain in the tile pass plus the two weight-gradient products in the
+// reduction, ~5.8 MFLOP, against ~1 KB of cotangents in and 12 B out: 753
+// GFLOP at a training step's 130,560 points, 11.2 ms at the card's fp32
+// rate outside the tensor cores and 4.6 ms as split-fp32 (three TF32 MMAs a
+// multiply-add at 495 TFLOP/s). Both passes run their products on the
+// tensor cores (surface_mma.cuh), so the kernel is held to the 3xTF32
+// bound; its device-memory traffic (the workspace, 4.6 GB written once and
+// read once by the reduction, and the slope scratch below) is under 3 ms at
+// 3.35 TB/s.
 //
 // Design. The TPU kernel keeps ~43 KB of per-point state (a_l, h_l, u_l,
 // q_l, abar_l) in 100 MB of VMEM and sums the weight grads in VMEM from
 // grid step to grid step. A Hopper block has 227 KB and its blocks run in
 // no order. So the work is split in two hand-written passes:
-//   1. `backward_tile_kernel`: one block of 256 threads per tile of 16
-//      points runs phases 1-4 with the surface_mlp.cuh staged products for
-//      every chain product. The activation slopes s_l (128 KB per tile at
-//      D=8, W=256) go to a device-memory scratch of the block's own
-//      (written once, read three times; 50 MB for the whole persistent
-//      grid, so mostly L2), so a block needs ~71 KB of shared memory and
-//      three blocks share an SM to hide the weight stream's L2 latency
-//      (1.5x faster than one block per SM with the slopes in shared
-//      memory). It
-//      writes x_bar, and, per layer, the operands of the weight gradient to
-//      a device-memory workspace: A = [q_l ; abar_l] and B = [gin_l ; in_l],
-//      so that W_bar_l = sum over 2M rows of A (x) B; and per tile the
-//      column sums of abar_l, y_bar and ubar_D (the bias grads, gsdfbar).
-//      The workspace is tile-blocked ([tile][column][16 points]), the
-//      shared-memory layout of the activations, so each block writes
-//      contiguous 16-float rows.
-//   2. `outer_sum_kernel`: a shared-memory-tiled fp32 sum of outer
-//      products over the workspace rows, split along the rows into
-//      `n_split` partial sums per 64 x 64 output tile; `colsum_kernel` sums
-//      the per-tile bias rows the same way, and `split_sum_kernel` adds the
-//      partials in a fixed order. No atomics: the result does not change
-//      from run to run.
-// fp32 FMA throughout; no tensor cores yet.
-#include "surface_mlp.cuh"
+//   1. `backward_tile_kernel`: a persistent grid of 512-thread blocks, one
+//      per SM, walks tiles of 128 points; each runs phases 1-4 with every
+//      chain product (the forward, the nablas sweep, the pushed-forward
+//      nablas cotangent, the down-sweep) on the split-fp32 tensor-core
+//      product, each weight fetched from L2 once per 128 points. Every
+//      product reads its input from one activation buffer and its epilogue
+//      overwrites it in place. Shared memory (floats, flagship widths):
+//      xs, n_bar, the phase-3 x_bar term [4][128] each; the encoding (then
+//      n_bar d e / d x) and g_e [40][136] each; the activations [264][136];
+//      the weight stage [2][16][264]: 227,072 bytes, one block an SM. The
+//      activation slopes s_l (D x 264 x 128 floats, 1.08 MB a tile) do not
+//      fit beside them; they go to a device-memory scratch of the block's
+//      own (143 MB for the grid, past the 50 MB L2), written once and read
+//      three times: ~4.4 GB of traffic at 130,560 points, ~1.3 ms at HBM's
+//      rate, which is less than recomputing them (a fifth forward pass,
+//      0.9 ms of 3xTF32 work at the bound, several at the kernel's rate).
+//      The pass writes x_bar, and, per layer, the operands of the weight
+//      gradient to a device-memory workspace: A = [q_l ; abar_l] and
+//      B = [gin_l ; in_l], so that W_bar_l = sum over 2M rows of A (x) B;
+//      and per tile the column sums of abar_l, y_bar and ubar_D (the bias
+//      grads, gsdfbar). The workspace is tile-blocked ([tile][column][128
+//      points]), so each block writes contiguous 128-float rows.
+//   2. `outer_sum_kernel`: the sum of outer products over the workspace
+//      rows, per layer a GEMM of depth 2M (261,120 at a step's 130,560
+//      points), on the tensor cores with the same split-fp32 scheme, split
+//      along the rows into `n_split` partial sums per 64 x 64 output tile;
+//      `colsum_kernel` sums the per-tile bias rows the same way, and
+//      `split_sum_kernel` adds the partials in a fixed order. No atomics:
+//      the result does not change from run to run.
+#include "surface_mma.cuh"
 
 namespace ntt {
+
+constexpr int BWD_TILE = 128;  // points per tile of the tile pass
+constexpr int BWD_KC = 16;     // weight rows per staged chunk
+constexpr int BWD_NBUF = 2;    // staged chunks: one computed, one in flight
+constexpr int BWD_STAGE = tc::stage_floats(BWD_KC, BWD_NBUF, false);
+constexpr int THREADS = tc::Tile<BWD_TILE>::THREADS;
 
 constexpr int JOB = 12;  // int64 fields per layer record of the backward
 // Layer record (built by ops/fused_nablas_vjp.py::_layout): offsets in
 // floats into the workspace of A and of B, their column counts (multiples
-// of 64), out and in, the reduction depth in 16-row tiles, the offset of
+// of 64), out and in, the reduction depth in 16-row k-tiles, the offset of
 // W_bar_l in the flat gradient, the column of b_bar_l in a bias row, the
 // first output tile of the layer in the reduction grid, the number of row
 // pairs (2 for hidden layers: [q ; abar] and [gin ; in]; 1 for the final
@@ -92,21 +110,25 @@ __device__ __forceinline__ Job job_of(const long long* jobs, int l) {
   return J;
 }
 
-// Copy `rows` rows of a [rows][TILE] block between shared memory and the
-// workspace (both 16-byte aligned).
+// Copy `rows` rows of an activation block ([rows][LDV] in shared memory) to
+// the workspace ([rows][P], contiguous).
+template <int P>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int rows) {
-  const float4* s = reinterpret_cast<const float4*>(src);
+  constexpr int LDV = tc::Tile<P>::LDV, Q = P / 4;
   float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < rows * TILE / 4; i += blockDim.x) d[i] = s[i];
+  for (int i = threadIdx.x; i < rows * Q; i += THREADS)
+    d[i] = *reinterpret_cast<const float4*>(src + (i / Q) * LDV + 4 * (i % Q));
 }
 
 // Sum over the tile's points of each of `rows` rows -> dst[row].
+template <int P>
 __device__ __forceinline__ void row_sums(float* dst, const float* src, int rows) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const float4* s = reinterpret_cast<const float4*>(src + r * TILE);
+  constexpr int LDV = tc::Tile<P>::LDV;
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    const float4* s = reinterpret_cast<const float4*>(src + r * LDV);
     float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < TILE / 4; ++i) {
+#pragma unroll 8
+    for (int i = 0; i < P / 4; ++i) {
       const float4 v = s[i];
       acc += (v.x + v.y) + (v.z + v.w);
     }
@@ -116,6 +138,7 @@ __device__ __forceinline__ void row_sums(float* dst, const float* src, int rows)
 
 // Channel c of the encoding at the tile's point p: the coordinate it reads
 // (r), d e_c / d x_r (J) and d^2 e_c / d x_r^2 (J2).
+template <int P>
 __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
                                           float& J, float& J2) {
   if (c < 3) {
@@ -127,7 +150,7 @@ __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
   const int j = c - 3, f = j / 6, r6 = j % 6;
   r = r6 % 3;
   const float fr = ldexpf(1.f, f);
-  const float ph = xs[r * TILE + p] * fr;
+  const float ph = xs[r * P + p] * fr;
   const float sn = sinf(ph), cs = cosf(ph);
   if (r6 < 3) {  // sin(fr x)
     J = fr * cs;
@@ -138,366 +161,382 @@ __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
   }
 }
 
-// Phases 1-4 on point tile T, with the block's shared memory at `xs` and
-// its slope scratch at `deriv`.
+// The reverse product g_in = g W_l (K = the layer's padded outputs, N its
+// padded inputs) over `buf`, written back over it.
+template <int P>
+__device__ __forceinline__ void reverse_product(const tc::Mlp& m, const tc::Layer& L,
+                                                float* buf, float* stage) {
+  constexpr int LDV = tc::Tile<P>::LDV;
+  float acc[tc::Tile<P>::MT][8][4];
+  tc::product<P, BWD_KC, BWD_NBUF, false>(L.w, m.plane, L.N, L.K, buf, stage, acc);
+  tc::each_output<P>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
+  __syncthreads();
+}
+
+// Phases 1-4 on point tile T, with the block's shared memory at `base` and
+// its slope scratch at `deriv` ([D][rows][P]).
+template <int P>
 __device__ __forceinline__ void
-backward_tile(const Mlp& m, const float* __restrict__ x, int M, int Mtiles,
+backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
               const float* __restrict__ cot_sdf, const float* __restrict__ cot_nab,
               const float* __restrict__ cot_h, int geo_dim,
               const long long* __restrict__ jobs, float* work, float* bias_part,
-              int nb, int rows, int c4, float* __restrict__ xbar, int T,
-              float* deriv, float* xs) {  // xs: [4][TILE] points
-  float* nbar = xs + 4 * TILE;                   // [4][TILE] nablas cotangent
-  float* xb = nbar + 4 * TILE;                   // [4][TILE] x_bar, phase 3 term
-  float* emb = xb + 4 * TILE;                    // [c4][TILE] encoding (phase 1)
-  float* gebar = emb;                            // n_bar (d e / d x), phase 3 on
-  float* ge = emb + c4 * TILE;                   // [c4][TILE] g_e, then e_bar
-  float* bufA = ge + c4 * TILE;                  // [rows][TILE]
-  float* bufB = bufA + rows * TILE;              // [rows][TILE]
-  float* stage = bufB + rows * TILE;             // STAGE_FLOATS
+              int nb, float* __restrict__ xbar, int T, float* deriv, float* base) {
+  constexpr int LDV = tc::Tile<P>::LDV;
+  float* xs = base;                    // [4][P] points
+  float* nbar = xs + 4 * P;            // [4][P] nablas cotangent
+  float* xb = nbar + 4 * P;            // [4][P] x_bar, phase 3 term
+  float* emb = xb + 4 * P;             // [c_pad][LDV] encoding (phase 1)
+  float* gebar = emb;                  // n_bar (d e / d x), phase 3 on
+  float* ge = emb + m.c_pad * LDV;     // [c_pad][LDV] g_e, then e_bar
+  float* buf = ge + m.c_pad * LDV;     // [rows][LDV] activations
+  float* stage = buf + m.rows * LDV;   // BWD_STAGE
   const int D = m.n_layers - 1;
-  const long p0 = (long)T * TILE;
+  const long p0 = (long)T * P;
   const int C = m.in_ch;
   const float inv_sqrt2 = 1.f / 1.41421356237f;
   float* bias_row = bias_part + (size_t)T * nb;
-  // the workspace slot of (layer record J, operand base, its ld, pair k)
-  auto slot = [&](long long base, long long ld, int k) {
-    return work + base + ((size_t)k * Mtiles + T) * ld * TILE;
+  // the workspace slot of (operand base, its ld, pair k) for this tile
+  auto slot = [&](long long off, long long ld, int k) {
+    return work + off + ((size_t)k * Mtiles + T) * ld * P;
   };
+  auto slope = [&](int l) { return deriv + (size_t)l * m.rows * P; };
 
   // rows past M get zero cotangents, so they add nothing to any gradient
-  for (int idx = threadIdx.x; idx < 3 * TILE; idx += blockDim.x) {
-    const int c = idx / TILE, p = idx % TILE;
+  for (int idx = threadIdx.x; idx < 3 * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
     const bool in = p0 + p < M;
     xs[idx] = in ? x[(p0 + p) * 3 + c] : 0.f;
     nbar[idx] = in ? cot_nab[(p0 + p) * 3 + c] : 0.f;
     xb[idx] = 0.f;
   }
-  for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x) ge[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS)
+    ge[(idx / P) * LDV + idx % P] = 0.f;
   __syncthreads();
-  embed_tile(m, xs, emb);
+  tc::embed_tile<P>(m, xs, emb);
   __syncthreads();
 
-  // ---- phase 1: forward; keep s_l (shared) and in_l (workspace, B pair 1)
-  float* in = emb;
-  float* out = bufA;
+  // ---- phase 1: forward; keep s_l (scratch) and in_l (workspace, B pair 1)
   for (int l = 0; l < D; ++l) {
-    const Layer L = layer_of(m, l);
+    const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
-    if (L.skip) {
+    if (L.skip) {  // [h, e] * (1 / sqrt(2)), the encoding right after h
       const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x)
-        in[h_dim * TILE + idx] = emb[idx];
+      for (int idx = threadIdx.x; idx < (L.K - h_dim) * P; idx += THREADS) {
+        const int c = idx / P, p = idx % P;
+        buf[(h_dim + c) * LDV + p] = c < C ? emb[c * LDV + p] : 0.f;
+      }
       __syncthreads();
-      for (int idx = threadIdx.x; idx < L.in_dim * TILE; idx += blockDim.x)
-        in[idx] = in[idx] * inv_sqrt2;
+      for (int idx = threadIdx.x; idx < L.K * P; idx += THREADS)
+        buf[(idx / P) * LDV + idx % P] *= inv_sqrt2;
       __syncthreads();
     }
-    copy_rows(slot(J.b_off, J.ldB, 1), in, L.in_dim);
-    hidden_tile(L, in, out, deriv + (size_t)l * m.wmax * TILE, stage);
+    const float* in = l == 0 ? emb : buf;
+    copy_rows<P>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
+    float acc[tc::Tile<P>::MT][8][4];
+    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, in, stage, acc);
+    tc::softplus_out<P>(L, acc, buf, slope(l));
     __syncthreads();
-    in = out;
-    out = (out == bufA) ? bufB : bufA;
   }
-  const Layer LD = layer_of(m, D);
+  const tc::Layer LD = tc::layer_of(m, D);
   const Job JD = job_of(jobs, D);
-  copy_rows(slot(JD.b_off, JD.ldB, 0), in, LD.in_dim);  // h_D
+  copy_rows<P>(slot(JD.b_off, JD.ldB, 0), buf, LD.in_dim);  // h_D
   __syncthreads();
 
   // ---- phase 2: the nablas sweep; q_l to the workspace (A pair 0), g_e kept
-  float* g = (in == bufA) ? bufB : bufA;
-  float* other = in;
-  for (int idx = threadIdx.x; idx < LD.in_dim * TILE; idx += blockDim.x)
-    g[idx] = __ldg(LD.w + idx / TILE);
+  for (int idx = threadIdx.x; idx < LD.K * P; idx += THREADS)
+    buf[(idx / P) * LDV + idx % P] = __ldg(LD.w + idx / P);  // W_D[0, :]
   __syncthreads();
   for (int l = D - 1; l >= 0; --l) {
-    const Layer L = layer_of(m, l);
+    const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
-    const float* dl = deriv + (size_t)l * m.wmax * TILE;
-    for (int idx = threadIdx.x; idx < L.out_dim * TILE; idx += blockDim.x)
-      g[idx] *= dl[idx];
+    const float* sl = slope(l);
+    for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS)
+      buf[(idx / P) * LDV + idx % P] *= sl[idx];  // padded rows: slope 0
     __syncthreads();
-    copy_rows(slot(J.a_off, J.ldA, 0), g, L.out_dim);
-    {
-      float acc[1][4][4];
-      staged_product<1>(L.w, L.out_dim, L.ld_w, g, stage, acc);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * col_group() + c;
-        if (i < L.in_dim)
-          *reinterpret_cast<float4*>(other + i * TILE + 4 * point_group()) =
-              make_float4(acc[0][c][0], acc[0][c][1], acc[0][c][2], acc[0][c][3]);
-      }
-    }
-    __syncthreads();
+    copy_rows<P>(slot(J.a_off, J.ldA, 0), buf, L.out_dim);
+    reverse_product<P>(m, L, buf, stage);
     if (l == 0) {
-      for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x)
-        ge[idx] += other[idx];
+      for (int idx = threadIdx.x; idx < C * P; idx += THREADS) {
+        const int at = (idx / P) * LDV + idx % P;
+        ge[at] += buf[at];
+      }
     } else if (L.skip) {
       const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.in_dim * TILE; idx += blockDim.x) {
-        const float v = other[idx] * inv_sqrt2;
-        if (idx < h_dim * TILE) other[idx] = v;
-        else ge[idx - h_dim * TILE] += v;
+      for (int idx = threadIdx.x; idx < L.in_dim * P; idx += THREADS) {
+        const int r = idx / P, p = idx % P;
+        const float v = buf[r * LDV + p] * inv_sqrt2;
+        if (r < h_dim) buf[r * LDV + p] = v;
+        else ge[(r - h_dim) * LDV + p] += v;
       }
     }
     __syncthreads();
-    float* t = g;
-    g = other;
-    other = t;
   }
 
   // ---- phase 3: n_bar pushed forward through phase 2's chain
-  for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x) {
-    const int c = idx / TILE, p = idx % TILE;
-    int r;
-    float J, J2;
-    enc_deriv(xs, c, p, r, J, J2);
-    gebar[idx] = nbar[r * TILE + p] * J;
+  for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS) {
+    const int c = idx / P, p = idx % P;
+    float v = 0.f;
+    if (c < C) {
+      int r;
+      float J, J2;
+      enc_deriv<P>(xs, c, p, r, J, J2);
+      v = nbar[r * P + p] * J;
+    }
+    gebar[c * LDV + p] = v;
   }
-  for (int idx = threadIdx.x; idx < 3 * TILE; idx += blockDim.x) {
-    const int k = idx / TILE, p = idx % TILE;
+  for (int idx = threadIdx.x; idx < 3 * P; idx += THREADS) {
+    const int k = idx / P, p = idx % P;
     float s = 0.f;
     for (int c = 3; c < C; ++c) {
       int r;
       float J, J2;
-      enc_deriv(xs, c, p, r, J, J2);
-      if (r == k) s += ge[c * TILE + p] * J2;
+      enc_deriv<P>(xs, c, p, r, J, J2);
+      if (r == k) s += ge[c * LDV + p] * J2;
     }
     xb[idx] = nbar[idx] * s;
   }
   __syncthreads();
-  float* ub = bufA;  // ubar_l (unused at l = 0)
   for (int l = 0; l < D; ++l) {
-    const Layer L = layer_of(m, l);
+    const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
-    const float* dl = deriv + (size_t)l * m.wmax * TILE;
-    const float* gin;
-    if (l == 0) {
-      gin = gebar;
-    } else if (L.skip) {
+    const float* sl = slope(l);
+    if (L.skip) {  // [ubar, gebar] * (1 / sqrt(2))
       const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.in_dim * TILE; idx += blockDim.x) {
-        const float v = idx < h_dim * TILE ? ub[idx] : gebar[idx - h_dim * TILE];
-        ub[idx] = v * inv_sqrt2;
+      for (int idx = threadIdx.x; idx < L.K * P; idx += THREADS) {
+        const int r = idx / P, p = idx % P;
+        const float v = r < h_dim ? buf[r * LDV + p]
+                                  : (r - h_dim < C ? gebar[(r - h_dim) * LDV + p] : 0.f);
+        buf[r * LDV + p] = v * inv_sqrt2;
       }
       __syncthreads();
-      gin = ub;
-    } else {
-      gin = ub;
     }
-    copy_rows(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
-    float* nxt = (gin == bufA) ? bufB : bufA;
-    float acc[1][4][4];
-    staged_product<1>(L.wT, L.in_dim, L.ld_wT, gin, stage, acc);  // qbar_l
+    const float* gin = l == 0 ? gebar : buf;
+    copy_rows<P>(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
+    float acc[tc::Tile<P>::MT][8][4];
+    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, gin, stage, acc);  // qbar_l
     const float* qs = slot(J.a_off, J.ldA, 0);
     float* ab = slot(J.a_off, J.ldA, 1);
-    const int q0 = 4 * point_group();
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int o = 4 * col_group() + c;
-      if (o >= L.out_dim) break;
-      const int at = o * TILE + q0;
-      const float4 s = *reinterpret_cast<const float4*>(dl + at);
-      const float4 q = *reinterpret_cast<const float4*>(qs + at);
-      const float a0 = acc[0][c][0], a1 = acc[0][c][1], a2 = acc[0][c][2],
-                  a3 = acc[0][c][3];
-      *reinterpret_cast<float4*>(ab + at) = make_float4(
-          100.f * a0 * q.x * (1.f - s.x), 100.f * a1 * q.y * (1.f - s.y),
-          100.f * a2 * q.z * (1.f - s.z), 100.f * a3 * q.w * (1.f - s.w));
-      *reinterpret_cast<float4*>(nxt + at) =
-          make_float4(a0 * s.x, a1 * s.y, a2 * s.z, a3 * s.w);
-    }
+    tc::each_output<P>(acc, L.N, [&](int o, int p, float a) {
+      float u = 0.f;
+      if (o < L.out_dim) {
+        const float s = sl[o * P + p];
+        ab[o * P + p] = 100.f * a * qs[o * P + p] * (1.f - s);
+        u = a * s;
+      }
+      buf[o * LDV + p] = u;
+    });
     __syncthreads();
-    ub = nxt;
   }
-  row_sums(bias_row + JD.extra_off, ub, LD.in_dim);  // gsdfbar
+  row_sums<P>(bias_row + JD.extra_off, buf, LD.in_dim);  // gsdfbar
   // e_bar reuses ge: phase 3's x_bar term has read it
-  for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x) ge[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS)
+    ge[(idx / P) * LDV + idx % P] = 0.f;
   __syncthreads();
 
   // ---- phase 4: the first-order down-sweep from y_bar = [sdf_bar, h_bar]
-  float* y = (ub == bufA) ? bufB : bufA;
-  for (int idx = threadIdx.x; idx < LD.out_dim * TILE; idx += blockDim.x) {
-    const int o = idx / TILE, p = idx % TILE;
+  for (int idx = threadIdx.x; idx < LD.N * P; idx += THREADS) {
+    const int o = idx / P, p = idx % P;
     const long pt = p0 + p;
     float v = 0.f;
-    if (pt < M) v = (o == 0) ? cot_sdf[pt] : cot_h[pt * geo_dim + (o - 1)];
-    y[idx] = v;
+    if (pt < M && o < LD.out_dim) v = (o == 0) ? cot_sdf[pt] : cot_h[pt * geo_dim + (o - 1)];
+    buf[o * LDV + p] = v;
   }
   __syncthreads();
-  copy_rows(slot(JD.a_off, JD.ldA, 0), y, LD.out_dim);
-  row_sums(bias_row + JD.bias_off, y, LD.out_dim);
-  float* gh = ub;
-  {
-    float acc[1][4][4];
-    staged_product<1>(LD.w, LD.out_dim, LD.ld_w, y, stage, acc);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = 4 * col_group() + c;
-      if (i < LD.in_dim)
-        *reinterpret_cast<float4*>(gh + i * TILE + 4 * point_group()) =
-            make_float4(acc[0][c][0], acc[0][c][1], acc[0][c][2], acc[0][c][3]);
-    }
-  }
-  __syncthreads();
-  float* ab_s = y;
+  copy_rows<P>(slot(JD.a_off, JD.ldA, 0), buf, LD.out_dim);
+  row_sums<P>(bias_row + JD.bias_off, buf, LD.out_dim);
+  reverse_product<P>(m, LD, buf, stage);  // g_h = y_bar W_D
   for (int l = D - 1; l >= 0; --l) {
-    const Layer L = layer_of(m, l);
+    const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
-    const float* dl = deriv + (size_t)l * m.wmax * TILE;
+    const float* sl = slope(l);
     float* ab = slot(J.a_off, J.ldA, 1);
-    for (int idx = threadIdx.x; idx < L.out_dim * TILE; idx += blockDim.x) {
-      const float a = gh[idx] * dl[idx] + ab[idx];
-      ab[idx] = a;
-      ab_s[idx] = a;
-    }
-    __syncthreads();
-    row_sums(bias_row + J.bias_off, ab_s, L.out_dim);
-    {
-      float acc[1][4][4];
-      staged_product<1>(L.w, L.out_dim, L.ld_w, ab_s, stage, acc);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * col_group() + c;
-        if (i < L.in_dim)
-          *reinterpret_cast<float4*>(gh + i * TILE + 4 * point_group()) =
-              make_float4(acc[0][c][0], acc[0][c][1], acc[0][c][2], acc[0][c][3]);
+    for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS) {
+      const int o = idx / P, p = idx % P;
+      float a = 0.f;
+      if (o < L.out_dim) {
+        a = buf[o * LDV + p] * sl[idx] + ab[idx];
+        ab[idx] = a;
       }
+      buf[o * LDV + p] = a;
     }
     __syncthreads();
+    row_sums<P>(bias_row + J.bias_off, buf, L.out_dim);
+    reverse_product<P>(m, L, buf, stage);
     if (l == 0) {
-      for (int idx = threadIdx.x; idx < C * TILE; idx += blockDim.x)
-        ge[idx] += gh[idx];
+      for (int idx = threadIdx.x; idx < C * P; idx += THREADS) {
+        const int at = (idx / P) * LDV + idx % P;
+        ge[at] += buf[at];
+      }
     } else if (L.skip) {
       const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.in_dim * TILE; idx += blockDim.x) {
-        const float v = gh[idx] * inv_sqrt2;
-        if (idx < h_dim * TILE) gh[idx] = v;
-        else ge[idx - h_dim * TILE] += v;
+      for (int idx = threadIdx.x; idx < L.in_dim * P; idx += THREADS) {
+        const int r = idx / P, p = idx % P;
+        const float v = buf[r * LDV + p] * inv_sqrt2;
+        if (r < h_dim) buf[r * LDV + p] = v;
+        else ge[(r - h_dim) * LDV + p] += v;
       }
     }
     __syncthreads();
   }
 
   // x_bar = e_bar through d e / d x, plus phase 3's term
-  for (int idx = threadIdx.x; idx < 3 * TILE; idx += blockDim.x) {
-    const int k = idx / TILE, p = idx % TILE;
+  for (int idx = threadIdx.x; idx < 3 * P; idx += THREADS) {
+    const int k = idx / P, p = idx % P;
     if (p0 + p >= M) continue;
-    float s = ge[k * TILE + p];
+    float s = ge[k * LDV + p];
     for (int c = 3; c < C; ++c) {
       int r;
       float J, J2;
-      enc_deriv(xs, c, p, r, J, J2);
-      if (r == k) s += ge[c * TILE + p] * J;
+      enc_deriv<P>(xs, c, p, r, J, J2);
+      if (r == k) s += ge[c * LDV + p] * J;
     }
     xbar[(p0 + p) * 3 + k] = xb[idx] + s;
   }
 }
 
-// A persistent grid (as many blocks as fit on the card at once) walks the
-// point tiles; each block keeps its tile's slopes s_l ([D][wmax][TILE]) in
-// its own slice of `slopes`, reused from tile to tile so that it stays in L2.
-__global__ void __launch_bounds__(THREADS, 3)
-backward_tile_kernel(Mlp m, const float* __restrict__ x, int M, int Mtiles,
+// A persistent grid (one block per SM) walks the point tiles; each block
+// keeps its tile's slopes s_l ([D][rows][P]) in its own slice of `slopes`,
+// reused from tile to tile.
+__global__ void __launch_bounds__(THREADS, 1)
+backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
                      const float* __restrict__ cot_sdf,
                      const float* __restrict__ cot_nab,
                      const float* __restrict__ cot_h, int geo_dim,
                      const long long* __restrict__ jobs, float* work,
-                     float* bias_part, int nb, int rows, int c4,
-                     float* slopes, float* __restrict__ xbar) {
+                     float* bias_part, int nb, float* slopes,
+                     float* __restrict__ xbar) {
+  constexpr int P = BWD_TILE;
   extern __shared__ float4 smem4[];
-  float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.wmax * TILE;
+  float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.rows * P;
   for (int T = blockIdx.x; T < Mtiles; T += gridDim.x) {
-    backward_tile(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
-                  bias_part, nb, rows, c4, xbar, T, deriv,
-                  reinterpret_cast<float*>(smem4));
+    backward_tile<P>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+                     bias_part, nb, xbar, T, deriv, reinterpret_cast<float*>(smem4));
     __syncthreads();  // the next tile overwrites shared memory
   }
 }
 
-constexpr int RT = 64;  // output tile edge of the reduction
-constexpr int RS = 20;  // staged column stride: 16 rows + 4 floats of pad
+constexpr int RT = 64;   // output tile edge of the reduction
+constexpr int RK = 16;   // workspace rows per staged k-tile
+constexpr int RS = RK + 4;  // staged column stride: conflict-free fragments
+constexpr int RED_THREADS = 128;
 
 // part[split][c_off + o * n_in + i] = sum over this split's rows k of
-// A[k][o] * B[k][i], for one 64 x 64 output tile of one layer. A and B are
-// tile-blocked: row k, column c at ((k / 16) * ld + c) * 16 + k % 16.
-// Thread (ty, tx) owns columns o0 + ty + 16 a and i0 + tx + 16 b, so that
-// the float4 reads of B by neighbouring threads fall in distinct banks.
-__global__ void __launch_bounds__(256)
+// A[k][o] * B[k][i], for one 64 x 64 output tile of one layer, on the
+// tensor cores with the split-fp32 product of surface_mma.cuh. A and B are
+// tile-blocked: row k, column c at ((k / P) * ld + c) * P + k % P, P =
+// BWD_TILE; a k-tile is 16 consecutive rows of one point tile, staged
+// column by column ([64][RS]: each column's 16 rows contiguous, as the MMA
+// fragments read them). Warp w owns output rows o0 + 32 (w % 2) + [0, 32)
+// and columns i0 + 32 (w / 2) + [0, 32): 2 x 4 MMA tiles. A k-tile's six
+// MMAs a tile go into a fresh fragment, added to the fp32 sum on the CUDA
+// cores (the tensor cores' accumulation truncates; over 2M rows it would
+// drift).
+__global__ void __launch_bounds__(RED_THREADS)
 outer_sum_kernel(const long long* __restrict__ jobs, int n_jobs,
                  const float* __restrict__ work, float* __restrict__ part,
                  long long total, int n_split) {
+  constexpr int P = BWD_TILE;
   __shared__ __align__(16) float As[2][RT * RS];
   __shared__ __align__(16) float Bs[2][RT * RS];
-  const int t = blockIdx.x;
+  const int t_out = blockIdx.x;
   int j = 0;
-  while (j + 1 < n_jobs && __ldg(jobs + (size_t)(j + 1) * JOB + 9) <= t) ++j;
+  while (j + 1 < n_jobs && __ldg(jobs + (size_t)(j + 1) * JOB + 9) <= t_out) ++j;
   const Job J = job_of(jobs, j);
   const int tiles_i = (int)((J.n_in + RT - 1) / RT);
-  const int local = t - (int)J.tile_start;
+  const int local = t_out - (int)J.tile_start;
   const int o0 = (local / tiles_i) * RT, i0 = (local % tiles_i) * RT;
   const long long kt0 = J.k_tiles * blockIdx.y / n_split;
   const long long kt1 = J.k_tiles * (blockIdx.y + 1) / n_split;
-  const float* A = work + J.a_off + (size_t)o0 * TILE;
-  const float* B = work + J.b_off + (size_t)i0 * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
+  const float* A = work + J.a_off + (size_t)o0 * P;
+  const float* B = work + J.b_off + (size_t)i0 * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wo = (warp & 1) * 32, wi = (warp >> 1) * 32;
+  float acc[2][4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
 
-  const int col = threadIdx.x / 4, k4 = threadIdx.x % 4;  // 64 columns x 4 float4
-  auto issue = [&](long long kt, int buf) {
-    cp_async16(&As[buf][col * RS + 4 * k4], A + (size_t)kt * J.ldA * TILE + col * TILE + 4 * k4);
-    cp_async16(&Bs[buf][col * RS + 4 * k4], B + (size_t)kt * J.ldB * TILE + col * TILE + 4 * k4);
-    cp_async_commit();
+  auto fetch = [&](long long kt, int buf) {  // 64 columns x 4 float4, each operand
+    const long long r0 = kt * RK, T = r0 / P;
+    const int w = (int)(r0 % P);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int idx = threadIdx.x + RED_THREADS * q, col = idx / 4, k4 = idx % 4;
+      tc::cp_async16(&As[buf][col * RS + 4 * k4],
+                     A + ((size_t)T * J.ldA + col) * P + w + 4 * k4);
+      tc::cp_async16(&Bs[buf][col * RS + 4 * k4],
+                     B + ((size_t)T * J.ldB + col) * P + w + 4 * k4);
+    }
+    tc::cp_async_commit();
   };
-  if (kt0 < kt1) issue(kt0, 0);
+  if (kt0 < kt1) fetch(kt0, 0);
   for (long long kt = kt0; kt < kt1; ++kt) {
     const int buf = (int)((kt - kt0) & 1);
     if (kt + 1 < kt1) {
-      issue(kt + 1, buf ^ 1);
-      cp_async_wait<1>();
+      fetch(kt + 1, buf ^ 1);
+      tc::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      tc::cp_async_wait<0>();
     }
     __syncthreads();
+    float d[2][4][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float4 av[4], bv[4];
+    for (int s = 0; s < RK / 8; ++s) {  // k-steps of 8 rows
+      uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        av[a] = *reinterpret_cast<const float4*>(&As[buf][(ty + 16 * a) * RS + 4 * q]);
+      for (int a = 0; a < 2; ++a) {
+        const float* v = &As[buf][(wo + 16 * a + g) * RS + 8 * s + t];
+        tc::split_tf32(v[0], a_big[a][0], a_small[a][0]);
+        tc::split_tf32(v[8 * RS], a_big[a][1], a_small[a][1]);
+        tc::split_tf32(v[4], a_big[a][2], a_small[a][2]);
+        tc::split_tf32(v[8 * RS + 4], a_big[a][3], a_small[a][3]);
+      }
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        bv[b] = *reinterpret_cast<const float4*>(&Bs[buf][(tx + 16 * b) * RS + 4 * q]);
+      for (int b = 0; b < 4; ++b) {
+        const float* v = &Bs[buf][(wi + 8 * b + g) * RS + 8 * s + t];
+        tc::split_tf32(v[0], b_big[b][0], b_small[b][0]);
+        tc::split_tf32(v[4], b_big[b][1], b_small[b][1]);
+      }
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          float s = acc[a][b];
-          s += av[a].x * bv[b].x;
-          s += av[a].y * bv[b].y;
-          s += av[a].z * bv[b].z;
-          s += av[a].w * bv[b].w;
-          acc[a][b] = s;
+          if (s == 0) tc::mma_tf32_first(d[a][b], a_small[a], b_big[b]);
+          else tc::mma_tf32(d[a][b], a_small[a], b_big[b]);
         }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) tc::mma_tf32(d[a][b], a_big[a], b_small[b]);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) tc::mma_tf32(d[a][b], a_big[a], b_big[b]);
     }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][e] += d[a][b][e];
     __syncthreads();  // the buffer is refilled two tiles on
   }
-  float* P = part + (size_t)blockIdx.y * total + J.c_off;
+  float* Pp = part + (size_t)blockIdx.y * total + J.c_off;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int o = o0 + ty + 16 * a;
-    if (o >= J.n_out) continue;
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int i = i0 + tx + 16 * b;
-      if (i < J.n_in) P[(size_t)o * J.n_in + i] = acc[a][b];
-    }
-  }
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = o0 + wo + 16 * a + g + 8 * (e >> 1);
+        const int i = i0 + wi + 8 * b + 2 * t + (e & 1);
+        if (o < J.n_out && i < J.n_in) Pp[(size_t)o * J.n_in + i] = acc[a][b][e];
+      }
 }
 
 // part[split][off + c] = sum of bias_part[r][c] over this split's rows.
@@ -523,31 +562,34 @@ __global__ void split_sum_kernel(const float* __restrict__ part, long long total
   out[j] = s;
 }
 
-__host__ __device__ inline size_t backward_smem_floats(int c4, int rows) {
-  return (size_t)(12 + 2 * c4 + 2 * rows) * TILE + STAGE_FLOATS;
-}
-
 }  // namespace ntt
 
-extern "C" size_t ntt_nablas_backward_smem_bytes(int c4, int rows) {
-  return ntt::backward_smem_floats(c4, rows) * sizeof(float);
+extern "C" size_t ntt_nablas_backward_smem_bytes(int c_pad, int rows) {
+  constexpr int P = ntt::BWD_TILE, LDV = ntt::tc::Tile<P>::LDV;
+  return ((size_t)12 * P + (size_t)(2 * c_pad + rows) * LDV + ntt::BWD_STAGE) *
+         sizeof(float);
 }
 
 // Blocks of the persistent tile pass for `m_tiles` tiles: as many as are
 // resident on the card at once, at most one per tile (the caller sizes the
-// slope scratch by it). Returns a negative cudaError_t on failure.
-extern "C" int ntt_nablas_backward_blocks(int c4, int rows, int m_tiles) {
-  const size_t smem = ntt_nablas_backward_smem_bytes(c4, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt::backward_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// slope scratch by it). Sets the kernel's dynamic shared-memory cap to the
+// card's opt-in maximum. Returns a negative cudaError_t on failure, 0 when a
+// block does not fit.
+extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
+  const size_t smem = ntt_nablas_backward_smem_bytes(c_pad, rows);
+  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess && smem > (size_t)optin) return 0;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ntt::backward_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ntt::backward_tile_kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, ntt::backward_tile_kernel, ntt::THREADS, smem);
@@ -558,24 +600,25 @@ extern "C" int ntt_nablas_backward_blocks(int c4, int rows, int m_tiles) {
 
 // x [M,3], cot_sdf [M], cot_nab [M,3], cot_h [M,geo_dim] -> xbar [M,3] and
 // the flat gradient `flat` [total] (layout in ops/fused_nablas_vjp.py);
-// `work`, `bias_part` [Mtiles, nb], `part` [n_split, total] and `slopes`
-// [blocks, n_layers - 1, wmax, 16] are scratch; `blocks` comes from
-// ntt_nablas_backward_blocks, which also sets the kernel's attributes.
-// All fp32, contiguous, on the device; M > 0. Returns the first
-// cudaError_t of the four launches.
+// `params` (three planes of `plane` floats) and `meta` the pack of
+// ops/surface_pack.py; `work`, `bias_part`
+// [Mtiles, nb], `part` [n_split, total] and `slopes` [blocks, n_layers - 1,
+// rows, BWD_TILE] are scratch; `blocks` comes from ntt_nablas_backward_blocks,
+// which also sets the kernel's attributes. All fp32, contiguous, on the
+// device; M > 0. Returns the first cudaError_t of the four launches.
 extern "C" int ntt_nablas_backward(
-    const void* x, int M, const void* params, const void* meta, int n_layers,
-    int in_ch, int multires, int wmax, int rows, int c4, const void* cot_sdf,
-    const void* cot_nab, const void* cot_h, int geo_dim, const void* jobs,
-    void* work, void* bias_part, int nb, void* part, int n_split,
-    long long total, long long bias_flat_off, int n_out_tiles, int blocks,
-    void* slopes, void* flat, void* xbar, void* stream) {
+    const void* x, int M, const void* params, long long plane, const void* meta, int n_layers,
+    int in_ch, int c_pad, int rows, const void* cot_sdf, const void* cot_nab,
+    const void* cot_h, int geo_dim, const void* jobs, void* work,
+    void* bias_part, int nb, void* part, int n_split, long long total,
+    long long bias_flat_off, int n_out_tiles, int blocks, void* slopes,
+    void* flat, void* xbar, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ntt_nablas_backward_smem_bytes(c4, rows);
+  const size_t smem = ntt_nablas_backward_smem_bytes(c_pad, rows);
   cudaError_t err;
-  ntt::Mlp m{static_cast<const float*>(params), static_cast<const int*>(meta),
-             n_layers, in_ch, multires, wmax};
-  const int Mtiles = (M + ntt::TILE - 1) / ntt::TILE;
+  ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
+                 static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
+  const int Mtiles = (M + ntt::BWD_TILE - 1) / ntt::BWD_TILE;
   const long long* J = static_cast<const long long*>(jobs);
   float* W = static_cast<float*>(work);
   float* BP = static_cast<float*>(bias_part);
@@ -583,10 +626,10 @@ extern "C" int ntt_nablas_backward(
   ntt::backward_tile_kernel<<<blocks, ntt::THREADS, smem, st>>>(
       m, static_cast<const float*>(x), M, Mtiles,
       static_cast<const float*>(cot_sdf), static_cast<const float*>(cot_nab),
-      static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb, rows, c4,
+      static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb,
       static_cast<float*>(slopes), static_cast<float*>(xbar));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ntt::outer_sum_kernel<<<dim3(n_out_tiles, n_split), 256, 0, st>>>(
+  ntt::outer_sum_kernel<<<dim3(n_out_tiles, n_split), ntt::RED_THREADS, 0, st>>>(
       J, n_layers, W, P, total, n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ntt::colsum_kernel<<<dim3((nb + 255) / 256, n_split), 256, 0, st>>>(

@@ -18,8 +18,9 @@ Replaces the Pallas kernel family of `neurecon_tpu/ops/fused_fine_sample.py`
     and the new bounds; on the last round the fallback draw;
     `checkpoint_plain`).
 
-A call packs the surface weights once and makes 1 + 2 max_iter launches of
-the new kernels and 1 + max_iter of kernel 4. The MLP queries are ~99% of the
+A call takes the surface's kept pack (`surface_pack.packed_surface`,
+packed again only after the weights change) and makes 1 + 2 max_iter
+launches of the new kernels and 1 + max_iter of kernel 4. The MLP queries are ~99% of the
 arithmetic; the new kernels are weight-free.
 
 The uniforms of the opacity draws come from the caller, u_fin [N,
@@ -40,7 +41,7 @@ import torch
 
 from neurecon_tpu_torch.ops import _build
 from neurecon_tpu_torch.ops.fused_mlp import launch_sdf_forward
-from neurecon_tpu_torch.ops.fused_nablas import pack_surface
+from neurecon_tpu_torch.ops.surface_pack import packed_surface
 from neurecon_tpu_torch.ops.sampling import linspace01, sample_cdf, sample_pdf
 
 _P = ctypes.c_void_p
@@ -344,19 +345,19 @@ def fused_fine_sample(surface, rays_o, rays_d, d_init, far, alpha_net, beta_net,
     with torch.no_grad():
         ab = torch.stack([torch.as_tensor(alpha_net, device=dev).reshape(()),
                           torch.as_tensor(beta_net, device=dev).reshape(())]).float()
-        packed = pack_surface(surface)  # once per call, for all 1 + max_iter queries
+        packed = packed_surface(surface)  # kept while the weights are unchanged
         prior_r = float(surface.radius_init) if surface.sphere_residual else -1.0
         bg_r = -1.0 if sphere_bg_r is None else float(sphere_bg_r)
         kw = {"n_final": n_final, "u_stride": u_fin.shape[1], "eps": float(eps),
               "prior_r": prior_r, "bg_r": bg_r}
         pts = (rays_o[:, None, :] + rays_d[:, None, :] * d_init[..., None]).reshape(-1, 3)
-        raw = launch_sdf_forward(surface, pts, *packed)
+        raw = launch_sdf_forward(surface, pts, packed)
         launch_init(ws, rays_o, rays_d, d_init, raw, far, ab, u_fin,
                     beta_c=beta_plus_denominator(n0, eps), **kw)
         for it in range(1, max_iter + 1):
             src, s_in = (it - 1) % 2, n0 + (it - 1) * n_up
             nd, pts = launch_draw(ws, rays_o, rays_d, src, s_in, n_up)
-            raw = launch_sdf_forward(surface, pts, *packed)
+            raw = launch_sdf_forward(surface, pts, packed)
             launch_checkpoint(ws, rays_o, rays_d, src, s_in, nd, raw, ab, u_fin, it=it,
                               max_iter=max_iter, max_bisection=max_bisection, **kw)
     return ws["fine"], ws["beta_out"], ws["iter_usage"]

@@ -12,10 +12,11 @@ nothing else) and includes the second-order phi'' terms that the eikonal loss
 reaches through nablas. nablas is a primal output, so no double backward is
 needed.
 
-The backward is bound by arithmetic (~5.9 MFLOP per point at the flagship
+The backward is bound by arithmetic (~5.8 MFLOP per point at the flagship
 widths); `csrc/nablas_backward.cu` says how it splits the work into a
-per-point-tile pass and a deterministic reduction of the weight gradients
-over all points, through a device-memory workspace.
+pass over 128-point tiles and a deterministic reduction of the weight
+gradients over all points, through a device-memory workspace, both on
+split-fp32 tensor-core products.
 
 The Function takes the kernels for CUDA tensors and the plain versions for
 CPU tensors; there is no other route and no fallback.
@@ -27,14 +28,15 @@ import math
 
 import torch
 
-from neurecon_tpu_torch.ops import _build, fused_nablas
+from neurecon_tpu_torch.ops import _build, fused_nablas, surface_pack
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-_TILE = 16  # points per block of the tile pass (csrc)
-_RT = 64    # output tile edge of the reduction (csrc)
+_TILE = 128  # points per tile of the tile pass (csrc BWD_TILE)
+_KT = 16     # workspace rows per k-tile of the reduction (csrc)
+_RT = 64     # output tile edge of the reduction (csrc)
 
 
 def _encoding_derivs(surface, x):
@@ -151,7 +153,9 @@ def _layout(dims, M: int) -> dict:
     """Workspace and flat-gradient layout of the backward kernel for layers
     of (in, out) `dims` and M points: one int64 record per layer (fields in
     csrc/nablas_backward.cu), the workspace size in floats, and the flat
-    gradient [W_bar_0 .. W_bar_D | b_bar_0 .. b_bar_D | gsdfbar]."""
+    gradient [W_bar_0 .. W_bar_D | b_bar_0 .. b_bar_D | gsdfbar]. The
+    workspace is tile-blocked, [pair][tile][column][128 points]; the
+    reduction walks it in k-tiles of 16 rows."""
     D = len(dims) - 1
     m_tiles = (M + _TILE - 1) // _TILE
     jobs, work, c_off, bias, tile = [], 0, 0, 0, 0
@@ -162,16 +166,17 @@ def _layout(dims, M: int) -> dict:
         work += pairs * m_tiles * _TILE * ld_a
         b_off = work
         work += pairs * m_tiles * _TILE * ld_b
-        jobs.append([a_off, b_off, ld_a, ld_b, n_out, n_in, pairs * m_tiles,
-                     c_off, bias, tile, pairs, 0])
+        jobs.append([a_off, b_off, ld_a, ld_b, n_out, n_in,
+                     pairs * m_tiles * _TILE // _KT, c_off, bias, tile, pairs, 0])
         c_off += n_out * n_in
         bias += n_out
         tile += ((n_out + _RT - 1) // _RT) * ((n_in + _RT - 1) // _RT)
     jobs[D][11] = bias  # gsdfbar after the biases
     nb = bias + dims[D][0]
+    k16 = m_tiles * _TILE // _KT
     return {"jobs": jobs, "work": work, "m_tiles": m_tiles, "nb": nb,
             "bias_flat_off": c_off, "total": c_off + nb, "out_tiles": tile,
-            "n_split": max(1, min(32, m_tiles // 16))}
+            "n_split": max(1, min(32, k16 // 16))}
 
 
 def _unflatten(flat, dims):
@@ -209,32 +214,35 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
                 [torch.zeros_like(b) for b in bs])
     lay = _layout(dims, M)
     dev = x.device
-    params, meta, wmax = fused_nablas.pack_surface(surface, (ws, bs))
-    rows = fused_nablas._pad4(max(wmax, dims[-1][1]))
-    c4 = fused_nablas._pad4(surface.input_ch)
+    packed = surface_pack.pack(surface, (ws, bs))
+    rows = max(packed.rows, surface_pack.pad8(dims[-1][1]))
+    lib = _build.load("nablas_backward")
     jobs = fused_nablas.upload(torch.tensor(lay["jobs"], dtype=torch.int64), dev)
     work = torch.empty(lay["work"], device=dev)
     bias_part = torch.empty(lay["m_tiles"], lay["nb"], device=dev)
     part = torch.empty(lay["n_split"], lay["total"], device=dev)
     flat = torch.empty(lay["total"], device=dev)
-    lib = _build.load("nablas_backward")
     lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I]
     lib.ntt_nablas_backward_blocks.restype = _I
-    blocks = lib.ntt_nablas_backward_blocks(c4, rows, lay["m_tiles"])
+    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"])
     _build.check(max(-blocks, 0), "nablas_backward (occupancy)")
-    slopes = torch.empty(blocks * (len(dims) - 1) * wmax * _TILE, device=dev)
+    if blocks == 0:
+        raise NotImplementedError(
+            f"nablas_backward: a block for {packed.c_pad} encoding and {rows} activation "
+            "rows does not fit in the card's shared memory")
+    slopes = torch.empty(blocks * (len(dims) - 1) * rows * _TILE, device=dev)
     xbar = torch.empty(M, 3, device=dev)
     fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
                                             + part.numel() + slopes.numel())
     fn = lib.ntt_nablas_backward
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
-                   _P, _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                   _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(x.data_ptr(), M, params.data_ptr(), meta.data_ptr(), len(dims),
-            surface.input_ch, max(surface.embed_multires, 0), wmax, rows, c4,
-            cots[0].data_ptr(), cots[1].data_ptr(), cots[2].data_ptr(),
-            surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
+    rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
+            packed.meta.data_ptr(), len(dims),
+            surface.input_ch, packed.c_pad, rows, cots[0].data_ptr(), cots[1].data_ptr(),
+            cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
             bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
             lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,
             slopes.data_ptr(), flat.data_ptr(), xbar.data_ptr(), stream)

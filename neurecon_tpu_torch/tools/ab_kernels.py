@@ -8,8 +8,9 @@ Each argument is the root of a checkout (the directory that holds
 copy's kernels and prints one JSON line: the median of 10 CUDA-event runs
 after warm-up of the forward+nablas kernel at 130,560 and 1,044,480 points
 (one training step, one render chunk) and, where the copy has it, the
-eikonal backward at 130,560 points with its CUDA kernels' device times
-(torch.profiler) and its largest leaf error against its plain version, and,
+eikonal backward at 130,560 and 197,632 points (a NeuS and a VolSDF step)
+with its CUDA kernels' device times (torch.profiler) and, at 130,560, its
+largest leaf error against its plain version, and,
 where the copy has it, the sdf-only kernel at 2^20 points, the host time of
 one of its 4,096-point calls (what a sphere-tracing step makes), and the
 host time of sphere tracing 19,200 rays in chunks of 4,096 (one 120x160
@@ -58,23 +59,26 @@ except ImportError:
     fused_nablas_vjp = None
 if fused_nablas_vjp is not None:
     from torch.profiler import ProfilerActivity, profile
-    M = 130560
-    x = torch.randn(M, 3, device=dev, generator=g) * 0.5
-    cots = (torch.randn(M, device=dev, generator=g), torch.randn(M, 3, device=dev, generator=g),
-            torch.randn(M, s.W_geo_feat, device=dev, generator=g))
     ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(s)]
-    run = lambda: fused_nablas_vjp.fused_nablas_vjp(s, x, ws, bs, *cots)
-    got, ref = run(), fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, *cots)
-    res["nablas_backward_max_rel_err"] = max(
-        float((a - b).abs().max() / b.abs().max())
-        for a, b in zip([got[0], *got[1], *got[2]], [ref[0], *ref[1], *ref[2]]))
-    del got, ref
-    res["nablas_backward_ms_130560"] = ms(run)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(); torch.cuda.synchronize()
-    res["nablas_backward_kernels_ms"] = {
-        e.key.split("(")[0]: e.device_time_total / 1e3 for e in prof.key_averages()
-        if e.device_time_total > 0 and "ntt::" in e.key}
+    for M in (130560, 197632):
+        x = torch.randn(M, 3, device=dev, generator=g) * 0.5
+        cots = (torch.randn(M, device=dev, generator=g),
+                torch.randn(M, 3, device=dev, generator=g),
+                torch.randn(M, s.W_geo_feat, device=dev, generator=g))
+        run = lambda: fused_nablas_vjp.fused_nablas_vjp(s, x, ws, bs, *cots)
+        if M == 130560:
+            got, ref = run(), fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, *cots)
+            res["nablas_backward_max_rel_err"] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip([got[0], *got[1], *got[2]], [ref[0], *ref[1], *ref[2]]))
+            del got, ref
+        res[f"nablas_backward_ms_{M}"] = ms(run)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(); torch.cuda.synchronize()
+        res[f"nablas_backward_kernels_ms_{M}"] = {
+            e.key.split("(")[0]: e.device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0 and "ntt::" in e.key}
+        del x, cots
 try:
     from neurecon_tpu_torch.ops import fused_mlp
     from neurecon_tpu_torch.models.ray_casting import sphere_tracing_surface_points

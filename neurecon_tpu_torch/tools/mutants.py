@@ -1,5 +1,9 @@
-"""Mutation check of the sdf-only kernel (`csrc/sdf_forward.cu`) on one CUDA
-card: does the kernel check see a deliberately broken kernel?
+"""Mutation check of the sdf-only kernel (`csrc/sdf_forward.cu` on
+`csrc/surface_mma.cuh`) on one CUDA card: does the kernel check see a
+deliberately broken kernel? The last two mutants break the split-fp32
+product's precision: one drops the correction products (a single TF32
+product per k-step), one adds every MMA straight into the running sum (the
+tensor cores' truncating accumulation, unflushed); the check must see both.
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
@@ -30,17 +34,37 @@ LIMIT = 1e-5
 # name -> (file under csrc/, text, replacement); each text occurs once
 MUTANTS = {
     "sdf row bias dropped": (
-        "surface_mlp.cuh", "if (lane == 0) sdf[p] = s + __ldg(L.b);",
-        "if (lane == 0) sdf[p] = s;"),
+        "sdf_forward.cu", "tile_sdf[p] = ((s0 + s1) + (s2 + s3)) + __ldg(LD.b);",
+        "tile_sdf[p] = ((s0 + s1) + (s2 + s3));"),
     "sin and cos swapped": (
-        "surface_mlp.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
+        "surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
         "v = (r < 3) ? cosf(ph) : sinf(ph);"),
     "skip 1/sqrt(2) dropped": (
-        "surface_mlp.cuh", "cat[idx] = cat[idx] / 1.41421356237f;",
-        "cat[idx] = cat[idx];"),
+        "surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
     "ragged last tile skipped": (
-        "sdf_forward.cu", "const int tiles = (M + TILE - 1) / TILE;",
-        "const int tiles = M / TILE;"),
+        "sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
+    "plain TF32 (no correction products)": (
+        "surface_mma.cuh",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_big[i], b_big);"),
+    "accumulator chained across k-steps": (
+        "surface_mma.cuh",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i)\n"
+        "#pragma unroll\n"
+        "          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][e];",
+        "for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_small[i], b_big);\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_small);\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_big);"),
 }
 
 _CODE = r'''

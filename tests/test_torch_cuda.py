@@ -12,7 +12,7 @@ import torch
 from neurecon_tpu_torch.models.base import perturb_parameters
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
 from neurecon_tpu_torch.ops import (fused_fine_sample, fused_mlp, fused_nablas,
-                                    fused_nablas_vjp, fused_upsample)
+                                    fused_nablas_vjp, fused_upsample, surface_pack)
 from neurecon_tpu_torch.ops.ray import near_far_from_sphere
 from neurecon_tpu_torch.ops.sampling import linspace01
 from neurecon_tpu_torch.utils import mesh
@@ -104,12 +104,16 @@ def test_upsample_kernel_matches_plain(cuda, cfg, geo, perturb, sphere):
                                       (dict(SMALL, skips=[1, 3]), 64, 37),
                                       (FLAGSHIP, 256, 4096),
                                       (FLAGSHIP, 256, 4099),
-                                      (FLAGSHIP, 256, 0)])
+                                      (FLAGSHIP, 256, 0),
+                                      (FLAGSHIP, 256, 129),
+                                      (dict(SMALL, W=60), 60, 1000),
+                                      (dict(SMALL, embed_multires=-1, skips=[1, 3]), 32, 300)])
 def test_backward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 3 against its plain version: every weight and bias grad and
     x_bar, max|diff| <= 5e-4 max|ref| per leaf (fp32 sums over all points
-    in another order; the JAX package's full-step bound). M = 4099 and 37
-    leave a ragged last tile; M = 0 gives zeros."""
+    in another order; the JAX package's full-step bound). M = 4099, 1000,
+    300, 129 and 37 leave a ragged last 128-point tile; M = 0 gives zeros;
+    W = 60 is no multiple of the MMA's 8."""
     surf = _model(cfg, geo, cuda).implicit_surface
     rng = np.random.RandomState(2)
     x = torch.tensor(rng.randn(M, 3).astype(np.float32) * 0.6, device=cuda)
@@ -129,11 +133,15 @@ def test_backward_kernel_matches_plain(cuda, cfg, geo, M):
 
 
 @pytest.mark.cuda
-def test_backward_kernel_is_deterministic(cuda):
-    surf = _model(SMALL, 64, cuda).implicit_surface
-    x = torch.rand(5000, 3, device=cuda) - 0.5
-    cots = [torch.ones(5000, device=cuda), torch.ones(5000, 3, device=cuda),
-            torch.ones(5000, 64, device=cuda)]
+@pytest.mark.parametrize("cfg,geo,M", [(SMALL, 64, 5000), (FLAGSHIP, 256, 4099)],
+                         ids=["small", "flagship_ragged"])
+def test_backward_kernel_is_deterministic(cuda, cfg, geo, M):
+    """Two runs give bit-equal gradients (no atomics; fixed-order sums), also
+    with a ragged last tile."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    x = torch.rand(M, 3, device=cuda) - 0.5
+    cots = [torch.ones(M, device=cuda), torch.ones(M, 3, device=cuda),
+            torch.ones(M, geo, device=cuda)]
     ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
     a = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
     b = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
@@ -158,11 +166,18 @@ def test_wrappers_reject_bad_inputs(cuda):
                                       (dict(SMALL, embed_multires=-1), 32, 300),
                                       (FLAGSHIP, 256, 4096),
                                       (FLAGSHIP, 256, 4099),
-                                      (FLAGSHIP, 256, 0)])
+                                      (FLAGSHIP, 256, 0),
+                                      (FLAGSHIP, 256, 127),
+                                      (FLAGSHIP, 256, 128),
+                                      (FLAGSHIP, 256, 129),
+                                      (FLAGSHIP, 256, 1),
+                                      (dict(SMALL, W=60), 60, 1000),
+                                      (dict(FLAGSHIP, embed_multires=-1), 256, 300)])
 def test_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 4 against its plain version: max|diff| <= 1e-5 max|sdf| (fp32
-    sums in another order). M = 4099 and 37 leave a ragged last tile; M = 0
-    returns an empty tensor without a launch."""
+    sums in another order). M = 4099, 1000, 300, 129, 127, 37 and 1 leave a
+    ragged last 128-point tile, M = 128 and 4096 none; M = 0 returns an empty
+    tensor without a launch; W = 60 is no multiple of the MMA's 8."""
     surf = _model(cfg, geo, cuda).implicit_surface
     x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (M, 3)).astype(np.float32),
                      device=cuda)
@@ -174,6 +189,26 @@ def test_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     assert got.shape == (M,) and bool(torch.isfinite(got).all())
     if M:
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sdf_forward_keeps_its_pack_until_the_weights_change(cuda):
+    """A repeated call with unchanged weights packs nothing; after an
+    in-place update the next call packs again and follows the new weights."""
+    surf = _model(FLAGSHIP, 256, cuda).implicit_surface
+    x = torch.rand(4096, 3, device=cuda) * 2 - 1
+    fused_mlp.fused_sdf_forward(surf, x)
+    n = surface_pack.packed_surface.packs
+    for _ in range(3):
+        fused_mlp.fused_sdf_forward(surf, x)
+    assert surface_pack.packed_surface.packs == n
+    with torch.no_grad():
+        surf.layers[-1].b.add_(0.25)
+    got = fused_mlp.fused_sdf_forward(surf, x)
+    torch.cuda.synchronize()
+    assert surface_pack.packed_surface.packs == n + 1
+    ref = fused_mlp.sdf_forward_plain(surf, x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 @pytest.mark.cuda

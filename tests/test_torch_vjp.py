@@ -153,16 +153,18 @@ def test_render_builds_no_graph_and_launches_no_backward():
 
 
 def test_layout_and_unflatten():
-    """The kernel's workspace layout: 16-point tiles, columns padded to 64,
-    two row pairs per hidden layer, and the flat gradient with gsdfbar folded
-    into row 0 of the final weight."""
+    """The kernel's workspace layout: 128-point tiles (the last one ragged),
+    reduced in k-tiles of 16 rows, columns padded to 64, two row pairs per
+    hidden layer, and the flat gradient with gsdfbar folded into row 0 of the
+    final weight."""
     dims = [(39, 256), (256, 217), (256, 257)]
-    lay = fused_nablas_vjp._layout(dims, 37)
+    lay = fused_nablas_vjp._layout(dims, 300)
     assert lay["m_tiles"] == 3 and lay["n_split"] == 1
     a_off, b_off, ld_a, ld_b, n_out, n_in, k_tiles, c_off, bias, tile, pairs, _ = lay["jobs"][0]
-    assert (ld_a, ld_b, k_tiles, pairs) == (256, 64, 6, 2)
-    assert lay["jobs"][1][0] == 2 * 3 * 16 * (256 + 64)
-    assert lay["jobs"][2][6] == 3 and lay["jobs"][2][11] == 256 + 217 + 257
+    assert (ld_a, ld_b, k_tiles, pairs) == (256, 64, 2 * 3 * 128 // 16, 2)
+    assert lay["jobs"][1][0] == 2 * 3 * 128 * (256 + 64)
+    assert lay["jobs"][2][6] == 3 * 128 // 16 and lay["jobs"][2][11] == 256 + 217 + 257
+    assert fused_nablas_vjp._layout(dims, 130560)["n_split"] == 32
     assert lay["total"] == 39 * 256 + 256 * 217 + 256 * 257 + 256 + 217 + 257 + 256
     flat = torch.arange(lay["total"], dtype=torch.float32)
     wbars, bbars = fused_nablas_vjp._unflatten(flat.clone(), dims)
