@@ -107,10 +107,41 @@ Phases, in order; any failure exits non-zero:
    its glue), kernel 1, kernel 3, the radiance forward, Adam and the rest;
    the device's busy share; one VolSDF frame split the same way.
 
+18. the sine branch of kernels 4, 1, 3 and 2 against their plain versions
+   (`sine_kernel_checks`), on configs/volsdf_siren.yaml's surface (D=5,
+   W=256 sine layers, no skips, no encoding; `VOLSDF_SIREN`, held equal to
+   the file by tests/test_torch_siren_train.py) pretrained to the sphere for
+   1,000 iterations, then seeded noise on every weight: kernel 4 on 2^20
+   points in [-3, 3]^3 and 4,099 more, kernel 1 and kernel 3 on a SIREN
+   step's 197,632 points, kernel 2 on 4,096 rays of the SIREN scene, det and
+   perturb; the gates of phases 10, 2, 6 and 3.
+19. `pretrain_siren_sdf` on the card at the JAX package's defaults (5,000
+   iterations x 5,000 points, lr_pretrain): the final L1 below 0.08 (the
+   JAX package's own test bound), and its seconds.
+20. the SIREN step's gradient through the kernels against the plain versions
+   (loss rel 1e-5, every leaf within 5e-4 max|ref|); kernels (a)-(c) on the
+   SIREN surface against the plain sampler at beta_net 0.1 and 0.01, det and
+   perturb, end to end and in lockstep (phase 14's gates); `train.py` at
+   configs/volsdf_siren.yaml's widths on 8 synthetic images (scaled as
+   configs/synthetic_quality_siren.yaml scales them), 1,024 rays, 40 steps
+   (cut from 150,000) with the sphere pretrain first: kernels 1, 3, 4 and
+   (a)-(c) launched every step, every loss finite, the last 10 steps' mean
+   below the first 10's; the surface's sdf range and mesh faces on a 128^3
+   grid after the pretrain, at step 20 and at step 40 (printed); two 120x160
+   frames of the final checkpoint through `render_view` (exact launch
+   counts, finite) and a 2,048-ray patch against the plain render (rgb atol
+   2e-3); a 256^3 `extract_surface --use_siren` of the pretrained surface,
+   non-empty and closed.
+21. times of each sine kernel and its plain version beside the fp32 and
+   3xTF32 bounds; ms per SIREN step and rays/s (median over steps 6-40); s
+   per SIREN frame; one SIREN step and one frame split as phase 17 splits
+   them.
+
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
 (`launches` from each slice's training run: phase 8 for kernels 1-4, phase
-16 for (a)-(c); `launches_by_path` for each path), then, as the last line,
+16 for (a)-(c), phase 20 for the sine branch, whose rows are named
+`<kernel>[sine]`; `launches_by_path` for each path), then, as the last line,
 {"ok": true, "device": {...}}. Needs the repository checkout beside it; it
 imports no JAX.
 """
@@ -275,6 +306,46 @@ def _frame_split(render_frames, vargs, parts):
     return 1e3 * frames["seconds"][1], ms
 
 
+def _upsample_check(surface, rays_o, rays_d, near, far, d_coarse, uniforms, label):
+    """Kernel 2 against its plain version on the rays given, for each mode's
+    uniforms ({"det": u, "perturb": u}, 4 rounds of 16): |d_all diff| <=
+    1e-3 (far - near) on >= 99.9% of the entries, every sample inside [near,
+    far], finite. Prints a line per mode; returns (ok, {mode: max|diff|})."""
+    from neurecon_tpu_torch.ops import fused_upsample
+
+    ok, errs = True, {}
+    span = far - near
+    for mode, u in uniforms.items():
+        got = fused_upsample.fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u,
+                                                 n_iters=4, n_per_iter=16)
+        ref = fused_upsample.neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u,
+                                                 n_iters=4, n_per_iter=16)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        off = diff > 1e-3 * span
+        frac = float(off.float().mean())
+        p999 = float(torch.quantile(diff.flatten(), 0.999))
+        # The det uniforms end in u = 1.0, which meets cdf[-1] = 1 +- an ulp:
+        # when the last cdf step is below the 1e-5 eps, whether that sample
+        # lands at `far` or just past the second-to-last sample flips with
+        # the fp32 summation order. So in det mode, per ray, up to one entry
+        # per round that lies in the last coarse section on both sides is
+        # exempt; every other entry is held to the share.
+        tie = off & (got >= d_coarse[:, -2:-1]) & (ref >= d_coarse[:, -2:-1])
+        exempt = (tie & (tie.sum(1, keepdim=True) <= 4) if mode == "det"
+                  else torch.zeros_like(off))
+        frac_rest = float((off & ~exempt).float().mean())
+        inside = bool(((got >= near - 1e-6) & (got <= far + 1e-6)).all())
+        errs[mode] = float(diff.max())
+        print(f"{label}: neus_upsample {mode}: max|diff| {float(diff.max()):.3e}, "
+              f"p99.9 {p999:.3e}, share beyond 1e-3(far-near) {frac:.5f}, "
+              f"{int(exempt.sum())} u=1.0 tie entries exempt on "
+              f"{int(exempt.any(1).sum())} rays, share of the rest {frac_rest:.5f}")
+        if frac_rest > 1e-3 or not inside or not torch.isfinite(got).all():
+            ok = False
+    return ok, errs
+
+
 def _closed(faces: torch.Tensor) -> bool:
     """Every undirected edge of the triangle mesh is shared by two faces."""
     f = faces.long()
@@ -323,11 +394,73 @@ def _train_config(tmp, seed):
     return cfg
 
 
-def _step_split(args, dev, parts, n_warm=3):
-    """One flagship training step split by CUDA events around each call of
-    the `parts` ({name: (module or class, attribute)}; "adam_step" is the
+def _train_timed(targs, zero_counts, read_counts):
+    """train.py's `main_function` on `targs` on the card, with a CUDA event
+    recorded at the start of every step, the kernels' launch counters set to
+    0 just before and read just after. Returns (its result, the launch
+    counts, each step's ms up to the next step's start or the run's end, the
+    run's wall seconds)."""
+    from neurecon_tpu_torch import train
+
+    starts = []
+    real_make_step = train.make_train_step
+
+    def make_step_timed(*a, **k):
+        step = real_make_step(*a, **k)
+
+        def timed_step(*sa, **sk):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return step(*sa, **sk)
+        return timed_step
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train, "make_train_step", make_step_timed):
+        out = train.main_function(targs, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    evs = starts + [end]
+    return out, launches, [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))], secs
+
+
+def _step_grad_check(model, ray_loss, *args, **kwargs):
+    """`ray_loss(*args, **kwargs)` and every parameter's gradient through the
+    kernels and through the plain versions of kernels 1 and 3 (called by
+    name): returns (loss through the kernels, plain loss, {parameter:
+    max|diff| / max|ref|})."""
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
+
+    def step_grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = ray_loss(*args, **kwargs)
+        total.backward()
+        return total.item(), [p.grad.clone() for p in model.parameters()]
+
+    loss_k, grads_k = step_grads()
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                           fused_nablas.forward_with_nablas_plain), \
+            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
+                              fused_nablas_vjp.nablas_vjp_plain):
+        loss_p, grads_p = step_grads()
+    model.zero_grad(set_to_none=True)
+    names = [n for n, _ in model.named_parameters()]
+    return loss_k, loss_p, {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                            for n, a, b in zip(names, grads_k, grads_p)}
+
+
+def _step_split(args, dev, parts, n_warm=3, tree=None):
+    """One training step split by CUDA events around each call of the
+    `parts` ({name: (module or class, attribute)}; "adam_step" is the
     optimizer's step), then the device's busy share over three more steps;
-    returns (step ms, {part: ms}, busy share)."""
+    the model from seed 0, or with the weights of `tree` (a JAX pytree of
+    numpy arrays); returns (step ms, {part: ms}, busy share)."""
+    from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.dataio import get_data
     from neurecon_tpu_torch.models.base import make_optimizer
     from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
@@ -335,6 +468,8 @@ def _step_split(args, dev, parts, n_warm=3):
 
     ds = get_data(args)
     model, kw, _, _ = get_model(args, dev, seed=0)
+    if tree is not None:
+        bridge.load_tree(model, tree)
     kw["H"], kw["W"] = ds.H, ds.W
     opt, sched = make_optimizer(args, model)
     step = make_train_step(make_trainer(args, model, kw), model, opt, sched)
@@ -513,10 +648,37 @@ VOLSDF = {
 }
 VOLSDF_STEPS = 40  # phase 16's cut of configs/volsdf.yaml's 100,000 steps
 
+# configs/volsdf_siren.yaml's model and training sections (held equal to the
+# file by tests/test_torch_siren_train.py): VolSDF with D=5, W=256 sine nets
+# (no skips, no encoding), the sphere pretrain at lr_pretrain, on the
+# synthetic scene scaled as configs/synthetic_quality_siren.yaml scales it.
+VOLSDF_SIREN = {
+    "expname": "chip_smoke_volsdf_siren", "device_ids": -1,
+    "data": {"type": "synthetic", "downscale": 1, "n_images": 8, "H": 120, "W": 160,
+             "scale_radius": 2.6, "near": 0.0, "far": 6.0, "N_rays": 1024,
+             "val_downscale": 8, "val_rayschunk": 256, "volume_size": 3.0},
+    "model": {"W_geometry_feature": 256, "framework": "VolSDF", "max_upsample_iter": 5,
+              "obj_bounding_radius": 3.0, "outside_scene": "builtin",
+              "radiance": {"D": 5, "embed_multires": -1, "embed_multires_view": 4,
+                           "skips": [], "use_siren": True},
+              "surface": {"D": 5, "embed_multires": -1, "radius_init": 1.0, "skips": [],
+                          "use_siren": True}},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0001, "lr_pretrain": 0.00015,
+                 "monitoring": "tensorboard", "num_iters": 150000,
+                 "scheduler": {"gamma": 0.5, "milestones": [40000, 80000, 120000],
+                               "type": "multistep"},
+                 "w_eikonal": 0.1},
+}
+SIREN_STEPS = 40  # phase 20's cut of configs/volsdf_siren.yaml's 150,000 steps
+SINE_POINTS = 2 ** 20  # phase 18's kernel-4 points
+SINE_RAYS = 4096  # phase 18's kernel-2 rays (a render chunk)
+
 
 def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     """Phases 14-17 (the VolSDF slice); returns (rc, kernel rows, train launches)."""
-    from neurecon_tpu_torch import bridge, train
+    from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.dataio import get_data
     from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
@@ -543,46 +705,13 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     d_init = (far * linspace01(n0, dev)).contiguous()
     kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
           "n_up": n_up, "sphere_bg_r": 3.0}
-    span = 6.0
 
-    # ---- phase 14: kernels (a)-(c) against the plain sampler
-    k_err, ok, last_u = {}, True, None
-    # the init's beta; a sharper one (rays converge in round 2); one so sharp
-    # that no ray converges (six rounds of bisection, then the fallback draw)
-    for beta in (0.1, 0.01, 0.001):
-        ab = (torch.tensor(1.0 / beta, device=dev), torch.tensor(beta, device=dev))
-        for mode in ("det", "perturb"):
-            u = (ffs.det_uniforms(n_final, max_iter + 2, N, dev) if mode == "det"
-                 else torch.rand(N, (max_iter + 2) * n_final, device=dev,
-                                 generator=torch.Generator(dev).manual_seed(seed + 3)))
-            got = ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far, *ab, u, **kw)
-            ref = ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far, *ab, u, **kw)
-            torch.cuda.synchronize()
-            (gd, gb, gi), (rd, rb, ri) = got, ref
-            dd = (gd - rd).abs()
-            fine_share = float((dd > 1e-4 * span).float().mean())
-            beta_off = int(((gb - rb).abs() > 1e-5 + 1e-3 * rb.abs()).sum())
-            iter_eq = float((gi == ri).float().mean())
-            rounds = torch.bincount((ri + 1).long(), minlength=max_iter + 2).tolist()
-            lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
-                                           n_up=n_up, max_iter=max_iter, n_final=n_final)
-            was = " (the CUDA-core fp32 kernel 4 read 3)" if beta == 0.001 else ""
-            print(f"phase 14: sampler beta_net {beta} {mode}, 1,024 flagship rays, 3,584 depths: "
-                  f"fine max|diff| {float(dd.max()):.3e}, share beyond 1e-4 span "
-                  f"{fine_share:.5f}; beta map off on {beta_off} rays{was}; iter_usage equal on "
-                  f"{iter_eq:.4f}; rounds (-1, 0..6) {rounds}")
-            print(f"phase 14: lockstep (each kernel on the plain stage's inputs): "
-                  f"{json.dumps(lock)}; merged depths equal {merged_equal}")
-            for name, e in lock.items():
-                k_err[name] = max(k_err.get(name, 0.0),
-                                  e.get("fine", 0.0), e.get("depths", 0.0))
-            finite = all(bool(torch.isfinite(t).all()) for t in (gd, gb))
-            shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
-            if (fine_share > 0.02 or beta_off > 0.01 * N or iter_eq < 0.9 or not finite
-                    or not merged_equal or max(shares) > 0.01
-                    or lock["volsdf_draw"]["unsorted_rays"] > 0):
-                ok = False
-            last_u, last_ab = u, ab
+    # ---- phase 14: kernels (a)-(c) against the plain sampler: the init's
+    # beta; a sharper one (rays converge in round 2); one so sharp that no
+    # ray converges (six rounds of bisection, then the fallback draw)
+    ok, k_err, (last_ab, last_u) = _sampler_check(
+        surface, rays_o, rays_d, far, (0.1, 0.01, 0.001), n0, n_up, max_iter, seed,
+        "phase 14 (flagship rays)")
     if not ok:
         print("FAIL phase 14: the fine-sampler kernels disagree with their plain versions",
               file=sys.stderr)
@@ -636,25 +765,11 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                                       **{**kw_train, "perturb": False})
     ray_loss = get_ray_loss_fn(args, checked, kw_train)
 
-    def step_grads():
-        checked.zero_grad(set_to_none=True)
-        total, _ = ray_loss(rb, fine_override=fine, eik_pts=eik)
-        total.backward()
-        return total.item(), [p.grad.clone() for p in checked.parameters()]
-
-    loss_k, grads_k = step_grads()
-    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
-                           fused_nablas.forward_with_nablas_plain), \
-            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
-                              fused_nablas_vjp.nablas_vjp_plain):
-        loss_p, grads_p = step_grads()
-    checked.zero_grad(set_to_none=True)
-    names = [n for n, _ in checked.named_parameters()]
-    ratios = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              for n, a, b in zip(names, grads_k, grads_p)}
+    loss_k, loss_p, ratios = _step_grad_check(checked, ray_loss, rb, fine_override=fine,
+                                              eik_pts=eik)
     worst = max(ratios, key=ratios.get)
     print(f"phase 16: VolSDF step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad "
-          f"leaf {worst} {ratios[worst]:.2e} over {len(names)} leaves (ln_beta "
+          f"leaf {worst} {ratios[worst]:.2e} over {len(ratios)} leaves (ln_beta "
           f"{ratios['ln_beta']:.2e})")
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > 5e-4:
         print("FAIL phase 16: the VolSDF step's gradient through the kernels disagrees",
@@ -668,29 +783,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     targs.training.update({"num_iters": VOLSDF_STEPS, "i_val": 20, "i_log": 10,
                            "i_val_mesh": 20, "i_backup": 20, "monitoring": "none",
                            "log_root_dir": tdir, "exp_dir": os.path.join(tdir, "run")})
-    starts = []
-    real_make_step = train.make_train_step
-
-    def make_step_timed(*a, **k):
-        step = real_make_step(*a, **k)
-
-        def timed_step(*sa, **sk):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            starts.append(ev)
-            return step(*sa, **sk)
-        return timed_step
-
-    zero_counts()
-    with mock.patch.object(train, "make_train_step", make_step_timed):
-        out = train.main_function(targs, device="cuda")
-    torch.cuda.synchronize()
-    t_launches = by_path["volsdf_train"] = read_counts()
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    torch.cuda.synchronize()
-    evs = starts + [end]
-    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))]
+    out, t_launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
+    by_path["volsdf_train"] = t_launches
     ms_step = float(np.median(step_ms[5:]))
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
     first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
@@ -799,6 +893,442 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     return 0, rows, t_launches
 
 
+def _siren_models(seed, dev, pretrain_iters=1000):
+    """The VOLSDF_SIREN model from the seed (SIREN init), and the checked
+    copy: its surface pretrained to the sphere (`pretrain_iters` iterations
+    at the config's lr_pretrain, seed + 7), then seeded noise on every weight
+    (seed + 1), the stand-in for trained SIREN weights."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.base import perturb_parameters, pretrain_siren_sdf
+    from neurecon_tpu_torch.models.frameworks import get_model
+
+    args = ConfigDict(copy.deepcopy(VOLSDF_SIREN))
+    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
+    checked = copy.deepcopy(model)
+    s = checked.implicit_surface
+    pretrain_siren_sdf(s, num_iters=pretrain_iters, lr=float(args.training.lr_pretrain),
+                       target_radius=s.radius_init, obj_bounding_size=s.obj_bounding_size,
+                       generator=torch.Generator(dev).manual_seed(seed + 7))
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    return args, model, checked, kw_train, kw_test
+
+
+def sine_kernel_checks(seed, dev, report=print):
+    """Phase 18: the sine branch of kernels 4, 1, 3 and 2 against their
+    plain versions on the pretrained-then-perturbed SIREN surface
+    (`_siren_models`), at the SIREN path's shapes, with the gates of phases
+    10, 2, 6 and 3: kernel 4 on 2^20 points uniform in [-3, 3]^3 (the
+    scene's bounding box, where 30 a reaches tens of radians on the first
+    layer) and 4,099 more, max|diff| <= 1e-5 max|sdf|; kernel 1 on a SIREN
+    step's 197,632 points (1,024 rays x (128 coarse + 64 fine depths from the
+    kernels' sampler) + 1,024 eikonal points), sdf and h atol 1e-4, nablas
+    rtol 2e-3 / atol 2e-4; kernel 3 on the same points with seeded
+    cotangents, every leaf within 5e-4 of its max|ref|; kernel 2 on 4,096
+    rays of the SIREN scene (near / far on the bounding sphere of radius 3),
+    det and perturb, as phase 3. Returns (ok, {kernel: error in its gate's
+    measure}, {kernel: max|diff|}, the inputs for phase 21's times)."""
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.models.frameworks import volsdf
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, _uniforms
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, get_rays
+    from neurecon_tpu_torch.ops.sampling import linspace01
+
+    args, model, checked, kw_train, kw_test = _siren_models(seed, dev)
+    surface = checked.implicit_surface
+    ok, err, abs_err = True, {}, {}
+    g = torch.Generator(dev).manual_seed(seed)
+    x4 = (torch.rand(SINE_POINTS, 3, device=dev, generator=g) * 2 - 1) * 3.0
+    x4_tail = (torch.rand(4099, 3, device=dev, generator=g) * 2 - 1) * 3.0
+    rel4, abs4 = [], []
+    for xs in (x4, x4_tail):
+        got = fused_mlp.fused_sdf_forward(surface, xs)
+        ref = fused_mlp.sdf_forward_plain(surface, xs)
+        torch.cuda.synchronize()
+        abs4.append(float((got - ref).abs().max()))
+        rel4.append(abs4[-1] / float(ref.abs().max())
+                    if bool(torch.isfinite(got).all()) else float("inf"))
+    err["sdf_forward"] = max(rel4)
+    abs_err["sdf_forward"] = max(abs4)
+    report(f"phase 18: sdf_forward (sine) on {SINE_POINTS} and 4,099 points in [-3, 3]^3: "
+           f"max|diff| "
+           f"{rel4[0]:.2e}, {rel4[1]:.2e} of max|sdf| (gate 1e-5)")
+    ok &= err["sdf_forward"] <= 1e-5
+
+    ds = get_data(args)
+    H, W, N = ds.H, ds.W, int(args.data.N_rays)
+    o_all, d_all, _ = get_rays(torch.tensor(ds.c2w_all[0], device=dev),
+                               torch.tensor(ds.intrinsics_all[0], device=dev), H, W)
+    idx = torch.linspace(0, H * W - 1, N, device=dev).long()
+    rays_o, rays_d, _, far = volsdf._ray_bounds(o_all[idx], d_all[idx], 0.0, 6.0)
+    fine = volsdf.compute_ray_samples(checked, rays_o, rays_d,
+                                      **{**kw_train, "perturb": False})
+    d_step = torch.sort(torch.cat([far * linspace01(int(kw_train["N_samples"]), dev),
+                                   fine[0]], -1), -1).values
+    eik = (torch.rand(N, 1, 3, device=dev, generator=g) * 2 - 1) * 3.0
+    x1 = torch.cat([rays_o[:, None] + rays_d[:, None] * d_step[..., None], eik],
+                   1).reshape(-1, 3).contiguous()
+    got = fused_nablas.fused_forward_with_nablas(surface, x1)
+    ref = fused_nablas.forward_with_nablas_plain(surface, x1)
+    torch.cuda.synchronize()
+    e1 = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
+    nab_rel = float(((got[1] - ref[1]).abs() / (2e-4 + 2e-3 * ref[1].abs())).max())
+    err["nablas_forward"] = max(e1[0] / 1e-4, e1[2] / 1e-4, nab_rel)
+    abs_err["nablas_forward"] = max(e1)
+    report(f"phase 18: nablas_forward (sine) on {x1.shape[0]} points: max|diff| sdf "
+           f"{e1[0]:.3e}, nablas {e1[1]:.3e} (max|nablas| {float(ref[1].abs().max()):.3f}), "
+           f"h {e1[2]:.3e}; the worst entry at {nab_rel:.3f} of the nablas gate")
+    ok &= (e1[0] <= 1e-4 and e1[2] <= 1e-4 and nab_ok
+           and all(bool(torch.isfinite(t).all()) for t in got))
+    del got, ref
+
+    g3 = torch.Generator(dev).manual_seed(seed + 2)
+    M1 = x1.shape[0]
+    cots = (torch.randn(M1, device=dev, generator=g3),
+            torch.randn(M1, 3, device=dev, generator=g3),
+            torch.randn(M1, surface.W_geo_feat, device=dev, generator=g3))
+    ws, bs = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+    got3 = fused_nablas_vjp.fused_nablas_vjp(surface, x1, ws, bs, *cots)
+    ref3 = fused_nablas_vjp.nablas_vjp_plain(surface, x1, ws, bs, *cots)
+    torch.cuda.synchronize()
+    ratios = _leaf_ratios(got3, ref3)
+    finite3 = all(bool(torch.isfinite(t).all()) for t in [got3[0], *got3[1], *got3[2]])
+    err["nablas_backward"] = max(ratios.values()) if finite3 else float("inf")
+    abs_err["nablas_backward"] = max(float((a - b).abs().max()) for a, b in
+                                     zip([got3[0], *got3[1], *got3[2]],
+                                         [ref3[0], *ref3[1], *ref3[2]]))
+    report(f"phase 18: nablas_backward (sine) on {M1} points: max|diff| / max|ref| per leaf "
+           + ", ".join(f"{k} {v:.2e}" for k, v in ratios.items()) + " (gate 5e-4)")
+    ok &= err["nablas_backward"] <= 5e-4
+    del got3, ref3
+
+    sub = torch.linspace(0, H * W - 1, SINE_RAYS, device=dev).long()
+    r2o, r2d, near2, far2 = _prepare_rays(o_all[sub], d_all[sub], 3.0)
+    t = torch.linspace(0, 1, 64, device=dev)
+    dc2 = (near2 * (1 - t) + far2 * t).contiguous()
+    u2 = {"det": _uniforms(SINE_RAYS, 4, 16, False, None, dev),
+          "perturb": _uniforms(SINE_RAYS, 4, 16, True, torch.Generator(dev).manual_seed(seed),
+                               dev)}
+    ok2, e2 = _upsample_check(surface, r2o, r2d, near2, far2, dc2, u2,
+                              f"phase 18 (sine, {SINE_RAYS} rays of the SIREN scene)")
+    err["neus_upsample"] = abs_err["neus_upsample"] = max(e2.values())
+    ok &= ok2
+    ctx = {"args": args, "model": model, "checked": checked, "kw_train": kw_train,
+           "kw_test": kw_test, "x4": x4, "x1": x1, "cots": cots, "ws": ws, "bs": bs,
+           "up": (r2o, r2d, dc2, u2["det"]), "rays": (rays_o, rays_d, far), "ds": ds,
+           "o_all": o_all, "d_all": d_all}
+    return bool(ok), err, abs_err, ctx
+
+
+def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed, label,
+                   n_final=64):
+    """Kernels (a)-(c) with kernel 4 against the plain sampler, end to end
+    and each kernel in lockstep on its plain stage's inputs, with phase 14's
+    gates, at each beta_net of `betas`, det and perturb uniforms. Returns
+    (ok, {kernel: worst depth error}, (the last (alpha, beta), its uniforms))."""
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops.sampling import linspace01
+
+    dev = rays_o.device
+    N = rays_o.shape[0]
+    d_init = (far * linspace01(n0, dev)).contiguous()
+    kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
+          "n_up": n_up, "sphere_bg_r": 3.0}
+    ok, k_err = True, {}
+    for beta in betas:
+        ab = (torch.tensor(1.0 / beta, device=dev), torch.tensor(beta, device=dev))
+        for mode in ("det", "perturb"):
+            u = (ffs.det_uniforms(n_final, max_iter + 2, N, dev) if mode == "det"
+                 else torch.rand(N, (max_iter + 2) * n_final, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(seed + 3)))
+            (gd, gb, gi) = ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far, *ab, u,
+                                                 **kw)
+            (rd, rb, ri) = ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far, *ab, u,
+                                                 **kw)
+            torch.cuda.synchronize()
+            dd = (gd - rd).abs()
+            fine_share = float((dd > 1e-4 * 6.0).float().mean())
+            beta_off = int(((gb - rb).abs() > 1e-5 + 1e-3 * rb.abs()).sum())
+            iter_eq = float((gi == ri).float().mean())
+            with torch.no_grad():
+                lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
+                                               n_up=n_up, max_iter=max_iter, n_final=n_final)
+            rounds = torch.bincount((ri + 1).long(), minlength=max_iter + 2).tolist()
+            print(f"{label}: sampler beta_net {beta} {mode}, {N} rays, "
+                  f"{n0 + max_iter * n_up} depths: fine max|diff| {float(dd.max()):.3e}, share "
+                  f"beyond 1e-4 span {fine_share:.5f}; beta map off on {beta_off} rays; "
+                  f"iter_usage equal on {iter_eq:.4f}; rounds (-1, 0..{max_iter}) {rounds}; "
+                  f"lockstep (each kernel on the plain stage's inputs) {json.dumps(lock)}; "
+                  f"merged depths equal {merged_equal}")
+            for name, e in lock.items():
+                k_err[name] = max(k_err.get(name, 0.0), e.get("fine", 0.0), e.get("depths", 0.0))
+            shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
+            finite = all(bool(torch.isfinite(t_).all()) for t_ in (gd, gb))
+            if (fine_share > 0.02 or beta_off > 0.01 * N or iter_eq < 0.9 or not finite
+                    or not merged_equal or max(shares) > 0.01
+                    or lock["volsdf_draw"]["unsorted_rays"] > 0):
+                ok = False
+            last = (ab, u)
+    return ok, k_err, last
+
+
+def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 18-21 (VolSDF with SIREN nets); returns (rc, kernel rows)."""
+    from neurecon_tpu_torch import bridge
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.base import RadianceNet, pretrain_siren_sdf
+    from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, volsdf
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops import (fused_mlp, fused_nablas, fused_nablas_vjp,
+                                        fused_upsample)
+    from neurecon_tpu_torch.tools import extract_surface, render_view
+    from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+    from neurecon_tpu_torch.utils.checkpoints import load_checkpoint
+
+    # ---- phase 18: the sine kernels against their plain versions
+    ok, _, s_abs, ctx = sine_kernel_checks(seed, dev)
+    if not ok:
+        print("FAIL phase 18: a sine kernel disagrees with its plain version", file=sys.stderr)
+        return 1, None
+    args, checked = ctx["args"], ctx["checked"]
+    surface = checked.implicit_surface
+
+    # ---- phase 19: the SIREN sphere pretrain on the card (JAX's defaults)
+    fresh = copy.deepcopy(ctx["model"].implicit_surface)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = pretrain_siren_sdf(fresh, lr=float(args.training.lr_pretrain),
+                                target_radius=fresh.radius_init,
+                                obj_bounding_size=fresh.obj_bounding_size,
+                                generator=torch.Generator(dev).manual_seed(seed + 7))
+    l1 = float(losses[-1])
+    pre_s = time.perf_counter() - t0
+    print(f"phase 19: pretrain_siren_sdf 5,000 iterations x 5,000 points: final L1 {l1:.5f} "
+          f"(gate 0.08), {pre_s:.2f} s, L1 at iterations 1 / 1,000 / 5,000 "
+          f"{float(losses[0]):.4f} / {float(losses[min(999, len(losses) - 1)]):.4f} / "
+          f"{l1:.4f} {tag}")
+    if not l1 < 0.08:
+        print("FAIL phase 19: the SIREN pretrain did not fit the sphere", file=sys.stderr)
+        return 1, None
+    del fresh
+
+    # ---- phase 20: the whole-step gradient, the sampler, then train.py
+    ds = ctx["ds"]
+    batch = {"c2w": torch.tensor(ds.c2w_all[:1], device=dev),
+             "intrinsics": torch.tensor(ds.intrinsics_all[:1], device=dev),
+             "rgb": torch.tensor(ds.rgb_images[:1], device=dev).reshape(1, -1, 3)}
+    kw_train = ctx["kw_train"]
+    H, W, N = ds.H, ds.W, int(args.data.N_rays)
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, H, W, N)
+    eik = (torch.rand(1, N, 1, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + 4)) * 2 - 1) * 3.0
+    fine = volsdf.compute_ray_samples(checked, rb["rays_o"], rb["rays_d"],
+                                      **{**kw_train, "perturb": False})
+    ray_loss = get_ray_loss_fn(args, checked, kw_train)
+
+    loss_k, loss_p, ratios = _step_grad_check(checked, ray_loss, rb, fine_override=fine,
+                                              eik_pts=eik)
+    worst = max(ratios, key=ratios.get)
+    print(f"phase 20: SIREN step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad "
+          f"leaf {worst} {ratios[worst]:.2e} over {len(ratios)} leaves (ln_beta "
+          f"{ratios['ln_beta']:.2e})")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > 5e-4:
+        print("FAIL phase 20: the SIREN step's gradient through the kernels disagrees",
+              file=sys.stderr)
+        return 1, None
+    rays_o, rays_d, far = ctx["rays"]
+    n0 = int(kw_train["N_samples"]) * int(kw_train["fine_sample_mul"])
+    max_iter = int(kw_train["max_upsample_steps"])
+    ok, _, _ = _sampler_check(
+        surface, rays_o, rays_d, far, (0.1, 0.01), n0, n0, max_iter, seed,
+        "phase 20 (SIREN surface)")
+    if not ok:
+        print("FAIL phase 20: the fine-sampler kernels disagree with the plain sampler on "
+              "the SIREN surface", file=sys.stderr)
+        return 1, None
+
+    targs = ConfigDict(copy.deepcopy(VOLSDF_SIREN))
+    targs["expname"] = "chip_smoke_volsdf_siren_train"
+    targs["seed"] = seed
+    targs.data["mesh_N"] = 128
+    tdir = os.path.join(workdir, "siren_train")
+    S, half = SIREN_STEPS, SIREN_STEPS // 2
+    targs.training.update({"num_iters": S, "i_val": half, "i_log": 10,
+                           "i_val_mesh": half, "i_backup": half, "monitoring": "none",
+                           "log_root_dir": tdir, "exp_dir": os.path.join(tdir, "run")})
+    out, t_launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
+    by_path["volsdf_siren_train"] = t_launches
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    ckpt_dir = os.path.join(out["exp_dir"], "ckpts")
+    pre_tree = load_checkpoint(os.path.join(ckpt_dir, "latest.pt"))
+    fates = {}
+    for name, tree in (("pretrained", pre_tree["model"]),
+                       (f"step {half}", load_checkpoint(
+                           os.path.join(ckpt_dir, f"{half:08d}.pt"))["model"]),
+                       (f"step {S}", load_checkpoint(out["final_ckpt"])["model"])):
+        m, *_ = get_model(ConfigDict(copy.deepcopy(VOLSDF_SIREN)), dev)
+        bridge.load_tree(m, tree)
+        grid = mesh_util.query_grid(m.implicit_surface.forward_query, 128, 3.0, device=dev)
+        n_faces = len(mesh_util.marching_tetrahedra(grid)[1])
+        fates[name] = (float(grid.min()), float(grid.max()), n_faces,
+                       float(np.exp(float(tree["ln_beta"][0]))))
+        del grid
+    betas = [round(v, 5) for _, v in out["stats"]["scalars"]["beta"]]
+    print(f"phase 20: train.py {S} SIREN steps at configs/volsdf_siren.yaml widths, 1,024 rays, "
+          f"pretrain included, {run_s:.1f} s in all: launches {t_launches}; loss mean of "
+          f"steps 1-10 {first:.5f}, of the last 10 {last:.5f}; beta at the logs {betas}")
+    print("phase 20: the surface on a 128^3 grid over [-1.5, 1.5]^3 (sdf min, max, "
+          "marching-tetrahedra faces, beta): "
+          + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]} faces / {v[3]:.5f}"
+                      for k, v in fates.items()))
+    print(f"phase 20: median {ms_step:.2f} ms per SIREN step over steps 6-{S} "
+          f"({N * 1e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
+    if (min(t_launches["nablas_forward"], t_launches["nablas_backward"],
+            t_launches["volsdf_init"]) < S
+            or t_launches["sdf_forward"] < (1 + max_iter) * S
+            or min(t_launches["volsdf_draw"], t_launches["volsdf_checkpoint"]) < max_iter * S
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first):
+        print("FAIL phase 20: SIREN training missed a kernel, diverged or did not lower "
+              "the loss", file=sys.stderr)
+        return 1, None
+
+    vargs = ConfigDict(copy.deepcopy(VOLSDF_SIREN))
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 2, "camera_path": "interpolation",
+                  "rayschunk": 4096})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    launches = by_path["volsdf_siren_render_view"] = read_counts()
+    print(f"phase 20: render_view SIREN 2 x {H}x{W}: launches {launches}, s/frame "
+          f"{[round(v, 4) for v in frames['seconds']]} {tag}")
+    chunks = 2 * math.ceil(H * W / 4096)  # one sampler call and one kernel-1 launch each
+    want = {"nablas_forward": chunks, "neus_upsample": 0, "nablas_backward": 0,
+            "sdf_forward": chunks * (1 + max_iter), "volsdf_init": chunks,
+            "volsdf_draw": chunks * max_iter, "volsdf_checkpoint": chunks * max_iter}
+    if (launches != want or frames["rgb"].shape != (2, H, W, 3)
+            or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
+        print("FAIL phase 20: the SIREN render missed a kernel or is not finite",
+              file=sys.stderr)
+        return 1, None
+    render_fn = volsdf.make_volume_render_fn(checked, detailed_output=False, calc_normal=True,
+                                             **ctx["kw_test"])
+    o_all, d_all = ctx["o_all"], ctx["d_all"]
+    patch = torch.arange(H * W // 2 - 1024, H * W // 2 + 1024, device=dev).clamp(0, H * W - 1)
+    out_k = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                           fused_nablas.forward_with_nablas_plain), \
+            mock.patch.object(ffs, "fused_fine_sample", ffs.fine_sample_plain):
+        out_p = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+    e = {k: float(np.abs(out_k[k] - out_p[k]).max())
+         for k in ("rgb", "depth_volume", "normals_volume", "mask_volume", "beta_map")}
+    print(f"phase 20: 2,048-ray SIREN patch, kernels vs plain: max|diff| {e}")
+    if e["rgb"] > 2e-3:
+        print("FAIL phase 20: the SIREN patch disagrees with the plain render", file=sys.stderr)
+        return 1, None
+    ply = os.path.join(workdir, "siren_pretrained_256.ply")
+    eargs = extract_surface.make_parser().parse_args(
+        ["--load_pt", os.path.join(ckpt_dir, "latest.pt"), "--out", ply, "--N", "256",
+         "--volume_size", "3.0", "--D", "5", "--skip", "-1", "--embed_multires", "-1",
+         "--init_r", "1.0", "--use_siren"])
+    zero_counts()
+    ext = extract_surface.main_function(eargs)
+    torch.cuda.synchronize()
+    by_path["volsdf_siren_extract_surface"] = read_counts()
+    v256, f256 = mesh_util.read_ply(ply)
+    closed = len(f256) > 0 and _closed(torch.as_tensor(f256, device=dev))
+    radii = np.linalg.norm(v256, axis=-1) if len(v256) else np.zeros(1)
+    print(f"phase 20: extract_surface 256^3 of the pretrained SIREN surface: grid "
+          f"{ext['grid_s']:.3f} s; {len(v256)} verts, {len(f256)} faces, closed {closed}; "
+          f"vertex radius mean {radii.mean():.5f}, min {radii.min():.5f}, max "
+          f"{radii.max():.5f} {tag}")
+    if not closed or by_path["volsdf_siren_extract_surface"]["sdf_forward"] == 0:
+        print("FAIL phase 20: the pretrained SIREN surface meshes empty or open",
+              file=sys.stderr)
+        return 1, None
+
+    # ---- phase 21: times of the sine kernels, the SIREN step and frame
+    x4, x1, cots, ws, bs = ctx["x4"], ctx["x1"], ctx["cots"], ctx["ws"], ctx["bs"]
+    n_par = sum(p.numel() for p in surface.parameters())
+    M4, M1 = x4.shape[0], x1.shape[0]
+    r2o, r2d, dc2, u2 = ctx["up"]
+    sines = 5 * surface.W  # sin (and cos) evaluations a point
+    rows, times = [], {}
+    specs = {
+        "sdf_forward": (lambda: fused_mlp.fused_sdf_forward(surface, x4),
+                        lambda: fused_mlp.sdf_forward_plain(surface, x4),
+                        _bounds(2.0 * _surface_macs(surface, sdf_only=True) * M4,
+                                4.0 * (M4 * 4 + n_par)), "3xtf32", f"{M4} points",
+                        "neurecon_tpu/ops/fused_mlp.py:125"),
+        "nablas_forward": (lambda: fused_nablas.fused_forward_with_nablas(surface, x1),
+                           lambda: fused_nablas.forward_with_nablas_plain(surface, x1),
+                           _bounds(2.0 * _surface_macs(surface) * M1,
+                                   4.0 * (M1 * (3 + 4 + surface.W_geo_feat) + n_par)),
+                           "fp32", f"{M1} points", "neurecon_tpu/ops/fused_nablas.py:74"),
+        "nablas_backward": (lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x1, ws, bs, *cots),
+                            lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x1, ws, bs, *cots),
+                            _bounds(2.0 * _surface_macs(surface, backward=True) * M1,
+                                    4.0 * (M1 * (3 + 1 + 3 + surface.W_geo_feat + 3)
+                                           + 2 * n_par)),
+                            "3xtf32", f"{M1} points", "neurecon_tpu/ops/fused_nablas_vjp.py:120"),
+        "neus_upsample": (lambda: fused_upsample.fused_neus_upsample(
+                              surface, r2o, r2d, dc2, u2, n_iters=4, n_per_iter=16),
+                          lambda: fused_upsample.neus_upsample_plain(
+                              surface, r2o, r2d, dc2, u2, n_iters=4, n_per_iter=16),
+                          _bounds(2.0 * _surface_macs(surface, sdf_only=True) * SINE_RAYS * 128,
+                                  4.0 * (SINE_RAYS * (6 + 64 + 64 + 128) + n_par)),
+                          "fp32", f"{SINE_RAYS} rays", "neurecon_tpu/ops/fused_upsample.py:272"),
+    }
+    for name, (fn, plain, bb, held, per, replaces) in specs.items():
+        ms = _time_ms(fn)
+        with torch.no_grad():
+            pms = _time_ms(plain, reps=3)
+        times[name] = ms
+        print(f"phase 21: {name} (sine) {per}: {ms:.3f} ms (plain {pms:.3f} ms, fp32 bound "
+              f"{bb[0][0]:.3f} ms, 3xTF32 bound {bb[1][0]:.3f} ms; {sines} sin / cos a point "
+              f"beside the multiply-adds) {tag}")
+        rows.append({"name": f"{name}[sine]", "branch": "sine", "route": "cuda",
+                     "source": f"neurecon_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                     "launches": t_launches[name], "max_abs_err": s_abs[name], "ms": ms,
+                     "plain_ms": pms, **_bound_fields(*bb, held), "library_ms": None,
+                     "per": per})
+    print(f"phase 21: median {ms_step:.2f} ms per SIREN step over steps 6-{S}, "
+          f"{N * 1e3 / ms_step:.0f} rays/s; s per SIREN {H}x{W} frame "
+          f"{[round(v, 4) for v in frames['seconds']]}; pretrain {pre_s:.2f} s {tag}")
+    parts = {"volsdf_init": (ffs, "launch_init"), "volsdf_draw": (ffs, "launch_draw"),
+             "volsdf_checkpoint": (ffs, "launch_checkpoint"),
+             "sdf_forward (sampler)": (ffs, "launch_sdf_forward")}
+    step_total, split, busy = _step_split(
+        targs, dev, {"sampler (whole)": (ffs, "fused_fine_sample"), **parts,
+                     "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward")},
+        tree=load_checkpoint(out["final_ckpt"])["model"])
+    sampler_rest = split["sampler (whole)"] - sum(split[k] for k in parts)
+    rest = step_total - sum(v for k, v in split.items() if k not in parts)
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    print(f"phase 21: one SIREN step ({N} rays, phase 20's final weights) {step_total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the sampler's own glue {sampler_rest:.2f} ms, the rest (radiance backward, "
+          f"loss, glue) {rest:.2f} ms; device over three steps {busy} {tag}")
+    frame_ms, fsplit = _frame_split(
+        render_view.render_frames, vargs,
+        {"sampler (whole)": (ffs, "fused_fine_sample"), **parts,
+         "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+         "radiance_net": (RadianceNet, "forward")})
+    frest = frame_ms - sum(v for k, v in fsplit.items() if k not in parts)
+    print(f"phase 21: one {H}x{W} SIREN frame (phase 20's final checkpoint) "
+          f"{frame_ms:.2f} ms wall: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fsplit.items())
+          + f", everything else {frest:.2f} ms {tag}")
+    for r in rows:
+        r["launches_by_path"] = {p: c[r["name"].split("[")[0]] for p, c in by_path.items()
+                                 if p.startswith("volsdf_siren")}
+    return 0, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -817,7 +1347,6 @@ def main(argv=None):
     from neurecon_tpu_torch.models.frameworks import get_model
     from neurecon_tpu_torch.models.frameworks.neus import (_prepare_rays, _uniforms,
                                                            make_volume_render_fn)
-    from neurecon_tpu_torch import train
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
     from neurecon_tpu_torch.ops import (_build, fused_fine_sample, fused_mlp, fused_nablas,
                                         fused_nablas_vjp, fused_upsample, get_rays,
@@ -905,38 +1434,9 @@ def main(argv=None):
     del ref, got
 
     # ---- phase 3: kernel 2 against its plain version, det and perturb
-    ok = True
     u_pert = _uniforms(4096, 4, 16, True, torch.Generator(dev).manual_seed(seed), dev)
-    span = (far - near)
-    k2_err = {}
-    for mode, u in (("det", u_det), ("perturb", u_pert)):
-        got = fused_upsample.fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u,
-                                                 n_iters=4, n_per_iter=16)
-        ref = fused_upsample.neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u,
-                                                 n_iters=4, n_per_iter=16)
-        torch.cuda.synchronize()
-        diff = (got - ref).abs()
-        off = diff > 1e-3 * span
-        frac = float(off.float().mean())
-        p999 = float(torch.quantile(diff.flatten(), 0.999))
-        # The det uniforms end in u = 1.0, which meets cdf[-1] = 1 +- an ulp:
-        # when the last cdf step is below the 1e-5 eps, whether that sample
-        # lands at `far` or just past the second-to-last sample flips with
-        # the fp32 summation order. So in det mode, per ray, up to one entry
-        # per round that lies in the last coarse section on both sides is
-        # exempt; every other entry is held to the share.
-        tie = off & (got >= d_coarse[:, -2:-1]) & (ref >= d_coarse[:, -2:-1])
-        exempt = (tie & (tie.sum(1, keepdim=True) <= 4) if mode == "det"
-                  else torch.zeros_like(off))
-        frac_rest = float((off & ~exempt).float().mean())
-        inside = bool(((got >= near - 1e-6) & (got <= far + 1e-6)).all())
-        k2_err[mode] = float(diff.max())
-        print(f"phase 3: neus_upsample {mode}: max|diff| {float(diff.max()):.3e}, "
-              f"p99.9 {p999:.3e}, share beyond 1e-3(far-near) {frac:.5f}, "
-              f"{int(exempt.sum())} u=1.0 tie entries exempt on "
-              f"{int(exempt.any(1).sum())} rays, share of the rest {frac_rest:.5f}")
-        if frac_rest > 1e-3 or not inside or not torch.isfinite(got).all():
-            ok = False
+    ok, k2_err = _upsample_check(surface, rays_o, rays_d, near, far, d_coarse,
+                                 {"det": u_det, "perturb": u_pert}, "phase 3")
     if not ok:
         print("FAIL phase 3: neus_upsample disagrees with its plain version", file=sys.stderr)
         return 1
@@ -1079,56 +1579,20 @@ def main(argv=None):
     d7 = fused_upsample.fused_neus_upsample(surface, r7o, r7d, (n7 * (1 - t) + f7 * t).contiguous(),
                                             u_det[:512], n_iters=4, n_per_iter=16)
 
-    def step_grads():
-        checked.zero_grad(set_to_none=True)
-        total, _ = ray_loss(rb, d_all=d7)
-        total.backward()
-        return total.item(), [p.grad.clone() for p in checked.parameters()]
-
-    loss_k, grads_k = step_grads()
-    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
-                           fused_nablas.forward_with_nablas_plain), \
-            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
-                              fused_nablas_vjp.nablas_vjp_plain):
-        loss_p, grads_p = step_grads()
-    names = [n for n, _ in checked.named_parameters()]
-    step_ratios = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   for n, a, b in zip(names, grads_k, grads_p)}
+    loss_k, loss_p, step_ratios = _step_grad_check(checked, ray_loss, rb, d_all=d7)
     worst = max(step_ratios, key=step_ratios.get)
     print(f"phase 7: step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad leaf "
-          f"{worst} {step_ratios[worst]:.2e} over {len(names)} leaves")
+          f"{worst} {step_ratios[worst]:.2e} over {len(step_ratios)} leaves")
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or step_ratios[worst] > 5e-4:
         print("FAIL phase 7: the step's gradient through the kernels disagrees",
               file=sys.stderr)
         return 1
-    checked.zero_grad(set_to_none=True)
 
     # ---- phase 8: the training slice through train.py (its directory stays
     # for phase 13)
     targs = ConfigDict(_train_config(os.path.join(work.name, "train"), seed))
-    starts = []
-    real_make_step = train.make_train_step
-
-    def make_step_timed(*a, **k):
-        step = real_make_step(*a, **k)
-
-        def timed_step(*sa, **sk):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            starts.append(ev)
-            return step(*sa, **sk)
-        return timed_step
-
-    zero_counts()
-    with mock.patch.object(train, "make_train_step", make_step_timed):
-        out = train.main_function(targs, device="cuda")
-    torch.cuda.synchronize()
-    launches = by_path["train"] = read_counts()
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    torch.cuda.synchronize()
-    evs = starts + [end]
-    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))]
+    out, launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
+    by_path["train"] = launches
     ms_step = float(np.median(step_ms[5:]))
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
     logged = [v for _, v in out["stats"]["losses"]["total"]]
@@ -1382,9 +1846,10 @@ def main(argv=None):
                                      work.name)
     if rc:
         return rc
-
-    def per_path(name):
-        return {p: c[name] for p, c in by_path.items()}
+    rc, siren_rows = _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path,
+                                   work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -1414,7 +1879,11 @@ def main(argv=None):
          "bound_ms_grid512": b4_grid, "ms_split_4096": split4},
     ] + vol_rows
     for r in results:
-        r["launches_by_path"] = per_path(r["name"])
+        r["branch"] = "softplus" if r["name"] in counters and "volsdf" not in r["name"] else "-"
+        # a Softplus row counts no launch of its kernel's sine instantiation
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
+                                 if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
+    results += siren_rows
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

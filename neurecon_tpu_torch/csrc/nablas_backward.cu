@@ -10,13 +10,20 @@
 //
 // The math, per point, in the port's layout (in_l = the input of layer l:
 // the encoding e, [h, e]/sqrt(2) at a skip, else h_l; a_l = W_l in_l + b_l;
-// s_l = sigmoid(100 a_l) = phi'(a_l), phi'' = 100 s_l (1 - s_l)):
+// s_l = phi'(a_l): sigmoid(100 a_l) for Softplus(beta = 100), where
+// phi'' = 100 s_l (1 - s_l); 30 cos(30 a_l) for the SIREN sine, where
+// phi'' = -900 sin(30 a_l) = -900 h_{l+1}):
 //   phase 1  forward, keeping s_l and in_l
 //   phase 2  nablas sweep u_D = W_D[0, :], q_l = u_{l+1} s_l,
-//            g_in = W_l^T q_l (u_l and g_e split off at the skip / layer 0)
+//            g_in = W_l^T q_l (u_l and g_e split off at the skip / layer 0);
+//            for the sine, also u_{l+1} phi''(a_l) = -900 u_{l+1} h_{l+1}
+//            (h_{l+1} is the next layer's input, kept in the workspace by
+//            phase 1: a sine net has no skips), parked in abar_l's slot
 //   phase 3  the nablas cotangent pushed forward through phase 2:
 //            gin_0 = n_bar (d e / d x), qbar_l = W_l gin_l,
-//            abarB_l = qbar_l u_{l+1} phi''(a_l) = 100 qbar_l q_l (1 - s_l),
+//            abarB_l = qbar_l u_{l+1} phi''(a_l) (Softplus: 100 qbar_l q_l
+//            (1 - s_l) from the kept slope; sine: qbar_l times the parked
+//            product; cos(30 a) alone has lost the sine's sign),
 //            ubar_{l+1} = qbar_l s_l, W_bar_l += q_l (x) gin_l; at the end
 //            W_bar_D[0, :] += sum_m ubar_D (the seed's pullback, gsdfbar)
 //   phase 4  one first-order down-sweep from y_bar = [sdf_bar, h_bar]:
@@ -174,8 +181,8 @@ __device__ __forceinline__ void reverse_product(const tc::Mlp& m, const tc::Laye
 }
 
 // Phases 1-4 on point tile T, with the block's shared memory at `base` and
-// its slope scratch at `deriv` ([D][rows][P]).
-template <int P>
+// its slope scratch at `deriv` ([D][rows][P]); ACT the hidden activation.
+template <int P, int ACT>
 __device__ __forceinline__ void
 backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
               const float* __restrict__ cot_sdf, const float* __restrict__ cot_nab,
@@ -235,7 +242,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     copy_rows<P>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
     float acc[tc::Tile<P>::MT][8][4];
     tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, in, stage, acc);
-    tc::softplus_out<P>(L, acc, buf, slope(l));
+    tc::activation_out<P, ACT>(L, acc, buf, slope(l));
     __syncthreads();
   }
   const tc::Layer LD = tc::layer_of(m, D);
@@ -251,6 +258,13 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
     const float* sl = slope(l);
+    if constexpr (ACT == ACT_SINE) {  // u_{l+1} phi''(a_l), parked in abar_l's slot
+      const Job Jn = job_of(jobs, l + 1);
+      const float* hn = l + 1 == D ? slot(Jn.b_off, Jn.ldB, 0) : slot(Jn.b_off, Jn.ldB, 1);
+      float* ab = slot(J.a_off, J.ldA, 1);
+      for (int idx = threadIdx.x; idx < L.out_dim * P; idx += THREADS)
+        ab[idx] = -SIREN_W0 * SIREN_W0 * buf[(idx / P) * LDV + idx % P] * hn[idx];
+    }
     for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS)
       buf[(idx / P) * LDV + idx % P] *= sl[idx];  // padded rows: slope 0
     __syncthreads();
@@ -321,7 +335,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       float u = 0.f;
       if (o < L.out_dim) {
         const float s = sl[o * P + p];
-        ab[o * P + p] = 100.f * a * qs[o * P + p] * (1.f - s);
+        if constexpr (ACT == ACT_SINE) ab[o * P + p] *= a;
+        else ab[o * P + p] = 100.f * a * qs[o * P + p] * (1.f - s);
         u = a * s;
       }
       buf[o * LDV + p] = u;
@@ -398,6 +413,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
 // A persistent grid (one block per SM) walks the point tiles; each block
 // keeps its tile's slopes s_l ([D][rows][P]) in its own slice of `slopes`,
 // reused from tile to tile.
+template <int ACT>
 __global__ void __launch_bounds__(THREADS, 1)
 backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
                      const float* __restrict__ cot_sdf,
@@ -410,7 +426,7 @@ backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
   extern __shared__ float4 smem4[];
   float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.rows * P;
   for (int T = blockIdx.x; T < Mtiles; T += gridDim.x) {
-    backward_tile<P>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+    backward_tile<P, ACT>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
                      bias_part, nb, xbar, T, deriv, reinterpret_cast<float*>(smem4));
     __syncthreads();  // the next tile overwrites shared memory
   }
@@ -583,16 +599,20 @@ extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess && smem > (size_t)optin) return 0;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntt::backward_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntt::backward_tile_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ntt::backward_tile_kernel, ntt::THREADS, smem);
+  bool first = true;
+  for (auto kernel : {ntt::backward_tile_kernel<ntt::ACT_SOFTPLUS>,
+                      ntt::backward_tile_kernel<ntt::ACT_SINE>}) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    int n = 0;  // the fewer of the two instantiations' resident blocks
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, ntt::THREADS, smem);
+    per_sm = first || n < per_sm ? n : per_sm;
+    first = false;
+  }
   if (err != cudaSuccess) return -(int)err;
   const int blocks = per_sm * sms;
   return blocks < m_tiles ? blocks : m_tiles;
@@ -601,14 +621,15 @@ extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
 // x [M,3], cot_sdf [M], cot_nab [M,3], cot_h [M,geo_dim] -> xbar [M,3] and
 // the flat gradient `flat` [total] (layout in ops/fused_nablas_vjp.py);
 // `params` (three planes of `plane` floats) and `meta` the pack of
-// ops/surface_pack.py; `work`, `bias_part`
+// ops/surface_pack.py; `act` the hidden layers' activation
+// (ACT_SOFTPLUS or ACT_SINE); `work`, `bias_part`
 // [Mtiles, nb], `part` [n_split, total] and `slopes` [blocks, n_layers - 1,
 // rows, BWD_TILE] are scratch; `blocks` comes from ntt_nablas_backward_blocks,
 // which also sets the kernel's attributes. All fp32, contiguous, on the
 // device; M > 0. Returns the first cudaError_t of the four launches.
 extern "C" int ntt_nablas_backward(
     const void* x, int M, const void* params, long long plane, const void* meta, int n_layers,
-    int in_ch, int c_pad, int rows, const void* cot_sdf, const void* cot_nab,
+    int in_ch, int c_pad, int rows, int act, const void* cot_sdf, const void* cot_nab,
     const void* cot_h, int geo_dim, const void* jobs, void* work,
     void* bias_part, int nb, void* part, int n_split, long long total,
     long long bias_flat_off, int n_out_tiles, int blocks, void* slopes,
@@ -618,12 +639,15 @@ extern "C" int ntt_nablas_backward(
   cudaError_t err;
   ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
                  static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
   const int Mtiles = (M + ntt::BWD_TILE - 1) / ntt::BWD_TILE;
   const long long* J = static_cast<const long long*>(jobs);
   float* W = static_cast<float*>(work);
   float* BP = static_cast<float*>(bias_part);
   float* P = static_cast<float*>(part);
-  ntt::backward_tile_kernel<<<blocks, ntt::THREADS, smem, st>>>(
+  auto tile_kernel = act == ntt::ACT_SINE ? ntt::backward_tile_kernel<ntt::ACT_SINE>
+                                              : ntt::backward_tile_kernel<ntt::ACT_SOFTPLUS>;
+  tile_kernel<<<blocks, ntt::THREADS, smem, st>>>(
       m, static_cast<const float*>(x), M, Mtiles,
       static_cast<const float*>(cot_sdf), static_cast<const float*>(cot_nab),
       static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb,

@@ -3,8 +3,11 @@
 // Replaces the Pallas kernel `_make_nablas_kernel` of
 // neurecon_tpu/ops/fused_nablas.py (entry `fused_forward_with_nablas`).
 // For each point: sdf, the geometry features (final-layer rows 1..), and
-// d sdf / dx by a hand-written reverse sweep g <- (g * sigmoid(100 a_l)) W_l
-// (skip split by 1/sqrt(2)) ending in the positional-encoding pullback.
+// d sdf / dx by a hand-written reverse sweep g <- (g * phi'(a_l)) W_l (skip
+// split by 1/sqrt(2)) ending in the positional-encoding pullback. phi is
+// Softplus(beta = 100), phi' = sigmoid(100 a), or the SIREN sine sin(30 a),
+// phi' = 30 cos(30 a) (a launch argument; a SIREN point costs 328,704
+// multiply-adds and 1,280 sincosf at D=5, W=256).
 //
 // What bounds it: arithmetic. At the flagship widths a point costs about
 // 2 MFLOP (forward plus reverse sweep) against 16 bytes of input and 1 KB of
@@ -28,7 +31,8 @@
 namespace ntt {
 
 // Point tile T, with the block's shared memory at `xs` and its slope
-// scratch at `deriv` ([D][wmax][TILE]).
+// scratch at `deriv` ([D][wmax][TILE]); ACT the hidden activation.
+template <int ACT>
 __device__ __forceinline__ void
 nablas_forward_tile(const Mlp& m, const float* __restrict__ x, int M,
                     float* __restrict__ sdf, float* __restrict__ nablas,
@@ -48,7 +52,7 @@ nablas_forward_tile(const Mlp& m, const float* __restrict__ x, int M,
   __syncthreads();
   embed_tile(m, xs, emb);
   __syncthreads();
-  float* h = hidden_forward(m, emb, bufA, bufB, deriv, stage);
+  float* h = hidden_forward<ACT>(m, emb, bufA, bufB, deriv, stage);
 
   // final layer: sdf (row 0) and geometry features (rows 1..), straight out
   const Layer LD = layer_of(m, D);
@@ -136,6 +140,7 @@ nablas_forward_tile(const Mlp& m, const float* __restrict__ x, int M,
   }
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(THREADS, 3)
 nablas_forward_kernel(Mlp m, const float* __restrict__ x, int M,
                       float* __restrict__ sdf, float* __restrict__ nablas,
@@ -144,7 +149,7 @@ nablas_forward_kernel(Mlp m, const float* __restrict__ x, int M,
   float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.wmax * TILE;
   const int tiles = (M + TILE - 1) / TILE;
   for (int T = blockIdx.x; T < tiles; T += gridDim.x) {
-    nablas_forward_tile(m, x, M, sdf, nablas, hgeo, geo_dim, T, deriv,
+    nablas_forward_tile<ACT>(m, x, M, sdf, nablas, hgeo, geo_dim, T, deriv,
                         reinterpret_cast<float*>(smem4));
     __syncthreads();  // the next tile overwrites shared memory
   }
@@ -162,19 +167,25 @@ extern "C" size_t ntt_nablas_forward_smem_bytes(int in_ch, int wmax) {
 // cudaError_t on failure.
 extern "C" int ntt_nablas_forward_blocks(int in_ch, int wmax, int M) {
   const size_t smem = ntt_nablas_forward_smem_bytes(in_ch, wmax);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt::nablas_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntt::nablas_forward_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = cudaSuccess;
   int dev = 0, sms = 0, per_sm = 0;
+  bool first = true;
+  for (auto kernel : {ntt::nablas_forward_kernel<ntt::ACT_SOFTPLUS>,
+                      ntt::nablas_forward_kernel<ntt::ACT_SINE>}) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    int n = 0;  // the fewer of the two instantiations' resident blocks
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, ntt::THREADS, smem);
+    per_sm = first || n < per_sm ? n : per_sm;
+    first = false;
+  }
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ntt::nablas_forward_kernel, ntt::THREADS, smem);
   if (err != cudaSuccess) return -(int)err;
   const int tiles = (M + ntt::TILE - 1) / ntt::TILE;
   return per_sm * sms < tiles ? per_sm * sms : tiles;
@@ -182,19 +193,22 @@ extern "C" int ntt_nablas_forward_blocks(int in_ch, int wmax, int M) {
 
 // x [M,3] -> sdf [M], nablas [M,3], hgeo [M,geo_dim]; all fp32, contiguous,
 // on the device; `slopes` is scratch for `blocks` blocks (from
-// ntt_nablas_forward_blocks, which also sets the kernel's attributes).
-// Returns the cudaError_t of the launch.
+// ntt_nablas_forward_blocks, which also sets the kernel's attributes); `act`
+// the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE). Returns the
+// cudaError_t of the launch.
 extern "C" int ntt_nablas_forward(const void* x, int M, const void* params,
                                   const void* meta, int n_layers, int in_ch,
-                                  int multires, int wmax, void* sdf,
+                                  int multires, int wmax, int act, void* sdf,
                                   void* nablas, void* hgeo, int geo_dim,
                                   int blocks, void* slopes, void* stream) {
   if (M <= 0) return 0;
   const size_t smem = ntt_nablas_forward_smem_bytes(in_ch, wmax);
   ntt::Mlp m{static_cast<const float*>(params), static_cast<const int*>(meta),
              n_layers, in_ch, multires, wmax};
-  ntt::nablas_forward_kernel<<<blocks, ntt::THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
+  auto kernel = act == ntt::ACT_SINE ? ntt::nablas_forward_kernel<ntt::ACT_SINE>
+                                     : ntt::nablas_forward_kernel<ntt::ACT_SOFTPLUS>;
+  kernel<<<blocks, ntt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       m, static_cast<const float*>(x), M, static_cast<float*>(sdf),
       static_cast<float*>(nablas), static_cast<float*>(hgeo), geo_dim,
       static_cast<float*>(slopes));

@@ -45,6 +45,7 @@ struct Bufs {
 
 // sdf at depth dep[r * stride + j] of ray r, for j < n, written to
 // sd[r * stride + j]; all RAYS rays, TILE points per MLP pass.
+template <int ACT>
 __device__ void query(const Mlp& m, const Bufs& B, const float* dep, float* sd,
                       int stride, int n, float sphere_r, float* xs, float* emb,
                       float* bufA, float* bufB, float* stage, float* tile_sdf) {
@@ -63,7 +64,7 @@ __device__ void query(const Mlp& m, const Bufs& B, const float* dep, float* sd,
     __syncthreads();
     embed_tile(m, xs, emb);
     __syncthreads();
-    const float* h = hidden_forward(m, emb, bufA, bufB, nullptr, stage);
+    const float* h = hidden_forward<ACT>(m, emb, bufA, bufB, nullptr, stage);
     sdf_row_tile(m, h, tile_sdf);
     __syncthreads();
     for (int p = threadIdx.x; p < TILE; p += blockDim.x) {
@@ -118,6 +119,7 @@ __device__ void section_cdf(const float* d, const float* s, float* cdf,
   __syncwarp();
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(THREADS)
 neus_upsample_kernel(Mlp m, const float* __restrict__ rays_o,
                      const float* __restrict__ rays_d,
@@ -155,7 +157,7 @@ neus_upsample_kernel(Mlp m, const float* __restrict__ rays_o,
     B.d[r * S + j] = (ray0 + r < N) ? d_coarse[(ray0 + r) * n_coarse + j] : 0.f;
   }
   __syncthreads();
-  query(m, B, B.d, B.s, S, n_coarse, sphere_r, xs, emb, bufA, bufB, stage, tile_sdf);
+  query<ACT>(m, B, B.d, B.s, S, n_coarse, sphere_r, xs, emb, bufA, bufB, stage, tile_sdf);
 
   const int lane = threadIdx.x % 32, r = threadIdx.x / 32;
   const bool valid = ray0 + r < N;
@@ -185,7 +187,7 @@ neus_upsample_kernel(Mlp m, const float* __restrict__ rays_o,
       nd[j] = __fadd_rn(bb, __fmul_rn(t, ba - bb));
     }
     __syncthreads();
-    query(m, B, B.nd, B.ns, n_per, n_per, sphere_r, xs, emb, bufA, bufB, stage,
+    query<ACT>(m, B, B.nd, B.ns, n_per, n_per, sphere_r, xs, emb, bufA, bufB, stage,
           tile_sdf);
     // stable merge == stable sort of concat([old, new]) by depth
     for (int i = lane; i < nb; i += 32) {
@@ -228,27 +230,29 @@ extern "C" size_t ntt_neus_upsample_smem_bytes(int in_ch, int wmax, int S,
 
 // rays_o, rays_d [N,3] (d unit), d_coarse [N,n_coarse] sorted, u
 // [N, n_iters*n_per] sorted within each round -> d_out [N, n_coarse +
-// n_iters*n_per] sorted. sphere_r < 0: no sphere_residual prior. Returns the
+// n_iters*n_per] sorted. sphere_r < 0: no sphere_residual prior. `act` the
+// hidden layers' activation (ACT_SOFTPLUS or ACT_SINE). Returns the
 // cudaError_t of the launch.
 extern "C" int ntt_neus_upsample(const void* rays_o, const void* rays_d,
                                  const void* d_coarse, const void* u, int N,
                                  int n_coarse, int n_iters, int n_per,
                                  const void* params, const void* meta,
                                  int n_layers, int in_ch, int multires,
-                                 int wmax, float sphere_r, void* d_out,
+                                 int wmax, int act, float sphere_r, void* d_out,
                                  void* stream) {
   if (N <= 0) return 0;
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
   const int S = n_coarse + n_iters * n_per;
   const size_t smem = ntt_neus_upsample_smem_bytes(in_ch, wmax, S, n_per);
-  cudaError_t err = cudaFuncSetAttribute(
-      ntt::neus_upsample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  auto kernel = act == ntt::ACT_SINE ? ntt::neus_upsample_kernel<ntt::ACT_SINE>
+                                     : ntt::neus_upsample_kernel<ntt::ACT_SOFTPLUS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   ntt::Mlp m{static_cast<const float*>(params), static_cast<const int*>(meta),
              n_layers, in_ch, multires, wmax};
   const int blocks = (N + ntt::RAYS - 1) / ntt::RAYS;
-  ntt::neus_upsample_kernel<<<blocks, ntt::THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, ntt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       m, static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(d_coarse), static_cast<const float*>(u), N,
       n_coarse, n_iters, n_per, sphere_r, static_cast<float*>(d_out));

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel `_make_kernel` of neurecon_tpu/ops/fused_mlp.py
 // (entry `fused_sdf_forward`): for each point, the positional encoding, the D
-// hidden layers (Softplus beta=100, the skip input [h, emb] / sqrt(2)) and the
-// final layer's sdf row alone. It serves every gradient-free sdf query: the
+// hidden layers (Softplus beta=100 or the SIREN sine sin(30 a), the skip
+// input [h, emb] / sqrt(2)) and the final layer's sdf row alone. It serves every gradient-free sdf query: the
 // mesh grids, both ray casters, the VolSDF sampler, the eval tools.
 //
 // What bounds it. At the flagship widths a point costs 459,008 multiply-adds
@@ -15,13 +15,16 @@
 // per tile of P = 128 points: 30 GB of L2 reads per 2^20 points, a few ms
 // at L2's rate. So the bound is the tensor cores' operations, and the
 // kernel's time over it is mma.sync's rate, the CUDA-core work around the
-// MMAs (the activations' split, one flush a k-step) and the Softplus
-// epilogues, which the one block an SM does not overlap with the MMAs.
+// MMAs (the activations' split, one flush a k-step) and the activation
+// epilogues (Softplus: two expf and a log1pf; sine: one sinf, whose range
+// reduction is dearer at |30 a| of tens of radians), which the one block an
+// SM does not overlap with the MMAs. At the SIREN widths (D=5, W=256, no
+// encoding) a point costs 263,168 multiply-adds and 1,280 sines.
 //
 // Design. A persistent grid of 512-thread blocks, one per SM, walks tiles of
 // 128 points. A tile is encoded (`embed_tile`), pushed through the hidden
 // layers in place in one activation buffer (each product's accumulators
-// stay in registers until its closing barrier, then its Softplus epilogue
+// stay in registers until its closing barrier, then its activation epilogue
 // overwrites the input; a skip layer appends the encoding to h and divides
 // by sqrt(2)), and reduced to its sdf row on the CUDA cores in fp32,
 // one thread per point. Shared memory (floats, flagship widths): xs [4][128]
@@ -39,6 +42,7 @@ constexpr int SDF_NBUF = 2;    // staged chunks: one computed, one in flight
 constexpr int SDF_STAGE = tc::stage_floats(SDF_KC, SDF_NBUF, true);
 constexpr int SDF_THREADS = tc::Tile<SDF_TILE>::THREADS;
 
+template <int ACT>
 __global__ void __launch_bounds__(SDF_THREADS, 1)
 sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
                    float* __restrict__ sdf) {
@@ -66,7 +70,7 @@ sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
       float acc[tc::Tile<P>::MT][8][4];
       tc::product<P, SDF_KC, SDF_NBUF, true>(L.wT, m.plane, L.K, L.N, l == 0 ? emb : buf, stage,
                                        acc);
-      tc::softplus_out<P>(L, acc, buf, nullptr);
+      tc::activation_out<P, ACT>(L, acc, buf, nullptr);
       __syncthreads();
     }
     // the sdf row: sum_k h[k][p] W_D[0][k] + b_D[0] (W_D's row 0 is the
@@ -111,33 +115,40 @@ extern "C" int ntt_sdf_forward_resident(int c_pad, int rows) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess && smem > (size_t)optin) return 0;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntt::sdf_forward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntt::sdf_forward_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ntt::sdf_forward_kernel, ntt::SDF_THREADS, smem);
+  bool first = true;
+  for (auto kernel : {ntt::sdf_forward_kernel<ntt::ACT_SOFTPLUS>,
+                      ntt::sdf_forward_kernel<ntt::ACT_SINE>}) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    int n = 0;  // the fewer of the two instantiations' resident blocks
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, ntt::SDF_THREADS, smem);
+    per_sm = first || n < per_sm ? n : per_sm;
+    first = false;
+  }
   if (err != cudaSuccess) return -(int)err;
   return per_sm * sms;
 }
 
 // x [M,3] -> sdf [M]; fp32, contiguous, on the device; `params` (three
 // planes of `plane` floats) and `meta` the pack of ops/surface_pack.py;
+// `act` the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE);
 // `blocks` at most ntt_sdf_forward_resident's count. Returns the cudaError_t of the launch.
 extern "C" int ntt_sdf_forward(const void* x, int M, const void* params,
                                long long plane, const void* meta, int n_layers,
-                               int in_ch, int c_pad, int rows, void* sdf,
+                               int in_ch, int c_pad, int rows, int act, void* sdf,
                                int blocks, void* stream) {
   if (M <= 0) return 0;
   const size_t smem = ntt_sdf_forward_smem_bytes(c_pad, rows);
   ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
                  static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
-  ntt::sdf_forward_kernel<<<blocks, ntt::SDF_THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
+  auto kernel = act == ntt::ACT_SINE ? ntt::sdf_forward_kernel<ntt::ACT_SINE>
+                                         : ntt::sdf_forward_kernel<ntt::ACT_SOFTPLUS>;
+  kernel<<<blocks, ntt::SDF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       m, static_cast<const float*>(x), M, static_cast<float*>(sdf));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // The surface MLP on a tile of points held in shared memory — the device
-// routine shared by the forward+nablas kernel (nablas_forward.cu), the NeuS
-// upsampler kernel (neus_upsample.cu) and the sdf-only kernel
-// (sdf_forward.cu).
+// routine shared by the forward+nablas kernel (nablas_forward.cu) and the
+// NeuS upsampler kernel (neus_upsample.cu). The hidden layers' activation is
+// a launch argument, which picks one of each kernel's two instantiations (a
+// template parameter: no epilogue carries a branch): Softplus(beta = 100),
+// or the SIREN sine sin(30 a).
 //
 // Layout. Activations live in shared memory feature-major, [rows][TILE]: one
 // row of TILE floats per channel, so the TILE values one weight multiplies are
@@ -24,6 +26,10 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <initializer_list>
+
+#include "activation.cuh"
 
 namespace ntt {
 
@@ -160,12 +166,15 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs,
   }
 }
 
-// One hidden layer: out[o][p] = softplus100(sum_k in[k][p] W[o][k] + b[o]);
-// with `deriv`, its slope sigmoid(100 z) is kept there for the reverse sweep.
+// One hidden layer: out[o][p] = phi(sum_k in[k][p] W[o][k] + b[o]), phi =
+// softplus100 (act ACT_SOFTPLUS) or sin(30 z) (ACT_SINE); with `deriv`, its
+// slope (sigmoid(100 z), or 30 cos(30 z)) is kept there for the reverse
+// sweep. sincosf/sinf, not the fast intrinsics: 30 z reaches tens of
+// radians, where __sinf's error grows with |x| (no --use_fast_math).
 // Hidden layers are at most 256 wide (the wrapper checks).
-__device__ __forceinline__ void hidden_tile(const Layer& L, const float* in,
-                                            float* out, float* deriv,
-                                            float* stage) {
+template <int ACT>
+__device__ __forceinline__ void hidden_tile(const Layer& L, const float* in, float* out,
+                                            float* deriv, float* stage) {
   float acc[1][4][4];
   staged_product<1>(L.wT, L.in_dim, L.ld_wT, in, stage, acc);
   const int c0 = 4 * col_group(), q0 = 4 * point_group();
@@ -174,17 +183,36 @@ __device__ __forceinline__ void hidden_tile(const Layer& L, const float* in,
     const int o = c0 + c;
     if (o >= L.out_dim) break;
     const float bias = __ldg(L.b + o);
-    float y[4], sp[4];
+    if constexpr (ACT == ACT_SINE) {
+      float v[4], s[4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      y[p] = 100.f * (acc[0][c][p] + bias);
-      sp[p] = (fmaxf(y[p], 0.f) + log1pf(expf(-fabsf(y[p])))) / 100.f;
+      for (int p = 0; p < 4; ++p) {
+        const float y = SIREN_W0 * (acc[0][c][p] + bias);
+        if (deriv) {
+          float sn, cs;
+          sincosf(y, &sn, &cs);
+          v[p] = sn;
+          s[p] = SIREN_W0 * cs;
+        } else {
+          v[p] = sinf(y);
+        }
+      }
+      *reinterpret_cast<float4*>(out + o * TILE + q0) = make_float4(v[0], v[1], v[2], v[3]);
+      if (deriv)
+        *reinterpret_cast<float4*>(deriv + o * TILE + q0) = make_float4(s[0], s[1], s[2], s[3]);
+    } else {
+      float y[4], sp[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        y[p] = 100.f * (acc[0][c][p] + bias);
+        sp[p] = (fmaxf(y[p], 0.f) + log1pf(expf(-fabsf(y[p])))) / 100.f;
+      }
+      *reinterpret_cast<float4*>(out + o * TILE + q0) = make_float4(sp[0], sp[1], sp[2], sp[3]);
+      if (deriv)
+        *reinterpret_cast<float4*>(deriv + o * TILE + q0) =
+            make_float4(1.f / (1.f + expf(-y[0])), 1.f / (1.f + expf(-y[1])),
+                        1.f / (1.f + expf(-y[2])), 1.f / (1.f + expf(-y[3])));
     }
-    *reinterpret_cast<float4*>(out + o * TILE + q0) = make_float4(sp[0], sp[1], sp[2], sp[3]);
-    if (deriv)
-      *reinterpret_cast<float4*>(deriv + o * TILE + q0) =
-          make_float4(1.f / (1.f + expf(-y[0])), 1.f / (1.f + expf(-y[1])),
-                      1.f / (1.f + expf(-y[2])), 1.f / (1.f + expf(-y[3])));
   }
 }
 
@@ -192,6 +220,7 @@ __device__ __forceinline__ void hidden_tile(const Layer& L, const float* in,
 // between bufA and bufB; returns the buffer holding h_D (the final layer's
 // input). With `deriv` ([D][wmax][TILE]) every layer's activation slope is
 // kept. Ends with the block synchronised.
+template <int ACT>
 __device__ __forceinline__ float* hidden_forward(const Mlp& m, const float* emb,
                                                  float* bufA, float* bufB,
                                                  float* deriv, float* stage) {
@@ -210,8 +239,7 @@ __device__ __forceinline__ float* hidden_forward(const Mlp& m, const float* emb,
         cat[idx] = cat[idx] / 1.41421356237f;
       __syncthreads();
     }
-    hidden_tile(L, in, out, deriv ? deriv + (size_t)l * m.wmax * TILE : nullptr,
-                stage);
+    hidden_tile<ACT>(L, in, out, deriv ? deriv + (size_t)l * m.wmax * TILE : nullptr, stage);
     __syncthreads();
     in = out;
     out = (out == bufA) ? bufB : bufA;

@@ -58,6 +58,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "activation.cuh"
+
 namespace ntt {
 namespace tc {
 
@@ -298,19 +302,33 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float*
   }
 }
 
-// Softplus(beta = 100) of the product plus bias, written over `out`
-// ([N][LDV]; rows out_dim..N-1 get 0); with `slope` ([N][P], device
-// memory) also its derivative sigmoid(100 z) (0 on the padded rows).
-template <int P>
-__device__ __forceinline__ void softplus_out(const Layer& L, const Acc<P>& acc, float* out,
-                                             float* slope) {
+// The activation of the product plus bias, written over `out` ([N][LDV];
+// rows out_dim..N-1 get 0); with `slope` ([N][P], device memory) also its
+// derivative (0 on the padded rows): Softplus(beta = 100) and sigmoid(100 z),
+// or (ACT_SINE) sin(30 z) and 30 cos(30 z). sincosf/sinf, not the fast
+// intrinsics: 30 z reaches tens of radians, where __sinf's error grows with
+// |x| (the kernels build without --use_fast_math).
+template <int P, int ACT>
+__device__ __forceinline__ void activation_out(const Layer& L, const Acc<P>& acc, float* out,
+                                               float* slope) {
   constexpr int LDV = Tile<P>::LDV;
   each_output<P>(acc, L.N, [&](int o, int p, float a) {
     float v = 0.f, s = 0.f;
     if (o < L.out_dim) {
-      const float y = 100.f * (a + __ldg(L.b + o));
-      v = (fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)))) / 100.f;
-      s = 1.f / (1.f + expf(-y));
+      if constexpr (ACT == ACT_SINE) {
+        const float y = SIREN_W0 * (a + __ldg(L.b + o));
+        if (slope) {
+          float cs;
+          sincosf(y, &v, &cs);
+          s = SIREN_W0 * cs;
+        } else {
+          v = sinf(y);
+        }
+      } else {
+        const float y = 100.f * (a + __ldg(L.b + o));
+        v = (fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)))) / 100.f;
+        s = 1.f / (1.f + expf(-y));
+      }
     }
     out[o * LDV + p] = v;
     if (slope) slope[o * P + p] = s;

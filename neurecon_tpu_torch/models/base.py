@@ -6,14 +6,18 @@
     weights with weight norm w = g * v / ||v||_row (`v`, `g`, `b`), or plain
     (`w`, `b`)
   * ImplicitSurface: D+1 layers, skip concat [h, emb]/sqrt(2), IDR geometric
-    sphere init, Softplus(beta=100), final layer = sdf row + geometry rows,
-    optional sphere_residual prior sdf = (|x| - r) + f(x)
-  * RadianceNet: [x_emb, view_emb, normals, geo] -> ReLU MLP -> sigmoid rgb
+    sphere init, Softplus(beta=100) or (SIREN, no skips) sin(30 a) with the
+    SIREN init, final layer = sdf row + geometry rows, optional
+    sphere_residual prior sdf = (|x| - r) + f(x)
+  * RadianceNet: [x_emb, view_emb, normals, geo] -> ReLU (or SIREN sine) MLP
+    -> sigmoid rgb
+  * pretrain_siren_sdf: a SIREN surface fitted to a sphere's sdf before
+    training (plain PyTorch, Adam on an L1 loss)
   * make_schedule / make_optimizer: the per-iteration lr factor and Adam with
     per-module learning rates
 
-SIREN activations and the NeRF-like (W_geo_feat < 0) surface head are not in
-the port yet (ROADMAP Queue A, item 3).
+The NeRF-like (W_geo_feat < 0) surface head is not in the port yet (ROADMAP
+Queue A, item 5).
 """
 from __future__ import annotations
 
@@ -95,6 +99,19 @@ def _torch_linear_default(in_dim: int, out_dim: int, gen: torch.Generator):
     return w, b
 
 
+SIREN_W0 = 30.0  # the sine layers' frequency: sin(w0 a)
+
+
+def init_siren(in_dim: int, out_dim: int, is_first: bool, gen: torch.Generator,
+               w0: float = SIREN_W0, c: float = 6.0):
+    """A SIREN layer's (w, b): w ~ U(±1/in_dim) on the first layer,
+    U(±sqrt(c / in_dim) / w0) on the others; b as nn.Linear's default."""
+    _, b = _torch_linear_default(in_dim, out_dim, gen)
+    bound = (1.0 / in_dim) if is_first else (math.sqrt(c / in_dim) / w0)
+    w = (torch.rand(out_dim, in_dim, generator=gen) * 2 - 1) * bound
+    return w, b
+
+
 @torch.no_grad()
 def perturb_parameters(module: nn.Module, gen: torch.Generator, scale: float = 0.1):
     """Add seeded noise to every DenseLayer of `module`, in place: to each
@@ -129,6 +146,10 @@ def softplus100(x):
     return F.softplus(100.0 * x) / 100.0
 
 
+def sine_w0(x, w0: float = SIREN_W0):
+    return torch.sin(w0 * x)
+
+
 class ImplicitSurface(nn.Module):
     """SDF MLP. forward -> sdf (and geometry features); forward_with_nablas
     -> (sdf, d sdf / dx, geometry features), through the forward+nablas
@@ -149,20 +170,21 @@ class ImplicitSurface(nn.Module):
                  use_siren: bool = False,
                  sphere_residual: bool = False):
         super().__init__()
-        if use_siren:
-            raise NotImplementedError(
-                "SIREN surfaces are not ported yet (ROADMAP Queue A, item 3)")
+        if use_siren and len(skips):
+            raise ValueError("a SIREN surface takes no skips")
         if W_geo_feat <= 0:
             raise NotImplementedError(
                 "the NeRF-like surface head (W_geo_feat < 0) is not ported "
-                "yet (ROADMAP Queue A, item 3)")
+                "yet (ROADMAP Queue A, item 5)")
         self.W, self.D = W, D
         self.skips = tuple(skips)
         self.W_geo_feat = W_geo_feat
         self.radius_init = radius_init
+        self.obj_bounding_size = obj_bounding_size
         self.geometric_init = geometric_init
         self.embed_multires = embed_multires
         self.weight_norm = weight_norm
+        self.use_siren = use_siren
         self.sphere_residual = sphere_residual
         self.embed_fn, self.input_ch = get_embedder(embed_multires, input_ch)
 
@@ -181,10 +203,15 @@ class ImplicitSurface(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):
-        """Geometric sphere init of radius `radius_init` (IDR/SAL)."""
+        """Geometric sphere init of radius `radius_init` (IDR/SAL), or the
+        SIREN init of the hidden layers (a sine net has no geometric init:
+        `pretrain_siren_sdf` fits it to a sphere instead)."""
         for l, (in_dim, out_dim) in enumerate(self.dims):
+            if self.use_siren and l != self.D:
+                self.layers[l].set_weight(*init_siren(in_dim, out_dim, l == 0, gen))
+                continue
             w, b = _torch_linear_default(in_dim, out_dim, gen)
-            if self.geometric_init:
+            if self.geometric_init and not self.use_siren:
                 std = math.sqrt(2) / math.sqrt(out_dim)
                 if l == self.D:
                     w = (math.sqrt(math.pi) / math.sqrt(in_dim)
@@ -200,6 +227,20 @@ class ImplicitSurface(nn.Module):
                         w[:, -(self.input_ch - 3):] = 0.0
             self.layers[l].set_weight(w, b)
 
+    def activation(self, a: torch.Tensor) -> torch.Tensor:
+        """The hidden layers' activation: sin(30 a) (SIREN) or Softplus(100)."""
+        return sine_w0(a) if self.use_siren else softplus100(a)
+
+    def activation_derivs(self, a: torch.Tensor):
+        """(phi(a), phi'(a), phi''(a)) of `activation`: sin(w0 a),
+        w0 cos(w0 a), -w0^2 sin(w0 a) (SIREN, w0 = SIREN_W0), or Softplus(100),
+        s = sigmoid(100 a), 100 s (1 - s)."""
+        if self.use_siren:
+            sn = sine_w0(a)
+            return sn, SIREN_W0 * torch.cos(SIREN_W0 * a), -SIREN_W0 * SIREN_W0 * sn
+        s = torch.sigmoid(100.0 * a)
+        return softplus100(a), s, 100.0 * s * (1.0 - s)
+
     def mlp(self, x: torch.Tensor, weights=None):
         """The MLP alone on flat points: x [M, 3] -> (sdf [M], h [M, W_geo]);
         `weights` (lists of effective [out, in] weights and of biases)
@@ -210,7 +251,7 @@ class ImplicitSurface(nn.Module):
         for i in range(self.D):
             if i in self.skips:
                 h = torch.cat([h, emb], dim=-1) / np.sqrt(2)
-            h = softplus100(F.linear(h, ws[i], bs[i]))
+            h = self.activation(F.linear(h, ws[i], bs[i]))
         out = F.linear(h, ws[self.D], bs[self.D])
         return out[:, 0], out[:, 1:]
 
@@ -278,12 +319,12 @@ class RadianceNet(nn.Module):
                  weight_norm: bool = True,
                  use_siren: bool = False):
         super().__init__()
-        if use_siren:
-            raise NotImplementedError(
-                "SIREN radiance nets are not ported yet (ROADMAP Queue A, item 3)")
+        if use_siren and len(skips):
+            raise ValueError("a SIREN radiance net takes no skips")
         self.D, self.W = D, W
         self.skips = tuple(skips)
         self.use_view_dirs = use_view_dirs
+        self.use_siren = use_siren
         self.weight_norm = weight_norm
         self.embed_fn, input_ch_pts = get_embedder(embed_multires, 3)
         if use_view_dirs:
@@ -308,8 +349,11 @@ class RadianceNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):
-        for layer, (in_dim, out_dim) in zip(self.layers, self.dims):
-            layer.set_weight(*_torch_linear_default(in_dim, out_dim, gen))
+        for l, (layer, (in_dim, out_dim)) in enumerate(zip(self.layers, self.dims)):
+            if self.use_siren and l != self.D:
+                layer.set_weight(*init_siren(in_dim, out_dim, l == 0, gen))
+            else:
+                layer.set_weight(*_torch_linear_default(in_dim, out_dim, gen))
 
     def forward(self, x, view_dirs, normals, geometry_feature):
         prefix = x.shape[:-1]
@@ -326,8 +370,43 @@ class RadianceNet(nn.Module):
             if i in self.skips:
                 h = torch.cat([h, radiance_input], dim=-1)
             h = self.layers[i](h)
-            h = torch.sigmoid(h) if i == self.D else torch.relu(h)
+            if i == self.D:
+                h = torch.sigmoid(h)
+            else:
+                h = sine_w0(h) if self.use_siren else torch.relu(h)
         return h.reshape(prefix + (3,))
+
+
+def pretrain_siren_sdf(surface: ImplicitSurface, num_iters: int = 5000, lr: float = 1.0e-4,
+                       batch_points: int = 5000, target_radius: float = 0.5,
+                       obj_bounding_size: float = 3.0, generator=None, points=None):
+    """Fit a SIREN surface to a sphere's sdf, in place (port of the JAX
+    package's `pretrain_siren_sdf`): `num_iters` Adam steps (lr `lr`) on the
+    mean L1 between the surface's sdf and |x| - `target_radius` at
+    `batch_points` points uniform in [-obj_bounding_size, obj_bounding_size]^3,
+    drawn anew each step from `generator` (a torch.Generator on the surface's
+    device). `points` (a callable step -> [batch_points, 3] tensor) replaces
+    the draws, so that a test can feed the JAX package's. Plain PyTorch
+    through `surface.forward`, as in JAX: no kernel. Returns the losses
+    [num_iters] (a device tensor)."""
+    params = list(surface.parameters())
+    device = params[0].device
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    losses = torch.empty(num_iters, device=device)
+    for i in range(num_iters):
+        if points is not None:
+            pts = points(i)
+        else:
+            pts = (torch.rand(batch_points, 3, generator=generator, device=device) * 2 - 1
+                   ) * obj_bounding_size
+        sdf_gt = torch.linalg.norm(pts, dim=-1) - target_radius
+        loss = torch.mean(torch.abs(surface.forward(pts) - sdf_gt))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses[i] = loss.detach()
+    opt.zero_grad(set_to_none=True)
+    return losses
 
 
 # ---------------------------------------------------------------------------

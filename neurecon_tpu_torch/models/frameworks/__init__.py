@@ -6,7 +6,7 @@ def _module(framework: str):
         from neurecon_tpu_torch.models.frameworks import volsdf
         return volsdf
     if framework == "UNISURF":
-        raise NotImplementedError("UNISURF is not ported yet (ROADMAP Queue A, item 8)")
+        raise NotImplementedError("UNISURF is not ported yet (ROADMAP Queue A, item 2)")
     raise NotImplementedError(framework)
 
 

@@ -10,7 +10,7 @@ point queries for the surface renderer and the mesh grids
 (`forward_surface_fast`, CUDA kernel `sdf_forward`), for models
 without the NeRF++ background (`N_outside == 0`, `with_mask: true`). The
 other two upsample algorithms and the NeRF++ branch wait for later slices
-(ROADMAP Queue A, item 4).
+(ROADMAP Queue A, items 6 and 4).
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def neus_upsample(model: NeuS, rays_o, rays_d, d_coarse, *, N_importance: int,
     if upsample_algo != "official_solution":
         raise NotImplementedError(
             f"upsample_algo {upsample_algo!r} is not ported yet (ROADMAP "
-            "Queue A, item 4); only official_solution is")
+            "Queue A, item 6); only official_solution is")
     n_per_iter = N_importance // N_upsample_iters
     u = _uniforms(rays_o.shape[0], N_upsample_iters, n_per_iter, perturb,
                   generator, rays_o.device)

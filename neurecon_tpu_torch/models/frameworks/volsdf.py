@@ -8,8 +8,9 @@ the coarse and fine samples and the eikonal points (CUDA kernel
 `nablas_forward`, and in training its backward `nablas_backward`), the
 radiance net, the p_i / tau_i compositor, the L1 + eikonal (+ optional sdf
 anchor) losses, and the model's point queries for the surface renderer and
-the mesh grids. The NeRF++ background (`outside_scene: nerf++`) and SIREN
-nets wait for later slices (ROADMAP Queue A, item 3).
+the mesh grids, for Softplus and SIREN nets alike (a SIREN surface is
+pretrained to a sphere by `train.py`). The NeRF++ background
+(`outside_scene: nerf++`) waits for a later slice (ROADMAP Queue A, item 4).
 """
 from __future__ import annotations
 
@@ -113,7 +114,7 @@ def _refuse_nerfplusplus(use_nerfplusplus):
     if use_nerfplusplus:
         raise NotImplementedError(
             "VolSDF with the NeRF++ background (outside_scene: nerf++) is not "
-            "ported yet (ROADMAP Queue A, item 3)")
+            "ported yet (ROADMAP Queue A, item 4)")
 
 
 @torch.no_grad()

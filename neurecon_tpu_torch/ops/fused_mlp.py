@@ -65,11 +65,11 @@ def launch_sdf_forward(surface, x: torch.Tensor, packed: Pack) -> torch.Tensor:
     sdf = torch.empty(M, device=x.device)
     blocks = min(resident_blocks(packed.c_pad, packed.rows, x.device), -(-M // _TILE))
     fn = _build.load("sdf_forward").ntt_sdf_forward
-    fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _P, _I, _P]
+    fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _I, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
-            len(surface.layers), surface.input_ch, packed.c_pad, packed.rows,
+            len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
             sdf.data_ptr(), blocks, stream)
     _build.check(rc, "sdf_forward")
     fused_sdf_forward.launches += 1

@@ -26,6 +26,15 @@ _I = ctypes.c_int
 _THREADS = 256   # threads per block: the widest hidden layer (csrc)
 _STAGE_LD = 264  # widest padded weight row the kernels stage (csrc)
 
+ACT_SOFTPLUS, ACT_SINE = 0, 1  # the kernels' activation codes (csrc)
+
+
+def activation_code(surface) -> int:
+    """The hidden activation of `surface` as the kernels take it, a launch
+    argument of every surface-MLP kernel: ACT_SINE for a SIREN surface
+    (sin(30 a)), ACT_SOFTPLUS for Softplus(beta=100)."""
+    return ACT_SINE if surface.use_siren else ACT_SOFTPLUS
+
 
 def effective_weight(layer) -> torch.Tensor:
     """A DenseLayer's [out, in] weight, weight norm resolved."""
@@ -140,13 +149,13 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None):
     _build.check(max(-blocks, 0), "nablas_forward (occupancy)")
     slopes = torch.empty(blocks * surface.D * wmax * 16, device=x.device)
     fn = lib.ntt_nablas_forward
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), M, params.data_ptr(), meta.data_ptr(),
             len(surface.layers), surface.input_ch, max(surface.embed_multires, 0),
-            wmax, sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
-            slopes.data_ptr(), stream)
+            wmax, activation_code(surface), sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(),
+            geo, blocks, slopes.data_ptr(), stream)
     _build.check(rc, "nablas_forward")
     fused_forward_with_nablas.launches += 1
     return sdf, nablas, h

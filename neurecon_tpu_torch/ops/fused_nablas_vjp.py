@@ -71,15 +71,17 @@ def nablas_vjp_plain(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
         C = emb.shape[-1]
         r, J, J2 = _encoding_derivs(surface, x)
 
-        # phase 1: forward, inputs in_l and slopes s_l = phi'(a_l)
-        ins, sig = [], []
+        # phase 1: forward, inputs in_l, slopes s_l = phi'(a_l) and the
+        # second derivatives phi''(a_l)
+        ins, sig, pp = [], [], []
         h = emb
         for l in range(D):
             inp = torch.cat([h, emb], -1) * inv if l in skips else h
             a = inp @ ws[l].t() + bs[l]
             ins.append(inp)
-            sig.append(torch.sigmoid(100.0 * a))
-            h = torch.nn.functional.softplus(100.0 * a) / 100.0
+            h, s, s2 = surface.activation_derivs(a)
+            sig.append(s)
+            pp.append(s2)
         h_D = h
 
         # phase 2: the nablas sweep, keeping u_l and q_l = u_{l+1} s_l
@@ -115,8 +117,7 @@ def nablas_vjp_plain(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
                 gin = ubar
             qbar = gin @ ws[l].t()
             wbars[l] = qs[l].t() @ gin
-            phi_pp = 100.0 * sig[l] * (1.0 - sig[l])
-            abar_B[l] = qbar * us[l + 1] * phi_pp
+            abar_B[l] = qbar * us[l + 1] * pp[l]
             ubar = qbar * sig[l]
         gsdfbar = ubar.sum(0)  # the seed u_D = W_D[0, :] pulls back here
 
@@ -235,13 +236,13 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
     fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
                                             + part.numel() + slopes.numel())
     fn = lib.ntt_nablas_backward
-    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
                    _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
-            packed.meta.data_ptr(), len(dims),
-            surface.input_ch, packed.c_pad, rows, cots[0].data_ptr(), cots[1].data_ptr(),
+            packed.meta.data_ptr(), len(dims), surface.input_ch, packed.c_pad, rows,
+            packed.act, cots[0].data_ptr(), cots[1].data_ptr(),
             cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
             bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
             lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,

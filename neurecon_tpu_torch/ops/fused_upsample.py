@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from neurecon_tpu_torch.ops import _build
-from neurecon_tpu_torch.ops.fused_nablas import pack_surface
+from neurecon_tpu_torch.ops.fused_nablas import activation_code, pack_surface
 from neurecon_tpu_torch.ops.sampling import alpha_to_w, sample_pdf
 
 _P = ctypes.c_void_p
@@ -106,7 +106,7 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     if N == 0:
         return d_all
     fn = _build.load("neus_upsample").ntt_neus_upsample
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                    ctypes.c_float, _P, _P]
     fn.restype = _I
     params, meta, wmax = pack_surface(surface)
@@ -115,7 +115,8 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(),
             u_rounds.data_ptr(), N, n_coarse, n_iters, n_per_iter,
             params.data_ptr(), meta.data_ptr(), len(surface.layers),
-            surface.input_ch, max(surface.embed_multires, 0), wmax, sphere_r,
+            surface.input_ch, max(surface.embed_multires, 0), wmax,
+            activation_code(surface), sphere_r,
             d_all.data_ptr(), stream)
     _build.check(rc, "neus_upsample")
     fused_neus_upsample.launches += 1

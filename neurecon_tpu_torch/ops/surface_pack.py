@@ -11,7 +11,9 @@ plain forward; the kernels place the encoding right after h. Two more
 planes follow at the same offsets: every value's TF32 big part and small
 remainder (`split_tf32`), which the kernels' split-fp32 products stage as
 they are. One int32 record of 8 per layer: K, N, out_dim, in_dim, offset of
-W^T, of W, of b, skip flag.
+W^T, of W, of b, skip flag. The pack also carries the hidden activation's
+code (`fused_nablas.activation_code`), which every launch passes on: a SIREN
+surface's pack says sine, so that no kernel runs Softplus on its weights.
 
 The kernels of `csrc/surface_mlp.cuh` keep their own layout
 (`fused_nablas.pack_surface`).
@@ -23,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from neurecon_tpu_torch.ops.fused_nablas import surface_weights, upload
+from neurecon_tpu_torch.ops.fused_nablas import activation_code, surface_weights, upload
 
 _NMAX = 256   # widest product output (csrc/surface_mma.cuh: 4 column groups of 64)
 _SLD = 264    # stage row stride: the widest row a product stages
@@ -60,15 +62,20 @@ class Pack(NamedTuple):
     meta: torch.Tensor    # int32 [D + 1, 8]
     c_pad: int            # encoding rows (input_ch padded to 8)
     rows: int             # activation rows of the forward (widest hidden K or N)
+    act: int              # the hidden activation's code (csrc ACT_SOFTPLUS / ACT_SINE)
 
 
 def layout(surface) -> dict:
     """The pack's shape for `surface` (no values): the per-layer records,
     the buffer size in floats, `c_pad` and `rows` (the widest hidden K or N,
     and the final layer's K). Shapes the kernels do not take raise
-    NotImplementedError (ValueError for a skip at 0)."""
+    NotImplementedError (ValueError for a skip at 0, or on a SIREN surface,
+    whose kernel-3 branch reads each sine layer's output as the next layer's
+    input)."""
     if 0 in surface.skips:
         raise ValueError("a skip at layer 0 is not supported by the kernels")
+    if surface.use_siren and surface.skips:
+        raise ValueError("a SIREN surface with skips is not supported by the kernels")
     c_pad = pad8(surface.input_ch)
     records, off, rows = [], 0, 0
     for l, (in_dim, out_dim) in enumerate(surface.dims):
@@ -126,20 +133,21 @@ def pack(surface, weights=None) -> Pack:
         fp32 = torch.zeros(size, device=device).index_copy_(0, index, src)
         big, small = split_tf32(fp32)
         params = torch.cat([fp32, big, small])
-    return Pack(params, size, meta, c_pad, rows)
+    return Pack(params, size, meta, c_pad, rows, activation_code(surface))
 
 
 _PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _key(surface):
-    return tuple((p.data_ptr(), p._version) for p in surface.parameters())
+    return (activation_code(surface),) + tuple(
+        (p.data_ptr(), p._version) for p in surface.parameters())
 
 
 def packed_surface(surface) -> Pack:
     """`pack(surface)`, kept between calls while the surface's parameters are
-    unchanged: the key is each parameter's storage pointer and version
-    counter, so an in-place update (an optimizer step, `load_state_dict`,
+    unchanged: the key is the activation and each parameter's storage pointer
+    and version counter, so an in-place update (an optimizer step, `load_state_dict`,
     `copy_`, `perturb_parameters`) or a tensor swapped in through `.data`
     makes the next call pack again. Counts its packs in `packs`."""
     key = _key(surface)

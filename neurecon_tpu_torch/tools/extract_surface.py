@@ -7,7 +7,9 @@
 Reads checkpoints of either package (the params pytree under 'model' /
 'implicit_surface', or the bare pytree). The grid is queried through the
 sdf-only CUDA kernel on the card; `--device cpu` runs the plain path. Unlike
-the JAX tool, `--config` also carries `sphere_residual` (ROADMAP Queue C).
+the JAX tool, `--config` also carries `sphere_residual` (ROADMAP Queue C),
+and `--use_siren` gives a SIREN surface without a config file (the flags
+`--D 5 --skip -1 --embed_multires -1 --use_siren` are configs/volsdf_siren.yaml's).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def build_surface(args):
 
     surface_cfg = dict(W=args.W, D=args.D, skips=[args.skip] if args.skip >= 0 else [],
                        W_geo_feat=args.W_geo_feat, embed_multires=args.embed_multires,
-                       radius_init=args.init_r)
+                       radius_init=args.init_r, use_siren=getattr(args, "use_siren", False))
     if args.config is not None:
         from neurecon_tpu_torch.config import load_yaml
         cfg = load_yaml(args.config)
@@ -68,6 +70,8 @@ def make_parser():
     parser.add_argument("--skip", type=int, default=4)
     parser.add_argument("--init_r", type=float, default=1.0)
     parser.add_argument("--embed_multires", type=int, default=6)
+    parser.add_argument("--use_siren", action="store_true",
+                        help="a SIREN surface (sin(30 a) layers; no skips)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (the default) or cpu (plain PyTorch path)")
     return parser

@@ -1,22 +1,32 @@
-"""Mutation check of the sdf-only kernel (`csrc/sdf_forward.cu` on
-`csrc/surface_mma.cuh`) on one CUDA card: does the kernel check see a
-deliberately broken kernel? The last two mutants break the split-fp32
-product's precision: one drops the correction products (a single TF32
-product per k-step), one adds every MMA straight into the running sum (the
-tensor cores' truncating accumulation, unflushed); the check must see both.
+"""Mutation checks on one CUDA card: does a kernel check see a deliberately
+broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-For the unmutated source and for each mutant below, the port's package is
-copied into a temporary directory (under `--workdir`, the system's temporary
-directory by default; removed after), one edit is made to the copy's CUDA
-source, and a fresh process builds that copy's kernel and holds it against
-its plain version by the check of `chip_smoke.py` phase 10: the flagship
-surface (D=8, W=256; geometric init from the seed, then seeded noise on every
-weight, seed + 1), 2^20 points uniform in [-1, 1]^3 from the seed plus 4,099
-more (a ragged last tile), limit 1e-5 of max|sdf|. All copies run at once.
-One JSON line per copy gives its largest max|diff| / max|sdf|; the exit code
-is 0 when the unmutated copy passes and every mutant fails.
+Two groups, each with its unmutated copy. For the unmutated source and for
+each mutant, the port's package (and `chip_smoke.py`) is copied into a
+temporary directory (under `--workdir`, the system's temporary directory by
+default; removed after), one edit is made to the copy, and a fresh process
+builds that copy's kernels and runs the group's check; a group's copies run
+at once, the groups one after the other. One JSON line per copy; the exit
+code is 0 when each unmutated copy passes and every mutant fails.
+
+* `sdf`: the sdf-only kernel (`csrc/sdf_forward.cu` on
+  `csrc/surface_mma.cuh`), held to its plain version by the check of
+  `chip_smoke.py` phase 10: the flagship surface (D=8, W=256; geometric init
+  from the seed, then seeded noise on every weight, seed + 1), 2^20 points
+  uniform in [-1, 1]^3 from the seed plus 4,099 more (a ragged last tile),
+  limit 1e-5 of max|sdf|. The last two mutants break the split-fp32
+  product's precision: one drops the correction products (a single TF32
+  product per k-step), one adds every MMA straight into the running sum (the
+  tensor cores' truncating accumulation, unflushed); the check must see both.
+* `sine`: the SIREN branch of the surface-MLP kernels, held by
+  `chip_smoke.py` phase 18 (`sine_kernel_checks`: kernels 4, 1, 3 and 2 on a
+  pretrained SIREN surface with seeded noise, at the SIREN path's shapes,
+  with the gates of phases 10, 2, 6 and 3). Its mutants drop the activation
+  flag in one wrapper (kernel 4 would run Softplus on sine weights), flip the
+  sign of phi'' = -900 sin(30 a) in kernel 3, and drop omega0 = 30 from
+  kernel 1's slope 30 cos(30 a).
 """
 from __future__ import annotations
 
@@ -29,22 +39,23 @@ import tempfile
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parents[1]
+CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
 LIMIT = 1e-5
 
-# name -> (file under csrc/, text, replacement); each text occurs once
+# name -> (file under the package, text, replacement); each text occurs once
 MUTANTS = {
     "sdf row bias dropped": (
-        "sdf_forward.cu", "tile_sdf[p] = ((s0 + s1) + (s2 + s3)) + __ldg(LD.b);",
+        "csrc/sdf_forward.cu", "tile_sdf[p] = ((s0 + s1) + (s2 + s3)) + __ldg(LD.b);",
         "tile_sdf[p] = ((s0 + s1) + (s2 + s3));"),
     "sin and cos swapped": (
-        "surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
+        "csrc/surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
         "v = (r < 3) ? cosf(ph) : sinf(ph);"),
     "skip 1/sqrt(2) dropped": (
-        "surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
+        "csrc/surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
     "ragged last tile skipped": (
-        "sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
+        "csrc/sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
     "plain TF32 (no correction products)": (
-        "surface_mma.cuh",
+        "csrc/surface_mma.cuh",
         "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
         "#pragma unroll\n"
         "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
@@ -52,7 +63,7 @@ MUTANTS = {
         "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);",
         "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_big[i], b_big);"),
     "accumulator chained across k-steps": (
-        "surface_mma.cuh",
+        "csrc/surface_mma.cuh",
         "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
         "#pragma unroll\n"
         "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
@@ -66,6 +77,32 @@ MUTANTS = {
         "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_small);\n"
         "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_big);"),
 }
+
+SINE_MUTANTS = {
+    "activation flag dropped in the kernel-4 wrapper": (
+        "ops/fused_mlp.py", "packed.c_pad, packed.rows, packed.act,",
+        "packed.c_pad, packed.rows, 0,"),
+    "phi'' sign flipped in kernel 3": (
+        "csrc/nablas_backward.cu", "ab[idx] = -SIREN_W0 * SIREN_W0 * buf",
+        "ab[idx] = SIREN_W0 * SIREN_W0 * buf"),
+    "omega0 dropped from kernel 1's slope": (
+        "csrc/surface_mlp.cuh", "s[p] = SIREN_W0 * cs;", "s[p] = cs;"),
+}
+
+_SINE_CODE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke
+from neurecon_tpu_torch.ops import _build, fused_mlp
+for mod in (chip_smoke, fused_mlp):
+    if not mod.__file__.startswith(ROOT):
+        raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
+_build.build_all(force=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+ok, err, _, _ = chip_smoke.sine_kernel_checks(SEED, torch.device("cuda"), report=lambda s: None)
+print(json.dumps({"passes": ok, "errors": err}))
+'''
 
 _CODE = r'''
 import json, sys
@@ -97,45 +134,65 @@ print(json.dumps({"max_rel_err": worst}))
 '''
 
 
+def _run_group(tmp, cases, code, seed, judge):
+    """Copy, mutate and check every case of one group at once; print a JSON
+    line per case; return 0 when the unmutated copy passes and every mutant
+    fails. `judge(stdout's last line)` -> (passes, the line's fields)."""
+    procs = {}
+    for name, edit in cases.items():
+        root = Path(tmp) / f"copy{len(list(Path(tmp).iterdir()))}"
+        shutil.copytree(PACKAGE, root / PACKAGE.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(CHIP_SMOKE, root / CHIP_SMOKE.name)
+        if edit is not None:
+            fname, text, repl = edit
+            src = root / PACKAGE.name / fname
+            source = src.read_text()
+            if source.count(text) != 1:
+                raise SystemExit(f"mutant {name!r}: {text!r} is not in {fname} once")
+            src.write_text(source.replace(text, repl))
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", f"ROOT = {str(root)!r}\nSEED = {seed}\n" + code],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rc = 0
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode == 0:
+            passes, fields = judge(out.strip().splitlines()[-1])
+            print(json.dumps({"case": name, **fields,
+                              "check": "passes" if passes else "fails"}), flush=True)
+            if passes != (name == "unmutated"):
+                rc = 1
+        else:
+            print(json.dumps({"case": name, "error": err[-2000:]}), flush=True)
+            rc = 1
+    return rc
+
+
+def _judge_sdf(line):
+    rel = json.loads(line)["max_rel_err"]
+    return rel <= LIMIT, {"max_rel_err": rel}
+
+
+def _judge_sine(line):
+    res = json.loads(line)
+    return bool(res["passes"]), {"phase18_errors": res["errors"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--workdir", type=str, default=None)
     args = ap.parse_args(argv)
-    cases = {"unmutated": None, **MUTANTS}
+    rc = 0
     with tempfile.TemporaryDirectory(prefix="ntt_mutants_", dir=args.workdir) as tmp:
-        procs = {}
-        for i, (name, edit) in enumerate(cases.items()):
-            root = Path(tmp) / f"copy{i}"
-            shutil.copytree(PACKAGE, root / PACKAGE.name,
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            if edit is not None:
-                fname, text, repl = edit
-                src = root / PACKAGE.name / "csrc" / fname
-                code = src.read_text()
-                if code.count(text) != 1:
-                    raise SystemExit(f"mutant {name!r}: {text!r} is not in {fname} once")
-                src.write_text(code.replace(text, repl))
-            procs[name] = subprocess.Popen(
-                [sys.executable, "-c", f"ROOT = {str(root)!r}\nSEED = {args.seed}\n" + _CODE],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        rc = 0
-        for name, proc in procs.items():
-            try:
-                out, err = proc.communicate(timeout=900)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                out, err = proc.communicate()
-            if proc.returncode == 0:
-                rel = json.loads(out.strip().splitlines()[-1])["max_rel_err"]
-                caught = not rel <= LIMIT
-                print(json.dumps({"case": name, "max_rel_err": rel,
-                                  "check": "fails" if caught else "passes"}))
-                if caught == (name == "unmutated"):
-                    rc = 1
-            else:
-                print(json.dumps({"case": name, "error": err[-2000:]}))
-                rc = 1
+        for mutants, code, judge in ((MUTANTS, _CODE, _judge_sdf),
+                                     (SINE_MUTANTS, _SINE_CODE, _judge_sine)):
+            rc |= _run_group(tmp, {"unmutated": None, **mutants}, code, args.seed, judge)
     return rc
 
 

@@ -10,7 +10,9 @@ device; the image order from `np.random.RandomState(seed + epoch)`; one step
 = sample rays, render (the framework's sampler and the forward kernels),
 loss, backward (through the eikonal backward kernel), Adam, schedule;
 validation renders at step 0 and every `i_val` steps (with VolSDF's beta
-heat-map and upsampling-round images); meshes of the surface (`exp_dir/meshes/
+heat-map and upsampling-round images); a SIREN surface's sphere pretrain
+(`models/base.py::pretrain_siren_sdf`, at `training.lr_pretrain`) before the
+first step of a fresh run, saved as `latest.pt`; meshes of the surface (`exp_dir/meshes/
 <step>.ply`, a `data.mesh_N`^3 grid over `data.volume_size`, queried through
 the sdf-only kernel) at steps 3000, 5000 and 7000 and every `i_val_mesh`
 steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
@@ -20,7 +22,7 @@ on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
 loop's checks: eager PyTorch has no dispatch to amortize.
 
 Not ported yet, and refused before the first step (ROADMAP.md): UNISURF,
-VolSDF's NeRF++ background, SIREN nets, several devices,
+VolSDF's NeRF++ background, several devices,
 `training.overlap_sampler` and the profiler window (`training.profile_steps`).
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ from neurecon_tpu_torch import bridge, get_device
 from neurecon_tpu_torch import config as config_lib
 from neurecon_tpu_torch.dataio import get_data
 from neurecon_tpu_torch.models.base import (count_parameters, make_optimizer,
-                                            make_schedule)
+                                            make_schedule, pretrain_siren_sdf)
 from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
 from neurecon_tpu_torch.ops import get_rays, lin2img
 from neurecon_tpu_torch.training import (fast_forward_schedule, make_train_step,
@@ -129,6 +131,19 @@ def main_function(args, device=None) -> dict:
         checkpoint_io.save(filename, global_step=it, epoch_idx=epoch_idx,
                            model=bridge.model_to_tree(model),
                            torch_opt_state=optimizer_state_to_numpy(optimizer))
+
+    # ---- SIREN sphere pretrain (after the checkpoint load, as in the JAX trainer)
+    surface = model.implicit_surface
+    if (surface.use_siren and surface.geometric_init and it == 0
+            and "model" not in load_dict):
+        log.info("=> pretraining SIREN sdf to a sphere ...")
+        pre_losses = pretrain_siren_sdf(
+            surface, lr=float(args.training.get("lr_pretrain", 1e-4)),
+            target_radius=surface.radius_init,
+            obj_bounding_size=surface.obj_bounding_size,
+            generator=torch.Generator(device=dev).manual_seed(seed + 7))
+        log.info(f"   pretrain final l1: {float(pre_losses[-1]):.4f}")
+        save("latest.pt")
 
     # ---- data on the device, the step ----
     data_dev = {"c2w": torch.as_tensor(np.asarray(dataset.c2w_all, np.float32), device=dev),

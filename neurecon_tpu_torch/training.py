@@ -4,7 +4,7 @@ One eager step: zero the grads, loss, backward, Adam step, scheduler step.
 Metrics stay on the device (the loop fetches them every `i_log` steps), so no
 step waits on the host. `render_full_image` is the chunked render of the
 validation images and `tools/render_view.py`. `microchunk` and the
-multi-device render are not ported (ROADMAP Queue A, items 5 and 10).
+multi-device render are not ported (ROADMAP Queue A, items 6 and 7).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from neurecon_tpu_torch.models.base import perturb_parameters
+from neurecon_tpu_torch.models.base import perturb_parameters, pretrain_siren_sdf
 from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
 from neurecon_tpu_torch.ops import (fused_fine_sample, fused_mlp, fused_nablas,
                                     fused_nablas_vjp, fused_upsample, surface_pack)
@@ -19,6 +19,9 @@ from neurecon_tpu_torch.utils import mesh
 
 SMALL = dict(W=64, D=4, skips=[2], radius_init=0.5, embed_multires=4)
 FLAGSHIP = dict(W=256, D=8, skips=[4], radius_init=0.5, embed_multires=6)
+# configs/volsdf_siren.yaml's surface, and a narrow one
+SIREN = dict(W=256, D=5, skips=[], radius_init=1.0, embed_multires=-1, use_siren=True)
+SIREN_SMALL = dict(W=64, D=3, skips=[], radius_init=1.0, embed_multires=-1, use_siren=True)
 
 
 @pytest.fixture
@@ -39,6 +42,22 @@ def _model(surface_cfg, W_geo, device, seed=0):
     model.reset_parameters(torch.Generator().manual_seed(seed))
     perturb_parameters(model, torch.Generator().manual_seed(seed + 1))
     return model.to(device)
+
+
+def _siren_surface(cfg, geo, device, seed=0):
+    """A SIREN surface fitted to the unit sphere (300 pretrain iterations),
+    then seeded noise on every weight: the stand-in for trained sine weights
+    (the bare SIREN init is no sphere, and its sdf is near constant)."""
+    model = NeuS(W_geo_feat=geo, surface_cfg=cfg,
+                 radiance_cfg=dict(D=1, W=32, skips=[], embed_multires=-1,
+                                   embed_multires_view=-1))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    pretrain_siren_sdf(model.implicit_surface, num_iters=300, lr=1e-4, target_radius=1.0,
+                       obj_bounding_size=3.0,
+                       generator=torch.Generator(device).manual_seed(seed + 7))
+    perturb_parameters(model, torch.Generator().manual_seed(seed + 1))
+    return model.implicit_surface
 
 
 def _rays(n, device, seed=0):
@@ -321,3 +340,100 @@ def test_fine_sample_kernels_match_plain(cuda, cfg, geo, N, n0, n_up, max_iter, 
     assert got[0].shape == (N, 16) and got[1].shape == (N,) and got[2].shape == (N,)
     if N:
         _assert_fine_samples_close(got, ref)
+
+
+# ---- the sine branch (SIREN surfaces), held at the Softplus cases' limits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN, 256, 129),
+                                      (SIREN_SMALL, 64, 1000)])
+def test_sine_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 4's sine branch on points in the scene's box [-3, 3]^3 (30 a
+    reaches tens of radians on the first layer): max|diff| <= 1e-5 max|sdf|."""
+    surf = _siren_surface(cfg, geo, cuda)
+    x = torch.tensor(np.random.RandomState(4).uniform(-3, 3, (M, 3)).astype(np.float32),
+                     device=cuda)
+    got = fused_mlp.fused_sdf_forward(surf, x)
+    torch.cuda.synchronize()
+    ref = fused_mlp.sdf_forward_plain(surf, x)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 1000)])
+def test_sine_nablas_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 1's sine branch (slopes 30 cos(30 a)): sdf and h atol 1e-4,
+    nablas rtol 2e-3 / atol 2e-4, as the Softplus cases."""
+    surf = _siren_surface(cfg, geo, cuda)
+    x = torch.tensor(np.random.RandomState(1).uniform(-3, 3, (M, 3)).astype(np.float32),
+                     device=cuda)
+    got = fused_nablas.fused_forward_with_nablas(surf, x)
+    torch.cuda.synchronize()
+    ref = fused_nablas.forward_with_nablas_plain(surf, x)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 300)])
+def test_sine_backward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 3's sine branch (phi'' = -900 sin(30 a), from the next layer's
+    input kept in the workspace): every leaf within 5e-4 of its max|ref|."""
+    surf = _siren_surface(cfg, geo, cuda)
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.uniform(-3, 3, (M, 3)).astype(np.float32), device=cuda)
+    cots = [torch.tensor(rng.randn(*s).astype(np.float32), device=cuda)
+            for s in ((M,), (M, 3), (M, geo))]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    got = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    torch.cuda.synchronize()
+    ref = fused_nablas_vjp.nablas_vjp_plain(surf, x, ws, bs, *cots)
+    leaves = [(got[0], ref[0])] + list(zip(got[1], ref[1])) + list(zip(got[2], ref[2]))
+    for i, (g, r) in enumerate(leaves):
+        assert bool(torch.isfinite(g).all()), i
+        assert float((g - r).abs().max()) <= 5e-4 * float(r.abs().max()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perturb", [False, True])
+def test_sine_upsample_kernel_matches_plain(cuda, perturb):
+    """Kernel 2's sine branch with a D=5 SIREN surface (the unit sphere)
+    on rays from (0, 0, -3), near / far on the sphere of radius 2: the
+    Softplus cases' shares."""
+    surf = _siren_surface(SIREN, 256, cuda)
+    N = 203
+    rays_o, rays_d = _rays(N, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=2.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    u = _uniforms(N, 4, 16, perturb, torch.Generator(cuda).manual_seed(3), cuda)
+    got = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    ref = fused_upsample.neus_upsample_plain(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    off = (got - ref).abs() > 1e-3 * float((far - near).max())
+    assert float(off.float().mean()) <= (1e-3 if perturb else 5e-3)
+
+
+@pytest.mark.cuda
+def test_sine_kernels_follow_the_activation(cuda):
+    """The activation reaches every launch: the same weights as a SIREN
+    surface and as a Softplus one give each kernel's own plain version, not
+    the other's (a wrapper that dropped the flag would run Softplus on sine
+    weights)."""
+    surf = _siren_surface(SIREN_SMALL, 64, cuda)
+    x = torch.rand(500, 3, device=cuda) * 6 - 3
+    for use_siren in (True, False):
+        surf.use_siren = use_siren
+        ref = fused_mlp.sdf_forward_plain(surf, x)
+        got4 = fused_mlp.fused_sdf_forward(surf, x)
+        got1 = fused_nablas.fused_forward_with_nablas(surf, x)[0]
+        torch.cuda.synchronize()
+        for got in (got4, got1):
+            assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+

@@ -240,9 +240,9 @@ def test_unported_volsdf_options_are_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="NeRF\\+\\+"):
         get_model(ConfigDict(cfg), "cpu")
     cfg = _cfg()
-    cfg["model"]["surface"]["use_siren"] = True
-    with pytest.raises(NotImplementedError, match="SIREN"):
-        get_model(ConfigDict(cfg), "cpu")
+    cfg["model"]["surface"].update(use_siren=True, skips=[])  # SIREN is ported (no skips)
+    model, _, _, _ = get_model(ConfigDict(cfg), "cpu")
+    assert model.implicit_surface.use_siren
     args = _train_args(tmp_path, 4)
     args.training["overlap_sampler"] = True
     with pytest.raises(NotImplementedError, match="overlap_sampler"):
