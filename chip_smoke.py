@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero:
    nvcc per source, all at once.
 2. kernel 1 (`nablas_forward`) against its plain version on the points of
    one render chunk at the flagship widths (4,096 rays x 255 points along real
-   rays): sdf and geometry features atol 1e-4, nablas rtol 2e-3 / atol 2e-4.
-3. kernel 2 (`neus_upsample`) against its plain version on 4,096 rays, det
-   and perturb uniforms: |d_all diff| <= 1e-3 (far - near) on >= 99.9% of
+   rays) and on 4,099 points of [-1, 1]^3 (a ragged last tile), each output
+   filled with NaN beforehand (`nablas_check`): sdf and geometry features
+   atol 1e-4, nablas rtol 2e-3 / atol 2e-4.
+3. kernel 2 (`neus_upsample`) against its plain version on 4,096 rays, and on
+   512 of them (a training step's count, on the kernel's 4-ray blocks) with
+   the sphere_residual prior on (`upsample_checks`), det and perturb
+   uniforms: |d_all diff| <= 1e-3 (far - near) on >= 99.9% of
    entries (the s = 512 sigmoid can move a sample when an fp32 sum order
    changes). In det mode, per ray, up to one entry per round in the last
    coarse section is exempt: the u = 1.0 sample, which ties with cdf[-1] = 1.
@@ -49,8 +53,9 @@ Phases, in order; any failure exits non-zero:
    The loop also extracts a mesh at step 30 (`i_val_mesh` 30, a 256^3
    grid): `meshes/00000030.ply` must be non-empty, written through kernel 4,
    and its seconds are printed on a line of their own.
-9. kernel 3's time at 130,560 points beside its plain version's and its
-   fp32 and 3xTF32 bounds, its workspace bytes, its four CUDA kernels' device
+9. kernel 1's time at 130,560 points and kernel 2's at 512 rays (a step's
+   shapes) beside their bounds; kernel 3's time at 130,560 points beside its
+   plain version's and its fp32 and 3xTF32 bounds, its workspace bytes, its four CUDA kernels' device
    times from torch.profiler, the same at a VolSDF step's 197,632 points,
    one training step split by CUDA events into kernel 2,
    kernel 1, kernel 3, the radiance forward, the Adam step and the rest, and
@@ -141,7 +146,9 @@ Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
 (`launches` from each slice's training run: phase 8 for kernels 1-4, phase
 16 for (a)-(c), phase 20 for the sine branch, whose rows are named
-`<kernel>[sine]`; `launches_by_path` for each path), then, as the last line,
+`<kernel>[sine]`; `launches_by_path` for each path; the surface-MLP rows
+held to their 3xTF32 bounds, `bound_held_to`; kernel 1's `ms_130560` and
+kernel 2's `ms_512_rays` at a training step's shapes), then, as the last line,
 {"ok": true, "device": {...}}. Needs the repository checkout beside it; it
 imports no JAX.
 """
@@ -306,11 +313,12 @@ def _frame_split(render_frames, vargs, parts):
     return 1e3 * frames["seconds"][1], ms
 
 
-def _upsample_check(surface, rays_o, rays_d, near, far, d_coarse, uniforms, label):
+def _upsample_check(surface, rays_o, rays_d, near, far, d_coarse, uniforms, label,
+                    report=print):
     """Kernel 2 against its plain version on the rays given, for each mode's
     uniforms ({"det": u, "perturb": u}, 4 rounds of 16): |d_all diff| <=
     1e-3 (far - near) on >= 99.9% of the entries, every sample inside [near,
-    far], finite. Prints a line per mode; returns (ok, {mode: max|diff|})."""
+    far], finite. Reports a line per mode; returns (ok, {mode: max|diff|})."""
     from neurecon_tpu_torch.ops import fused_upsample
 
     ok, errs = True, {}
@@ -337,13 +345,112 @@ def _upsample_check(surface, rays_o, rays_d, near, far, d_coarse, uniforms, labe
         frac_rest = float((off & ~exempt).float().mean())
         inside = bool(((got >= near - 1e-6) & (got <= far + 1e-6)).all())
         errs[mode] = float(diff.max())
-        print(f"{label}: neus_upsample {mode}: max|diff| {float(diff.max()):.3e}, "
+        report(f"{label}: neus_upsample {mode}: max|diff| {float(diff.max()):.3e}, "
               f"p99.9 {p999:.3e}, share beyond 1e-3(far-near) {frac:.5f}, "
               f"{int(exempt.sum())} u=1.0 tie entries exempt on "
               f"{int(exempt.any(1).sum())} rays, share of the rest {frac_rest:.5f}")
         if frac_rest > 1e-3 or not inside or not torch.isfinite(got).all():
             ok = False
     return ok, errs
+
+
+def render_chunk_inputs(seed, dev):
+    """Phases 2-7's inputs: the flagship NeuS from the port's geometric init
+    (`seed`), its copy with seeded noise on every weight (`checked`, seed +
+    1: the geometric init zeroes the octave columns), and one render chunk
+    of the synthetic scene: 4,096 rays spread over a 120x160 frame (every
+    ~4.7th pixel), their 64 coarse depths and the det and perturb uniforms
+    of 4 rounds of 16."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, _uniforms
+    from neurecon_tpu_torch.ops import get_rays
+
+    model, _, kw_test, _ = get_model(ConfigDict(FLAGSHIP), dev, seed=seed)
+    checked = copy.deepcopy(model)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    scene = make_synthetic_scene(n_images=1, H=120, W=160)
+    o_all, d_all_dirs, _ = get_rays(torch.tensor(scene["c2w"][0], device=dev),
+                                    torch.tensor(scene["intrinsics"][0], device=dev),
+                                    120, 160)
+    idx = torch.linspace(0, 120 * 160 - 1, 4096, device=dev).long()
+    rays_o, rays_d, near, far = _prepare_rays(o_all[idx], d_all_dirs[idx], 1.0)
+    t = torch.linspace(0, 1, 64, device=dev)
+    return {"model": model, "checked": checked, "kw_test": kw_test, "scene": scene, "o_all": o_all,
+            "d_all_dirs": d_all_dirs, "rays_o": rays_o, "rays_d": rays_d, "near": near,
+            "far": far, "t": t, "d_coarse": (near * (1 - t) + far * t).contiguous(),
+            "u_det": _uniforms(4096, 4, 16, False, None, dev),
+            "u_pert": _uniforms(4096, 4, 16, True, torch.Generator(dev).manual_seed(seed),
+                                dev)}
+
+
+def kernel1_points(surface, c):
+    """Kernel 1's points in one render chunk (`render_chunk_inputs`): each
+    ray's 128 depths from the plain upsampler and the 127 mids between
+    them, 1,044,480 points."""
+    from neurecon_tpu_torch.ops import fused_upsample
+
+    d_sec = fused_upsample.neus_upsample_plain(surface, c["rays_o"], c["rays_d"],
+                                               c["d_coarse"], c["u_det"], n_iters=4,
+                                               n_per_iter=16)
+    d_mid = 0.5 * (d_sec[:, 1:] + d_sec[:, :-1])
+    o, d = c["rays_o"][:, None], c["rays_d"][:, None]
+    pts = torch.cat([o + d * d_sec[..., None], o + d * d_mid[..., None]], 1)
+    return pts.reshape(-1, 3).contiguous()
+
+
+def nablas_check(surface, x, label, report=print):
+    """Phase 2: kernel 1 against its plain version on x and on 4,099 points
+    uniform in [-1, 1]^3 (a ragged last tile); before each call, NaN fills
+    blocks of the outputs' sizes, which the outputs are likely to be given,
+    so an unwritten entry cannot pass for a right one. sdf and h within
+    1e-4, nablas within 2e-4 + 2e-3 |ref|, all finite. Returns (ok,
+    [max|diff| of sdf, nablas, h] over both)."""
+    from neurecon_tpu_torch.ops import fused_nablas
+
+    g = torch.Generator(x.device).manual_seed(11)
+    ragged = torch.rand(4099, 3, device=x.device, generator=g) * 2 - 1
+    ok, errs = True, [0.0, 0.0, 0.0]
+    for pts in (x, ragged):
+        M = pts.shape[0]
+        nan = [torch.full(shape, float("nan"), device=x.device)
+               for shape in ((M,), (M, 3), (M, surface.W_geo_feat))]
+        del nan
+        got = fused_nablas.fused_forward_with_nablas(surface, pts)
+        with torch.no_grad():
+            ref = fused_nablas.forward_with_nablas_plain(surface, pts)
+        torch.cuda.synchronize()
+        e = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
+        report(f"{label}: nablas_forward on {M} points: max|diff| sdf {e[0]:.3e}, "
+               f"nablas {e[1]:.3e}, h {e[2]:.3e}")
+        ok = ok and (e[0] <= 1e-4 and e[2] <= 1e-4 and nab_ok
+                     and all(bool(torch.isfinite(t).all()) for t in got))
+        errs = [max(a, b) if b == b else float("nan") for a, b in zip(errs, e)]
+        del got, ref
+    return ok, errs
+
+
+def upsample_checks(surface, c, label, report=print):
+    """Phase 3: `_upsample_check` on the chunk's 4,096 rays, then on 512 of
+    them (every 8th: a training step's count, which the kernel takes in
+    blocks of 4 rays, where 4,096 rays go 8 to a block) with the
+    sphere_residual prior switched on. Returns (ok, {mode: max|diff|} of the
+    4,096 rays)."""
+    ok, errs = _upsample_check(surface, c["rays_o"], c["rays_d"], c["near"], c["far"],
+                               c["d_coarse"], {"det": c["u_det"], "perturb": c["u_pert"]},
+                               label, report)
+    prior = copy.deepcopy(surface)
+    prior.sphere_residual = True
+    every = slice(None, None, 8)
+    ok512, _ = _upsample_check(
+        prior, c["rays_o"][every].contiguous(), c["rays_d"][every].contiguous(),
+        c["near"][every], c["far"][every], c["d_coarse"][every].contiguous(),
+        {"det": c["u_det"][:512], "perturb": c["u_pert"][:512]},
+        f"{label} (512 rays, sphere prior)", report)
+    return ok and ok512, errs
 
 
 def _closed(faces: torch.Tensor) -> bool:
@@ -442,11 +549,16 @@ def _step_grad_check(model, ray_loss, *args, **kwargs):
         total.backward()
         return total.item(), [p.grad.clone() for p in model.parameters()]
 
+    def plain1(surface, x, weights=None, packed=None):  # the kernels' pack unread
+        return fused_nablas.forward_with_nablas_plain(surface, x, weights)
+
+    def plain3(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None):
+        return fused_nablas_vjp.nablas_vjp_plain(surface, x, ws, bs, cot_sdf, cot_nablas,
+                                                 cot_h)
+
     loss_k, grads_k = step_grads()
-    with mock.patch.object(fused_nablas, "fused_forward_with_nablas",
-                           fused_nablas.forward_with_nablas_plain), \
-            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp",
-                              fused_nablas_vjp.nablas_vjp_plain):
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas", plain1), \
+            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp", plain3):
         loss_p, grads_p = step_grads()
     model.zero_grad(set_to_none=True)
     names = [n for n, _ in model.named_parameters()]
@@ -1266,7 +1378,7 @@ def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                            lambda: fused_nablas.forward_with_nablas_plain(surface, x1),
                            _bounds(2.0 * _surface_macs(surface) * M1,
                                    4.0 * (M1 * (3 + 4 + surface.W_geo_feat) + n_par)),
-                           "fp32", f"{M1} points", "neurecon_tpu/ops/fused_nablas.py:74"),
+                           "3xtf32", f"{M1} points", "neurecon_tpu/ops/fused_nablas.py:74"),
         "nablas_backward": (lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x1, ws, bs, *cots),
                             lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x1, ws, bs, *cots),
                             _bounds(2.0 * _surface_macs(surface, backward=True) * M1,
@@ -1279,7 +1391,7 @@ def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                               surface, r2o, r2d, dc2, u2, n_iters=4, n_per_iter=16),
                           _bounds(2.0 * _surface_macs(surface, sdf_only=True) * SINE_RAYS * 128,
                                   4.0 * (SINE_RAYS * (6 + 64 + 64 + 128) + n_par)),
-                          "fp32", f"{SINE_RAYS} rays", "neurecon_tpu/ops/fused_upsample.py:272"),
+                          "3xtf32", f"{SINE_RAYS} rays", "neurecon_tpu/ops/fused_upsample.py:272"),
     }
     for name, (fn, plain, bb, held, per, replaces) in specs.items():
         ms = _time_ms(fn)
@@ -1343,14 +1455,11 @@ def main(argv=None):
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
-    from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
-    from neurecon_tpu_torch.models.frameworks import get_model
-    from neurecon_tpu_torch.models.frameworks.neus import (_prepare_rays, _uniforms,
-                                                           make_volume_render_fn)
+    from neurecon_tpu_torch.models.base import RadianceNet
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, make_volume_render_fn
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
     from neurecon_tpu_torch.ops import (_build, fused_fine_sample, fused_mlp, fused_nablas,
-                                        fused_nablas_vjp, fused_upsample, get_rays,
-                                        surface_pack)
+                                        fused_nablas_vjp, fused_upsample, surface_pack)
     from neurecon_tpu_torch.models.ray_casting import make_surface_render_fn
     from neurecon_tpu_torch.tools import extract_surface, render_view
     from neurecon_tpu_torch.tools.eval_mesh import chamfer_distance
@@ -1392,51 +1501,26 @@ def main(argv=None):
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
 
-    args = ConfigDict(FLAGSHIP)
-    model, _, kw_test, _ = get_model(args, dev, seed=seed)
     # the kernels are checked on a copy with noise on every weight
-    checked = copy.deepcopy(model)
-    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    c = render_chunk_inputs(seed, dev)
+    model, checked, kw_test = c["model"], c["checked"], c["kw_test"]
+    scene, o_all, d_all_dirs, t, u_det = (c["scene"], c["o_all"], c["d_all_dirs"], c["t"],
+                                          c["u_det"])
+    rays_o, rays_d, d_coarse = c["rays_o"], c["rays_d"], c["d_coarse"]
     surface = checked.implicit_surface
-    scene = make_synthetic_scene(n_images=1, H=120, W=160)
-    o_all, d_all_dirs, _ = get_rays(torch.tensor(scene["c2w"][0], device=dev),
-                                    torch.tensor(scene["intrinsics"][0], device=dev),
-                                    120, 160)
-    # 4,096 rays spread over the frame (every ~4.7th pixel)
-    idx = torch.linspace(0, 120 * 160 - 1, 4096, device=dev).long()
-    rays_o, rays_d, near, far = _prepare_rays(o_all[idx], d_all_dirs[idx], 1.0)
-    t = torch.linspace(0, 1, 64, device=dev)
-    d_coarse = (near * (1 - t) + far * t).contiguous()
 
     # ---- phase 2: kernel 1 on one render chunk's points (sections + mids)
-    u_det = _uniforms(4096, 4, 16, False, None, dev)
-    d_sec = fused_upsample.neus_upsample_plain(surface, rays_o, rays_d, d_coarse,
-                                               u_det, n_iters=4, n_per_iter=16)
-    d_mid = 0.5 * (d_sec[:, 1:] + d_sec[:, :-1])
-    pts = torch.cat([rays_o[:, None] + rays_d[:, None] * d_sec[..., None],
-                     rays_o[:, None] + rays_d[:, None] * d_mid[..., None]], 1)
-    x = pts.reshape(-1, 3).contiguous()
-    got = fused_nablas.fused_forward_with_nablas(surface, x)
-    with torch.no_grad():
-        ref = fused_nablas.forward_with_nablas_plain(surface, x)
-    torch.cuda.synchronize()
-    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-    nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
-    print(f"phase 2: nablas_forward on {x.shape[0]} points: max|diff| sdf {errs[0]:.3e}, "
-          f"nablas {errs[1]:.3e}, h {errs[2]:.3e}")
+    x = kernel1_points(surface, c)
+    ok, errs = nablas_check(surface, x, "phase 2")
     octave = _octave_effect(surface, x[:65536])
     print("phase 2: zeroing the octave columns would move sdf, nablas, h by up to "
           + ", ".join(f"{v:.3e}" for v in octave))
-    if not (errs[0] <= 1e-4 and errs[2] <= 1e-4 and nab_ok
-            and all(torch.isfinite(g).all() for g in got)):
+    if not ok:
         print("FAIL phase 2: nablas_forward disagrees with its plain version", file=sys.stderr)
         return 1
-    del ref, got
 
     # ---- phase 3: kernel 2 against its plain version, det and perturb
-    u_pert = _uniforms(4096, 4, 16, True, torch.Generator(dev).manual_seed(seed), dev)
-    ok, k2_err = _upsample_check(surface, rays_o, rays_d, near, far, d_coarse,
-                                 {"det": u_det, "perturb": u_pert}, "phase 3")
+    ok, k2_err = upsample_checks(surface, c, "phase 3")
     if not ok:
         print("FAIL phase 3: neus_upsample disagrees with its plain version", file=sys.stderr)
         return 1
@@ -1493,7 +1577,6 @@ def main(argv=None):
     bytes1 = 4.0 * (M * 3 + M * (1 + 3 + surface.W_geo_feat)
                     + sum(p.numel() for p in surface.parameters()))
     bb1 = _bounds(flops1, bytes1)
-    b1 = bb1[0][0]
     ms2 = _time_ms(lambda: fused_upsample.fused_neus_upsample(
         surface, rays_o, rays_d, d_coarse, u_det, n_iters=4, n_per_iter=16))
     pms2 = _time_ms(lambda: fused_upsample.neus_upsample_plain(
@@ -1501,12 +1584,13 @@ def main(argv=None):
     flops2 = 2.0 * _surface_macs(surface, sdf_only=True) * 4096 * 128
     bytes2 = 4.0 * (4096 * (6 + 64 + 64 + 128)
                     + sum(p.numel() for p in surface.parameters()))
-    b2, by2 = _bound_ms(flops2, bytes2)
+    bb2 = _bounds(flops2, bytes2)
     print(f"phase 5: nablas_forward {M} points: {ms1:.3f} ms (plain {pms1:.3f} ms, "
-          f"fp32 bound {b1:.3f} ms, 3xTF32 bound {bb1[1][0]:.3f} ms, {flops1 / 1e9:.1f} "
+          f"fp32 bound {bb1[0][0]:.3f} ms, 3xTF32 bound {bb1[1][0]:.3f} ms, {flops1 / 1e9:.1f} "
           f"GFLOP) {tag}")
     print(f"phase 5: neus_upsample 4096 rays: {ms2:.3f} ms (plain {pms2:.3f} ms, "
-          f"fp32 bound {b2:.3f} ms, {flops2 / 1e9:.1f} GFLOP) {tag}")
+          f"fp32 bound {bb2[0][0]:.3f} ms, 3xTF32 bound {bb2[1][0]:.3f} ms, "
+          f"{flops2 / 1e9:.1f} GFLOP) {tag}")
     print(f"phase 5: render_view s/frame {frames['seconds']} {tag}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vargs["load_pt"] = CheckpointIO(tmp).save("latest.pt", 0,
@@ -1622,7 +1706,21 @@ def main(argv=None):
               "did not lower the loss, or wrote no mesh", file=sys.stderr)
         return 1
 
-    # ---- phase 9: kernel 3's time, and one step split
+    # ---- phase 9: kernels 1 and 2 at a step's shapes, kernel 3's time, one step split
+    ms1_step = _time_ms(lambda: fused_nablas.fused_forward_with_nablas(surface, x3))
+    bb1_step = _bounds(2.0 * _surface_macs(surface) * M3,
+                       4.0 * (M3 * (3 + 1 + 3 + surface.W_geo_feat)
+                              + sum(p.numel() for p in surface.parameters())))
+    ms2_step = _time_ms(lambda: fused_upsample.fused_neus_upsample(
+        surface, r_o, r_d, d_c, u_det[:512], n_iters=4, n_per_iter=16))
+    bb2_step = _bounds(2.0 * _surface_macs(surface, sdf_only=True) * 512 * 128,
+                       4.0 * (512 * (6 + 64 + 64 + 128)
+                              + sum(p.numel() for p in surface.parameters())))
+    print(f"phase 9: nablas_forward {M3} points: {ms1_step:.3f} ms (fp32 bound "
+          f"{bb1_step[0][0]:.3f} ms, 3xTF32 bound {bb1_step[1][0]:.3f} ms); neus_upsample 512 "
+          f"rays: {ms2_step:.3f} ms (fp32 bound {bb2_step[0][0]:.3f} ms, 3xTF32 bound "
+          f"{bb2_step[1][0]:.3f} ms) {tag}")
+
     def run3():
         fused_nablas_vjp.fused_nablas_vjp(surface, x3, ws3, bs3, *cots)
     ms3 = _time_ms(run3)
@@ -1856,14 +1954,14 @@ def main(argv=None):
          "source": "neurecon_tpu_torch/csrc/nablas_forward.cu",
          "replaces": "neurecon_tpu/ops/fused_nablas.py:74",
          "launches": launches["nablas_forward"], "max_abs_err": max(errs),
-         "ms": ms1, "plain_ms": pms1, **_bound_fields(*bb1, "fp32"),
-         "library_ms": None},
+         "ms": ms1, "plain_ms": pms1, **_bound_fields(*bb1, "3xtf32"),
+         "library_ms": None, "ms_130560": ms1_step, "bound_ms_130560": bb1_step[1][0]},
         {"name": "neus_upsample", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/neus_upsample.cu",
          "replaces": "neurecon_tpu/ops/fused_upsample.py:272",
          "launches": launches["neus_upsample"], "max_abs_err": k2_err["det"],
-         "ms": ms2, "plain_ms": pms2, "bound_ms": b2, "bound_by": by2,
-         "bound_held_to": "fp32", "library_ms": None},
+         "ms": ms2, "plain_ms": pms2, **_bound_fields(*bb2, "3xtf32"),
+         "library_ms": None, "ms_512_rays": ms2_step, "bound_ms_512_rays": bb2_step[1][0]},
         {"name": "nablas_backward", "route": "cuda",
          "source": "neurecon_tpu_torch/csrc/nablas_backward.cu",
          "replaces": "neurecon_tpu/ops/fused_nablas_vjp.py:120",

@@ -168,18 +168,6 @@ __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
   }
 }
 
-// The reverse product g_in = g W_l (K = the layer's padded outputs, N its
-// padded inputs) over `buf`, written back over it.
-template <int P>
-__device__ __forceinline__ void reverse_product(const tc::Mlp& m, const tc::Layer& L,
-                                                float* buf, float* stage) {
-  constexpr int LDV = tc::Tile<P>::LDV;
-  float acc[tc::Tile<P>::MT][8][4];
-  tc::product<P, BWD_KC, BWD_NBUF, false>(L.w, m.plane, L.N, L.K, buf, stage, acc);
-  tc::each_output<P>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
-  __syncthreads();
-}
-
 // Phases 1-4 on point tile T, with the block's shared memory at `base` and
 // its slope scratch at `deriv` ([D][rows][P]); ACT the hidden activation.
 template <int P, int ACT>
@@ -241,7 +229,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     const float* in = l == 0 ? emb : buf;
     copy_rows<P>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
     float acc[tc::Tile<P>::MT][8][4];
-    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, in, stage, acc);
+    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, in, stage, acc);
     tc::activation_out<P, ACT>(L, acc, buf, slope(l));
     __syncthreads();
   }
@@ -269,22 +257,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       buf[(idx / P) * LDV + idx % P] *= sl[idx];  // padded rows: slope 0
     __syncthreads();
     copy_rows<P>(slot(J.a_off, J.ldA, 0), buf, L.out_dim);
-    reverse_product<P>(m, L, buf, stage);
-    if (l == 0) {
-      for (int idx = threadIdx.x; idx < C * P; idx += THREADS) {
-        const int at = (idx / P) * LDV + idx % P;
-        ge[at] += buf[at];
-      }
-    } else if (L.skip) {
-      const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.in_dim * P; idx += THREADS) {
-        const int r = idx / P, p = idx % P;
-        const float v = buf[r * LDV + p] * inv_sqrt2;
-        if (r < h_dim) buf[r * LDV + p] = v;
-        else ge[(r - h_dim) * LDV + p] += v;
-      }
-    }
-    __syncthreads();
+    tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, L, buf, stage);
+    tc::pull_input<P>(m, L, l, buf, ge);
   }
 
   // ---- phase 3: n_bar pushed forward through phase 2's chain
@@ -328,7 +302,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     const float* gin = l == 0 ? gebar : buf;
     copy_rows<P>(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
     float acc[tc::Tile<P>::MT][8][4];
-    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, gin, stage, acc);  // qbar_l
+    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, gin, stage,
+                                            acc);  // qbar_l
     const float* qs = slot(J.a_off, J.ldA, 0);
     float* ab = slot(J.a_off, J.ldA, 1);
     tc::each_output<P>(acc, L.N, [&](int o, int p, float a) {
@@ -360,7 +335,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
   __syncthreads();
   copy_rows<P>(slot(JD.a_off, JD.ldA, 0), buf, LD.out_dim);
   row_sums<P>(bias_row + JD.bias_off, buf, LD.out_dim);
-  reverse_product<P>(m, LD, buf, stage);  // g_h = y_bar W_D
+  tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, LD, buf, stage);  // g_h = y_bar W_D
   for (int l = D - 1; l >= 0; --l) {
     const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
@@ -377,22 +352,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     }
     __syncthreads();
     row_sums<P>(bias_row + J.bias_off, buf, L.out_dim);
-    reverse_product<P>(m, L, buf, stage);
-    if (l == 0) {
-      for (int idx = threadIdx.x; idx < C * P; idx += THREADS) {
-        const int at = (idx / P) * LDV + idx % P;
-        ge[at] += buf[at];
-      }
-    } else if (L.skip) {
-      const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.in_dim * P; idx += THREADS) {
-        const int r = idx / P, p = idx % P;
-        const float v = buf[r * LDV + p] * inv_sqrt2;
-        if (r < h_dim) buf[r * LDV + p] = v;
-        else ge[(r - h_dim) * LDV + p] += v;
-      }
-    }
-    __syncthreads();
+    tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, L, buf, stage);
+    tc::pull_input<P>(m, L, l, buf, ge);
   }
 
   // x_bar = e_bar through d e / d x, plus phase 3's term

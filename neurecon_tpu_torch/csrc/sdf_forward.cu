@@ -68,24 +68,14 @@ sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
       const tc::Layer L = tc::layer_of(m, l);
       if (L.skip) tc::skip_input<P>(m, L, emb, buf);
       float acc[tc::Tile<P>::MT][8][4];
-      tc::product<P, SDF_KC, SDF_NBUF, true>(L.wT, m.plane, L.K, L.N, l == 0 ? emb : buf, stage,
-                                       acc);
+      tc::product<P, SDF_KC, SDF_NBUF, true>(L.wT, m.plane, L.K, L.N, L.N, l == 0 ? emb : buf,
+                                             stage, acc);
       tc::activation_out<P, ACT>(L, acc, buf, nullptr);
       __syncthreads();
     }
-    // the sdf row: sum_k h[k][p] W_D[0][k] + b_D[0] (W_D's row 0 is the
-    // first K floats of its [N][K] block; padded rows are zero on both sides)
+    // the sdf row, in fp32 on the CUDA cores
     const tc::Layer LD = tc::layer_of(m, D);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      for (int k = 0; k < LD.K; k += 4) {
-        s0 += buf[k * LDV + p] * __ldg(LD.w + k);
-        s1 += buf[(k + 1) * LDV + p] * __ldg(LD.w + k + 1);
-        s2 += buf[(k + 2) * LDV + p] * __ldg(LD.w + k + 2);
-        s3 += buf[(k + 3) * LDV + p] * __ldg(LD.w + k + 3);
-      }
-      tile_sdf[p] = ((s0 + s1) + (s2 + s3)) + __ldg(LD.b);
-    }
+    for (int p = threadIdx.x; p < P; p += blockDim.x) tile_sdf[p] = tc::final_row<P>(LD, 0, buf, p);
     __syncthreads();
     for (int p = threadIdx.x; p < P; p += blockDim.x)
       if (p0 + p < M) sdf[p0 + p] = tile_sdf[p];

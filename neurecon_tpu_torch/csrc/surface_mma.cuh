@@ -1,13 +1,14 @@
 // Split-fp32 ("3xTF32") tensor-core layer products of the surface MLP over a
-// tile of P points held in shared memory — the device routines shared by
-// the sdf-only kernel (sdf_forward.cu) and the eikonal backward's tile pass
-// (nablas_backward.cu). The CUDA-core routines of surface_mlp.cuh serve the
-// other kernels.
+// tile of P points held in shared memory, and the device routines around
+// them, shared by every surface-MLP kernel: the sdf-only forward
+// (sdf_forward.cu), the forward + nablas (nablas_forward.cu), the NeuS
+// upsampler (neus_upsample.cu) and the eikonal backward's tile pass
+// (nablas_backward.cu).
 //
 // The product. out[p][n] = sum_k V[p][k] * M[k][n] for the tile's P points,
 // with V an activation block in shared memory and M a weight block in device
-// memory, [K][N] row-major: W^T (the forward, through a layer) or W (the
-// reverse sweeps). Both orientations are in the pack (ops/surface_pack.py),
+// memory, [K][ld] row-major, its first N columns: W^T (the forward, through
+// a layer) or W (the reverse sweeps). Both orientations are in the pack (ops/surface_pack.py),
 // so the product never transposes. The product runs on
 // `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`, rows = points,
 // columns = outputs, depth = inputs.
@@ -171,8 +172,8 @@ using Acc = float[Tile<P>::MT][8][4];
 
 // acc[i][j][e] = sum_{k < K} V[k][p] M[k][n] for the warp's (p, n) of
 // fragment element (i, j, e) (see each_output), with M a weight block of
-// the pack's fp32 plane, [K][N] (K % 8 == 0, N % 8 == 0, N <= 256, rows
-// 16-byte aligned), whose TF32 big and small parts lie `plane` and 2 `plane`
+// the pack's fp32 plane, [K][ld] of which the first N columns are read
+// (K % 8 == 0, N % 8 == 0, N <= 256, ld % 4 == 0, rows 16-byte aligned), whose TF32 big and small parts lie `plane` and 2 `plane`
 // floats on, and V in shared memory as [K][LDV]; `stage` holds NBUF chunks
 // of KC weight rows, both parts. Each k-step's three MMAs go into a fresh
 // fragment that is then added to the accumulator on the CUDA cores (see the
@@ -181,7 +182,8 @@ using Acc = float[Tile<P>::MT][8][4];
 // done with V and the stage (so the caller may overwrite V).
 template <int P, int KC, int NBUF, bool PRESPLIT>
 __device__ __forceinline__ void product(const float* __restrict__ M, size_t plane, int K,
-                                        int N, const float* V, float* stage, Acc<P>& acc) {
+                                        int N, int ld, const float* V, float* stage,
+                                        Acc<P>& acc) {
   static_assert(KC % 8 == 0 && NBUF >= 2, "chunks of whole k-steps, two buffers or more");
   constexpr int MT = Tile<P>::MT, LDV = Tile<P>::LDV, CH = KC * SLD;
   constexpr int PARTS = PRESPLIT ? 2 : 1;
@@ -199,12 +201,12 @@ __device__ __forceinline__ void product(const float* __restrict__ M, size_t plan
     if (ch < nch) {
       const int n = min(KC, K - ch * KC) * n4;
       float* dst = stage + (ch % NBUF) * PARTS * CH;  // big plane, then small
-      const float* src = M + (PRESPLIT ? plane : 0) + (size_t)ch * KC * N;
+      const float* src = M + (PRESPLIT ? plane : 0) + (size_t)ch * KC * ld;
       for (int idx = threadIdx.x; idx < n; idx += Tile<P>::THREADS) {
         const int r = idx / n4, c = idx - r * n4;
-        cp_async16(dst + r * SLD + 4 * c, src + (size_t)r * N + 4 * c);
+        cp_async16(dst + r * SLD + 4 * c, src + (size_t)r * ld + 4 * c);
         if (PRESPLIT)
-          cp_async16(dst + CH + r * SLD + 4 * c, src + plane + (size_t)r * N + 4 * c);
+          cp_async16(dst + CH + r * SLD + 4 * c, src + plane + (size_t)r * ld + 4 * c);
       }
     }
     cp_async_commit();
@@ -305,7 +307,11 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float*
 // The activation of the product plus bias, written over `out` ([N][LDV];
 // rows out_dim..N-1 get 0); with `slope` ([N][P], device memory) also its
 // derivative (0 on the padded rows): Softplus(beta = 100) and sigmoid(100 z),
-// or (ACT_SINE) sin(30 z) and 30 cos(30 z). sincosf/sinf, not the fast
+// or (ACT_SINE) sin(30 z) and 30 cos(30 z). Softplus is the plain version's
+// formula (torch's softplus of y = 100 z, threshold 20, over 100), so that
+// a pre-activation equal to the plain one gives its output to the bit: the
+// NeuS step's gradient turns on the sign of sdf differences between
+// sections a few 1e-7 apart (PERF.md). sincosf/sinf, not the fast
 // intrinsics: 30 z reaches tens of radians, where __sinf's error grows with
 // |x| (the kernels build without --use_fast_math).
 template <int P, int ACT>
@@ -326,7 +332,7 @@ __device__ __forceinline__ void activation_out(const Layer& L, const Acc<P>& acc
         }
       } else {
         const float y = 100.f * (a + __ldg(L.b + o));
-        v = (fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)))) / 100.f;
+        v = (y > 20.f ? y : log1pf(expf(y))) / 100.f;
         s = 1.f / (1.f + expf(-y));
       }
     }
@@ -352,6 +358,66 @@ __device__ __forceinline__ void skip_input(const Mlp& m, const Layer& L, const f
   for (int idx = threadIdx.x; idx < L.K * P; idx += Tile<P>::THREADS) {
     float* cat = buf + (idx / P) * LDV + idx % P;
     *cat = *cat / 1.41421356237f;
+  }
+  __syncthreads();
+}
+
+// Row `row` of the final layer at the tile's point p, on the CUDA cores in
+// fp32: sum_k V[k][p] W_D[row][k] + b_D[row], with V the layer's input
+// ([K][LDV]; W_D's row is K floats of its [N][K] block, padded entries zero
+// on both sides). The sdf row, and the final layer's outputs past the
+// product's 256 columns.
+template <int P>
+__device__ __forceinline__ float final_row(const Layer& L, int row, const float* V, int p) {
+  constexpr int LDV = Tile<P>::LDV;
+  const float* w = L.w + (size_t)row * L.K;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  for (int k = 0; k < L.K; k += 4) {
+    s0 += V[k * LDV + p] * __ldg(w + k);
+    s1 += V[(k + 1) * LDV + p] * __ldg(w + k + 1);
+    s2 += V[(k + 2) * LDV + p] * __ldg(w + k + 2);
+    s3 += V[(k + 3) * LDV + p] * __ldg(w + k + 3);
+  }
+  return ((s0 + s1) + (s2 + s3)) + __ldg(L.b + row);
+}
+
+// The reverse product of layer L in a sweep: g_in = g W over `buf` (depth K
+// = the layer's padded outputs, N = its padded inputs), written back over
+// it. Ends synchronised.
+template <int P, int KC, int NBUF, bool PRESPLIT>
+__device__ __forceinline__ void reverse_product(const Mlp& m, const Layer& L, float* buf,
+                                                float* stage) {
+  constexpr int LDV = Tile<P>::LDV;
+  Acc<P> acc;
+  product<P, KC, NBUF, PRESPLIT>(L.w, m.plane, L.N, L.K, L.K, buf, stage, acc);
+  each_output<P>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
+  __syncthreads();
+}
+
+// After the reverse product of layer l (`buf` holds the gradient at its
+// input): layer 0's input is the encoding, whose rows are added to g_e
+// (`ge`, [c_pad][LDV]); a skip layer's input [h, e] / sqrt(2) splits, its h
+// rows staying in `buf` and its encoding rows added to g_e, both divided by
+// sqrt(2). Ends synchronised.
+template <int P>
+__device__ __forceinline__ void pull_input(const Mlp& m, const Layer& L, int l, float* buf,
+                                           float* ge) {
+  constexpr int LDV = Tile<P>::LDV;
+  const float inv_sqrt2 = 1.f / 1.41421356237f;
+  const int C = m.in_ch;
+  if (l == 0) {
+    for (int idx = threadIdx.x; idx < C * P; idx += Tile<P>::THREADS) {
+      const int at = (idx / P) * LDV + idx % P;
+      ge[at] += buf[at];
+    }
+  } else if (L.skip) {
+    const int h_dim = L.in_dim - C;
+    for (int idx = threadIdx.x; idx < L.in_dim * P; idx += Tile<P>::THREADS) {
+      const int r = idx / P, p = idx % P;
+      const float v = buf[r * LDV + p] * inv_sqrt2;
+      if (r < h_dim) buf[r * LDV + p] = v;
+      else ge[(r - h_dim) * LDV + p] += v;
+    }
   }
   __syncthreads();
 }

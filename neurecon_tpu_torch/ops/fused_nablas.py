@@ -3,10 +3,12 @@
 
 Replaces the Pallas kernel `_make_nablas_kernel` of
 `neurecon_tpu/ops/fused_nablas.py` (entry `fused_forward_with_nablas`). The
-kernel is bound by arithmetic (~2 MFLOP per point at the flagship widths);
-its source note says where it keeps the reverse sweep's activation slopes.
-Gradient-free: parameters are constants here (the render);
-`ops/fused_nablas_vjp.py` wraps it, with its backward kernel, for training.
+kernel runs every layer product, forward and nablas sweep, as a split-fp32
+tensor-core product over 128-point tiles; its source note gives the design
+and what bounds it. Gradient-free: parameters are constants here (the
+render, the casters); `ops/fused_nablas_vjp.py` wraps it, with its backward
+kernel, for training. The packed weights are kept between calls while the
+surface's parameters are unchanged (`surface_pack.packed_surface`).
 
 `fused_forward_with_nablas` takes the kernel for a CUDA tensor and the plain
 version for a CPU tensor; there is no other route and no fallback.
@@ -21,10 +23,9 @@ from neurecon_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_TILE = 128  # points per tile (csrc/nablas_forward.cu NF_TILE)
 
-
-_THREADS = 256   # threads per block: the widest hidden layer (csrc)
-_STAGE_LD = 264  # widest padded weight row the kernels stage (csrc)
+_RESIDENT: dict = {}  # (card index, c_pad, rows) -> resident blocks
 
 ACT_SOFTPLUS, ACT_SINE = 0, 1  # the kernels' activation codes (csrc)
 
@@ -43,10 +44,6 @@ def effective_weight(layer) -> torch.Tensor:
     return layer.w
 
 
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A small host table on `device` without a host-device sync: copied
     from pinned memory, asynchronously, on the current stream (a copy from
@@ -63,49 +60,11 @@ def surface_weights(surface):
             [layer.b for layer in surface.layers])
 
 
-def pack_surface(surface, weights=None):
-    """Weights of `surface` (weight norm resolved; or `weights`, a pair of
-    lists of effective weights and biases) in the kernels' layout:
-    one contiguous fp32 buffer holding, per layer, W^T [in][ld_wT],
-    W [out][ld_w] (rows zero-padded to a multiple of 4 floats, 16-byte
-    aligned) and b; an int32 table [D+1, 8] of (in_dim, out_dim, offset of
-    W^T, offset of W, offset of b, skip flag, ld_wT, ld_w); and the widest
-    activation row count. Everything stays on the parameters' device."""
-    if 0 in surface.skips:
-        raise ValueError("a skip at layer 0 is not supported by the kernels")
-    pieces, meta, off = [], [], 0
-    wmax = 0
-    with torch.no_grad():
-        ws, bs = weights if weights is not None else surface_weights(surface)
-        for l, (w, b) in enumerate(zip(ws, bs)):
-            w = w.float()
-            out_dim, in_dim = w.shape
-            ld_wT, ld_w = _pad4(out_dim), _pad4(in_dim)
-            hidden = l < surface.D
-            if (max(ld_wT, ld_w) > _STAGE_LD
-                    or (hidden and max(out_dim, in_dim) > _THREADS)):
-                raise NotImplementedError(
-                    f"layer {l} ({in_dim} -> {out_dim}) is wider than the "
-                    f"kernels take (hidden <= {_THREADS}, rows <= {_STAGE_LD})")
-            skip = int(l in surface.skips)
-            if hidden:
-                wmax = max(wmax, out_dim, in_dim if skip else 0)
-            wT = torch.nn.functional.pad(w.t(), (0, ld_wT - out_dim))
-            wp = torch.nn.functional.pad(w, (0, ld_w - in_dim))
-            b = torch.nn.functional.pad(b.float(), (0, _pad4(out_dim) - out_dim))
-            meta.append([in_dim, out_dim, off, off + wT.numel(),
-                         off + wT.numel() + wp.numel(), skip, ld_wT, ld_w])
-            pieces += [wT.reshape(-1), wp.reshape(-1), b]
-            off += wT.numel() + wp.numel() + b.numel()
-        params = torch.cat(pieces).contiguous()
-    meta = upload(torch.tensor(meta, dtype=torch.int32), params.device)
-    return params, meta, wmax
-
-
 def forward_with_nablas_plain(surface, x: torch.Tensor, weights=None):
     """Plain version: (sdf [M], nablas [M, 3], h [M, W_geo]) at x [M, 3],
     nablas by autograd on a detached copy of x (works under no_grad);
-    `weights` as for `pack_surface`. The outputs are detached."""
+    `weights` a pair of lists of effective [out, in] weights and biases
+    (the surface's own by default). The outputs are detached."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         sdf, h = surface.mlp(xg, weights)
@@ -125,37 +84,62 @@ def _check(surface, x):
             raise ValueError("surface parameters must be float32 on x's device")
 
 
-def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None):
+def resident_blocks(c_pad: int, rows: int, device: torch.device) -> int:
+    """Blocks of the kernel resident on `device` at once, for this encoding
+    height and activation buffer; asked of the card (which also sets the
+    kernel's shared-memory attributes) once per (card, c_pad, rows) and
+    kept. Raises NotImplementedError when a block does not fit."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, c_pad, rows)
+    n = _RESIDENT.get(key)
+    if n is None:
+        lib = _build.load("nablas_forward")
+        lib.ntt_nablas_forward_resident.argtypes = [_I, _I]
+        lib.ntt_nablas_forward_resident.restype = _I
+        with torch.cuda.device(index):
+            n = lib.ntt_nablas_forward_resident(c_pad, rows)
+        _build.check(max(-n, 0), "nablas_forward (occupancy)")
+        if n == 0:
+            raise NotImplementedError(
+                f"nablas_forward: a block for {c_pad} encoding and {rows} activation "
+                "rows does not fit in the card's shared memory")
+        _RESIDENT[key] = n
+    return n
+
+
+def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=None):
     """(sdf [M], nablas [M, 3], h [M, W_geo]) of the surface MLP at x [M, 3]
     (no sphere_residual term: the caller adds it); `weights` as for
-    `pack_surface`."""
+    `forward_with_nablas_plain`. On a card the kernel reads `packed` (a
+    `surface_pack.Pack` of the same weights), else a pack of `weights`, else
+    the surface's kept pack."""
+    from neurecon_tpu_torch.ops import surface_pack
+
     _check(surface, x)
     if x.device.type == "cpu":
         return forward_with_nablas_plain(surface, x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    M = x.shape[0]
-    geo = surface.W_geo_feat
-    sdf = torch.empty(M, device=x.device)
-    nablas = torch.empty(M, 3, device=x.device)
-    h = torch.empty(M, geo, device=x.device)
+    M, geo, dev = x.shape[0], surface.W_geo_feat, x.device
+    sdf = torch.empty(M, device=dev)
+    nablas = torch.empty(M, 3, device=dev)
+    h = torch.empty(M, geo, device=dev)
     if M == 0:
         return sdf, nablas, h
-    lib = _build.load("nablas_forward")
-    params, meta, wmax = pack_surface(surface, weights)
-    lib.ntt_nablas_forward_blocks.argtypes = [_I, _I, _I]
-    lib.ntt_nablas_forward_blocks.restype = _I
-    blocks = lib.ntt_nablas_forward_blocks(surface.input_ch, wmax, M)
-    _build.check(max(-blocks, 0), "nablas_forward (occupancy)")
-    slopes = torch.empty(blocks * surface.D * wmax * 16, device=x.device)
-    fn = lib.ntt_nablas_forward
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P]
+    if packed is None:
+        packed = (surface_pack.packed_surface(surface) if weights is None
+                  else surface_pack.pack(surface, weights))
+    blocks = min(resident_blocks(packed.c_pad, packed.rows, dev), -(-M // _TILE))
+    slopes = torch.empty(blocks * surface.D * packed.rows * _TILE, device=dev)
+    fn = _build.load("nablas_forward").ntt_nablas_forward
+    fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I,
+                   _P, _P]
     fn.restype = _I
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), M, params.data_ptr(), meta.data_ptr(),
-            len(surface.layers), surface.input_ch, max(surface.embed_multires, 0),
-            wmax, activation_code(surface), sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(),
-            geo, blocks, slopes.data_ptr(), stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
+            len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
+            sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks, slopes.data_ptr(),
+            stream)
     _build.check(rc, "nablas_forward")
     fused_forward_with_nablas.launches += 1
     return sdf, nablas, h

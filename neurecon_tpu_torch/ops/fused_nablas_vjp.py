@@ -194,10 +194,11 @@ def _unflatten(flat, dims):
     return wbars, bbars
 
 
-def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
+def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None):
     """(x_bar, [W_bar_l], [b_bar_l]) of (sdf, nablas, h) at x [M, 3] for the
     cotangents given, with ws / bs the effective weights and biases: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor (reading `packed`, a `surface_pack.Pack` of ws /
+    bs, or a pack made here), the plain version for a CPU tensor."""
     fused_nablas._check(surface, x)
     M = x.shape[0]
     cots = [c.float().contiguous() for c in (cot_sdf, cot_nablas, cot_h)]
@@ -215,7 +216,8 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h):
                 [torch.zeros_like(b) for b in bs])
     lay = _layout(dims, M)
     dev = x.device
-    packed = surface_pack.pack(surface, (ws, bs))
+    if packed is None:
+        packed = surface_pack.pack(surface, (ws, bs))
     rows = max(packed.rows, surface_pack.pad8(dims[-1][1]))
     lib = _build.load("nablas_backward")
     jobs = fused_nablas.upload(torch.tensor(lay["jobs"], dtype=torch.int64), dev)
@@ -260,15 +262,17 @@ fused_nablas_vjp.workspace_bytes = 0
 class SurfaceWithNablas(torch.autograd.Function):
     """(sdf [M], nablas [M, 3], h [M, W_geo]) = op(x [M, 3], *ws, *bs), with
     ws / bs the surface's effective weights and biases (the same order as
-    `fused_nablas.surface_weights`)."""
+    `fused_nablas.surface_weights`) and `packed` their `surface_pack.Pack`
+    (None on the CPU), which the forward kernel and the backward kernel both
+    read."""
 
     @staticmethod
-    def forward(ctx, surface, x, *wb):
+    def forward(ctx, surface, packed, x, *wb):
         n = len(wb) // 2
-        ctx.surface = surface
+        ctx.surface, ctx.packed = surface, packed
         ctx.save_for_backward(x, *wb)
         return fused_nablas.fused_forward_with_nablas(
-            surface, x, (list(wb[:n]), list(wb[n:])))
+            surface, x, (list(wb[:n]), list(wb[n:])), packed)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -280,12 +284,16 @@ class SurfaceWithNablas(torch.autograd.Function):
                  if g is None else g)
         xbar, wbars, bbars = fused_nablas_vjp(
             ctx.surface, x, wb[:n], wb[n:], zeros(g_sdf, M),
-            zeros(g_nablas, M, 3), zeros(g_h, M, ctx.surface.W_geo_feat))
-        return (None, xbar, *wbars, *bbars)
+            zeros(g_nablas, M, 3), zeros(g_h, M, ctx.surface.W_geo_feat), ctx.packed)
+        return (None, None, xbar, *wbars, *bbars)
 
 
 def forward_with_nablas_vjp(surface, x):
     """(sdf, nablas, h) of the surface MLP at flat x [M, 3], differentiable
-    in the surface's parameters (through weight norm) and in x."""
+    in the surface's parameters (through weight norm) and in x. On a card
+    both kernels read the surface's kept pack (`surface_pack.packed_surface`:
+    in a training step, the pack the upsampler or the sampler made from the
+    same parameters), so a step packs its weights once."""
     ws, bs = fused_nablas.surface_weights(surface)
-    return SurfaceWithNablas.apply(surface, x, *ws, *bs)
+    packed = surface_pack.packed_surface(surface) if x.device.type == "cuda" else None
+    return SurfaceWithNablas.apply(surface, packed, x, *ws, *bs)

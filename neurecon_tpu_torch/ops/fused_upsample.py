@@ -5,7 +5,8 @@ Replaces the Pallas megakernel `_make_upsample_kernel` of
 `neurecon_tpu/ops/fused_upsample.py` (entry `fused_neus_upsample`), holding
 the semantics of the plain loop in `neurecon_tpu/models/frameworks/neus.py`.
 The kernel is bound by its MLP queries (128 points per ray at the flagship
-widths); its source note gives the design.
+widths), which run as split-fp32 tensor-core products on the surface's kept
+pack (`surface_pack.packed_surface`); its source note gives the design.
 
 Both versions take the caller's per-round uniforms, sorted within each round
 (the det linspace, or sorted draws): sorting changes the order in which the
@@ -23,11 +24,13 @@ import ctypes
 import torch
 
 from neurecon_tpu_torch.ops import _build
-from neurecon_tpu_torch.ops.fused_nablas import activation_code, pack_surface
 from neurecon_tpu_torch.ops.sampling import alpha_to_w, sample_pdf
+from neurecon_tpu_torch.ops.surface_pack import packed_surface
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+_SMS: dict = {}  # card index -> SMs
 
 
 def neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u_rounds, *,
@@ -91,10 +94,36 @@ def _check(surface, rays_o, rays_d, d_coarse, u_rounds, n_iters, n_per_iter):
             raise ValueError("surface parameters must be float32 on the rays' device")
 
 
+def _sms(device: torch.device) -> int:
+    """The SM count of `device`; the first call per card also sets the
+    kernels' shared-memory caps to the card's opt-in maximum."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        fn = _build.load("neus_upsample").ntt_neus_upsample_setup
+        fn.argtypes = []
+        fn.restype = _I
+        with torch.cuda.device(index):
+            sms = fn()
+        _build.check(max(-sms, 0), "neus_upsample (setup)")
+        _SMS[index] = sms
+    return sms
+
+
+def block_shape(N: int, sms: int):
+    """(P, R): points per MLP tile and rays per block for N rays. A block of
+    8 rays (a round's 8 x 16 new points make one 128-point tile) where that
+    gives every SM a block; else 4 rays on 64-point tiles, so that a
+    training step's 512 rays make 128 blocks, not 64."""
+    return (128, 8) if -(-N // 8) >= sms else (64, 4)
+
+
 def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
                         n_iters: int, n_per_iter: int):
     """Sorted d_all [N, Bc + n_iters * n_per_iter] of the official_solution
-    upsampler (see `neus_upsample_plain` for the arguments)."""
+    upsampler (see `neus_upsample_plain` for the arguments). A block that
+    does not fit in the card's shared memory (many samples a ray) fails at
+    launch."""
     _check(surface, rays_o, rays_d, d_coarse, u_rounds, n_iters, n_per_iter)
     if rays_o.device.type == "cpu":
         return neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u_rounds,
@@ -102,22 +131,22 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     if rays_o.device.type != "cuda":
         raise ValueError(f"unsupported device {rays_o.device}")
     N, n_coarse = d_coarse.shape
-    d_all = torch.empty(N, n_coarse + n_iters * n_per_iter, device=rays_o.device)
+    dev = rays_o.device
+    d_all = torch.empty(N, n_coarse + n_iters * n_per_iter, device=dev)
     if N == 0:
         return d_all
+    packed = packed_surface(surface)
+    P, R = block_shape(N, _sms(dev))
     fn = _build.load("neus_upsample").ntt_neus_upsample
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
+                   _I, ctypes.c_float, _I, _I, _P, _P]
     fn.restype = _I
-    params, meta, wmax = pack_surface(surface)
     sphere_r = float(surface.radius_init) if surface.sphere_residual else -1.0
-    stream = torch.cuda.current_stream(rays_o.device).cuda_stream
-    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(),
-            u_rounds.data_ptr(), N, n_coarse, n_iters, n_per_iter,
-            params.data_ptr(), meta.data_ptr(), len(surface.layers),
-            surface.input_ch, max(surface.embed_multires, 0), wmax,
-            activation_code(surface), sphere_r,
-            d_all.data_ptr(), stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(), u_rounds.data_ptr(),
+            N, n_coarse, n_iters, n_per_iter, packed.params.data_ptr(), packed.plane,
+            packed.meta.data_ptr(), len(surface.layers), surface.input_ch, packed.c_pad,
+            packed.rows, packed.act, sphere_r, P, R, d_all.data_ptr(), stream)
     _build.check(rc, "neus_upsample")
     fused_neus_upsample.launches += 1
     return d_all

@@ -1,6 +1,7 @@
-"""The surface MLP's weights in the layout of the tensor-core kernels
-(`csrc/surface_mma.cuh`: the sdf-only forward and the eikonal backward), and
-a cache of that pack per surface.
+"""The surface MLP's weights in the layout of the surface-MLP kernels
+(`csrc/surface_mma.cuh`: the sdf-only forward, the forward + nablas, the
+NeuS upsampler and the eikonal backward), and a cache of that pack per
+surface.
 
 The layout, per layer: W^T [K][N], W [N][K] and b [N] in one fp32 plane,
 each block at a multiple of 32 floats, with K and N the layer's input and
@@ -14,9 +15,6 @@ they are. One int32 record of 8 per layer: K, N, out_dim, in_dim, offset of
 W^T, of W, of b, skip flag. The pack also carries the hidden activation's
 code (`fused_nablas.activation_code`), which every launch passes on: a SIREN
 surface's pack says sine, so that no kernel runs Softplus on its weights.
-
-The kernels of `csrc/surface_mlp.cuh` keep their own layout
-(`fused_nablas.pack_surface`).
 """
 from __future__ import annotations
 
@@ -123,7 +121,9 @@ def _index(surface, device):
 def pack(surface, weights=None) -> Pack:
     """Weights of `surface` (weight norm resolved; or `weights`, a pair of
     lists of effective [out, in] weights and biases) in the tensor-core
-    kernels' layout, on the parameters' device."""
+    kernels' layout, on the parameters' device. Counts its packs in
+    `packs`."""
+    pack.packs += 1
     with torch.no_grad():
         ws, bs = weights if weights is not None else surface_weights(surface)
         device = ws[0].device
@@ -136,26 +136,29 @@ def pack(surface, weights=None) -> Pack:
     return Pack(params, size, meta, c_pad, rows, activation_code(surface))
 
 
+pack.packs = 0
+
 _PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _key(surface):
-    return (activation_code(surface),) + tuple(
-        (p.data_ptr(), p._version) for p in surface.parameters())
 
 
 def packed_surface(surface) -> Pack:
     """`pack(surface)`, kept between calls while the surface's parameters are
     unchanged: the key is the activation and each parameter's storage pointer
-    and version counter, so an in-place update (an optimizer step, `load_state_dict`,
-    `copy_`, `perturb_parameters`) or a tensor swapped in through `.data`
-    makes the next call pack again. Counts its packs in `packs`."""
-    key = _key(surface)
+    and version counter, so an in-place update (an optimizer step,
+    `load_state_dict`, `copy_`, `perturb_parameters`) or a tensor swapped in
+    through `.data` makes the next call pack again. The kept entry holds the
+    storages it was keyed on, so no later tensor can be given one of their
+    pointers (at version 0) while it lives. Not seen: a write through
+    `p.data` (`p.data.copy_(...)`, `p.data[...] = ...`), which moves neither
+    the pointer nor `p`'s version; write to the parameter itself under
+    `torch.no_grad()` instead. Counts its packs in `packs`."""
+    params = list(surface.parameters())
+    key = (activation_code(surface),) + tuple((p.data_ptr(), p._version) for p in params)
     hit = _PACKS.get(surface)
     if hit is not None and hit[0] == key:
         return hit[1]
     packed = pack(surface)
-    _PACKS[surface] = (key, packed)
+    _PACKS[surface] = (key, packed, [p.detach() for p in params])
     packed_surface.packs += 1
     return packed
 

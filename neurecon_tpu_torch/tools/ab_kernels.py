@@ -6,8 +6,15 @@ CUDA card, so that two versions are compared within one run:
 Each argument is the root of a checkout (the directory that holds
 `neurecon_tpu_torch/`). For each, in order, a fresh process builds that
 copy's kernels and prints one JSON line: the median of 10 CUDA-event runs
-after warm-up of the forward+nablas kernel at 130,560 and 1,044,480 points
-(one training step, one render chunk) and, where the copy has it, the
+after warm-up of the forward+nablas kernel at 130,560, 197,632 and
+1,044,480 points (a NeuS step, a VolSDF step, one render chunk), the NeuS
+upsampler at 512 and 4,096 rays (a step, a render chunk; rays from (0, 0,
+-3) into the unit sphere, det uniforms), both kernels' sine branch on a
+SIREN surface (configs/volsdf_siren.yaml's D=5, W=256; kernel 1 at a
+SIREN step's 197,632 points in [-3, 3]^3, kernel 2 at 4,096 rays into the
+sphere of radius 2), where the copy picks the upsampler's block shape
+(`fused_upsample.block_shape`), the upsampler at each of four shapes (rays
+a block x points a tile) in turns, and, where the copy has it, the
 eikonal backward at 130,560 and 197,632 points (a NeuS and a VolSDF step)
 with its CUDA kernels' device times (torch.profiler) and, at 130,560, its
 largest leaf error against its plain version, and,
@@ -50,9 +57,46 @@ def ms(fn, reps=10):
     return float(np.median(out))
 
 res = {"root": ROOT, "card": torch.cuda.get_device_name(0)}
-for M in (130560, 1044480):
+for M in (130560, 197632, 1044480):
     x = torch.randn(M, 3, device=dev, generator=g) * 0.5
     res[f"nablas_forward_ms_{M}"] = ms(lambda: fused_nablas.fused_forward_with_nablas(s, x))
+from neurecon_tpu_torch.models.frameworks.neus import _uniforms
+from neurecon_tpu_torch.ops import fused_upsample
+from neurecon_tpu_torch.ops.ray import near_far_from_sphere
+
+def rays(n, r):
+    d = torch.nn.functional.normalize(
+        torch.randn(n, 3, device=dev, generator=g) * 0.1
+        + torch.tensor([0.0, 0.0, 1.0], device=dev), dim=-1)
+    o = torch.tensor([0.0, 0.0, -3.0], device=dev).expand(n, 3).contiguous()
+    near, far = near_far_from_sphere(o, d, r=r)
+    t = torch.linspace(0, 1, 64, device=dev)
+    return o, d, (near * (1 - t) + far * t).contiguous(), _uniforms(n, 4, 16, False, None, dev)
+
+def upsample(surf, args):
+    return fused_upsample.fused_neus_upsample(surf, *args, n_iters=4, n_per_iter=16)
+
+for N in (512, 4096):
+    args = rays(N, 1.0)
+    res[f"neus_upsample_ms_{N}_rays"] = ms(lambda: upsample(s, args))
+if hasattr(fused_upsample, "block_shape"):  # each block shape in turns, A B C D D C B A
+    chosen, shapes = fused_upsample.block_shape, [(64, 4), (128, 8), (128, 4), (64, 8)]
+    cases = {N: rays(N, 1.0) for N in (512, 4096)}
+    for shape in shapes + shapes[::-1]:
+        fused_upsample.block_shape = lambda n, sms, shape=shape: shape
+        for N, args in cases.items():
+            res.setdefault(f"neus_upsample_ms_{N}_rays_P{shape[0]}_R{shape[1]}", []).append(
+                ms(lambda: upsample(s, args)))
+    fused_upsample.block_shape = chosen
+sine = ImplicitSurface(W=256, D=5, skips=(), W_geo_feat=256, radius_init=1.0,
+                       embed_multires=-1, use_siren=True)
+sine.reset_parameters(torch.Generator().manual_seed(SEED))
+perturb_parameters(sine, torch.Generator().manual_seed(SEED + 1))
+sine = sine.to(dev)
+x = (torch.rand(197632, 3, device=dev, generator=g) * 2 - 1) * 3.0
+res["sine_nablas_forward_ms_197632"] = ms(lambda: fused_nablas.fused_forward_with_nablas(sine, x))
+args = rays(4096, 2.0)
+res["sine_neus_upsample_ms_4096_rays"] = ms(lambda: upsample(sine, args))
 try:
     from neurecon_tpu_torch.ops import fused_nablas_vjp
 except ImportError:

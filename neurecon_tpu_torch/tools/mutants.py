@@ -3,13 +3,14 @@ broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-Two groups, each with its unmutated copy. For the unmutated source and for
+Four groups, each with its unmutated copy. For the unmutated source and for
 each mutant, the port's package (and `chip_smoke.py`) is copied into a
 temporary directory (under `--workdir`, the system's temporary directory by
 default; removed after), one edit is made to the copy, and a fresh process
-builds that copy's kernels and runs the group's check; a group's copies run
-at once, the groups one after the other. One JSON line per copy; the exit
-code is 0 when each unmutated copy passes and every mutant fails.
+builds that copy's kernels and runs the group's check; a group's copies
+build at once and take the card one at a time, the groups one after the
+other. One JSON line per copy; the exit code is 0 when each unmutated copy
+passes and every mutant fails.
 
 * `sdf`: the sdf-only kernel (`csrc/sdf_forward.cu` on
   `csrc/surface_mma.cuh`), held to its plain version by the check of
@@ -25,8 +26,23 @@ code is 0 when each unmutated copy passes and every mutant fails.
   pretrained SIREN surface with seeded noise, at the SIREN path's shapes,
   with the gates of phases 10, 2, 6 and 3). Its mutants drop the activation
   flag in one wrapper (kernel 4 would run Softplus on sine weights), flip the
-  sign of phi'' = -900 sin(30 a) in kernel 3, and drop omega0 = 30 from
-  kernel 1's slope 30 cos(30 a).
+  sign of phi'' = -900 sin(30 a) in kernel 3, and drop omega0 = 30 from the
+  slope 30 cos(30 a) that kernel 1's forward keeps (`activation_out` of
+  `csrc/surface_mma.cuh`, which kernel 3 shares).
+* `nablas`: the forward + nablas kernel (`csrc/nablas_forward.cu`), held by
+  `chip_smoke.py` phase 2 (`nablas_check`: the perturbed flagship surface,
+  one render chunk's 1,044,480 points and 4,099 more, outputs filled with
+  NaN beforehand). Its mutants drop the skip's 1/sqrt(2) from the reverse
+  sweep, leave the final layer's last geometry column (the 257th output, off
+  the product) unwritten, and skip the ragged last tile.
+* `upsample`: the NeuS upsampler (`csrc/neus_upsample.cu`), held by
+  `chip_smoke.py` phase 3 (`upsample_checks`: 4,096 rays of a render chunk,
+  and 512 of them with the sphere prior, det and perturb). Its mutants flip
+  the merge's tie rule on the old samples' side (at equal depth they go
+  after the new ones, while the new ones still count them: two samples meet
+  at one slot; flipping both sides would give the same depths, as tied
+  samples carry bit-equal sdf), drop the per-round doubling of s = 64, and
+  drop the sphere prior.
 """
 from __future__ import annotations
 
@@ -45,8 +61,8 @@ LIMIT = 1e-5
 # name -> (file under the package, text, replacement); each text occurs once
 MUTANTS = {
     "sdf row bias dropped": (
-        "csrc/sdf_forward.cu", "tile_sdf[p] = ((s0 + s1) + (s2 + s3)) + __ldg(LD.b);",
-        "tile_sdf[p] = ((s0 + s1) + (s2 + s3));"),
+        "csrc/surface_mma.cuh", "return ((s0 + s1) + (s2 + s3)) + __ldg(L.b + row);",
+        "return ((s0 + s1) + (s2 + s3));"),
     "sin and cos swapped": (
         "csrc/surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
         "v = (r < 3) ? cosf(ph) : sinf(ph);"),
@@ -86,8 +102,60 @@ SINE_MUTANTS = {
         "csrc/nablas_backward.cu", "ab[idx] = -SIREN_W0 * SIREN_W0 * buf",
         "ab[idx] = SIREN_W0 * SIREN_W0 * buf"),
     "omega0 dropped from kernel 1's slope": (
-        "csrc/surface_mlp.cuh", "s[p] = SIREN_W0 * cs;", "s[p] = cs;"),
+        "csrc/surface_mma.cuh", "s = SIREN_W0 * cs;", "s = cs;"),
 }
+
+NABLAS_MUTANTS = {
+    "skip 1/sqrt(2) dropped from the reverse sweep": (
+        "csrc/surface_mma.cuh", "const float v = buf[r * LDV + p] * inv_sqrt2;",
+        "const float v = buf[r * LDV + p];"),
+    "final layer's last geometry column not written": (
+        "csrc/nablas_forward.cu", "idx < (LD.out_dim - n0) * P;", "idx < (LD.out_dim - n0 - 1) * P;"),
+    "ragged last tile skipped": (
+        "csrc/nablas_forward.cu", "const int tiles = (M + P - 1) / P;",
+        "const int tiles = M / P;"),
+}
+
+UPSAMPLE_MUTANTS = {
+    "merge tie order flipped (old samples' side)": (
+        "csrc/neus_upsample.cu", "cnt += nd[k] < v;", "cnt += nd[k] <= v;"),
+    "s = 64 in every round": (
+        "csrc/neus_upsample.cu", "64.f * (float)(1 << it)", "64.f"),
+    "sphere prior dropped": (
+        "csrc/neus_upsample.cu",
+        "v += sqrtf(x0 * x0 + x1 * x1 + x2 * x2 + 1e-12f) - sphere_r;", ""),
+}
+
+# the checks take the card one at a time (the nablas check's plain version
+# alone holds tens of GB at 1,044,480 points)
+_LOCKED = r'''
+import fcntl
+_lock = open(LOCK, "w")
+fcntl.flock(_lock, fcntl.LOCK_EX)
+'''
+
+_PHASE_CODE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke
+from neurecon_tpu_torch.ops import _build, fused_nablas
+for mod in (chip_smoke, fused_nablas):
+    if not mod.__file__.startswith(ROOT):
+        raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
+_build.build_all(force=True)
+''' + _LOCKED + r'''
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+c = chip_smoke.render_chunk_inputs(SEED, dev)
+surface = c["checked"].implicit_surface
+quiet = lambda s: None
+if GROUP == "nablas":
+    ok, err = chip_smoke.nablas_check(surface, chip_smoke.kernel1_points(surface, c), "", quiet)
+else:
+    ok, err = chip_smoke.upsample_checks(surface, c, "", quiet)
+print(json.dumps({"passes": bool(ok), "errors": err}))
+'''
 
 _SINE_CODE = r'''
 import json, sys
@@ -99,6 +167,7 @@ for mod in (chip_smoke, fused_mlp):
     if not mod.__file__.startswith(ROOT):
         raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
 _build.build_all(force=True)
+''' + _LOCKED + r'''
 torch.backends.cuda.matmul.allow_tf32 = False
 ok, err, _, _ = chip_smoke.sine_kernel_checks(SEED, torch.device("cuda"), report=lambda s: None)
 print(json.dumps({"passes": ok, "errors": err}))
@@ -113,6 +182,7 @@ from neurecon_tpu_torch.models.base import ImplicitSurface, perturb_parameters
 if not fused_mlp.__file__.startswith(ROOT):
     raise SystemExit(f"imported {fused_mlp.__file__}, not the copy under {ROOT}")
 _build.build_all(force=True)
+''' + _LOCKED + r'''
 dev = torch.device("cuda")
 s = ImplicitSurface(W=256, D=8, skips=(4,), W_geo_feat=256, radius_init=0.5,
                     embed_multires=6)
@@ -134,7 +204,7 @@ print(json.dumps({"max_rel_err": worst}))
 '''
 
 
-def _run_group(tmp, cases, code, seed, judge):
+def _run_group(tmp, group, cases, code, seed, judge):
     """Copy, mutate and check every case of one group at once; print a JSON
     line per case; return 0 when the unmutated copy passes and every mutant
     fails. `judge(stdout's last line)` -> (passes, the line's fields)."""
@@ -151,24 +221,27 @@ def _run_group(tmp, cases, code, seed, judge):
             if source.count(text) != 1:
                 raise SystemExit(f"mutant {name!r}: {text!r} is not in {fname} once")
             src.write_text(source.replace(text, repl))
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-c", f"ROOT = {str(root)!r}\nSEED = {seed}\n" + code],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        head = (f"ROOT = {str(root)!r}\nSEED = {seed}\nGROUP = {group!r}\n"
+                f"LOCK = {str(Path(tmp) / 'card.lock')!r}\n")
+        procs[name] = subprocess.Popen([sys.executable, "-c", head + code],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
     rc = 0
     for name, proc in procs.items():
         try:
-            out, err = proc.communicate(timeout=900)
+            out, err = proc.communicate(timeout=1800)
         except subprocess.TimeoutExpired:
             proc.kill()
             out, err = proc.communicate()
         if proc.returncode == 0:
             passes, fields = judge(out.strip().splitlines()[-1])
-            print(json.dumps({"case": name, **fields,
+            print(json.dumps({"group": group, "case": name, **fields,
                               "check": "passes" if passes else "fails"}), flush=True)
             if passes != (name == "unmutated"):
                 rc = 1
         else:
-            print(json.dumps({"case": name, "error": err[-2000:]}), flush=True)
+            print(json.dumps({"group": group, "case": name, "error": err[-2000:]}),
+                  flush=True)
             rc = 1
     return rc
 
@@ -178,9 +251,9 @@ def _judge_sdf(line):
     return rel <= LIMIT, {"max_rel_err": rel}
 
 
-def _judge_sine(line):
+def _judge_phase(line):
     res = json.loads(line)
-    return bool(res["passes"]), {"phase18_errors": res["errors"]}
+    return bool(res["passes"]), {"errors": res["errors"]}
 
 
 def main(argv=None):
@@ -190,9 +263,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     rc = 0
     with tempfile.TemporaryDirectory(prefix="ntt_mutants_", dir=args.workdir) as tmp:
-        for mutants, code, judge in ((MUTANTS, _CODE, _judge_sdf),
-                                     (SINE_MUTANTS, _SINE_CODE, _judge_sine)):
-            rc |= _run_group(tmp, {"unmutated": None, **mutants}, code, args.seed, judge)
+        for group, mutants, code, judge in (
+                ("sdf", MUTANTS, _CODE, _judge_sdf),
+                ("sine", SINE_MUTANTS, _SINE_CODE, _judge_phase),
+                ("nablas", NABLAS_MUTANTS, _PHASE_CODE, _judge_phase),
+                ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase)):
+            rc |= _run_group(tmp, group, {"unmutated": None, **mutants}, code, args.seed,
+                             judge)
     return rc
 
 

@@ -94,7 +94,7 @@ def test_nablas_kernel_matches_plain(cuda, cfg, geo):
     (SMALL, 64, True, True), (FLAGSHIP, 256, True, False)])
 def test_upsample_kernel_matches_plain(cuda, cfg, geo, perturb, sphere):
     surf = _model(dict(cfg, sphere_residual=sphere), geo, cuda).implicit_surface
-    N = 203  # not a multiple of the kernel's 8 rays per block
+    N = 203  # not a multiple of the kernel's 4 rays per block
     rays_o, rays_d = _rays(N, cuda)
     near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
     t = torch.linspace(0, 1, 64, device=cuda)
@@ -166,6 +166,97 @@ def test_backward_kernel_is_deterministic(cuda, cfg, geo, M):
     b = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
     for p, q in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
         assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 300])
+def test_nablas_kernel_ragged_sizes(cuda, M):
+    """Kernel 1 on 128-point tiles at the flagship widths: fewer points than
+    a tile, one short of it, exactly one, one past it, and a caster's few
+    hundred hit points; outputs filled with NaN beforehand, so an unwritten
+    entry cannot pass."""
+    surf = _model(FLAGSHIP, 256, cuda).implicit_surface
+    x = torch.tensor(np.random.RandomState(M).randn(M, 3).astype(np.float32) * 0.6,
+                     device=cuda)
+    nan = [torch.full(shape, float("nan"), device=cuda) for shape in ((M,), (M, 3), (M, 256))]
+    del nan
+    got = fused_nablas.fused_forward_with_nablas(surf, x)
+    torch.cuda.synchronize()
+    ref = fused_nablas.forward_with_nablas_plain(surf, x)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 512, 1100, 4096])
+def test_upsample_kernel_block_shapes(cuda, N):
+    """Kernel 2 on its two block shapes: 4 rays on 64-point tiles (1 ray; a
+    training step's 512, which must give at least 128 blocks, or every SM of
+    a smaller card) and 8 rays on 128-point tiles (1,100: not a multiple of
+    8; a render chunk's 4,096), flagship surface, det and perturb, at phase
+    3's shares."""
+    surf = _model(FLAGSHIP, 256, cuda).implicit_surface
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    P, R = fused_upsample.block_shape(N, sms)
+    assert (P, R) == ((128, 8) if N >= 1100 else (64, 4))
+    if N == 512:
+        assert -(-N // R) >= min(128, sms)
+    rays_o, rays_d = _rays(N, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    span = float((far - near).max())
+    for perturb in (False, True):
+        u = _uniforms(N, 4, 16, perturb, torch.Generator(cuda).manual_seed(3), cuda)
+        got = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                                 n_iters=4, n_per_iter=16)
+        ref = fused_upsample.neus_upsample_plain(surf, rays_o, rays_d, d_coarse, u,
+                                                 n_iters=4, n_per_iter=16)
+        torch.cuda.synchronize()
+        assert got.shape == (N, 128) and bool(torch.isfinite(got).all())
+        assert bool((got[:, 1:] >= got[:, :-1]).all())
+        off = (got - ref).abs() > 1e-3 * span
+        assert float(off.float().mean()) <= (1e-3 if perturb else 5e-3)
+
+
+@pytest.mark.cuda
+def test_one_pack_per_training_step(cuda):
+    """A training step (kernel 2, then kernel 1 under autograd, then kernel
+    3 in the backward, then an Adam step) packs the surface's weights once:
+    kernels 1 and 3 read the pack kernel 2 made from the same parameters.
+    A render chunk after the first packs nothing."""
+    model = _model(SMALL, 64, cuda)
+    surf = model.implicit_surface
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    rays_o, rays_d = _rays(64, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    u = _uniforms(64, 4, 16, False, None, cuda)
+    counters = (fused_upsample.fused_neus_upsample, fused_nablas.fused_forward_with_nablas,
+                fused_nablas_vjp.fused_nablas_vjp)
+    for _ in range(3):
+        packs, launches = surface_pack.pack.packs, [f.launches for f in counters]
+        d_all = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                                   n_iters=4, n_per_iter=16)
+        pts = rays_o[:, None] + rays_d[:, None] * d_all[..., None]
+        sdf, nablas, h = surf.forward_with_nablas(pts)
+        loss = (sdf.square().mean() + (nablas.norm(dim=-1) - 1).square().mean()
+                + h.square().mean())
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert surface_pack.pack.packs == packs + 1
+        assert [f.launches for f in counters] == [n + 1 for n in launches]
+    with torch.no_grad():
+        for chunk in range(3):
+            packs = surface_pack.pack.packs
+            d_all = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                                       n_iters=4, n_per_iter=16)
+            surf.forward_with_nablas(rays_o[:, None] + rays_d[:, None] * d_all[..., None])
+            assert surface_pack.pack.packs == packs + (chunk == 0)
 
 
 @pytest.mark.cuda

@@ -26,7 +26,6 @@ from neurecon_tpu_torch.models.frameworks.neus import NeuS, _uniforms
 from neurecon_tpu_torch.ops import fused_nablas, fused_upsample
 
 SMALL = dict(D=4, W=64, skips=[2], radius_init=0.5, embed_multires=4)
-FLAGSHIP = dict(D=8, W=256, skips=[4], radius_init=0.5, embed_multires=6)
 RADIANCE = dict(D=1, W=32, skips=[], embed_multires=-1, embed_multires_view=-1)
 
 
@@ -161,26 +160,3 @@ class TestUpsamplePlain:
             fused_upsample.fused_neus_upsample(
                 tm.implicit_surface, torch.tensor(o), torch.tensor(d),
                 torch.tensor(dc), u, n_iters=4, n_per_iter=16)
-
-
-@pytest.mark.parametrize("cfg,geo", [(SMALL, 64), (FLAGSHIP, 256)], ids=["W64", "W256"])
-def test_packed_weights_layout(cfg, geo):
-    """The buffer the kernels read (built in Python, read only on a card):
-    each layer's W^T, W and b sit at their offsets with 16-byte rows."""
-    from neurecon_tpu_torch.models.base import effective_weight
-
-    tm = NeuS(W_geo_feat=geo, surface_cfg=cfg, radiance_cfg=RADIANCE)
-    tm.reset_parameters(torch.Generator().manual_seed(0))
-    surf = tm.implicit_surface
-    params, meta, wmax = fused_nablas.pack_surface(surf)
-    assert wmax == cfg["W"]
-    for l, (row, layer) in enumerate(zip(meta.tolist(), surf.layers)):
-        i, o, off_wT, off_w, off_b, skip, ld_wT, ld_w = row
-        w = effective_weight(layer).detach()
-        assert (i, o, skip) == (w.shape[1], w.shape[0], int(l in cfg["skips"]))
-        assert off_wT % 4 == off_w % 4 == 0 and ld_wT % 4 == ld_w % 4 == 0
-        wT = params[off_wT:off_wT + i * ld_wT].reshape(i, ld_wT)
-        wf = params[off_w:off_w + o * ld_w].reshape(o, ld_w)
-        assert torch.equal(wT[:, :o], w.t()) and not wT[:, o:].any()
-        assert torch.equal(wf[:, :i], w) and not wf[:, i:].any()
-        assert torch.equal(params[off_b:off_b + o], layer.b.detach())

@@ -7,10 +7,15 @@ pack they read: `cvt.rna.tf32.f32` by integer operations on the float's bits
 (exact; the pack's own `surface_pack.tf32_rna`, also the kernels' rounding),
 each operand split into big + small, and every layer product summed per
 k-step of 8 as small_a big_b + big_a small_b + big_a big_b, the small terms
-first, and added to a running fp32 sum. The emulated sdf-only forward is held to
-the JAX package's Pallas kernel (interpret mode) and to the port's plain
-version within kernel 4's card limit, 1e-5 of max|sdf|; a single TF32
-product is shown to miss that limit, so the check can see TF32 rounding.
+first, and added to a running fp32 sum. The emulated sdf-only forward
+(kernel 4) is held to the JAX package's Pallas kernel (interpret mode) and
+to the port's plain version within kernel 4's card limit, 1e-5 of max|sdf|;
+a single TF32 product is shown to miss that limit, so the check can see
+TF32 rounding. The emulated forward + nablas (kernel 1: the final layer's
+first 256 outputs as a product and the rest in fp32, the reverse sweep
+through the pack's W planes) and the upsampler's sdf queries (kernel 2) are
+held to the JAX package's Pallas kernels and the plain versions at the card
+checks' gates (`chip_smoke.py` phases 2 and 3).
 """
 import copy
 
@@ -21,16 +26,26 @@ import pytest
 import torch
 
 from neurecon_tpu.models.base import ImplicitSurface as JaxSurface
+from neurecon_tpu.ops import near_far_from_sphere as jax_near_far
 from neurecon_tpu.ops.fused_mlp import fused_sdf_forward as jax_fused_sdf_forward
+from neurecon_tpu.ops.fused_nablas import fused_forward_with_nablas as jax_fused_nablas
+from neurecon_tpu.ops.fused_upsample import fused_neus_upsample as jax_fused_upsample
 
 from neurecon_tpu_torch import bridge
-from neurecon_tpu_torch.models.base import (ImplicitSurface, effective_weight,
-                                            perturb_parameters)
-from neurecon_tpu_torch.ops import surface_pack
+from neurecon_tpu_torch.models.base import (SIREN_W0, ImplicitSurface, effective_weight,
+                                            perturb_parameters, sphere_sdf)
+from neurecon_tpu_torch.models.frameworks.neus import _uniforms
+from neurecon_tpu_torch.ops import fused_upsample, surface_pack
 from neurecon_tpu_torch.ops.fused_mlp import sdf_forward_plain
+from neurecon_tpu_torch.ops.fused_nablas import forward_with_nablas_plain
 
 FLAGSHIP = dict(W=256, D=8, skips=[4], W_geo_feat=256, radius_init=0.5, embed_multires=6)
+W60 = dict(W=60, D=4, skips=[2], W_geo_feat=60, radius_init=0.5, embed_multires=4)
+SIREN = dict(W=256, D=5, skips=[], W_geo_feat=256, radius_init=1.0, embed_multires=-1,
+             use_siren=True)
 LIMIT = 1e-5  # kernel 4's card check (chip_smoke.py phase 10), of max|sdf|
+NMAX = 256    # final-layer outputs kernel 1's product takes (csrc NF_NMAX)
+INV_SQRT2 = torch.tensor(1.0) / torch.tensor(1.41421356237)  # the kernels' 1.f / 1.41421356237f
 
 
 tf32_rna, split = surface_pack.tf32_rna, surface_pack.split_tf32
@@ -53,19 +68,26 @@ def mma(a: torch.Tensor, b: torch.Tensor, terms: int = 3, b_parts=None) -> torch
     return acc
 
 
-def emulate_sdf_forward(surface, x: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """csrc/sdf_forward.cu on the CPU: its pack (the weights' TF32 parts from
-    the pack's big and small planes), its padded activation rows, its skip
-    input (the encoding right after h, divided by sqrt(2)), its Softplus
-    epilogue (padded outputs written as 0) and its fp32 sdf row, with every
-    hidden product through `mma`."""
-    pk = surface_pack.pack(surface)
-    plane = [pk.params[q * pk.plane:(q + 1) * pk.plane] for q in range(3)]
-    params, records = plane[0], pk.meta.tolist()
+def _block(planes, off, rows, cols):
+    """A [rows][cols] block of the pack at `off` in each of its three planes."""
+    return [q[off:off + rows * cols].view(rows, cols) for q in planes]
+
+
+def emulate_hidden(surface, pk, x: torch.Tensor, terms: int = 3):
+    """The hidden layers as the tensor-core kernels run them on the pack `pk`:
+    the encoding in c_pad rows, the skip input (the encoding right after h,
+    divided by sqrt(2)), every product through `mma` with the weights' TF32
+    parts from the pack's big and small planes, and the activation epilogue
+    (Softplus(beta = 100) as the plain version computes it, threshold 20, and
+    sigmoid(100 a), or sin(30 a) and 30 cos(30 a); padded outputs written as
+    0). Returns (h_D [M, K_D], the slopes [M, N_l]
+    of every hidden layer)."""
+    planes = pk.params.view(3, pk.plane)
+    params, records = planes[0], pk.meta.tolist()
     C, M = surface.input_ch, x.shape[0]
     emb = torch.zeros(M, pk.c_pad)
     emb[:, :C] = surface.embed_fn(x)
-    buf = None
+    buf, slopes = None, []
     for l in range(surface.D):
         K, N, out_dim, in_dim, off_wT, _, off_b, skip = records[l]
         if l == 0:
@@ -78,13 +100,73 @@ def emulate_sdf_forward(surface, x: torch.Tensor, terms: int = 3) -> torch.Tenso
             v = v / torch.tensor(1.41421356237, dtype=torch.float32)
         else:
             v = buf[:, :K]
-        w = [q[off_wT:off_wT + K * N].view(K, N) for q in plane]
-        acc = mma(v, w[0], terms, b_parts=(w[1], w[2]))
-        y = 100.0 * (acc + params[off_b:off_b + N])
-        buf = (torch.clamp(y, min=0.0) + torch.log1p(torch.exp(-y.abs()))) / 100.0
+        w = _block(planes, off_wT, K, N)
+        a = mma(v, w[0], terms, b_parts=(w[1], w[2])) + params[off_b:off_b + N]
+        if surface.use_siren:
+            y = SIREN_W0 * a
+            buf, slope = torch.sin(y), SIREN_W0 * torch.cos(y)
+        else:
+            y = 100.0 * a
+            buf = torch.where(y > 20.0, y, torch.log1p(torch.exp(y))) / 100.0
+            slope = torch.sigmoid(y)
         buf[:, out_dim:] = 0.0
+        slope[:, out_dim:] = 0.0
+        slopes.append(slope)
+    return buf, slopes
+
+
+def emulate_sdf_forward(surface, x: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """csrc/sdf_forward.cu on the CPU: `emulate_hidden` on its pack, then its
+    fp32 sdf row."""
+    pk = surface_pack.pack(surface)
+    params, records = pk.params[:pk.plane], pk.meta.tolist()
+    buf, _ = emulate_hidden(surface, pk, x, terms)
     K, N, _, _, _, off_w, off_b, _ = records[surface.D]
     return buf[:, :K] @ params[off_w:off_w + K] + params[off_b]
+
+
+def emulate_nablas_forward(surface, x: torch.Tensor):
+    """csrc/nablas_forward.cu on the CPU, on the surface's kept pack:
+    `emulate_hidden`; the final layer's first 256 outputs as one product
+    (sdf and h straight from it) and any output past them in fp32 on the
+    CUDA cores; the nablas sweep from W_D's sdf row, g <- (g s_l) W_l
+    through the W planes of the pack, the skip's and layer 0's encoding rows
+    split off into g_e (divided by sqrt(2) at the skip); the encoding
+    pullback. Returns (sdf [M], nablas [M, 3], h [M, W_geo])."""
+    pk = surface_pack.packed_surface(surface)
+    planes = pk.params.view(3, pk.plane)
+    params, records = planes[0], pk.meta.tolist()
+    C, M, D = surface.input_ch, x.shape[0], surface.D
+    h, slopes = emulate_hidden(surface, pk, x)
+    K, N, out_dim, _, off_wT, off_w, off_b, _ = records[D]
+    n0 = min(N, NMAX)
+    wT = _block(planes, off_wT, K, N)
+    out = mma(h[:, :K], wT[0][:, :n0].contiguous(), 3,
+              b_parts=(wT[1][:, :n0].contiguous(), wT[2][:, :n0].contiguous()))
+    out = out[:, :min(out_dim, n0)] + params[off_b:off_b + min(out_dim, n0)]
+    W = _block(planes, off_w, N, K)
+    extra = h[:, :K] @ W[0][n0:out_dim].t() + params[off_b + n0:off_b + out_dim]
+    y = torch.cat([out, extra], 1)
+
+    g = W[0][0].expand(M, -1)
+    ge = torch.zeros(M, pk.c_pad)
+    for l in reversed(range(D)):
+        K, N, _, in_dim, _, off_w, _, skip = records[l]
+        W = _block(planes, off_w, N, K)
+        g = mma(g[:, :N] * slopes[l], W[0], 3, b_parts=(W[1], W[2]))
+        if l == 0:
+            ge[:, :C] += g[:, :C]
+        elif skip:
+            h_dim = in_dim - C
+            v = g[:, :in_dim] * INV_SQRT2
+            ge[:, :C] += v[:, h_dim:]
+            g = torch.nn.functional.pad(v[:, :h_dim], (0, K - h_dim))
+    nablas = ge[:, :3].clone()
+    for f in range((C - 3) // 6):
+        fr, ph = 2.0 ** f, x * 2.0 ** f
+        nablas = nablas + fr * (ge[:, 3 + 6 * f:6 + 6 * f] * torch.cos(ph)
+                                - ge[:, 6 + 6 * f:9 + 6 * f] * torch.sin(ph))
+    return y[:, 0], nablas, y[:, 1:]
 
 
 def _surfaces(cfg, seed=0):
@@ -317,3 +399,125 @@ def test_pack_cache_misses_after_an_update(update):
     assert not hit and got is not first
     assert _fresh(ts, got) and not torch.equal(got.params, first.params)
     assert _hit(ts, got)[0]
+
+
+def _phase2_ok(got, ref):
+    """chip_smoke.py phase 2's gates: sdf and h within 1e-4, nablas within
+    2e-4 + 2e-3 |ref|."""
+    sdf, nab, h = (torch.tensor(np.array(t)) for t in ref)
+    return (float((got[0] - sdf).abs().max()) <= 1e-4
+            and float((got[2] - h).abs().max()) <= 1e-4
+            and bool(((got[1] - nab).abs() <= 2e-4 + 2e-3 * nab.abs()).all()))
+
+
+@pytest.mark.parametrize("cfg,n", [(FLAGSHIP, 1024), (W60, 1000), (SIREN, 512)],
+                         ids=["flagship", "W60", "sine"])
+def test_split_fp32_nablas_forward_matches_jax_and_plain(cfg, n):
+    """The emulated kernel 1 on its kept pack against JAX's Pallas nablas
+    kernel (interpret mode) and the port's plain version, at phase 2's
+    gates: the flagship (a skip, 257 final outputs, so one of them off the
+    product), W = 60 (padded rows, a ragged last tile for JAX) and the SIREN
+    surface (slopes 30 cos(30 a); 257 final outputs too)."""
+    js, params, ts = _surfaces(cfg)
+    pk = surface_pack.packed_surface(ts)
+    K, N, out_dim = pk.meta.tolist()[ts.D][:3]
+    assert out_dim == cfg["W_geo_feat"] + 1 and (N > NMAX) == (out_dim > NMAX)
+    x = np.random.RandomState(4).uniform(-1, 1, (n, 3)).astype(np.float32)
+    want = jax_fused_nablas(js, params, jnp.asarray(x), tile=256, interpret=True)
+    plain = forward_with_nablas_plain(ts, torch.tensor(x))
+    got = emulate_nablas_forward(ts, torch.tensor(x))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _phase2_ok(got, want) and _phase2_ok(got, plain)
+
+
+class _KernelQuery:
+    """Kernel 2's sdf query on the CPU: the emulated split-fp32 sdf-only
+    forward plus the sphere prior, as `forward` of a surface for
+    `neus_upsample_plain`, which runs the upsampler's scalar stages."""
+
+    def __init__(self, surface):
+        self.surface = surface
+
+    def forward(self, pts):
+        flat = pts.reshape(-1, 3)
+        sdf = emulate_sdf_forward(self.surface, flat)
+        if self.surface.sphere_residual:
+            sdf = sdf + sphere_sdf(flat, self.surface.radius_init)
+        return sdf.reshape(pts.shape[:-1])
+
+
+def _phase3_share(got, ref, d_coarse, span):
+    """chip_smoke.py phase 3's measure in det mode: the share of d_all
+    entries beyond 1e-3 of the ray's span, up to one u = 1.0 tie entry per
+    round per ray in the last coarse section exempt."""
+    off = (got - ref).abs() > 1e-3 * span
+    tie = off & (got >= d_coarse[:, -2:-1]) & (ref >= d_coarse[:, -2:-1])
+    exempt = tie & (tie.sum(1, keepdim=True) <= 4)
+    return float((off & ~exempt).float().mean())
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(W=64, D=4, skips=[2], W_geo_feat=64, radius_init=0.5, embed_multires=4),
+    dict(W=64, D=3, skips=[], W_geo_feat=64, radius_init=0.5, embed_multires=-1,
+         use_siren=True),
+], ids=["W64", "sine"])
+def test_split_fp32_upsample_queries_match_jax(cfg):
+    """Kernel 2 with every sdf query (64 coarse points a ray, then 16 a
+    round) through the emulated split-fp32 forward, on 64 rays and the det
+    uniforms: against JAX's Pallas upsampler (interpret mode) and the plain
+    version, at most 0.1% of d_all beyond 1e-3 of the span (phase 3)."""
+    js, params, ts = _surfaces(cfg)
+    rng = np.random.RandomState(0)
+    th = rng.uniform(-0.35, 0.35, (64, 2)).astype(np.float32)
+    d = np.stack([np.sin(th[:, 0]), np.sin(th[:, 1]) * np.cos(th[:, 0]),
+                  np.cos(th[:, 1]) * np.cos(th[:, 0])], -1).astype(np.float32)
+    o = np.ascontiguousarray(np.broadcast_to(np.array([0.0, 0.0, -3.0], np.float32), d.shape))
+    near, far = jax_near_far(jnp.asarray(o), jnp.asarray(d), r=1.0)
+    dc = np.asarray(near * (1 - jnp.linspace(0.0, 1.0, 64)) + far * jnp.linspace(0.0, 1.0, 64))
+    u = _uniforms(64, 4, 16, False, None, torch.device("cpu"))
+    want = np.asarray(jax_fused_upsample(js, params, jnp.asarray(o), jnp.asarray(d),
+                                         jnp.asarray(dc), jnp.asarray(u.numpy()), n_iters=4,
+                                         n_per_iter=16, tile=16, interpret=True))
+    args = (torch.tensor(o), torch.tensor(d), torch.tensor(dc), u)
+    got = fused_upsample.neus_upsample_plain(_KernelQuery(ts), *args, n_iters=4, n_per_iter=16)
+    plain = fused_upsample.neus_upsample_plain(ts, *args, n_iters=4, n_per_iter=16)
+    assert got.shape == (64, 128) and bool(torch.isfinite(got).all())
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
+    dct = torch.tensor(dc)
+    span = dct[:, -1:] - dct[:, :1]
+    assert _phase3_share(got, torch.tensor(want), dct, span) <= 1e-3
+    assert _phase3_share(got, plain, dct, span) <= 1e-3
+
+
+def test_pack_cache_holds_the_storages_it_keyed_on():
+    """Two `.data` swaps: after the first, the storage the kept entry was
+    keyed on has no other owner; the entry holds it, so no new tensor can be
+    given its pointer (which, at version 0, would pass for the old key).
+    After the second swap the next call packs the current values."""
+    ts = _small_surface()
+    b = ts.layers[2].b
+    surface_pack.packed_surface(ts)
+    keyed = b.data_ptr()
+    b.data = b.data + 1.0
+    assert all(torch.empty_like(b).data_ptr() != keyed for _ in range(64))
+    second = surface_pack.packed_surface(ts)
+    assert _fresh(ts, second)
+    b.data = torch.full_like(b, 3.0)
+    hit, got = _hit(ts, second)
+    assert not hit and _fresh(ts, got)
+
+
+def test_pack_cache_does_not_see_writes_through_data():
+    """A write through `p.data` moves neither the pointer nor `p`'s version,
+    so the kept pack comes back stale (as `packed_surface` documents); the
+    same write to `p` itself under no_grad is seen."""
+    ts = _small_surface()
+    first = surface_pack.packed_surface(ts)
+    b = ts.layers[1].b
+    b.data.copy_(b.data + 0.5)
+    hit, got = _hit(ts, first)
+    assert hit and not _fresh(ts, got)
+    with torch.no_grad():
+        b.copy_(b + 0.5)
+    hit, got = _hit(ts, first)
+    assert not hit and _fresh(ts, got)
