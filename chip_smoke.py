@@ -93,8 +93,15 @@ Phases, in order; any failure exits non-zero:
    0.001, det and perturb uniforms: <= 2% of the fine depths beyond 1e-4 of the span,
    beta maps within rtol 1e-3 / atol 1e-5 on >= 99% of the rays, iter_usage
    equal on >= 90% (the JAX package's own bounds). Then each kernel on its
-   plain stage's inputs, in lockstep: merged depths equal, every state and
-   bounds share off at most 1%, the det draws sorted.
+   plain stage's inputs, in lockstep (kernel (b) on every round's bounds,
+   kernel (c)'s draw of the next round against `draw_plain` on the plain
+   stage's bounds): merged depths equal, merged sdf within 1e-5, every
+   state, bounds and depth share off at most 1% (a NaN counts as off), the
+   det draws sorted. Then the edges the rays seldom reach
+   (`_sampler_edges`): a merge at exact old / new ties with another sdf
+   there (sdf within 1e-5 of the stable sort's), det draws at exact cdf ties
+   (bit-equal to `draw_plain`) and in flat cdf segments (at most 1% beyond
+   1e-4 of the span).
 15. `render_view` on a VolSDF checkpoint saved by the port: two 120x160
    frames at rayschunk 4,096 through (a)-(c), kernel 4 and kernel 1 (exact
    launch counts), finite; a 2,048-ray patch on the perturbed model against
@@ -108,9 +115,11 @@ Phases, in order; any failure exits non-zero:
    loss finite, the last 10 steps' mean below the first 10's, kernels 1, 3
    and (a)-(c) launched every step; median ms per step and rays/s.
 17. times of (a)-(c) summed over one sampler call beside their plain stages
-   and bounds; one VolSDF step split into the sampler (kernel 4, (a)-(c),
-   its glue), kernel 1, kernel 3, the radiance forward, Adam and the rest;
-   the device's busy share; one VolSDF frame split the same way.
+   and bounds (bytes, fp32 operations and the special-function unit's
+   ex2 / rcp, at the card's highest SM clock); one VolSDF step split into
+   the sampler (kernel 4, (a)-(c), its glue), kernel 1, kernel 3, the
+   radiance forward, Adam and the rest; the device's busy share; one VolSDF
+   frame split the same way.
 
 18. the sine branch of kernels 4, 1, 3 and 2 against their plain versions
    (`sine_kernel_checks`), on configs/volsdf_siren.yaml's surface (D=5,
@@ -629,12 +638,15 @@ def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_
     """Each of kernels (a)-(c) against its plain version on the same inputs:
     the plain sampler runs stage by stage (`init_plain`, `draw_plain`,
     `checkpoint_plain`), and before each stage the kernel gets the plain
-    state as its input. Returns {kernel: {output: worst error}} over the
-    call (fine depths and new depths as max|diff|, new depths also as the
-    share beyond 1e-4 of the span, bounds as the share of entries beyond
-    rtol 1e-3 / atol 1e-6, beta as the share of rays beyond
-    rtol 1e-3 / atol 1e-5, the state flags as the share of rays that
-    differ), and whether the merged depths equal the plain sort's."""
+    state as its input. Kernel (b) runs on every round's plain bounds (the
+    sampler launches it for round 1 only); kernel (c)'s det draw of the next
+    round is held to `draw_plain` on the plain stage's merged depths and
+    bounds. Returns {kernel: {output: worst error}} over the call (fine
+    depths and new depths as max|diff|, new depths also as the share beyond
+    1e-4 of the span, bounds as the share of entries beyond rtol 1e-3 /
+    atol 1e-6, beta as the share of rays beyond rtol 1e-3 / atol 1e-5, the
+    state flags as the share of rays that differ; a NaN counts as off), and
+    whether the merged depths equal the plain sort's."""
     from neurecon_tpu_torch.ops import fused_fine_sample as ffs
     from neurecon_tpu_torch.ops.fused_mlp import sdf_forward_plain
 
@@ -647,10 +659,11 @@ def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_
     err = {k: {} for k in ("volsdf_init", "volsdf_draw", "volsdf_checkpoint")}
 
     def worst(name, key, v):
-        err[name][key] = max(err[name].get(key, 0.0), float(v))
+        v = float(v)
+        err[name][key] = max(err[name].get(key, 0.0), v if v == v else math.inf)
 
     def share_off(a, b, rtol, atol):
-        return ((a - b).abs() > atol + rtol * b.abs()).float().mean()
+        return (~((a - b).abs() <= atol + rtol * b.abs())).float().mean()
 
     def compare(name, state, bounds_n):
         worst(name, "fine", (ws["fine"] - state["fine"]).abs().max())
@@ -661,6 +674,11 @@ def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_
         if bounds_n:
             worst(name, "bounds_share", share_off(ws["bounds"][:, :bounds_n],
                                                   state["bounds"], 1e-3, 1e-6))
+
+    def draws(name, key, got, want):
+        worst(name, key, (got - want).abs().max())
+        worst(name, f"{key}_share", share_off(got, want, 0.0, 1e-4 * far))
+        worst(name, "unsorted_rays", (~(got[:, 1:] >= got[:, :-1])).any(1).float().mean())
 
     def query_raw(d):
         """(the MLP's raw sdf [N * P], the kernels' input; the plain query's
@@ -676,63 +694,174 @@ def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_
     worst("volsdf_init", "sdf", (ws["s"][0][:, :n0] - sdf).abs().max())
     compare("volsdf_init", state, n0 - 1)
     d, merged_equal = d_init, True
+    up = ffs.draw_plain(d, state["bounds"], n_up)
     for it in range(1, max_iter + 1):
         s_in, last = d.shape[1], it == max_iter
         ws["d"][0][:, :s_in] = d
         ws["s"][0][:, :s_in] = sdf
         ws["bounds"][:, :s_in - 1] = state["bounds"]
-        nd, pts = ffs.launch_draw(ws, rays_o, rays_d, 0, s_in, n_up)
-        up = ffs.draw_plain(d, state["bounds"], n_up)
-        worst("volsdf_draw", "depths", (nd - up).abs().max())
-        worst("volsdf_draw", "depths_share", ((nd - up).abs() > 1e-4 * far).float().mean())
-        worst("volsdf_draw", "unsorted_rays", (nd[:, 1:] < nd[:, :-1]).any(1).float().mean())
+        nd, _ = ffs.launch_draw(ws, rays_o, rays_d, 0, s_in, n_up)
+        draws("volsdf_draw", "depths", nd, up)
         raw_new, sdf_new = query_raw(up)
         ws["beta"].copy_(state["beta"][:, 0])
         ws["converged"].copy_(state["converged"].int())
         ws["iter_usage"].copy_(state["iter_usage"])
         ws["fine"].copy_(state["fine"])
-        ffs.launch_checkpoint(ws, rays_o, rays_d, 0, s_in, up, raw_new, torch.stack(ab), u,
-                              it=it, max_iter=max_iter, max_bisection=max_bisection, **kw)
+        nd_next, _ = ffs.launch_checkpoint(ws, rays_o, rays_d, 0, s_in, up, raw_new,
+                                           torch.stack(ab), u, it=it, max_iter=max_iter,
+                                           max_bisection=max_bisection, **kw)
         d, sdf = ffs.checkpoint_plain(
             d, sdf, up, sdf_new, state, ab[0], ab[1], u[:, it * n_final:(it + 1) * n_final],
             u[:, (max_iter + 1) * n_final:], it=it, last=last, eps=eps,
             max_bisection=max_bisection)
         P = d.shape[1]
+        compare("volsdf_checkpoint", state, 0)
         if not last:
             merged_equal &= bool(torch.equal(ws["d"][1][:, :P], d))
             worst("volsdf_checkpoint", "sdf", (ws["s"][1][:, :P] - sdf).abs().max())
-        compare("volsdf_checkpoint", state, 0 if last else P - 1)
+            up = ffs.draw_plain(d, state["bounds"], n_up)
+            draws("volsdf_checkpoint", "next_depths", nd_next, up)
     worst("volsdf_checkpoint", "beta_out_share", share_off(ws["beta_out"], state["beta_out"],
                                                            1e-3, 1e-5))
     torch.cuda.synchronize()
     return err, merged_equal
 
 
-def _sampler_bounds(surface, N, n0, n_up, max_iter, n_final, iter_usage):
+MUFU_PER_SM_CLOCK = 16  # ex2, rcp, rsqrt a clock per SM, cc 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table)
+SMS = 132  # H100 SXM
+
+
+def _sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def _sampler_edges(surface, rays_o, rays_d, d_init, far, ab, u, *, n_final, bg_r=3.0,
+                   eps=0.1):
+    """Kernels (b) and (c) where the rays' own data seldom go:
+
+      * the merge's tie order: new depths equal to every other old depth,
+        their sdf 0.25 above the old one's (round 1 of a 2-round call); the
+        merged depths and sdf against `checkpoint_plain`'s stable sort;
+      * det draws at exact cdf ties: all bounds 1e5 on 512 intervals, 511
+        draws, so that every u_j = (j + 1) / 512 equals a cdf entry (every
+        sum is exact); against `draw_plain`, bit for bit;
+      * det draws in flat cdf segments: zero bounds beside one of 1.0
+        (3,583 intervals, 512 draws), so that ~3% of the draws fall in
+        intervals whose cdf step is below 1e-5 (the denominator rule);
+        against `draw_plain`, the share beyond 1e-4 of the span.
+
+    Returns {check: error}: the merge's sdf max|diff| (the depths must be
+    equal: inf otherwise), the ties' max|diff|, the flat segments' share."""
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops.fused_mlp import sdf_forward_plain
+
+    N, n0 = d_init.shape
+    dev = d_init.device
+    kw = {"n_final": n_final, "u_stride": u.shape[1], "eps": eps, "bg_r": bg_r,
+          "prior_r": float(surface.radius_init) if surface.sphere_residual else -1.0}
+    out = {}
+
+    pts0 = rays_o[:, None, :] + rays_d[:, None, :] * d_init[..., None]
+    sdf0 = ffs.background_min(surface.forward(pts0), pts0, bg_r)
+    state = ffs.init_plain(d_init, sdf0, far, ab[0], ab[1], u[:, :n_final], eps=eps)
+    up = d_init[:, ::2].contiguous()
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * up[..., None]
+    raw = (sdf_forward_plain(surface, pts.reshape(-1, 3)) + 0.25).contiguous()
+    ws = ffs.workspace(N, n0 + 2 * up.shape[1], n_final, dev)
+    ws["d"][0][:, :n0] = d_init
+    ws["s"][0][:, :n0] = sdf0
+    ws["beta"].copy_(state["beta"][:, 0])
+    ws["converged"].copy_(state["converged"].int())
+    ws["iter_usage"].copy_(state["iter_usage"])
+    ws["fine"].copy_(state["fine"])
+    ffs.launch_checkpoint(ws, rays_o, rays_d, 0, n0, up, raw, torch.stack(ab), u, it=1,
+                          max_iter=2, max_bisection=10, **kw)
+    d, sdf = ffs.checkpoint_plain(
+        d_init, sdf0, up, ffs.background_min(surface.forward(pts) + 0.25, pts, bg_r), state,
+        ab[0], ab[1], u[:, n_final:2 * n_final], u[:, 3 * n_final:], it=1, last=False, eps=eps,
+        max_bisection=10)
+    P = d.shape[1]
+    same = torch.equal(ws["d"][1][:, :P], d)
+    e = float((ws["s"][1][:, :P] - sdf).abs().max())
+    out["merge_ties_sdf"] = e if same and e == e else math.inf
+
+    def draw(s_in, n_up, bounds):
+        wsd = ffs.workspace(N, s_in, n_final, dev)
+        wsd["d"][0].copy_((far * torch.linspace(0, 1, s_in, device=dev)).contiguous())
+        wsd["bounds"][:, :s_in - 1] = bounds
+        nd, _ = ffs.launch_draw(wsd, rays_o, rays_d, 0, s_in, n_up)
+        return nd, ffs.draw_plain(wsd["d"][0], bounds, n_up)
+
+    nd, want = draw(513, 511, torch.full((N, 512), 1e5, device=dev))
+    e = float((nd - want).abs().max())
+    out["draw_ties"] = e if e == e else math.inf
+    bounds = torch.zeros(N, 3583, device=dev)
+    bounds[torch.arange(N, device=dev), torch.arange(N, device=dev) * 7 % 3583] = 1.0
+    nd, want = draw(3584, 512, bounds)
+    out["draw_flat_share"] = float((~((nd - want).abs() <= 1e-4 * far)).float().mean())
+    torch.cuda.synchronize()
+    return out
+
+
+def _sampler_bounds(N, n0, n_up, max_iter, n_final, iter_usage, sm_clock_hz):
     """The least time of kernels (a), (b) and (c) over one sampler call, in
-    ms, from the bytes each must move and the fp32 operations this call's
-    data needs (about 30 per interval per error-bound sweep, 12 per opacity
-    sweep; a round's sweeps: the net-beta check, 10 bisection steps on each
-    ray not yet converged, the new bounds, a draw for each ray that
-    converges): {kernel: (ms, "bytes" or "operations")}."""
+    ms, from the bytes each must move, the fp32 operations and the
+    special-function (MUFU) operations this call's data needs:
+
+      * an error-bound sweep, per interval: ~30 fp32 operations; four expf
+        (ex2) and two IEEE divisions (rcp), 6 MUFU;
+      * an opacity sweep (a draw's cdf), per interval: ~12 fp32, 3 MUFU;
+      * a det draw: per interval ~6 fp32 and a division, per draw a search
+        (log2 of the entries, ~10 fp32) and a division; an opacity draw the
+        same per draw; a new sample's sdf ~12 fp32 and one sqrt;
+      * a round of (c): the net-beta check, 10 bisection steps on each ray
+        not yet converged, the new bounds and the next round's det draw (not
+        on the last round), a draw for each ray that converges (or, on the
+        last round, that never did).
+
+    Kernel (b) draws round 1; kernel (c) of rounds 1..max_iter-1 draws the
+    next round. Returns {kernel: (ms, "bytes" or "operations", the resource
+    that binds: "bytes", "fp32" or "sfu", ms without the MUFU count)}."""
     iu = iter_usage.long()
-    draws_d = math.log2(n0) + 10
-    out = {"volsdf_init": _bound_ms(
-        N * ((n0 - 1) * (2 * 30 + 12) + n_final * draws_d),
+    mufu_rate = MUFU_PER_SM_CLOCK * SMS * sm_clock_hz
+
+    def bound(fp32, mufu, nbytes):
+        t = {"bytes": nbytes / HBM_RATE, "fp32": fp32 / FP32_PEAK, "sfu": mufu / mufu_rate}
+        held = max(t, key=t.get)
+        old = max(t["bytes"], t["fp32"])
+        return (1e3 * t[held], "bytes" if held == "bytes" else "operations", held, 1e3 * old)
+
+    def det_draw(s, n):  # fp32, MUFU of one ray's det draw of n from s entries
+        return (s - 1) * 6 + n * (math.log2(s) + 10), (s - 1) + n
+
+    search = math.log2(n0) + 10
+    out = {"volsdf_init": bound(
+        N * ((n0 - 1) * (2 * 30 + 12) + n_final * search + n0 * 12),
+        N * ((n0 - 1) * (2 * 6 + 3) + n_final + n0),
         4.0 * N * (2 * n0 + n_final + 7 + 3 * n0 + n_final + 3))}
-    ops_b = bytes_b = ops_c = bytes_c = 0.0
+    f, m = det_draw(n0, n_up)
+    out["volsdf_draw"] = bound(N * f, N * m, 4.0 * N * (2 * n0 + 6 + 4 * n_up))
+    fp32 = mufu = nbytes = 0.0
     for it in range(1, max_iter + 1):
         s_in, P, last = n0 + (it - 1) * n_up, n0 + it * n_up, it == max_iter
-        ops_b += N * ((s_in - 1) * 6 + n_up * (2 * math.log2(s_in) + 10))
-        bytes_b += 4.0 * N * (2 * s_in + 6 + 4 * n_up)
         bisect = int(((iu == -1) | (iu > it)).sum())
         draws = int((iu == it).sum()) + (int((iu == -1).sum()) if last else 0)
-        sweeps = N * (1 + (0 if last else 1)) * 30 + bisect * 10 * 30 + draws * 12
-        ops_c += (P - 1) * sweeps + draws * n_final * (math.log2(P) + 10)
-        bytes_c += 4.0 * N * (2 * s_in + 2 * n_up + n_final + 7 + (0 if last else 3 * P)
-                              + n_final + 3)
-    out["volsdf_draw"] = _bound_ms(ops_b, bytes_b)
-    out["volsdf_checkpoint"] = _bound_ms(ops_c, bytes_c)
+        sweeps = N * (1 + (0 if last else 1)) + bisect * 10
+        fp32 += ((P - 1) * (sweeps * 30 + draws * 12) + draws * n_final * (math.log2(P) + 10)
+                 + N * n_up * 12)
+        mufu += (P - 1) * (sweeps * 6 + draws * 3) + draws * n_final + N * n_up
+        nbytes += 4.0 * (N * (2 * s_in + 2 * n_up + 6 + 3 + 3 + (0 if last else 2 * P + 4 * n_up))
+                         + draws * 2 * n_final + (N if last else 0))
+        if not last:
+            f, m = det_draw(P, n_up)
+            fp32 += N * f
+            mufu += N * m
+    out["volsdf_checkpoint"] = bound(fp32, mufu, nbytes)
     return out
 
 
@@ -788,31 +917,47 @@ SINE_POINTS = 2 ** 20  # phase 18's kernel-4 points
 SINE_RAYS = 4096  # phase 18's kernel-2 rays (a render chunk)
 
 
+def volsdf_check_inputs(seed, dev):
+    """Phase 14's inputs: the VOLSDF model from the seed, a copy with seeded
+    noise on every weight (seed + 1), the synthetic scene, its first view's
+    rays, and 1,024 of them spread over the view with their far bounds.
+    Returns (args, model, checked copy, (kw_train, kw_test), dataset,
+    (o_all, d_all), (rays_o, rays_d, far))."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model, volsdf
+    from neurecon_tpu_torch.ops import get_rays
+
+    args = ConfigDict(copy.deepcopy(VOLSDF))
+    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
+    checked = copy.deepcopy(model)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    ds = get_data(args)
+    o_all, d_all, _ = get_rays(torch.tensor(ds.c2w_all[0], device=dev),
+                               torch.tensor(ds.intrinsics_all[0], device=dev), 120, 160)
+    idx = torch.linspace(0, 120 * 160 - 1, 1024, device=dev).long()
+    rays_o, rays_d, _, far = volsdf._ray_bounds(o_all[idx], d_all[idx], 0.0, 6.0)
+    return args, model, checked, (kw_train, kw_test), ds, (o_all, d_all), (rays_o, rays_d, far)
+
+
 def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     """Phases 14-17 (the VolSDF slice); returns (rc, kernel rows, train launches)."""
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
-    from neurecon_tpu_torch.dataio import get_data
-    from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
+    from neurecon_tpu_torch.models.base import RadianceNet
     from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, volsdf
     from neurecon_tpu_torch.ops import fused_fine_sample as ffs
-    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, get_rays
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
     from neurecon_tpu_torch.ops.sampling import linspace01
     from neurecon_tpu_torch.tools import render_view
     from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
     from neurecon_tpu_torch.utils import mesh as mesh_util
     from neurecon_tpu_torch.utils.checkpoints import CheckpointIO, load_checkpoint
 
-    args = ConfigDict(copy.deepcopy(VOLSDF))
-    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
-    checked = copy.deepcopy(model)
-    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    args, model, checked, (kw_train, kw_test), ds, (o_all, d_all), (rays_o, rays_d, far) = (
+        volsdf_check_inputs(seed, dev))
     surface = checked.implicit_surface
-    ds = get_data(args)
-    o_all, d_all, _ = get_rays(torch.tensor(ds.c2w_all[0], device=dev),
-                               torch.tensor(ds.intrinsics_all[0], device=dev), 120, 160)
-    idx = torch.linspace(0, 120 * 160 - 1, 1024, device=dev).long()
-    rays_o, rays_d, _, far = volsdf._ray_bounds(o_all[idx], d_all[idx], 0.0, 6.0)
     N, n0, n_up, max_iter, n_final = 1024, 512, 512, 6, 64
     d_init = (far * linspace01(n0, dev)).contiguous()
     kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
@@ -840,10 +985,10 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     launches = by_path["volsdf_render_view"] = read_counts()
     print(f"phase 15: render_view VolSDF 2 x 120x160: launches {launches}, s/frame "
           f"{[round(v, 4) for v in frames['seconds']]} {tag}")
-    # 5 chunks of 4,096 rays per frame: per chunk one sampler call (1 + 6 + 6
+    # 5 chunks of 4,096 rays per frame: per chunk one sampler call (1 + 1 + 6
     # launches of (a)-(c), 7 of kernel 4) and one forward+nablas query
     want = {"nablas_forward": 10, "neus_upsample": 0, "nablas_backward": 0,
-            "sdf_forward": 70, "volsdf_init": 10, "volsdf_draw": 60, "volsdf_checkpoint": 60}
+            "sdf_forward": 70, "volsdf_init": 10, "volsdf_draw": 10, "volsdf_checkpoint": 60}
     if (launches != want or frames["rgb"].shape != (2, 120, 160, 3)
             or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
         print("FAIL phase 15: the VolSDF render missed a kernel or is not finite",
@@ -917,8 +1062,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
           f"({1024e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
     S = VOLSDF_STEPS
     if (min(t_launches["nablas_forward"], t_launches["nablas_backward"],
-            t_launches["volsdf_init"]) < S
-            or min(t_launches["volsdf_draw"], t_launches["volsdf_checkpoint"]) < 6 * S
+            t_launches["volsdf_init"], t_launches["volsdf_draw"]) < S
+            or t_launches["volsdf_checkpoint"] < 6 * S
             or len(totals) != S or not np.isfinite(totals).all() or not last < first
             or n_f20 < 0):
         print("FAIL phase 16: VolSDF training missed a kernel, diverged, did not lower the "
@@ -932,7 +1077,9 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     plain_parts = {"volsdf_init": (ffs, "init_plain"), "volsdf_draw": (ffs, "draw_plain"),
                    "volsdf_checkpoint": (ffs, "checkpoint_plain")}
 
-    def per_call(fn, targets, reps=5):
+    def per_call(fn, targets, reps=5, fold=None):
+        """Median over `reps` calls of each target's ms summed over a call
+        (`fold` maps the per-call span lists to ms instead)."""
         fn()
         runs = []
         for _ in range(reps):
@@ -942,19 +1089,26 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                     stack.enter_context(_spans(mod, attr, spans[k]))
                 res = fn()
             torch.cuda.synchronize()
-            runs.append({k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()})
-        return res, {k: float(np.median([r[k] for r in runs])) for k in targets}
+            ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+            runs.append(fold(ms) if fold else {k: sum(v) for k, v in ms.items()})
+        return res, {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
+    def plain_fold(ms):
+        """The plain stages as the kernels split them: round 1's det draw
+        is (b)'s, the later ones are (c)'s tail."""
+        return {"volsdf_init": sum(ms["volsdf_init"]), "volsdf_draw": ms["volsdf_draw"][0],
+                "volsdf_checkpoint": sum(ms["volsdf_checkpoint"]) + sum(ms["volsdf_draw"][1:])}
 
     res, k_ms = per_call(lambda: ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far,
                                                        *last_ab, last_u, **kw), parts)
     _, p_ms = per_call(lambda: ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far,
                                                      *last_ab, last_u, **kw), plain_parts,
-                       reps=3)
+                       reps=3, fold=plain_fold)
     whole = _time_ms(lambda: ffs.fused_fine_sample(surface, rays_o, rays_d, d_init, far,
                                                    *last_ab, last_u, **kw), reps=5)
     whole_p = _time_ms(lambda: ffs.fine_sample_plain(surface, rays_o, rays_d, d_init, far,
                                                      *last_ab, last_u, **kw), reps=3)
-    bounds = _sampler_bounds(surface, N, n0, n_up, max_iter, n_final, res[2])
+    bounds = _sampler_bounds(N, n0, n_up, max_iter, n_final, res[2], _sm_clock_hz())
     mlp_flops = 2.0 * _surface_macs(surface, sdf_only=True) * N * (n0 + max_iter * n_up)
     ws_bytes = sum(t.nbytes for t in ffs.workspace(N, n0 + max_iter * n_up, n_final,
                                                    dev).values() if torch.is_tensor(t))
@@ -963,7 +1117,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
           f"{whole:.3f} ms (plain {whole_p:.3f} ms); per kernel, summed over the call "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in k_ms.items())
           + "; plain stages " + ", ".join(f"{k} {v:.3f} ms" for k, v in p_ms.items())
-          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
+          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[2]}; {v[3]:.4f} ms without the "
+                                    f"MUFU count)" for k, v in bounds.items())
           + f"; the sampler's MLP {mlp_flops / 1e12:.3f} TFLOP (fp32 bound "
           f"{1e3 * mlp_flops / FP32_PEAK:.2f} ms, 3xTF32 bound "
           f"{3e3 * mlp_flops / TF32_PEAK:.2f} ms); workspace "
@@ -1000,7 +1155,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
                      "replaces": f"neurecon_tpu/ops/fused_fine_sample.py:{line}",
                      "launches": t_launches[name], "max_abs_err": k_err[name],
                      "ms": k_ms[name], "plain_ms": p_ms[name], "bound_ms": bounds[name][0],
-                     "bound_by": bounds[name][1], "bound_held_to": "fp32", "library_ms": None,
+                     "bound_by": bounds[name][1], "bound_held_to": bounds[name][2],
+                     "bound_ms_without_sfu": bounds[name][3], "library_ms": None,
                      "per": "one sampler call of 1,024 flagship rays"})
     return 0, rows, t_launches
 
@@ -1147,6 +1303,13 @@ def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed
     kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
           "n_up": n_up, "sphere_bg_r": 3.0}
     ok, k_err = True, {}
+    ab = (torch.tensor(1.0 / betas[0], device=dev), torch.tensor(betas[0], device=dev))
+    with torch.no_grad():
+        edges = _sampler_edges(surface, rays_o, rays_d, d_init, far, ab,
+                               ffs.det_uniforms(n_final, 4, N, dev), n_final=n_final)
+    print(f"{label}: merge ties and det-draw edges (kernels vs plain): {json.dumps(edges)}")
+    if edges["merge_ties_sdf"] > 1e-5 or edges["draw_ties"] > 0 or edges["draw_flat_share"] > 0.01:
+        ok = False
     for beta in betas:
         ab = (torch.tensor(1.0 / beta, device=dev), torch.tensor(beta, device=dev))
         for mode in ("det", "perturb"):
@@ -1173,12 +1336,14 @@ def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed
                   f"lockstep (each kernel on the plain stage's inputs) {json.dumps(lock)}; "
                   f"merged depths equal {merged_equal}")
             for name, e in lock.items():
-                k_err[name] = max(k_err.get(name, 0.0), e.get("fine", 0.0), e.get("depths", 0.0))
+                k_err[name] = max(k_err.get(name, 0.0), e.get("fine", 0.0), e.get("depths", 0.0),
+                                  e.get("next_depths", 0.0))
             shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
             finite = all(bool(torch.isfinite(t_).all()) for t_ in (gd, gb))
             if (fine_share > 0.02 or beta_off > 0.01 * N or iter_eq < 0.9 or not finite
                     or not merged_equal or max(shares) > 0.01
-                    or lock["volsdf_draw"]["unsorted_rays"] > 0):
+                    or max(e.get("sdf", 0.0) for e in lock.values()) > 1e-5
+                    or max(e.get("unsorted_rays", 0.0) for e in lock.values()) > 0):
                 ok = False
             last = (ab, u)
     return ok, k_err, last
@@ -1299,9 +1464,9 @@ def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     print(f"phase 20: median {ms_step:.2f} ms per SIREN step over steps 6-{S} "
           f"({N * 1e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
     if (min(t_launches["nablas_forward"], t_launches["nablas_backward"],
-            t_launches["volsdf_init"]) < S
+            t_launches["volsdf_init"], t_launches["volsdf_draw"]) < S
             or t_launches["sdf_forward"] < (1 + max_iter) * S
-            or min(t_launches["volsdf_draw"], t_launches["volsdf_checkpoint"]) < max_iter * S
+            or t_launches["volsdf_checkpoint"] < max_iter * S
             or len(totals) != S or not np.isfinite(totals).all() or not last < first):
         print("FAIL phase 20: SIREN training missed a kernel, diverged or did not lower "
               "the loss", file=sys.stderr)
@@ -1319,7 +1484,7 @@ def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     chunks = 2 * math.ceil(H * W / 4096)  # one sampler call and one kernel-1 launch each
     want = {"nablas_forward": chunks, "neus_upsample": 0, "nablas_backward": 0,
             "sdf_forward": chunks * (1 + max_iter), "volsdf_init": chunks,
-            "volsdf_draw": chunks * max_iter, "volsdf_checkpoint": chunks * max_iter}
+            "volsdf_draw": chunks, "volsdf_checkpoint": chunks * max_iter}
     if (launches != want or frames["rgb"].shape != (2, H, W, 3)
             or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
         print("FAIL phase 20: the SIREN render missed a kernel or is not finite",

@@ -12,66 +12,71 @@
 //     sphere_residual prior and the sphere-background min on the coarse sdf,
 //     beta+ of paper eq. 10, the convergence mask under the net's beta, the
 //     checkpoint-0 opacity draw, the first bounds clipped to [0, 1e5];
-//   _make_upsample_query_kernel -> draw_kernel (b) + sdf_forward: pdf
+//   _make_upsample_query_kernel -> draw_kernel (b) (round 1) or the tail of
+//     checkpoint_kernel (c) (rounds 2..max_iter), then sdf_forward: pdf
 //     proportional to bounds + 1e-5, the det inverse CDF at linspace(0, 1,
 //     n_up + 2) with both ends dropped, the new depths and their points;
 //   _make_checkpoint_kernel     -> checkpoint_kernel (c): prior and
 //     background min on the new sdf, the stable merge of the old buffer with
 //     the new depths, the max error bound under the net's beta, the opacity
 //     draw of newly converged rays, the beta bisection of the rest, the new
-//     bounds; on the last round the fallback draw and beta_out.
+//     bounds and from them the next round's det draw; on the last round the
+//     fallback draw and beta_out.
 //
-// The merge is a rank count (old before new at equal depth). It equals the
-// reference's stable sort of the concatenation because the det draw of (b)
-// gives ascending depths (monotone cdf, ascending u).
+// A call makes 1 (a) + 1 (b) + max_iter (c) launches: the bounds of rounds
+// 1..max_iter-1 never leave the block that computed them.
 //
-// What bounds them: neither bytes nor FLOPs but latency. A round of (c) runs
-// ~12 error-bound sweeps over the ray's buffer (up to 3,584 entries at the
-// flagship), each two dependent prefix sums and four expf per interval; the
-// buffers are a few tens of KB per ray.
+// The merge equals the reference's stable sort of the concatenation (old
+// before new at equal depth) because the det draw gives ascending depths
+// (monotone cdf, ascending u).
 //
-// Design. One 256-thread block per ray, the ray's buffers in shared memory
-// (d, sdf and two scratch rows, 4 x 3,584 floats = 57 KB at the flagship, so
-// three blocks an SM); the workspace between launches is [N, S] rows in device
-// memory. A sweep gives each thread a contiguous chunk of intervals, sums it
-// sequentially, and a warp-shuffle scan of the chunk totals makes the block's
-// prefix; the order differs from the reference's cumsum, so a bound that sits
-// at eps can flip (see PERF.md for the measured agreement). Draws are one
-// binary search per uniform (count of cdf < u), with the reference's
-// denominator < 1e-5 -> 1. Products that feed sums are rounded apart
-// (__fmul_rn) so the compiler does not fuse them; no fast math: 0 * inf in a
-// bound must give NaN (then +inf) as in the reference. Rays that have
-// converged skip the bisection (their beta does not change); everything else
-// runs on every ray, as in the reference. None of the TPU kernels' lane
-// padding, counting searches, one-hot gathers or triangular-matmul prefix
-// sums is needed.
+// What bounds (c): arithmetic. A round runs up to 12 error-bound sweeps over
+// the ray's buffer (up to 3,584 entries at the flagship), each four expf and
+// two IEEE divisions per interval: about six special-function operations (ex2,
+// rcp; 16 a clock per SM on Hopper) among the instructions of those IEEE
+// sequences. Bytes are a few tens of KB per ray and round.
+//
+// Design of (b) and (c). One block of 256 threads per ray (512 or 1,024 for
+// buffers above 4,097 entries); each thread holds a contiguous chunk of C
+// intervals (kernel (a)'s partition; C a template parameter, the smallest even
+// one that holds the round, so that no chunk is padded much) with their depths
+// and sdf, and a sweep's per-interval sigma * delta and error terms, in
+// registers (at most 80 at 256 threads: three blocks an SM). A sweep runs all
+// C intervals without a branch (zero-width intervals past a short chunk add
+// nothing), then one barrier for the block scan (warp shuffles; every warp
+// scans the warp totals itself, in kernel (a)'s order, so the rounding is
+// kernel (a)'s), then the bounds, and one __syncthreads_or of "above eps" for
+// the block's max. Every sweep of a round (the net's beta, the bisection, the
+// new bounds) runs through one loop, so that its code is inlined once and
+// stays in the instruction cache. Shared memory holds what random access
+// needs: the merge's inputs (depths and sdf, old then new, loaded coalesced,
+// the new sdf finished there), the merged rows (written out to the next
+// round's buffers coalesced), a cdf and the det draw's index map (3 x 3,584 +
+// 512 words at the flagship). The merge takes each thread's entries by a co-
+// rank search on the merge path. The det draw is a merge too: its uniforms
+// ascend, so each thread counts, for each cdf entry of its chunk, the uniforms
+// at or below it and writes the index of every draw that falls in its chunk
+// (the count of cdf entries below u, which is the binary search's index on a
+// monotone cdf); if the chunks' sums left the cdf falling at a chunk boundary
+// (they round apart from the scan), the ray's draws are binary searches. So
+// are the opacity draws, whose uniforms come unsorted. Products that feed sums
+// are rounded apart (__fmul_rn) so the compiler does not fuse them; no fast
+// math: 0 * inf in a bound must give NaN (then +inf) as in the reference. Rays
+// that have converged skip the bisection (their beta does not change);
+// everything else runs on every ray, as in the reference. The prefix sums run
+// in another order than the reference's cumsum, so a bound that sits at eps
+// can flip (PERF.md). None of the TPU kernels' lane padding, counting
+// searches, one-hot gathers or triangular-matmul prefix sums is needed.
+//
+// Kernel (a) keeps its first design: the ray's buffers in shared memory
+// (4 x n0 floats), 256 threads.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace ntt {
 namespace vfs {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-
-struct Smem {
-  float2* sh;  // [WARPS] block-reduction scratch
-  float* d;    // [P] sorted depths
-  float* s;    // [P] sdf at those depths
-  float* a;    // [P] scratch
-  float* b;    // [P] scratch (per-interval errors, then the opacity cdf)
-};
-
-__device__ Smem layout(float4* smem4, int P) {
-  Smem B;
-  B.sh = reinterpret_cast<float2*>(smem4);
-  B.d = reinterpret_cast<float*>(B.sh + WARPS);
-  B.s = B.d + P;
-  B.a = B.s + P;
-  B.b = B.a + P;
-  return B;
-}
 
 __device__ __forceinline__ void point(const float* o, const float* dir, float t, float* x) {
   for (int c = 0; c < 3; ++c) x[c] = __fadd_rn(o[c], __fmul_rn(dir[c], t));
@@ -90,6 +95,74 @@ __device__ float finish_sdf(float raw, const float* o, const float* dir, float t
   if (prior_r >= 0.f) v = __fadd_rn(v, sqrtf(sq + 1e-12f) - prior_r);
   if (bg_r >= 0.f) v = fminf(v, bg_r - sqrtf(sq));
   return v;
+}
+
+// alpha times the Laplace CDF of -sdf (volsdf.py sdf_to_sigma).
+__device__ __forceinline__ float sigma_of(float sdf, float alpha, float beta) {
+  const float e = 0.5f * expf(-fabsf(sdf) / beta);
+  return alpha * (sdf >= 0.f ? e : 1.f - e);
+}
+
+// The inverse-CDF lerp at u for the count lo of cdf entries below u: the
+// bracketing entries, with denominators below 1e-5 taken as 1
+// (sampling.py _invert_cdf).
+__device__ __forceinline__ float lerp_at(const float* cdf, const float* bins, int P, int lo,
+                                         float u) {
+  const int below = max(lo - 1, 0), above = min(lo, P - 1);
+  const float cb = cdf[below], ca = cdf[above];
+  const float bb = bins[below], ba = bins[above];
+  float den = ca - cb;
+  if (den < 1e-5f) den = 1.f;
+  const float t = (u - cb) / den;
+  return __fadd_rn(bb, __fmul_rn(t, ba - bb));
+}
+
+// Inverse CDF at u: the first index with cdf >= u (the count of cdf < u on a
+// monotone cdf) by binary search, then the lerp.
+__device__ float invert(const float* cdf, const float* bins, int P, float u) {
+  int lo = 0, hi = P;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cdf[mid] < u) lo = mid + 1; else hi = mid;
+  }
+  return lerp_at(cdf, bins, P, lo, u);
+}
+
+__device__ __forceinline__ void load_ray(const float* rays_o, const float* rays_d, long r,
+                                         float* o, float* dir) {
+  for (int c = 0; c < 3; ++c) {
+    o[c] = rays_o[r * 3 + c];
+    dir[c] = rays_d[r * 3 + c];
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel (a): the ray's buffers in shared memory, 256 threads.
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+struct Smem {
+  float2* sh;  // [WARPS] block-reduction scratch
+  float* d;    // [P] sorted depths
+  float* s;    // [P] sdf at those depths
+  float* a;    // [P] scratch
+  float* b;    // [P] scratch (per-interval errors, then the opacity cdf)
+};
+
+__device__ Smem layout(float4* smem4, int P) {
+  Smem B;
+  B.sh = reinterpret_cast<float2*>(smem4);
+  B.d = reinterpret_cast<float*>(B.sh + WARPS);
+  B.s = B.d + P;
+  B.a = B.s + P;
+  B.b = B.a + P;
+  return B;
 }
 
 // [k0, k1): this thread's contiguous chunk of n items.
@@ -135,23 +208,6 @@ __device__ float block_max(float v, float2* sh) {
   for (int w = 1; w < WARPS; ++w) r = fmaxf(r, sh[w].x);
   __syncthreads();
   return r;
-}
-
-__device__ float block_sum(float v, float2* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  if (lane == 0) sh[warp].x = v;
-  __syncthreads();
-  float r = sh[0].x;
-  for (int w = 1; w < WARPS; ++w) r += sh[w].x;
-  __syncthreads();
-  return r;
-}
-
-// alpha times the Laplace CDF of -sdf (volsdf.py sdf_to_sigma).
-__device__ __forceinline__ float sigma_of(float sdf, float alpha, float beta) {
-  const float e = 0.5f * expf(-fabsf(sdf) / beta);
-  return alpha * (sdf >= 0.f ? e : 1.f - e);
 }
 
 enum { MAX_BOUND = 0, CLIP_BOUNDS = 1 };
@@ -211,38 +267,12 @@ __device__ void opacity_cdf(const Smem& B, int P, float alpha, float beta) {
   __syncthreads();
 }
 
-// Inverse CDF at u: the first index with cdf >= u (the count of cdf < u on a
-// monotone cdf), the bracketing entries, and the lerp with denominators below
-// 1e-5 taken as 1 (sampling.py _invert_cdf).
-__device__ float invert(const float* cdf, const float* bins, int P, float u) {
-  int lo = 0, hi = P;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (cdf[mid] < u) lo = mid + 1; else hi = mid;
-  }
-  const int below = max(lo - 1, 0), above = min(lo, P - 1);
-  const float cb = cdf[below], ca = cdf[above];
-  const float bb = bins[below], ba = bins[above];
-  float den = ca - cb;
-  if (den < 1e-5f) den = 1.f;
-  const float t = (u - cb) / den;
-  return __fadd_rn(bb, __fmul_rn(t, ba - bb));
-}
-
 // n_final opacity draws of ray r at the uniforms u[0..n_final) into fine.
 __device__ void draw_final(const Smem& B, int P, float alpha, float beta, const float* u,
                            int n_final, float* fine) {
   opacity_cdf(B, P, alpha, beta);
   for (int j = threadIdx.x; j < n_final; j += blockDim.x) fine[j] = invert(B.b, B.d, P, u[j]);
   __syncthreads();  // the next sweep overwrites the cdf
-}
-
-__device__ __forceinline__ void load_ray(const float* rays_o, const float* rays_d, long r,
-                                         float* o, float* dir) {
-  for (int c = 0; c < 3; ++c) {
-    o[c] = rays_o[r * 3 + c];
-    dir[c] = rays_d[r * 3 + c];
-  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -281,139 +311,484 @@ init_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+inline size_t smem_bytes(int P) { return WARPS * sizeof(float2) + 4 * (size_t)P * sizeof(float); }
+
+// ---------------------------------------------------------------------------
+// Kernels (b) and (c): T threads a ray, each with a chunk of at most C
+// intervals in registers.
+
+// Two sets of T/32 float2 slots, taken in turn by the block's exchanges, so
+// that an exchange needs one barrier: a warp that writes a set again has
+// passed the barrier of the exchange in between, which every warp reaches
+// only after reading the set.
+struct Xchg {
+  float2* sh;
+  int turn;
+};
+
+template <int T>
+__device__ __forceinline__ float2* take_slots(Xchg& x) {
+  x.turn ^= 1;
+  return x.sh + x.turn * (T / 32);
+}
+
+// Exclusive block scan of one float2 a thread, in kernel (a)'s order (the
+// warps' Hillis-Steele scans, the same scan of the warp totals), which every
+// warp finishes itself after one barrier.
+template <int T>
+__device__ __forceinline__ float2 scan_block(float2 v, Xchg& x) {
+  constexpr int W = T / 32;
+  float2* sh = take_slots<T>(x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float2 inc = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float ax = __shfl_up_sync(FULL, inc.x, o), ay = __shfl_up_sync(FULL, inc.y, o);
+    if (lane >= o) { inc.x += ax; inc.y += ay; }
+  }
+  float2 ex = make_float2(__shfl_up_sync(FULL, inc.x, 1), __shfl_up_sync(FULL, inc.y, 1));
+  if (lane == 0) ex = make_float2(0.f, 0.f);
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  float2 w = lane < W ? sh[lane] : make_float2(0.f, 0.f);
+  for (int o = 1; o < W; o <<= 1) {
+    const float ax = __shfl_up_sync(FULL, w.x, o), ay = __shfl_up_sync(FULL, w.y, o);
+    if (lane >= o) { w.x += ax; w.y += ay; }
+  }
+  const float px = __shfl_sync(FULL, w.x, max(warp - 1, 0));
+  const float py = __shfl_sync(FULL, w.y, max(warp - 1, 0));
+  if (warp > 0) ex = make_float2(px + ex.x, py + ex.y);
+  return ex;
+}
+
+// The block's sum in the first draw kernel's order (warp butterflies, then
+// the warp sums in warp order). One barrier.
+template <int T>
+__device__ __forceinline__ float sum_block(float v, Xchg& x) {
+  float2* sh = take_slots<T>(x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  if (lane == 0) sh[warp].x = v;
+  __syncthreads();
+  float r = sh[0].x;
+  for (int w = 1; w < T / 32; ++w) r += sh[w].x;
+  return r;
+}
+
+// This thread's chunk of a ray's buffer: entries k0 .. k0 + cnt (the cnt
+// intervals it owns and the next thread's first entry) in registers, in
+// kernel (a)'s partition of the intervals.
+template <int C>
+struct Chunk {
+  float d[C + 1], s[C + 1];
+  int k0, cnt;
+};
+
+template <int T>
+__device__ __forceinline__ void chunk_of(int n, int& k0, int& cnt) {
+  const int c = (n + T - 1) / T;
+  k0 = min((int)threadIdx.x * c, n);
+  cnt = min(k0 + c, n) - k0;
+}
+
+// The merge's order: an old depth goes before a new one it equals.
+__device__ __forceinline__ bool old_first(float old_d, float new_d) { return old_d <= new_d; }
+
+// Entries k0 .. k0 + cnt of the stable merge of the old row a [s_in] with the
+// new row b [n_up] (both sorted, their sdf in sa and sb): the co-rank of k0
+// on the merge path by binary search, then a sequential merge. Entries past
+// k0 + cnt repeat the last one (zero-width intervals, see sweep_chunk).
+template <int C>
+__device__ __forceinline__ void merge_chunk(Chunk<C>& ch, const float* a, const float* sa,
+                                            int s_in, const float* b, const float* sb,
+                                            int n_up) {
+  const int k = ch.k0;
+  int lo = max(0, k - n_up), hi = min(k, s_in);
+  while (lo < hi) {  // the number of old entries among the first k
+    const int mid = (lo + hi) >> 1;
+    if (old_first(a[mid], b[k - mid - 1])) lo = mid + 1; else hi = mid;
+  }
+  int i = lo, j = k - lo;
+#pragma unroll
+  for (int e = 0; e <= C; ++e) {
+    if (e <= ch.cnt) {
+      if (j >= n_up || (i < s_in && old_first(a[i], b[j]))) {
+        ch.d[e] = a[i];
+        ch.s[e] = sa[i];
+        ++i;
+      } else {
+        ch.d[e] = b[j];
+        ch.s[e] = sb[j];
+        ++j;
+      }
+    } else if (e > 0) {
+      ch.d[e] = ch.d[e - 1];
+      ch.s[e] = ch.s[e - 1];
+    }
+  }
+}
+
+// A sweep of the error bounds over the chunk (kernel (a)'s `sweep`: the
+// same arithmetic and scan order): the thread's bounds clipped to [0, 1e5]
+// into out (the first cnt are the chunk's), and whether the block's largest
+// bound is above eps (one __syncthreads_or). It runs all C intervals without
+// a branch, so that their chains interleave: past cnt they have zero width,
+// add exactly 0 to both sums, and their bounds, with the same E and an R no
+// smaller, are no larger than the chunk's last.
+template <int T, int C>
+__device__ __forceinline__ bool sweep_chunk(const Chunk<C>& ch, float alpha, float beta,
+                                            float eps, float (&out)[C], Xchg& x) {
+  const float coef = alpha / (4.f * beta);
+  float sd[C], err[C];
+  float2 tot = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const float delta = ch.d[i + 1] - ch.d[i];
+    sd[i] = __fmul_rn(sigma_of(ch.s[i], alpha, beta), delta);
+    const float dstar = fmaxf(0.5f * (fabsf(ch.s[i]) + fabsf(ch.s[i + 1]) - delta), 0.f);
+    err[i] = __fmul_rn(__fmul_rn(coef, __fmul_rn(delta, delta)), expf(-dstar / beta));
+    tot.x += sd[i];
+    tot.y += err[i];
+  }
+  const float2 base = scan_block<T>(tot, x);
+  float R = base.x, E = base.y, m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    E += err[i];
+    float bound = expf(-R) * (expf(E) - 1.f);
+    if (isnan(bound)) bound = INFINITY;
+    R += sd[i];
+    m = fmaxf(m, bound);
+    out[i] = fminf(fmaxf(bound, 0.f), 1e5f);
+  }
+  return __syncthreads_or(m > eps) != 0;
+}
+
+// n_final opacity draws at the uniforms u (unsorted) into fine: the cdf
+// 0, 1 - exp(-R_k) (kernel (a)'s opacity_cdf) into crow, then a search each.
+template <int T, int C>
+__device__ __forceinline__ void draw_opacity(const Chunk<C>& ch, int P, const float* drow,
+                                             float* crow,
+                             float alpha, float beta, const float* u, int n_final, float* fine,
+                             Xchg& x) {
+  float sd[C];
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i < ch.cnt) {
+      sd[i] = __fmul_rn(sigma_of(ch.s[i], alpha, beta), ch.d[i + 1] - ch.d[i]);
+      tot += sd[i];
+    }
+  }
+  float R = scan_block<T>(make_float2(tot, 0.f), x).x;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i < ch.cnt) {
+      crow[ch.k0 + i + 1] = 1.f - expf(-R);
+      R += sd[i];
+    }
+  }
+  if (threadIdx.x == 0) crow[0] = 0.f;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_final; j += T) fine[j] = invert(crow, drow, P, u[j]);
+  __syncthreads();  // the cdf row is written again next
+}
+
+// The det uniform u_j = (j + 1) step, and the number of them at most c.
+__device__ __forceinline__ float det_u(int j, float step) {
+  return __fmul_rn((float)(j + 1), step);
+}
+
+__device__ int det_count(float c, int n_up, float step) {
+  int g = (int)fminf(fmaxf(c * (float)(n_up + 1), 0.f), (float)n_up);
+  while (g > 0 && det_u(g - 1, step) > c) --g;
+  while (g < n_up && det_u(g, step) <= c) ++g;
+  return g;
+}
+
+// The det draw: from the clipped bounds w of the thread's cnt intervals
+// (from k0) of the P-entry buffer drow, pdf = (w + 1e-5) / sum, its cdf (the
+// first draw kernel's sum and scan order) into crow, and the n_up depths at
+// u_j into nd with their points into pts. idx [n_up] is the index map.
+template <int T, int C>
+__device__ __forceinline__ void det_draw(float (&w)[C], int k0, int cnt, int P, const float* drow,
+                                         float* crow,
+                         int* idx, int n_up, float step, const float* o, const float* dir,
+                         float* nd, float* pts, Xchg& x) {
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i < cnt) {
+      w[i] = w[i] + 1e-5f;
+      tot += w[i];
+    }
+  }
+  const float total = sum_block<T>(tot, x);
+  float loc = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i < cnt) {
+      w[i] = w[i] / total;
+      loc += w[i];
+    }
+  }
+  float c = scan_block<T>(make_float2(loc, 0.f), x).x;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i < cnt) {
+      c += w[i];
+      w[i] = c;
+      crow[k0 + i + 1] = c;
+    }
+  }
+  if (threadIdx.x == 0) crow[0] = 0.f;
+  __syncthreads();
+  // within a chunk the cdf cannot fall (sums of pdf >= 0); across a chunk
+  // boundary it can by an ulp, and then the count is not the search's index
+  const bool falls = cnt > 0 && crow[k0] > w[0];
+  if (__syncthreads_or(falls)) {
+    for (int j = threadIdx.x; j < n_up; j += T) {
+      const float u = det_u(j, step);
+      const float v = invert(crow, drow, P, u);
+      nd[j] = v;
+      point(o, dir, v, pts + 3 * j);
+    }
+    return;
+  }
+  // draws j with cdf[i-1] < u_j <= cdf[i] take index i: this thread writes
+  // those of its entries i = k0+1 .. k0+cnt, the last one also those above
+  // every entry (index P)
+  if (cnt > 0) {
+    int m = det_count(crow[k0], n_up, step);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (i < cnt) {
+        const int m1 = det_count(w[i], n_up, step);
+        for (int j = m; j < m1; ++j) idx[j] = k0 + i + 1;
+        m = m1;
+      }
+    }
+    if (k0 + cnt == P - 1)
+      for (int j = m; j < n_up; ++j) idx[j] = P;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_up; j += T) {
+    const float v = lerp_at(crow, drow, P, idx[j], det_u(j, step));
+    nd[j] = v;
+    point(o, dir, v, pts + 3 * j);
+  }
+}
+
+// Shared memory of (b) and (c): the exchange slots, the depth row [P], the
+// merge / cdf row [P], the det draw's index map [n_up], and for (c) the
+// merge's sdf row [P].
+template <int T>
+inline size_t smem_bytes_bc(int P, int n_up, int rows) {
+  return 2 * (T / 32) * sizeof(float2) + (rows * (size_t)P + n_up) * sizeof(float);
+}
+
+template <int T>
+struct Rows {
+  Xchg x;
+  float* drow;
+  float* crow;
+  int* idx;
+  float* srow;
+  __device__ Rows(float4* smem4, int P, int n_up) {
+    x.sh = reinterpret_cast<float2*>(smem4);
+    x.turn = 0;
+    drow = reinterpret_cast<float*>(x.sh + 2 * (T / 32));
+    crow = drow + P;
+    idx = reinterpret_cast<int*>(crow + P);
+    srow = reinterpret_cast<float*>(idx + n_up);
+  }
+};
+
+template <int T, int C>
+__global__ void __launch_bounds__(T)
 draw_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
             const float* __restrict__ d_buf, const float* __restrict__ bounds, int s_in,
             int S, int n_up, float step, float* __restrict__ nd, float* __restrict__ pts) {
   extern __shared__ float4 smem4[];
-  const Smem B = layout(smem4, s_in);  // d, and the cdf in s
+  Rows<T> L(smem4, s_in, n_up);
   const long r = blockIdx.x;
-  float* cdf = B.s;
-  for (int j = threadIdx.x; j < s_in; j += blockDim.x) B.d[j] = d_buf[r * S + j];
-  int k0, k1;
-  chunk(s_in - 1, k0, k1);
-  float tot = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    const float w = bounds[r * S + k] + 1e-5f;
-    cdf[k + 1] = w;
-    tot += w;
-  }
-  const float total = block_sum(tot, B.sh);
-  float loc = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    const float p = cdf[k + 1] / total;
-    cdf[k + 1] = p;
-    loc += p;
-  }
-  float c = block_exclusive_scan(make_float2(loc, 0.f), B.sh).x;
-  for (int k = k0; k < k1; ++k) {
-    c += cdf[k + 1];
-    cdf[k + 1] = c;
-  }
-  if (threadIdx.x == 0) cdf[0] = 0.f;
+  for (int k = threadIdx.x; k < s_in; k += T) L.drow[k] = d_buf[r * S + k];
+  for (int k = threadIdx.x; k < s_in - 1; k += T) L.crow[k] = bounds[r * S + k];
   __syncthreads();
+  int k0, cnt;
+  chunk_of<T>(s_in - 1, k0, cnt);
+  float w[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+    if (i < cnt) w[i] = L.crow[k0 + i];
+  __syncthreads();  // the row becomes the cdf
   float o[3], dir[3];
   load_ray(rays_o, rays_d, r, o, dir);
-  for (int j = threadIdx.x; j < n_up; j += blockDim.x) {
-    const float v = invert(cdf, B.d, s_in, __fmul_rn((float)(j + 1), step));
-    nd[r * n_up + j] = v;
-    float x[3];
-    point(o, dir, v, x);
-    for (int q = 0; q < 3; ++q) pts[(r * n_up + j) * 3 + q] = x[q];
-  }
+  det_draw<T, C>(w, k0, cnt, s_in, L.drow, L.crow, L.idx, n_up, step, o, dir, nd + r * n_up,
+                 pts + r * n_up * 3, L.x);
 }
 
-// Count of sorted a[0..n) below v (strictly, or at most v with `le`).
-__device__ __forceinline__ int rank(const float* a, int n, float v, bool le) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v || (le && a[mid] == v)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(THREADS)
+template <int T, int C>
+__global__ void __launch_bounds__(T, T == 256 ? 3 : 1)
 checkpoint_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                   const float* __restrict__ d_in, const float* __restrict__ s_in_buf,
                   const float* __restrict__ nd, const float* __restrict__ raw,
                   const float* __restrict__ ab, const float* __restrict__ u_it,
                   const float* __restrict__ u_last, int s_in, int S, int n_up,
                   int n_final, int u_stride, int it, int last, int max_bisection, float eps,
-                  float prior_r, float bg_r, float* __restrict__ d_out,
-                  float* __restrict__ s_out, float* __restrict__ bounds,
-                  float* __restrict__ beta_arr, int* __restrict__ converged,
-                  int* __restrict__ iter_usage, float* __restrict__ fine,
-                  float* __restrict__ beta_out) {
+                  float prior_r, float bg_r, float step, float* __restrict__ d_out,
+                  float* __restrict__ s_out, float* __restrict__ beta_arr,
+                  int* __restrict__ converged, int* __restrict__ iter_usage,
+                  float* __restrict__ fine, float* __restrict__ beta_out,
+                  float* __restrict__ nd_next, float* __restrict__ pts_next) {
   extern __shared__ float4 smem4[];
-  const int P = s_in + n_up;
-  const Smem B = layout(smem4, P);
+  const int P = s_in + n_up, n = P - 1;
+  Rows<T> L(smem4, P, n_up);
   const long r = blockIdx.x;
   float o[3], dir[3];
-  load_ray(rays_o, rays_d, r, o, dir);
-  // stable merge: old sorted in a, new sorted in b
-  for (int i = threadIdx.x; i < s_in; i += blockDim.x) B.a[i] = d_in[r * S + i];
-  for (int j = threadIdx.x; j < n_up; j += blockDim.x) B.b[j] = nd[r * n_up + j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < s_in; i += blockDim.x) {
-    const float v = B.a[i];
-    const int pos = i + rank(B.b, n_up, v, false);
-    B.d[pos] = v;
-    B.s[pos] = s_in_buf[r * S + i];
+  load_ray(rays_o, rays_d, r, o, dir);  // again for the det draw: not held across the sweeps
+  // the stable merge: old depths and sdf in crow / srow [0, s_in), new ones
+  // in [s_in, P)
+  for (int i = threadIdx.x; i < s_in; i += T) {
+    L.crow[i] = d_in[r * S + i];
+    L.srow[i] = s_in_buf[r * S + i];
   }
-  for (int j = threadIdx.x; j < n_up; j += blockDim.x) {
-    const float v = B.b[j];
-    const int pos = j + rank(B.a, s_in, v, true);
-    B.d[pos] = v;
-    B.s[pos] = finish_sdf(raw[r * n_up + j], o, dir, v, prior_r, bg_r);
+  for (int j = threadIdx.x; j < n_up; j += T) {
+    const float v = nd[r * n_up + j];
+    L.crow[s_in + j] = v;
+    L.srow[s_in + j] = finish_sdf(raw[r * n_up + j], o, dir, v, prior_r, bg_r);
+  }
+  __syncthreads();
+  Chunk<C> ch;
+  chunk_of<T>(n, ch.k0, ch.cnt);
+  if (ch.cnt > 0) {
+    merge_chunk<C>(ch, L.crow, L.srow, s_in, L.crow + s_in, L.srow + s_in, n_up);
+  } else {  // no intervals: zero-width ones that add nothing
+#pragma unroll
+    for (int e = 0; e <= C; ++e) ch.d[e] = ch.s[e] = 0.f;
+  }
+  // the merged rows: each thread's entries (the last one's entry n too) into
+  // drow and crow, then out to the next round's buffers, coalesced
+  const int own = ch.cnt + (ch.cnt > 0 && ch.k0 + ch.cnt == n ? 1 : 0);
+  __syncthreads();  // the merge's inputs are read
+#pragma unroll
+  for (int e = 0; e <= C; ++e) {
+    if (e < own) {
+      L.drow[ch.k0 + e] = ch.d[e];
+      L.crow[ch.k0 + e] = ch.s[e];
+    }
   }
   __syncthreads();
   if (!last) {
-    for (int k = threadIdx.x; k < P; k += blockDim.x) {
-      d_out[r * S + k] = B.d[k];
-      s_out[r * S + k] = B.s[k];
+    for (int k = threadIdx.x; k < P; k += T) {
+      d_out[r * S + k] = L.drow[k];
+      s_out[r * S + k] = L.crow[k];
     }
   }
 
+  // The round's sweeps, through one copy of the sweep's code: i = -1 under
+  // the net's beta (still above eps?), then the bisection of beta+ in
+  // [beta_net, beta] for a ray not yet converged, then the new bounds (not
+  // on the last round).
   const float alpha_net = ab[0], beta_net = ab[1];
-  bool conv = converged[r] != 0;
-  int iu = iter_usage[r];
-  float beta = beta_arr[r];
-  // still above eps under the net's beta (only rays not yet converged matter)
-  const bool still_bad = sweep<MAX_BOUND>(B, P, alpha_net, beta_net, nullptr) > eps;
-  if (!conv && !still_bad) {
-    draw_final(B, P, alpha_net, beta_net, u_it + r * u_stride, n_final, fine + r * n_final);
-    iu = it;
-    conv = true;
-  }
-  if (!conv) {  // bisect beta+ in [beta_net, beta] so that the max bound meets eps
-    float left = beta_net, right = beta;
-    for (int i = 0; i < max_bisection; ++i) {
-      const float tmp = 0.5f * (left + right);
-      if (sweep<MAX_BOUND>(B, P, 1.f / tmp, tmp, nullptr) <= eps) right = tmp;
-      else left = tmp;
+  bool conv = converged[r] != 0, newly = false;
+  float beta = beta_arr[r], left = beta_net, right = beta;
+  int steps = 0;
+  float w[C];
+  for (int i = -1;; ++i) {
+    float sb;
+    if (i < 0) sb = beta_net;
+    else if (i < steps) sb = 0.5f * (left + right);
+    else if (last) break;
+    else sb = beta;
+    const bool bad = sweep_chunk<T, C>(ch, i < 0 ? alpha_net : 1.f / sb, sb, eps, w, L.x);
+    if (i < 0) {
+      newly = !conv && !bad;
+      conv = conv || newly;
+      steps = conv ? 0 : max_bisection;
+    } else if (i < steps) {
+      if (!bad) right = sb; else left = sb;
+      beta = right;
+    } else {
+      break;
     }
-    beta = right;
   }
-  if (!last) {
-    sweep<CLIP_BOUNDS>(B, P, 1.f / beta, beta, bounds + r * S);
-  } else if (!conv) {
-    draw_final(B, P, 1.f / beta, beta, u_last + r * u_stride, n_final, fine + r * n_final);
+  // the opacity draw: of a ray converged this round at the net's beta, or
+  // on the last round the fallback at beta+
+  if (newly || (last && !conv)) {
+    draw_opacity<T, C>(ch, P, L.drow, L.crow, newly ? alpha_net : 1.f / beta,
+                       newly ? beta_net : beta, (newly ? u_it : u_last) + r * u_stride,
+                       n_final, fine + r * n_final, L.x);
+  }
+  if (!last) {  // the next round's det draw from the new bounds
+    load_ray(rays_o, rays_d, r, o, dir);
+    det_draw<T, C>(w, ch.k0, ch.cnt, P, L.drow, L.crow, L.idx, n_up, step, o, dir,
+                   nd_next + r * n_up, pts_next + r * n_up * 3, L.x);
   }
   if (threadIdx.x == 0) {
     beta_arr[r] = beta;
     converged[r] = conv;
-    iter_usage[r] = iu;
+    if (newly) iter_usage[r] = it;
     if (last) beta_out[r] = conv ? beta_net : beta;
   }
 }
 
-inline size_t smem_bytes(int P) { return WARPS * sizeof(float2) + 4 * (size_t)P * sizeof(float); }
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The block shape for n intervals: 256 threads with the smallest even chunk
+// that holds them (the chunk kernel (a) takes, at the flagship's rounds),
+// then 512 and 1,024 threads; f.run<T, C>() launches.
+template <typename F>
+cudaError_t by_shape(int n, const F& f) {
+  if (n <= 256 * 2) return f.template run<256, 2>();
+  if (n <= 256 * 4) return f.template run<256, 4>();
+  if (n <= 256 * 6) return f.template run<256, 6>();
+  if (n <= 256 * 8) return f.template run<256, 8>();
+  if (n <= 256 * 10) return f.template run<256, 10>();
+  if (n <= 256 * 12) return f.template run<256, 12>();
+  if (n <= 256 * 14) return f.template run<256, 14>();
+  if (n <= 256 * 16) return f.template run<256, 16>();
+  if (n <= 512 * 16) return f.template run<512, 16>();
+  if (n <= 1024 * 14) return f.template run<1024, 14>();
+  return cudaErrorInvalidValue;
 }
+
+struct DrawLaunch {
+  const float *rays_o, *rays_d, *d_buf, *bounds;
+  int N, s_in, S, n_up;
+  float step;
+  float *nd, *pts;
+  cudaStream_t stream;
+
+  template <int T, int C>
+  cudaError_t run() const {
+    const size_t smem = smem_bytes_bc<T>(s_in, n_up, 2);
+    cudaError_t err = allow_smem(draw_kernel<T, C>, smem);
+    if (err != cudaSuccess) return err;
+    draw_kernel<T, C><<<N, T, smem, stream>>>(rays_o, rays_d, d_buf, bounds, s_in, S, n_up,
+                                              step, nd, pts);
+    return cudaGetLastError();
+  }
+};
+
+struct CheckpointLaunch {
+  const float *rays_o, *rays_d, *d_in, *s_in_buf, *nd, *raw, *ab, *u_it, *u_last;
+  int N, s_in, S, n_up, n_final, u_stride, it, last, max_bisection;
+  float eps, prior_r, bg_r, step;
+  float *d_out, *s_out, *beta;
+  int *converged, *iter_usage;
+  float *fine, *beta_out, *nd_next, *pts_next;
+  cudaStream_t stream;
+
+  template <int T, int C>
+  cudaError_t run() const {
+    const size_t smem = smem_bytes_bc<T>(s_in + n_up, n_up, 3);
+    cudaError_t err = allow_smem(checkpoint_kernel<T, C>, smem);
+    if (err != cudaSuccess) return err;
+    checkpoint_kernel<T, C><<<N, T, smem, stream>>>(
+        rays_o, rays_d, d_in, s_in_buf, nd, raw, ab, u_it, u_last, s_in, S, n_up, n_final,
+        u_stride, it, last, max_bisection, eps, prior_r, bg_r, step, d_out, s_out, beta,
+        converged, iter_usage, fine, beta_out, nd_next, pts_next);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace vfs
 }  // namespace ntt
@@ -455,42 +830,38 @@ extern "C" int ntt_volsdf_draw(const void* rays_o, const void* rays_d, const voi
                                const void* bounds, int N, int s_in, int S, int n_up,
                                float step, void* nd, void* pts, void* stream) {
   if (N <= 0) return 0;
-  const size_t smem = smem_bytes(s_in);
-  cudaError_t err = allow_smem(draw_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  draw_kernel<<<N, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-      static_cast<const float*>(d_buf), static_cast<const float*>(bounds), s_in, S, n_up,
-      step, static_cast<float*>(nd), static_cast<float*>(pts));
-  return (int)cudaGetLastError();
+  const DrawLaunch f{static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
+                     static_cast<const float*>(d_buf), static_cast<const float*>(bounds),
+                     N, s_in, S, n_up, step, static_cast<float*>(nd), static_cast<float*>(pts),
+                     static_cast<cudaStream_t>(stream)};
+  return (int)by_shape(s_in - 1, f);
 }
 
 // Kernel (c) of round `it` (1-based; `last` on round max_iter). d_in / s_in_buf
 // rows hold s_in entries, nd [N,n_up] the new depths (ascending), raw
 // [N*n_up] the MLP's sdf there; u_it / u_last point at round it's and the
 // fallback's uniforms (row stride u_stride). Writes the merged rows into d_out
-// / s_out (not on the last round), the new bounds (not on the last round),
-// the state, the draws, and beta_out on the last round.
+// / s_out and the next round's det depths nd_next [N,n_up] and their points
+// pts_next [N*n_up,3] (not on the last round; step as for kernel (b)), the
+// state, the draws, and beta_out on the last round.
 extern "C" int ntt_volsdf_checkpoint(
     const void* rays_o, const void* rays_d, const void* d_in, const void* s_in_buf,
     const void* nd, const void* raw, const void* ab, const void* u_it, const void* u_last,
     int N, int s_in, int S, int n_up, int n_final, int u_stride, int it, int last,
-    int max_bisection, float eps, float prior_r, float bg_r, void* d_out, void* s_out,
-    void* bounds, void* beta, void* converged, void* iter_usage, void* fine, void* beta_out,
-    void* stream) {
+    int max_bisection, float eps, float prior_r, float bg_r, float step, void* d_out,
+    void* s_out, void* beta, void* converged, void* iter_usage, void* fine, void* beta_out,
+    void* nd_next, void* pts_next, void* stream) {
   if (N <= 0) return 0;
-  const size_t smem = smem_bytes(s_in + n_up);
-  cudaError_t err = allow_smem(checkpoint_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  checkpoint_kernel<<<N, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const CheckpointLaunch f{
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(d_in), static_cast<const float*>(s_in_buf),
       static_cast<const float*>(nd), static_cast<const float*>(raw),
       static_cast<const float*>(ab), static_cast<const float*>(u_it),
-      static_cast<const float*>(u_last), s_in, S, n_up, n_final, u_stride, it, last,
-      max_bisection, eps, prior_r, bg_r, static_cast<float*>(d_out),
-      static_cast<float*>(s_out), static_cast<float*>(bounds), static_cast<float*>(beta),
-      static_cast<int*>(converged), static_cast<int*>(iter_usage), static_cast<float*>(fine),
-      static_cast<float*>(beta_out));
-  return (int)cudaGetLastError();
+      static_cast<const float*>(u_last), N, s_in, S, n_up, n_final, u_stride, it, last,
+      max_bisection, eps, prior_r, bg_r, step, static_cast<float*>(d_out),
+      static_cast<float*>(s_out), static_cast<float*>(beta), static_cast<int*>(converged),
+      static_cast<int*>(iter_usage), static_cast<float*>(fine), static_cast<float*>(beta_out),
+      static_cast<float*>(nd_next), static_cast<float*>(pts_next),
+      static_cast<cudaStream_t>(stream)};
+  return (int)by_shape(s_in + n_up - 1, f);
 }

@@ -10,18 +10,19 @@ Replaces the Pallas kernel family of `neurecon_tpu/ops/fused_fine_sample.py`
     and `launch_init`, kernel (a) (the rest: sphere-background min, beta+ of
     paper eq. 10, the convergence mask under the net's beta, the checkpoint-0
     opacity draw, the first bounds; plain version `init_plain`);
-  * `_make_upsample_query_kernel` -> per round `launch_draw`, kernel (b)
-    (bounds -> pdf -> the n_up det depths and their points; `draw_plain`), and
-    one kernel-4 launch;
+  * `_make_upsample_query_kernel` -> `launch_draw`, kernel (b), for round 1
+    (bounds -> pdf -> the n_up det depths and their points; `draw_plain`),
+    and for rounds 2..max_iter the same det draw at the end of the previous
+    round's kernel (c); then one kernel-4 launch;
   * `_make_checkpoint_kernel` -> per round `launch_checkpoint`, kernel (c)
     (the stable merge, then the convergence checkpoint, the beta bisection
-    and the new bounds; on the last round the fallback draw;
-    `checkpoint_plain`).
+    and the new bounds, from which it draws the next round's depths; on the
+    last round the fallback draw; `checkpoint_plain`, then `draw_plain`).
 
 A call takes the surface's kept pack (`surface_pack.packed_surface`,
-packed again only after the weights change) and makes 1 + 2 max_iter
-launches of the new kernels and 1 + max_iter of kernel 4. The MLP queries are ~99% of the
-arithmetic; the new kernels are weight-free.
+packed again only after the weights change) and makes 1 (a) + 1 (b) +
+max_iter (c) launches and 1 + max_iter of kernel 4. The MLP queries are ~99%
+of the arithmetic; the new kernels are weight-free.
 
 The uniforms of the opacity draws come from the caller, u_fin [N,
 (max_iter+2) n_final] in the reference's key order (checkpoint 0,
@@ -207,7 +208,7 @@ def _lib():
         lib.ntt_volsdf_draw.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
         lib.ntt_volsdf_checkpoint.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-            _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+            _F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
         for fn in (lib.ntt_volsdf_init, lib.ntt_volsdf_draw, lib.ntt_volsdf_checkpoint):
             fn.restype = _I
         lib._typed = True
@@ -241,16 +242,24 @@ def launch_init(ws, rays_o, rays_d, d_init, raw_sdf, far, ab, u_fin, *, n_final,
     launch_init.launches += 1
 
 
+def _det_step(n_up: int) -> float:
+    """float32(1 / (n_up + 1)): the det uniforms are (j + 1) times it."""
+    return float(np.float32(1.0) / np.float32(n_up + 1))
+
+
+def _draw_outputs(N: int, n_up: int, device):
+    return torch.empty(N, n_up, device=device), torch.empty(N * n_up, 3, device=device)
+
+
 def launch_draw(ws, rays_o, rays_d, src: int, s_in: int, n_up: int):
     """Kernel (b): the n_up det depths [N, n_up] drawn from the bounds of the
     s_in-entry buffer `src`, and their points [N * n_up, 3]."""
     N = rays_o.shape[0]
-    nd = torch.empty(N, n_up, device=rays_o.device)
-    pts = torch.empty(N * n_up, 3, device=rays_o.device)
-    step = float(np.float32(1.0) / np.float32(n_up + 1))
+    nd, pts = _draw_outputs(N, n_up, rays_o.device)
     rc = _lib().ntt_volsdf_draw(
         rays_o.data_ptr(), rays_d.data_ptr(), ws["d"][src].data_ptr(), ws["bounds"].data_ptr(),
-        N, s_in, ws["S"], n_up, step, nd.data_ptr(), pts.data_ptr(), _stream(rays_o))
+        N, s_in, ws["S"], n_up, _det_step(n_up), nd.data_ptr(), pts.data_ptr(),
+        _stream(rays_o))
     _build.check(rc, "volsdf_fine_sample (draw)")
     launch_draw.launches += 1
     return nd, pts
@@ -260,22 +269,27 @@ def launch_checkpoint(ws, rays_o, rays_d, src: int, s_in: int, nd, raw_new, ab, 
                       it: int, max_iter: int, max_bisection: int, n_final: int, u_stride,
                       eps, prior_r, bg_r):
     """Kernel (c): merge buffer `src` (s_in entries) with the new depths into
-    buffer 1 - src, then round `it`'s checkpoint, bisection and bounds (the
-    fallback draw and beta_out on the last round)."""
+    buffer 1 - src, then round `it`'s checkpoint, bisection and bounds, and
+    from the bounds the next round's det draw: returns its depths [N, n_up]
+    and their points [N * n_up, 3]. On the last round (it == max_iter) the
+    fallback draw and beta_out instead, and returns (None, None)."""
     N, n_up = nd.shape
     _contiguous(nd=nd, raw_new=raw_new, ab=ab, u_fin=u_fin)
-    dst = 1 - src
+    dst, last = 1 - src, it == max_iter
+    nd_next, pts_next = (None, None) if last else _draw_outputs(N, n_up, rays_o.device)
     rc = _lib().ntt_volsdf_checkpoint(
         rays_o.data_ptr(), rays_d.data_ptr(), ws["d"][src].data_ptr(),
         ws["s"][src].data_ptr(), nd.data_ptr(), raw_new.data_ptr(), ab.data_ptr(),
         u_fin[:, it * n_final:].data_ptr(), u_fin[:, (max_iter + 1) * n_final:].data_ptr(),
-        N, s_in, ws["S"], n_up, n_final, u_stride, it, int(it == max_iter), max_bisection,
-        eps, prior_r, bg_r, ws["d"][dst].data_ptr(), ws["s"][dst].data_ptr(),
-        ws["bounds"].data_ptr(), ws["beta"].data_ptr(), ws["converged"].data_ptr(),
-        ws["iter_usage"].data_ptr(), ws["fine"].data_ptr(), ws["beta_out"].data_ptr(),
+        N, s_in, ws["S"], n_up, n_final, u_stride, it, int(last), max_bisection,
+        eps, prior_r, bg_r, _det_step(n_up), ws["d"][dst].data_ptr(), ws["s"][dst].data_ptr(),
+        ws["beta"].data_ptr(), ws["converged"].data_ptr(), ws["iter_usage"].data_ptr(),
+        ws["fine"].data_ptr(), ws["beta_out"].data_ptr(),
+        None if last else nd_next.data_ptr(), None if last else pts_next.data_ptr(),
         _stream(rays_o))
     _build.check(rc, "volsdf_fine_sample (checkpoint)")
     launch_checkpoint.launches += 1
+    return nd_next, pts_next
 
 
 launch_init.launches = 0
@@ -285,8 +299,8 @@ launch_checkpoint.launches = 0
 
 def workspace(N: int, S: int, n_final: int, device) -> dict:
     """The kernels' per-call buffers: two (d, sdf) pairs [N, S] that the
-    merges alternate between, the bounds [N, S], the per-ray state and the
-    outputs."""
+    merges alternate between, the bounds [N, S] (kernel (a) writes them for
+    kernel (b); stride S), the per-ray state and the outputs."""
     return {"S": S,
             "d": torch.empty(2, N, S, device=device),
             "s": torch.empty(2, N, S, device=device),
@@ -354,10 +368,11 @@ def fused_fine_sample(surface, rays_o, rays_d, d_init, far, alpha_net, beta_net,
         raw = launch_sdf_forward(surface, pts, packed)
         launch_init(ws, rays_o, rays_d, d_init, raw, far, ab, u_fin,
                     beta_c=beta_plus_denominator(n0, eps), **kw)
+        nd, pts = launch_draw(ws, rays_o, rays_d, 0, n0, n_up)
         for it in range(1, max_iter + 1):
             src, s_in = (it - 1) % 2, n0 + (it - 1) * n_up
-            nd, pts = launch_draw(ws, rays_o, rays_d, src, s_in, n_up)
             raw = launch_sdf_forward(surface, pts, packed)
-            launch_checkpoint(ws, rays_o, rays_d, src, s_in, nd, raw, ab, u_fin, it=it,
-                              max_iter=max_iter, max_bisection=max_bisection, **kw)
+            nd, pts = launch_checkpoint(ws, rays_o, rays_d, src, s_in, nd, raw, ab, u_fin,
+                                        it=it, max_iter=max_iter,
+                                        max_bisection=max_bisection, **kw)
     return ws["fine"], ws["beta_out"], ws["iter_usage"]

@@ -21,8 +21,17 @@ largest leaf error against its plain version, and,
 where the copy has it, the sdf-only kernel at 2^20 points, the host time of
 one of its 4,096-point calls (what a sphere-tracing step makes), and the
 host time of sphere tracing 19,200 rays in chunks of 4,096 (one 120x160
-frame's casts). The flagship surface (D=8, W=256) with seeded noise on
-every weight, points and cotangents from `--seed`.
+frame's casts), and, where the copy has it, the VolSDF fine sampler's
+kernels (a), (b) and (c), each summed over one call (CUDA events around
+each launch, median of 5 calls) on 1,024 rays at beta_net 0.1 and 0.001
+and on 4,096 rays at 0.001 (rays from (0, 0, -3) into the background
+sphere of radius 3, n0 = n_up = 512, 6 rounds, 64 fine samples, perturb
+uniforms from the seed). The flagship surface (D=8, W=256) with seeded
+noise on every weight, points and cotangents from `--seed`.
+
+The sampler's outputs (fine depths, beta map, iter_usage) of every copy are
+then held to the first copy's on the same inputs: one JSON line per case
+and copy with the largest difference and the share of entries that differ.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 _CODE = r'''
 import json, sys
@@ -152,6 +162,56 @@ if fused_mlp is not None:
             sphere_tracing_surface_points(s.forward_query, o[c:c + 4096], d[c:c + 4096],
                                           near=0.0, far=4.8)
     res["sphere_trace_wall_ms_19200_rays"] = wall_ms(cast, reps=10)
+try:
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops.sampling import linspace01
+except ImportError:
+    ffs = None
+if ffs is not None:
+    import functools
+    from unittest import mock
+
+    def spans(name, log):
+        fn = getattr(ffs, name)
+
+        @functools.wraps(fn)
+        def wrapper(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record(); out = fn(*a, **k); ev[1].record(); log.append(ev)
+            return out
+        return mock.patch.object(ffs, name, wrapper)
+
+    kernels = {"volsdf_init": "launch_init", "volsdf_draw": "launch_draw",
+               "volsdf_checkpoint": "launch_checkpoint"}
+    saved = {}
+    for N, beta in ((1024, 0.1), (1024, 0.001), (4096, 0.001)):
+        th = (torch.rand(N, 2, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
+              * 0.6 - 0.3)
+        d = torch.stack([torch.sin(th[:, 0]), torch.sin(th[:, 1]) * torch.cos(th[:, 0]),
+                         torch.cos(th[:, 1]) * torch.cos(th[:, 0])], -1).contiguous()
+        o = torch.tensor([0.0, 0.0, -3.0], device=dev).expand(N, 3).contiguous()
+        far = torch.full((N, 1), 6.0, device=dev)
+        d_init = (far * linspace01(512, dev)).contiguous()
+        u = torch.rand(N, 8 * 64, device=dev, generator=torch.Generator(dev).manual_seed(SEED + 3))
+        args = (s, o, d, d_init, far, torch.tensor(1.0 / beta, device=dev),
+                torch.tensor(beta, device=dev), u)
+        kw = dict(eps=0.1, max_iter=6, max_bisection=10, n_final=64, n_up=512, sphere_bg_r=3.0)
+        out = ffs.fused_fine_sample(*args, **kw)
+        runs = []
+        for _ in range(5):
+            logs = {k: [] for k in kernels}
+            with spans("launch_init", logs["volsdf_init"]), \
+                    spans("launch_draw", logs["volsdf_draw"]), \
+                    spans("launch_checkpoint", logs["volsdf_checkpoint"]):
+                ffs.fused_fine_sample(*args, **kw)
+            torch.cuda.synchronize()
+            runs.append({k: sum(a.elapsed_time(b) for a, b in v) for k, v in logs.items()})
+        case = f"{N}_rays_beta_{beta:g}"
+        for k in kernels:
+            res[f"{k}_ms_per_call_{case}"] = float(np.median([r[k] for r in runs]))
+        res[f"sampler_ms_per_call_{case}"] = ms(lambda: ffs.fused_fine_sample(*args, **kw), reps=5)
+        saved[case] = [t.cpu() for t in out]
+    torch.save(saved, OUT)
 print(json.dumps(res))
 '''
 
@@ -162,16 +222,40 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     rc = 0
-    for root in map(os.path.abspath, args.roots):
-        out = subprocess.run([sys.executable, "-c",
-                              f"ROOT = {root!r}\nSEED = {args.seed}\n" + _CODE],
-                             capture_output=True, text=True, timeout=900)
-        if out.returncode == 0:
-            print(out.stdout.strip().splitlines()[-1])
-        else:
-            print(json.dumps({"root": root, "error": out.stderr[-2000:]}))
-            rc = 1
+    with tempfile.TemporaryDirectory(prefix="ntt_ab_") as tmp:
+        outs = []
+        for i, root in enumerate(map(os.path.abspath, args.roots)):
+            dump = os.path.join(tmp, f"{i}.pt")
+            out = subprocess.run([sys.executable, "-c", f"ROOT = {root!r}\nSEED = {args.seed}\n"
+                                  f"OUT = {dump!r}\n" + _CODE],
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode == 0:
+                print(out.stdout.strip().splitlines()[-1], flush=True)
+                if os.path.exists(dump):
+                    outs.append((root, dump))
+            else:
+                print(json.dumps({"root": root, "error": out.stderr[-2000:]}), flush=True)
+                rc = 1
+        if len(outs) > 1:
+            _compare_sampler(outs)
     return rc
+
+
+def _compare_sampler(outs):
+    """The sampler's outputs of each copy against the first copy's."""
+    import torch
+
+    (root0, dump0), rest = outs[0], outs[1:]
+    ref = torch.load(dump0)
+    for root, dump in rest:
+        got = torch.load(dump)
+        for case, want in ref.items():
+            line = {"sampler_outputs_vs": root0, "root": root, "case": case}
+            for name, a, b in zip(("fine", "beta_out", "iter_usage"), got[case], want):
+                diff = (a.double() - b.double()).abs()
+                line[f"{name}_max_diff"] = float(diff.max())
+                line[f"{name}_share_differing"] = float((a != b).double().mean())
+            print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-Four groups, each with its unmutated copy. For the unmutated source and for
+Five groups, each with its unmutated copy. For the unmutated source and for
 each mutant, the port's package (and `chip_smoke.py`) is copied into a
 temporary directory (under `--workdir`, the system's temporary directory by
 default; removed after), one edit is made to the copy, and a fresh process
@@ -43,6 +43,18 @@ passes and every mutant fails.
   at one slot; flipping both sides would give the same depths, as tied
   samples carry bit-equal sdf), drop the per-round doubling of s = 64, and
   drop the sphere prior.
+* `sampler`: the VolSDF fine sampler's kernels (a)-(c)
+  (`csrc/volsdf_fine_sample.cu`), held by `chip_smoke.py` phase 14
+  (`_sampler_check`: the sampler end to end and each kernel in lockstep on
+  phase 14's 1,024 flagship rays at beta_net 0.1, 0.01 and 0.001, det and
+  perturb, and `_sampler_edges`: a merge with exact old / new ties, det
+  draws at exact cdf ties and in flat cdf segments). Its mutants flip the
+  merge's tie order (new before old: only the tie check can see it, since
+  a depth drawn twice has the same sdf), move the wrong end of the beta
+  bracket on a good bisection step, run one bisection step fewer, take the
+  fallback draw at the net's beta instead of beta+, drop the draws' rule
+  that a cdf step below 1e-5 counts as 1, and drop the background sphere's
+  min from the new samples' sdf.
 """
 from __future__ import annotations
 
@@ -126,6 +138,25 @@ UPSAMPLE_MUTANTS = {
         "v += sqrtf(x0 * x0 + x1 * x1 + x2 * x2 + 1e-12f) - sphere_r;", ""),
 }
 
+SAMPLER_MUTANTS = {
+    "merge tie order flipped (new before old)": (
+        "csrc/volsdf_fine_sample.cu", "return old_d <= new_d;", "return old_d < new_d;"),
+    "bisection moves the wrong end on a good step": (
+        "csrc/volsdf_fine_sample.cu", "if (!bad) right = sb; else left = sb;",
+        "if (!bad) left = sb; else right = sb;"),
+    "one bisection step fewer": (
+        "csrc/volsdf_fine_sample.cu", "steps = conv ? 0 : max_bisection;",
+        "steps = conv ? 0 : max_bisection - 1;"),
+    "fallback draw at the net's beta": (
+        "csrc/volsdf_fine_sample.cu",
+        "newly ? alpha_net : 1.f / beta,\n" + " " * 23 + "newly ? beta_net : beta,",
+        "alpha_net,\n" + " " * 23 + "beta_net,"),
+    "cdf step below 1e-5 not taken as 1": (
+        "csrc/volsdf_fine_sample.cu", "if (den < 1e-5f) den = 1.f;", ""),
+    "background sphere's min dropped": (
+        "csrc/volsdf_fine_sample.cu", "if (bg_r >= 0.f) v = fminf(v, bg_r - sqrtf(sq));", ""),
+}
+
 # the checks take the card one at a time (the nablas check's plain version
 # alone holds tens of GB at 1,044,480 points)
 _LOCKED = r'''
@@ -171,6 +202,27 @@ _build.build_all(force=True)
 torch.backends.cuda.matmul.allow_tf32 = False
 ok, err, _, _ = chip_smoke.sine_kernel_checks(SEED, torch.device("cuda"), report=lambda s: None)
 print(json.dumps({"passes": ok, "errors": err}))
+'''
+
+_SAMPLER_CODE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke
+from neurecon_tpu_torch.ops import _build, fused_fine_sample
+for mod in (chip_smoke, fused_fine_sample):
+    if not mod.__file__.startswith(ROOT):
+        raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
+_build.build_all(force=True)
+''' + _LOCKED + r'''
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+*_, checked, _, _, _, (rays_o, rays_d, far) = chip_smoke.volsdf_check_inputs(SEED, dev)
+lines = []
+with chip_smoke.mock.patch("builtins.print", lambda *a, **k: lines.append(" ".join(map(str, a)))):
+    ok, err, _ = chip_smoke._sampler_check(checked.implicit_surface, rays_o, rays_d, far,
+                                           (0.1, 0.01, 0.001), 512, 512, 6, SEED, "")
+print(json.dumps({"passes": bool(ok), "errors": err, "lines": lines}))
 '''
 
 _CODE = r'''
@@ -267,7 +319,8 @@ def main(argv=None):
                 ("sdf", MUTANTS, _CODE, _judge_sdf),
                 ("sine", SINE_MUTANTS, _SINE_CODE, _judge_phase),
                 ("nablas", NABLAS_MUTANTS, _PHASE_CODE, _judge_phase),
-                ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase)):
+                ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase),
+                ("sampler", SAMPLER_MUTANTS, _SAMPLER_CODE, _judge_phase)):
             rc |= _run_group(tmp, group, {"unmutated": None, **mutants}, code, args.seed,
                              judge)
     return rc

@@ -386,7 +386,7 @@ def _fine_sample_both(cuda, surface_cfg, geo, N, n0, n_up, max_iter, perturb, be
     got = fused_fine_sample.fused_fine_sample(surf, rays_o, rays_d, d_init, far, *ab, u, **kw)
     torch.cuda.synchronize()
     launched = [f.launches - b for f, b in zip(fns, before)]
-    assert launched == ([1, max_iter, max_iter, 1 + max_iter] if N else [0, 0, 0, 0])
+    assert launched == ([1, 1, max_iter, 1 + max_iter] if N else [0, 0, 0, 0])
     ref = fused_fine_sample.fine_sample_plain(surf, rays_o, rays_d, d_init, far, *ab, u, **kw)
     return got, ref
 
@@ -413,14 +413,17 @@ def _assert_fine_samples_close(got, ref, span=6.0):
     (dict(SMALL, skips=[1, 3]), 64, 203, 32, 32, 3, True, 0.35),
     (dict(SMALL, sphere_residual=True), 64, 64, 50, 37, 2, True, 0.35),  # S = 124
     (FLAGSHIP, 256, 1024, 512, 512, 6, True, 0.1),
-    (FLAGSHIP, 256, 0, 512, 512, 6, False, 0.1)])
+    (FLAGSHIP, 256, 0, 512, 512, 6, False, 0.1),
+    (SMALL, 64, 96, 1024, 1024, 4, True, 0.35),  # S = 5,120: 512-thread blocks
+    (SMALL, 64, 48, 2048, 2048, 5, False, 0.35)])  # S = 12,288: 1,024-thread blocks
 def test_fine_sample_kernels_match_plain(cuda, cfg, geo, N, n0, n_up, max_iter, perturb,
                                          beta):
     """Kernels (a)-(c) with kernel 4 against the plain fine sampler: W=64
     with two skips on a ragged 203 rays, a sphere_residual prior with a
     buffer of 124 entries (not a multiple of 32), the flagship widths on
-    1,024 rays (n0 = n_up = 512, 6 rounds: 3,584 depths a ray), and N = 0
-    (empty outputs, no launch). At beta_net 0.01 or 0.001 on these rays
+    1,024 rays (n0 = n_up = 512, 6 rounds: 3,584 depths a ray), N = 0
+    (empty outputs, no launch), and buffers of 5,120 and 12,288 depths (the
+    kernels' 512- and 1,024-thread blocks). At beta_net 0.01 or 0.001 on these rays
     3.3% of the fine depths moved beyond 1e-4 of the span (an H100): many
     rays run all 60 bisection steps, and the bounds scale kernel 4's ~1e-6
     sdf differences from cuBLAS by 1 / beta, so one flipped decision moves a
@@ -431,6 +434,105 @@ def test_fine_sample_kernels_match_plain(cuda, cfg, geo, N, n0, n_up, max_iter, 
     assert got[0].shape == (N, 16) and got[1].shape == (N,) and got[2].shape == (N,)
     if N:
         _assert_fine_samples_close(got, ref)
+
+
+def _sampler_inputs(cuda, N=256, n0=512, seed=0):
+    """Phase 14's surface and the first N of its rays (chip_smoke's
+    `volsdf_check_inputs`), d_init over [0, far]."""
+    import chip_smoke
+
+    *_, checked, _, _, _, (rays_o, rays_d, far) = chip_smoke.volsdf_check_inputs(seed, cuda)
+    rays_o, rays_d, far = rays_o[:N].contiguous(), rays_d[:N].contiguous(), far[:N].contiguous()
+    return checked.implicit_surface, rays_o, rays_d, far, (far * linspace01(n0, cuda)).contiguous()
+
+
+@pytest.mark.cuda
+def test_draw_and_merge_kernels_at_ties_and_flat_segments(cuda):
+    """chip_smoke's `_sampler_edges`: kernel (b) against `draw_plain` on
+    equal bounds whose every u_j equals a cdf entry (all sums exact: bit for
+    bit) and on zero bounds beside one of 1.0, where ~3% of the draws fall
+    in cdf steps below 1e-5 (the denominator rule; share beyond 1e-4 of the
+    span at most 1%); kernel (c)'s merge with new depths equal to every
+    other old one and another sdf there: the merged depths equal the stable
+    sort's, and the sdf sits in its order (old before new)."""
+    import chip_smoke
+
+    surf, rays_o, rays_d, far, d_init = _sampler_inputs(cuda)
+    ab = (torch.tensor(10.0, device=cuda), torch.tensor(0.1, device=cuda))
+    with torch.no_grad():
+        edges = chip_smoke._sampler_edges(surf, rays_o, rays_d, d_init, far, ab,
+                                          fused_fine_sample.det_uniforms(16, 4, 256, cuda),
+                                          n_final=16)
+    assert edges["draw_ties"] == 0.0
+    assert edges["draw_flat_share"] <= 0.01
+    assert edges["merge_ties_sdf"] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", [0.1, 0.001])
+def test_checkpoint_kernel_in_lockstep(cuda, beta):
+    """Each of kernels (a)-(c) on its plain stage's inputs (chip_smoke's
+    `_lockstep`): merged depths bit-equal to the stable sort, every share at
+    most 1% (phase 14's gates), the det draws of (b) and of (c)'s tail
+    sorted, and the merged sdf within 1e-5."""
+    import chip_smoke
+
+    surf, rays_o, rays_d, far, d_init = _sampler_inputs(cuda)
+    ab = (torch.tensor(1.0 / beta, device=cuda), torch.tensor(beta, device=cuda))
+    u = torch.rand(256, 8 * 16, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    with torch.no_grad():
+        err, merged_equal = chip_smoke._lockstep(surf, rays_o, rays_d, d_init, far, ab, u,
+                                                 n_up=512, max_iter=6, n_final=16)
+    assert merged_equal
+    assert max(v for e in err.values() for k, v in e.items() if k.endswith("share")) <= 0.01
+    assert max(e.get("unsorted_rays", 0.0) for e in err.values()) == 0
+    assert max(e.get("sdf", 0.0) for e in err.values()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_draw_matches_draw_plain_on_its_own_bounds(cuda):
+    """Kernel (c)'s tail draws the next round from the bounds it computed;
+    `draw_plain` on the plain bounds of (c)'s own merged buffer and beta
+    (error_bound at (1 / beta, beta), clipped to [0, 1e5]) gives the same
+    depths but for at most 1% beyond 1e-4 of the span (sums in another
+    order), and they ascend."""
+    surf, rays_o, rays_d, far, d_init = _sampler_inputs(cuda)
+    N, n0, n_up, n_final = 256, 512, 512, 16
+    ab = torch.tensor([1000.0, 0.001], device=cuda)
+    u = fused_fine_sample.det_uniforms(n_final, 4, N, cuda)
+    ws = fused_fine_sample.workspace(N, n0 + 2 * n_up, n_final, cuda)
+    kw = dict(n_final=n_final, u_stride=u.shape[1], eps=0.1, prior_r=-1.0, bg_r=3.0)
+    with torch.no_grad():
+        pts = (rays_o[:, None] + rays_d[:, None] * d_init[..., None]).reshape(-1, 3)
+        fused_fine_sample.launch_init(ws, rays_o, rays_d, d_init,
+                                      fused_mlp.fused_sdf_forward(surf, pts), far, ab, u,
+                                      beta_c=fused_fine_sample.beta_plus_denominator(n0, 0.1),
+                                      **kw)
+        nd, pts = fused_fine_sample.launch_draw(ws, rays_o, rays_d, 0, n0, n_up)
+        nd2, _ = fused_fine_sample.launch_checkpoint(
+            ws, rays_o, rays_d, 0, n0, nd, fused_mlp.fused_sdf_forward(surf, pts), ab, u, it=1,
+            max_iter=2, max_bisection=10, **kw)
+        P = n0 + n_up
+        d, s, beta = ws["d"][1][:, :P], ws["s"][1][:, :P], ws["beta"][:, None]
+        bounds = torch.clamp(fused_fine_sample.error_bound(d, s, 1.0 / beta, beta), 0.0, 1e5)
+        want = fused_fine_sample.draw_plain(d, bounds, n_up)
+    torch.cuda.synchronize()
+    assert bool((nd2[:, 1:] >= nd2[:, :-1]).all())
+    assert float(((nd2 - want).abs() > 1e-4 * far).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_sharp_beta_sampler_at_phase14_gates(cuda):
+    """One call at beta_net 0.001 (six rounds of bisection for the rays that
+    never converge, then the fallback draw) on phase 14's rays, through
+    chip_smoke's `_sampler_check`: end to end and in lockstep, with the
+    merge-tie and det-draw edge checks, at phase 14's gates."""
+    import chip_smoke
+
+    *_, checked, _, _, _, (rays_o, rays_d, far) = chip_smoke.volsdf_check_inputs(0, cuda)
+    ok, _, _ = chip_smoke._sampler_check(checked.implicit_surface, rays_o, rays_d, far, (0.001,),
+                                         512, 512, 6, 0, "sharp beta")
+    assert ok
 
 
 # ---- the sine branch (SIREN surfaces), held at the Softplus cases' limits
