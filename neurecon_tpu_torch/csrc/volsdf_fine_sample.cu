@@ -36,27 +36,39 @@
 // rcp; 16 a clock per SM on Hopper) among the instructions of those IEEE
 // sequences. Bytes are a few tens of KB per ray and round.
 //
-// Design of (b) and (c). One block of 256 threads per ray (512 or 1,024 for
-// buffers above 4,097 entries); each thread holds a contiguous chunk of C
-// intervals (kernel (a)'s partition; C a template parameter, the smallest even
-// one that holds the round, so that no chunk is padded much) with their depths
-// and sdf, and a sweep's per-interval sigma * delta and error terms, in
-// registers (at most 80 at 256 threads: three blocks an SM). A sweep runs all
-// C intervals without a branch (zero-width intervals past a short chunk add
-// nothing), then one barrier for the block scan (warp shuffles; every warp
-// scans the warp totals itself, in kernel (a)'s order, so the rounding is
-// kernel (a)'s), then the bounds, and one __syncthreads_or of "above eps" for
-// the block's max. Every sweep of a round (the net's beta, the bisection, the
-// new bounds) runs through one loop, so that its code is inlined once and
-// stays in the instruction cache. Shared memory holds what random access
-// needs: the merge's inputs (depths and sdf, old then new, loaded coalesced,
-// the new sdf finished there), the merged rows (written out to the next
-// round's buffers coalesced), a cdf and the det draw's index map (3 x 3,584 +
-// 512 words at the flagship). The merge takes each thread's entries by a co-
-// rank search on the merge path. The det draw is a merge too: its uniforms
-// ascend, so each thread counts, for each cdf entry of its chunk, the uniforms
-// at or below it and writes the index of every draw that falls in its chunk
-// (the count of cdf entries below u, which is the binary search's index on a
+// One design for (a), (b) and (c). One block per ray: 256 threads (512 or
+// 1,024 for buffers above 4,097 entries; `by_shape`). Each thread holds a
+// contiguous chunk of C intervals (`chunk_of`; C a template parameter, the
+// smallest even one that holds the buffer, so that no chunk is padded much)
+// with their depths and sdf in registers (`Chunk<C>`), and a sweep's
+// per-interval sigma * delta and error terms (`terms`) beside them. A sweep
+// runs all C intervals without a branch (zero-width intervals past a short
+// chunk add nothing), then one barrier for the block scan (`scan_block`: warp
+// shuffles; every warp scans the warp totals itself, so every kernel sums in
+// one order), then the bounds, and one __syncthreads_or of "above eps" for the
+// block's max.
+//
+// Kernel (a) runs its two sweeps, at the net's (alpha, beta) and at (1 / beta+,
+// beta+), in one pass over the chunk with one scan of the four sums, and
+// takes the opacity cdf 1 - exp(-R) from the net sweep's own exp(-R): the
+// same terms, partition and scan that a separate opacity sweep would run
+// (`draw_opacity`), so the same bits. Three barriers a block: after the
+// loads, in the scan, and the decision's __syncthreads_or, which also
+// completes the cdf row for the draws' searches. Kernel (c) runs every sweep
+// of a round (the net's beta, the bisection, the new bounds) through one loop
+// (`sweep_chunk`), so that its code is inlined once and stays in the
+// instruction cache.
+//
+// Shared memory holds what random access needs: for (a) the depths and a row
+// that holds the finished sdf, then the cdf (2 x n0 words); for (b) and (c)
+// the merge's inputs (depths and sdf, old then new, loaded coalesced, the new
+// sdf finished there), the merged rows (written out to the next round's
+// buffers coalesced), a cdf and the det draw's index map (3 x 3,584 + 512
+// words at the flagship). The merge takes each thread's entries by a co-rank
+// search on the merge path. The det draw is a merge too: its uniforms ascend,
+// so each thread counts, for each cdf entry of its chunk, the uniforms at or
+// below it and writes the index of every draw that falls in its chunk (the
+// count of cdf entries below u, which is the binary search's index on a
 // monotone cdf); if the chunks' sums left the cdf falling at a chunk boundary
 // (they round apart from the scan), the ray's draws are binary searches. So
 // are the opacity draws, whose uniforms come unsorted. Products that feed sums
@@ -67,9 +79,6 @@
 // in another order than the reference's cumsum, so a bound that sits at eps
 // can flip (PERF.md). None of the TPU kernels' lane padding, counting
 // searches, one-hot gathers or triangular-matmul prefix sums is needed.
-//
-// Kernel (a) keeps its first design: the ray's buffers in shared memory
-// (4 x n0 floats), 256 threads.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -142,222 +151,62 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel (a): the ray's buffers in shared memory, 256 threads.
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-
-struct Smem {
-  float2* sh;  // [WARPS] block-reduction scratch
-  float* d;    // [P] sorted depths
-  float* s;    // [P] sdf at those depths
-  float* a;    // [P] scratch
-  float* b;    // [P] scratch (per-interval errors, then the opacity cdf)
-};
-
-__device__ Smem layout(float4* smem4, int P) {
-  Smem B;
-  B.sh = reinterpret_cast<float2*>(smem4);
-  B.d = reinterpret_cast<float*>(B.sh + WARPS);
-  B.s = B.d + P;
-  B.a = B.s + P;
-  B.b = B.a + P;
-  return B;
-}
-
-// [k0, k1): this thread's contiguous chunk of n items.
-__device__ __forceinline__ void chunk(int n, int& k0, int& k1) {
-  const int C = (n + THREADS - 1) / THREADS;
-  k0 = min((int)threadIdx.x * C, n);
-  k1 = min(k0 + C, n);
-}
-
-// Exclusive scan over the block of one float2 per thread (components summed
-// apart). Every thread of the block calls it.
-__device__ float2 block_exclusive_scan(float2 v, float2* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float2 inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float ax = __shfl_up_sync(FULL, inc.x, o), ay = __shfl_up_sync(FULL, inc.y, o);
-    if (lane >= o) { inc.x += ax; inc.y += ay; }
-  }
-  float2 ex = make_float2(__shfl_up_sync(FULL, inc.x, 1), __shfl_up_sync(FULL, inc.y, 1));
-  if (lane == 0) ex = make_float2(0.f, 0.f);
-  if (lane == 31) sh[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    float2 w = lane < WARPS ? sh[lane] : make_float2(0.f, 0.f);
-    for (int o = 1; o < WARPS; o <<= 1) {
-      const float ax = __shfl_up_sync(FULL, w.x, o), ay = __shfl_up_sync(FULL, w.y, o);
-      if (lane >= o) { w.x += ax; w.y += ay; }
-    }
-    if (lane < WARPS) sh[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) ex = make_float2(sh[warp - 1].x + ex.x, sh[warp - 1].y + ex.y);
-  __syncthreads();  // sh is reused by the next call
-  return ex;
-}
-
-__device__ float block_max(float v, float2* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  if (lane == 0) sh[warp].x = v;
-  __syncthreads();
-  float r = sh[0].x;
-  for (int w = 1; w < WARPS; ++w) r = fmaxf(r, sh[w].x);
-  __syncthreads();
-  return r;
-}
-
-enum { MAX_BOUND = 0, CLIP_BOUNDS = 1 };
-
-// The error bounds of the P-entry buffer (B.d, B.s) at (alpha, beta), paper
-// §3.3: bound_k = exp(-R_k) (exp(E_k) - 1), R the exclusive prefix of
-// sigma * delta, E the inclusive prefix of alpha / (4 beta) delta^2
-// exp(-d*_k / beta); NaN -> +inf. MAX_BOUND returns the block's max;
-// CLIP_BOUNDS writes clip(bound, 0, 1e5) to out[k], k < P - 1.
-template <int MODE>
-__device__ float sweep(const Smem& B, int P, float alpha, float beta, float* out) {
-  int k0, k1;
-  chunk(P - 1, k0, k1);
-  const float coef = alpha / (4.f * beta);
-  float2 tot = make_float2(0.f, 0.f);
-  for (int k = k0; k < k1; ++k) {
-    const float delta = B.d[k + 1] - B.d[k];
-    const float sd = __fmul_rn(sigma_of(B.s[k], alpha, beta), delta);
-    const float dstar = fmaxf(0.5f * (fabsf(B.s[k]) + fabsf(B.s[k + 1]) - delta), 0.f);
-    const float err = __fmul_rn(__fmul_rn(coef, __fmul_rn(delta, delta)), expf(-dstar / beta));
-    B.a[k] = sd;
-    B.b[k] = err;
-    tot.x += sd;
-    tot.y += err;
-  }
-  const float2 base = block_exclusive_scan(tot, B.sh);
-  float R = base.x, E = base.y, m = -INFINITY;
-  for (int k = k0; k < k1; ++k) {
-    E += B.b[k];
-    float bound = expf(-R) * (expf(E) - 1.f);
-    if (isnan(bound)) bound = INFINITY;
-    R += B.a[k];
-    if (MODE == MAX_BOUND) m = fmaxf(m, bound);
-    else out[k] = fminf(fmaxf(bound, 0.f), 1e5f);
-  }
-  if (MODE == MAX_BOUND) return block_max(m, B.sh);
-  return 0.f;
-}
-
-// The opacity cdf of the final draws into B.b [P]: 0, then 1 - exp(-R_k) for
-// k < P - 1 (sample_cdf's leading 0 prepended to 1 - exp(-R_t)).
-__device__ void opacity_cdf(const Smem& B, int P, float alpha, float beta) {
-  int k0, k1;
-  chunk(P - 1, k0, k1);
-  float tot = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    const float sd = __fmul_rn(sigma_of(B.s[k], alpha, beta), B.d[k + 1] - B.d[k]);
-    B.a[k] = sd;
-    tot += sd;
-  }
-  float R = block_exclusive_scan(make_float2(tot, 0.f), B.sh).x;
-  for (int k = k0; k < k1; ++k) {
-    B.b[k + 1] = 1.f - expf(-R);
-    R += B.a[k];
-  }
-  if (threadIdx.x == 0) B.b[0] = 0.f;
-  __syncthreads();
-}
-
-// n_final opacity draws of ray r at the uniforms u[0..n_final) into fine.
-__device__ void draw_final(const Smem& B, int P, float alpha, float beta, const float* u,
-                           int n_final, float* fine) {
-  opacity_cdf(B, P, alpha, beta);
-  for (int j = threadIdx.x; j < n_final; j += blockDim.x) fine[j] = invert(B.b, B.d, P, u[j]);
-  __syncthreads();  // the next sweep overwrites the cdf
-}
-
-__global__ void __launch_bounds__(THREADS)
-init_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-            const float* __restrict__ d_init, const float* __restrict__ raw,
-            const float* __restrict__ far, const float* __restrict__ ab,
-            const float* __restrict__ u, int n0, int S, int n_final, int u_stride,
-            float eps, float beta_c, float prior_r, float bg_r, float* __restrict__ d_buf,
-            float* __restrict__ s_buf, float* __restrict__ bounds, float* __restrict__ beta_arr,
-            int* __restrict__ converged, int* __restrict__ iter_usage,
-            float* __restrict__ fine) {
-  extern __shared__ float4 smem4[];
-  const Smem B = layout(smem4, n0);
-  const long r = blockIdx.x;
-  float o[3], dir[3];
-  load_ray(rays_o, rays_d, r, o, dir);
-  for (int j = threadIdx.x; j < n0; j += blockDim.x) {
-    const float t = d_init[r * n0 + j];
-    const float v = finish_sdf(raw[r * n0 + j], o, dir, t, prior_r, bg_r);
-    B.d[j] = t;
-    B.s[j] = v;
-    d_buf[r * S + j] = t;
-    s_buf[r * S + j] = v;
-  }
-  __syncthreads();
-  const float alpha_net = ab[0], beta_net = ab[1];
-  const float f = far[r];
-  const float beta = sqrtf(__fmul_rn(f, f) / beta_c);
-  const bool bad = sweep<MAX_BOUND>(B, n0, alpha_net, beta_net, nullptr) > eps;
-  sweep<CLIP_BOUNDS>(B, n0, 1.f / beta, beta, bounds + r * S);
-  draw_final(B, n0, alpha_net, beta_net, u + r * u_stride, n_final, fine + r * n_final);
-  if (threadIdx.x == 0) {
-    beta_arr[r] = beta;
-    converged[r] = !bad;
-    iter_usage[r] = bad ? -1 : 0;
-  }
-}
-
-inline size_t smem_bytes(int P) { return WARPS * sizeof(float2) + 4 * (size_t)P * sizeof(float); }
-
-// ---------------------------------------------------------------------------
-// Kernels (b) and (c): T threads a ray, each with a chunk of at most C
+// The kernels' routines: T threads a ray, each with a chunk of at most C
 // intervals in registers.
 
-// Two sets of T/32 float2 slots, taken in turn by the block's exchanges, so
-// that an exchange needs one barrier: a warp that writes a set again has
-// passed the barrier of the exchange in between, which every warp reaches
-// only after reading the set.
+// Two sets of K x T/32 float2 slots (K the widest exchange of the kernel),
+// taken in turn by the block's exchanges, so that an exchange needs one
+// barrier: a warp that writes a set again has passed the barrier of the
+// exchange in between, which every warp reaches only after reading the set.
 struct Xchg {
   float2* sh;
   int turn;
 };
 
-template <int T>
+template <int T, int K = 1>
 __device__ __forceinline__ float2* take_slots(Xchg& x) {
   x.turn ^= 1;
-  return x.sh + x.turn * (T / 32);
+  return x.sh + x.turn * K * (T / 32);
 }
 
-// Exclusive block scan of one float2 a thread, in kernel (a)'s order (the
-// warps' Hillis-Steele scans, the same scan of the warp totals), which every
-// warp finishes itself after one barrier.
+// Exclusive block scan of K float2 a thread (each component summed apart) in
+// one exchange: the warps' Hillis-Steele scans, then the same scan of the warp
+// totals, which every warp finishes itself after one barrier.
+template <int T, int K>
+__device__ __forceinline__ void scan_block(float2 (&v)[K], Xchg& x) {
+  constexpr int W = T / 32;
+  float2* sh = take_slots<T, K>(x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float2 inc = v[j];
+    for (int o = 1; o < 32; o <<= 1) {
+      const float ax = __shfl_up_sync(FULL, inc.x, o), ay = __shfl_up_sync(FULL, inc.y, o);
+      if (lane >= o) { inc.x += ax; inc.y += ay; }
+    }
+    v[j] = make_float2(__shfl_up_sync(FULL, inc.x, 1), __shfl_up_sync(FULL, inc.y, 1));
+    if (lane == 0) v[j] = make_float2(0.f, 0.f);
+    if (lane == 31) sh[j * W + warp] = inc;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float2 w = lane < W ? sh[j * W + lane] : make_float2(0.f, 0.f);
+    for (int o = 1; o < W; o <<= 1) {
+      const float ax = __shfl_up_sync(FULL, w.x, o), ay = __shfl_up_sync(FULL, w.y, o);
+      if (lane >= o) { w.x += ax; w.y += ay; }
+    }
+    const float px = __shfl_sync(FULL, w.x, max(warp - 1, 0));
+    const float py = __shfl_sync(FULL, w.y, max(warp - 1, 0));
+    if (warp > 0) v[j] = make_float2(px + v[j].x, py + v[j].y);
+  }
+}
+
 template <int T>
 __device__ __forceinline__ float2 scan_block(float2 v, Xchg& x) {
-  constexpr int W = T / 32;
-  float2* sh = take_slots<T>(x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float2 inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float ax = __shfl_up_sync(FULL, inc.x, o), ay = __shfl_up_sync(FULL, inc.y, o);
-    if (lane >= o) { inc.x += ax; inc.y += ay; }
-  }
-  float2 ex = make_float2(__shfl_up_sync(FULL, inc.x, 1), __shfl_up_sync(FULL, inc.y, 1));
-  if (lane == 0) ex = make_float2(0.f, 0.f);
-  if (lane == 31) sh[warp] = inc;
-  __syncthreads();
-  float2 w = lane < W ? sh[lane] : make_float2(0.f, 0.f);
-  for (int o = 1; o < W; o <<= 1) {
-    const float ax = __shfl_up_sync(FULL, w.x, o), ay = __shfl_up_sync(FULL, w.y, o);
-    if (lane >= o) { w.x += ax; w.y += ay; }
-  }
-  const float px = __shfl_sync(FULL, w.x, max(warp - 1, 0));
-  const float py = __shfl_sync(FULL, w.y, max(warp - 1, 0));
-  if (warp > 0) ex = make_float2(px + ex.x, py + ex.y);
-  return ex;
+  float2 a[1] = {v};
+  scan_block<T, 1>(a, x);
+  return a[0];
 }
 
 // The block's sum in the first draw kernel's order (warp butterflies, then
@@ -376,13 +225,15 @@ __device__ __forceinline__ float sum_block(float v, Xchg& x) {
 
 // This thread's chunk of a ray's buffer: entries k0 .. k0 + cnt (the cnt
 // intervals it owns and the next thread's first entry) in registers, in
-// kernel (a)'s partition of the intervals.
+// chunk_of's partition of the intervals.
 template <int C>
 struct Chunk {
   float d[C + 1], s[C + 1];
   int k0, cnt;
 };
 
+// [k0, k0 + cnt): this thread's contiguous share of n intervals, ceil(n / T)
+// each (the last threads' shares are shorter or empty).
 template <int T>
 __device__ __forceinline__ void chunk_of(int n, int& k0, int& cnt) {
   const int c = (n + T - 1) / T;
@@ -427,8 +278,29 @@ __device__ __forceinline__ void merge_chunk(Chunk<C>& ch, const float* a, const 
   }
 }
 
-// A sweep of the error bounds over the chunk (kernel (a)'s `sweep`: the
-// same arithmetic and scan order): the thread's bounds clipped to [0, 1e5]
+// Interval i of the chunk at (alpha, beta), coef = alpha / (4 beta), paper
+// §3.3: (sigma * delta, the error term alpha / (4 beta) delta^2
+// exp(-d*_i / beta)); the sums of each over the buffer are R and E.
+template <int C>
+__device__ __forceinline__ float2 terms(const Chunk<C>& ch, int i, float alpha, float beta,
+                                        float coef) {
+  const float delta = ch.d[i + 1] - ch.d[i];
+  const float dstar = fmaxf(0.5f * (fabsf(ch.s[i]) + fabsf(ch.s[i + 1]) - delta), 0.f);
+  return make_float2(__fmul_rn(sigma_of(ch.s[i], alpha, beta), delta),
+                     __fmul_rn(__fmul_rn(coef, __fmul_rn(delta, delta)), expf(-dstar / beta)));
+}
+
+// An interval's error bound exp(-R) (exp(E) - 1) from decay = exp(-R) (R
+// exclusive, E inclusive of the interval); NaN (0 * inf) -> +inf.
+__device__ __forceinline__ float bound_at(float decay, float E) {
+  const float b = decay * (expf(E) - 1.f);
+  return isnan(b) ? INFINITY : b;
+}
+
+// The bound clipped to [0, 1e5], as the det draw takes it.
+__device__ __forceinline__ float clip_bound(float b) { return fminf(fmaxf(b, 0.f), 1e5f); }
+
+// A sweep of the error bounds over the chunk: the thread's bounds clipped
 // into out (the first cnt are the chunk's), and whether the block's largest
 // bound is above eps (one __syncthreads_or). It runs all C intervals without
 // a branch, so that their chains interleave: past cnt they have zero width,
@@ -438,33 +310,30 @@ template <int T, int C>
 __device__ __forceinline__ bool sweep_chunk(const Chunk<C>& ch, float alpha, float beta,
                                             float eps, float (&out)[C], Xchg& x) {
   const float coef = alpha / (4.f * beta);
-  float sd[C], err[C];
+  float2 t[C];
   float2 tot = make_float2(0.f, 0.f);
 #pragma unroll
   for (int i = 0; i < C; ++i) {
-    const float delta = ch.d[i + 1] - ch.d[i];
-    sd[i] = __fmul_rn(sigma_of(ch.s[i], alpha, beta), delta);
-    const float dstar = fmaxf(0.5f * (fabsf(ch.s[i]) + fabsf(ch.s[i + 1]) - delta), 0.f);
-    err[i] = __fmul_rn(__fmul_rn(coef, __fmul_rn(delta, delta)), expf(-dstar / beta));
-    tot.x += sd[i];
-    tot.y += err[i];
+    t[i] = terms(ch, i, alpha, beta, coef);
+    tot.x += t[i].x;
+    tot.y += t[i].y;
   }
   const float2 base = scan_block<T>(tot, x);
   float R = base.x, E = base.y, m = -INFINITY;
 #pragma unroll
   for (int i = 0; i < C; ++i) {
-    E += err[i];
-    float bound = expf(-R) * (expf(E) - 1.f);
-    if (isnan(bound)) bound = INFINITY;
-    R += sd[i];
+    E += t[i].y;
+    const float bound = bound_at(expf(-R), E);
+    R += t[i].x;
     m = fmaxf(m, bound);
-    out[i] = fminf(fmaxf(bound, 0.f), 1e5f);
+    out[i] = clip_bound(bound);
   }
   return __syncthreads_or(m > eps) != 0;
 }
 
 // n_final opacity draws at the uniforms u (unsorted) into fine: the cdf
-// 0, 1 - exp(-R_k) (kernel (a)'s opacity_cdf) into crow, then a search each.
+// 0, 1 - exp(-R_k) (the sum of the sweeps' sigma * delta) into crow, then a
+// search each.
 template <int T, int C>
 __device__ __forceinline__ void draw_opacity(const Chunk<C>& ch, int P, const float* drow,
                                              float* crow,
@@ -732,8 +601,107 @@ checkpoint_kernel(const float* __restrict__ rays_o, const float* __restrict__ ra
   }
 }
 
+// Kernel (a) on n0 depths a ray: the coarse sdf finished (loaded coalesced
+// into the rows, both round-0 buffers written out), then one pass over the
+// chunk for the sweeps at the net's (alpha, beta) and at (1 / beta+, beta+),
+// one scan of their four sums, and per interval the net's bound (the max
+// decision), the clipped beta+ bound (into bounds, for kernel (b)) and the
+// opacity cdf 1 - exp(-R) of the net's R (into the sdf's row, whose chunks
+// are in registers by then); then the checkpoint-0 draws.
+template <int T, int C>
+__global__ void __launch_bounds__(T, T == 256 && C <= 8 ? 4 : 1)
+init_kernel(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+            const float* __restrict__ d_init, const float* __restrict__ raw,
+            const float* __restrict__ far, const float* __restrict__ ab,
+            const float* __restrict__ u, int n0, int S, int n_final, int u_stride,
+            float eps, float beta_c, float prior_r, float bg_r, float* __restrict__ d_buf,
+            float* __restrict__ s_buf, float* __restrict__ bounds, float* __restrict__ beta_arr,
+            int* __restrict__ converged, int* __restrict__ iter_usage,
+            float* __restrict__ fine) {
+  // beyond 8 intervals a thread the beta+ terms are computed again in the
+  // bound pass, not held: four terms an interval would spill (up to 8, at
+  // most 64 registers, four blocks an SM, no spills)
+  constexpr bool keep = C <= 8;
+  extern __shared__ float4 smem4[];
+  Xchg x{reinterpret_cast<float2*>(smem4), 0};
+  float* drow = reinterpret_cast<float*>(x.sh + 2 * 2 * (T / 32));
+  float* crow = drow + n0;  // the finished sdf, then the opacity cdf
+  const long r = blockIdx.x;
+  float o[3], dir[3];
+  load_ray(rays_o, rays_d, r, o, dir);
+  for (int j = threadIdx.x; j < n0; j += T) {
+    const float t = d_init[r * n0 + j];
+    const float v = finish_sdf(raw[r * n0 + j], o, dir, t, prior_r, bg_r);
+    drow[j] = t;
+    crow[j] = v;
+    d_buf[r * S + j] = t;
+    s_buf[r * S + j] = v;
+  }
+  __syncthreads();
+  Chunk<C> ch;
+  chunk_of<T>(n0 - 1, ch.k0, ch.cnt);
+#pragma unroll
+  for (int e = 0; e <= C; ++e) {  // past cnt: zero-width intervals
+    const int k = ch.k0 + min(e, ch.cnt);
+    ch.d[e] = drow[k];
+    ch.s[e] = crow[k];
+  }
+  const float alpha_net = ab[0], beta_net = ab[1];
+  const float f = far[r];
+  const float beta = sqrtf(__fmul_rn(f, f) / beta_c);
+  const float alpha = 1.f / beta;
+  const float coef_net = alpha_net / (4.f * beta_net), coef = alpha / (4.f * beta);
+  float2 tn[C], tp[keep ? C : 1];
+  float2 tot[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};  // net, beta+
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    tn[i] = terms(ch, i, alpha_net, beta_net, coef_net);
+    const float2 p = terms(ch, i, alpha, beta, coef);
+    if constexpr (keep) tp[i] = p;
+    tot[0].x += tn[i].x;
+    tot[0].y += tn[i].y;
+    tot[1].x += p.x;
+    tot[1].y += p.y;
+  }
+  scan_block<T, 2>(tot, x);
+  float Rn = tot[0].x, En = tot[0].y, Rp = tot[1].x, Ep = tot[1].y, m = -INFINITY;
+  float* bout = bounds + r * S + ch.k0;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    float2 p;
+    if constexpr (keep) p = tp[i]; else p = terms(ch, i, alpha, beta, coef);
+    En += tn[i].y;
+    Ep += p.y;
+    const float decay = expf(-Rn);
+    const float bn = bound_at(decay, En), bp = bound_at(expf(-Rp), Ep);
+    m = fmaxf(m, bn);
+    if (i < ch.cnt) {
+      crow[ch.k0 + i + 1] = 1.f - decay;
+      bout[i] = clip_bound(bp);
+    }
+    Rn += tn[i].x;
+    Rp += p.x;
+  }
+  if (threadIdx.x == 0) crow[0] = 0.f;
+  const bool bad = __syncthreads_or(m > eps) != 0;  // and the cdf row is whole
+  for (int j = threadIdx.x; j < n_final; j += T)
+    fine[r * n_final + j] = invert(crow, drow, n0, u[r * u_stride + j]);
+  if (threadIdx.x == 0) {
+    beta_arr[r] = beta;
+    converged[r] = !bad;
+    iter_usage[r] = bad ? -1 : 0;
+  }
+}
+
+// Kernel (a)'s shared memory: two sets of 2 x T/32 exchange slots, the depth
+// row and the sdf / cdf row.
+template <int T>
+inline size_t smem_bytes_a(int n0) {
+  return 2 * 2 * (T / 32) * sizeof(float2) + 2 * (size_t)n0 * sizeof(float);
+}
+
 // The block shape for n intervals: 256 threads with the smallest even chunk
-// that holds them (the chunk kernel (a) takes, at the flagship's rounds),
+// that holds them (chunk_of's share at 256 threads, up to 4,096 intervals),
 // then 512 and 1,024 threads; f.run<T, C>() launches.
 template <typename F>
 cudaError_t by_shape(int n, const F& f) {
@@ -749,6 +717,28 @@ cudaError_t by_shape(int n, const F& f) {
   if (n <= 1024 * 14) return f.template run<1024, 14>();
   return cudaErrorInvalidValue;
 }
+
+struct InitLaunch {
+  const float *rays_o, *rays_d, *d_init, *raw, *far, *ab, *u;
+  int N, n0, S, n_final, u_stride;
+  float eps, beta_c, prior_r, bg_r;
+  float *d_buf, *s_buf, *bounds, *beta;
+  int *converged, *iter_usage;
+  float* fine;
+  cudaStream_t stream;
+
+  template <int T, int C>
+  cudaError_t run() const {
+    const size_t smem = smem_bytes_a<T>(n0);
+    cudaError_t err = allow_smem(init_kernel<T, C>, smem);
+    if (err != cudaSuccess) return err;
+    init_kernel<T, C><<<N, T, smem, stream>>>(rays_o, rays_d, d_init, raw, far, ab, u, n0, S,
+                                              n_final, u_stride, eps, beta_c, prior_r, bg_r,
+                                              d_buf, s_buf, bounds, beta, converged,
+                                              iter_usage, fine);
+    return cudaGetLastError();
+  }
+};
 
 struct DrawLaunch {
   const float *rays_o, *rays_d, *d_buf, *bounds;
@@ -809,18 +799,15 @@ extern "C" int ntt_volsdf_init(const void* rays_o, const void* rays_d, const voi
                                void* beta, void* converged, void* iter_usage, void* fine,
                                void* stream) {
   if (N <= 0) return 0;
-  const size_t smem = smem_bytes(n0);
-  cudaError_t err = allow_smem(init_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  init_kernel<<<N, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  const InitLaunch f{
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(d_init), static_cast<const float*>(raw),
       static_cast<const float*>(far), static_cast<const float*>(ab),
-      static_cast<const float*>(u), n0, S, n_final, u_stride, eps, beta_c, prior_r, bg_r,
+      static_cast<const float*>(u), N, n0, S, n_final, u_stride, eps, beta_c, prior_r, bg_r,
       static_cast<float*>(d_buf), static_cast<float*>(s_buf), static_cast<float*>(bounds),
-      static_cast<float*>(beta), static_cast<int*>(converged),
-      static_cast<int*>(iter_usage), static_cast<float*>(fine));
-  return (int)cudaGetLastError();
+      static_cast<float*>(beta), static_cast<int*>(converged), static_cast<int*>(iter_usage),
+      static_cast<float*>(fine), static_cast<cudaStream_t>(stream)};
+  return (int)by_shape(n0 - 1, f);
 }
 
 // Kernel (b). d_buf rows (stride S) hold s_in sorted depths, bounds rows

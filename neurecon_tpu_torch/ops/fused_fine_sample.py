@@ -49,7 +49,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# 4 float buffers of S entries per ray in one block's shared memory (227 KB)
+# the kernels' largest block (1,024 threads x 14 intervals, `by_shape` in
+# csrc/volsdf_fine_sample.cu), whose rows of S entries fit one block's shared
+# memory (227 KB)
 MAX_SAMPLES = 14336
 
 

@@ -29,9 +29,12 @@ sphere of radius 3, n0 = n_up = 512, 6 rounds, 64 fine samples, perturb
 uniforms from the seed). The flagship surface (D=8, W=256) with seeded
 noise on every weight, points and cotangents from `--seed`.
 
-The sampler's outputs (fine depths, beta map, iter_usage) of every copy are
-then held to the first copy's on the same inputs: one JSON line per case
-and copy with the largest difference and the share of entries that differ.
+The sampler's outputs (fine depths, beta map, iter_usage), and every output
+of kernel (a) launched alone on the same rays (round-0 depths and sdf,
+bounds, beta+, converged, iter_usage, the checkpoint-0 draws; case
+`<case>_init`), of every copy are then held to the first copy's on the same
+inputs: one JSON line per case and copy with, for each output, the largest
+difference and the share of entries that differ.
 """
 from __future__ import annotations
 
@@ -210,7 +213,18 @@ if ffs is not None:
         for k in kernels:
             res[f"{k}_ms_per_call_{case}"] = float(np.median([r[k] for r in runs]))
         res[f"sampler_ms_per_call_{case}"] = ms(lambda: ffs.fused_fine_sample(*args, **kw), reps=5)
-        saved[case] = [t.cpu() for t in out]
+        saved[case] = dict(zip(("fine", "beta_out", "iter_usage"), (t.cpu() for t in out)))
+        # kernel (a) alone on the same rays: every output
+        ws = ffs.workspace(N, 512 + 6 * 512, 64, dev)
+        pts = (o[:, None] + d[:, None] * d_init[..., None]).reshape(-1, 3)
+        ffs.launch_init(ws, o, d, d_init, fused_mlp.fused_sdf_forward(s, pts), far,
+                        torch.stack(args[5:7]).float(), u, n_final=64, u_stride=u.shape[1],
+                        eps=0.1, beta_c=ffs.beta_plus_denominator(512, 0.1),
+                        prior_r=float(s.radius_init) if s.sphere_residual else -1.0, bg_r=3.0)
+        saved[f"{case}_init"] = {
+            "d_buf": ws["d"][0][:, :512].cpu(), "s_buf": ws["s"][0][:, :512].cpu(),
+            "bounds": ws["bounds"][:, :511].cpu(),
+            **{k: ws[k].cpu() for k in ("beta", "converged", "iter_usage", "fine")}}
     torch.save(saved, OUT)
 print(json.dumps(res))
 '''
@@ -251,7 +265,8 @@ def _compare_sampler(outs):
         got = torch.load(dump)
         for case, want in ref.items():
             line = {"sampler_outputs_vs": root0, "root": root, "case": case}
-            for name, a, b in zip(("fine", "beta_out", "iter_usage"), got[case], want):
+            for name, b in want.items():
+                a = got[case][name]
                 diff = (a.double() - b.double()).abs()
                 line[f"{name}_max_diff"] = float(diff.max())
                 line[f"{name}_share_differing"] = float((a != b).double().mean())

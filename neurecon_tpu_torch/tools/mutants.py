@@ -54,7 +54,13 @@ passes and every mutant fails.
   bracket on a good bisection step, run one bisection step fewer, take the
   fallback draw at the net's beta instead of beta+, drop the draws' rule
   that a cdf step below 1e-5 counts as 1, and drop the background sphere's
-  min from the new samples' sdf.
+  min from the new samples' sdf; four edit kernel (a): its convergence
+  check at beta+ instead of the net's beta, its checkpoint-0 draw at
+  (1 / beta+, beta+), its last interval left out of the partition (n0 - 2
+  intervals), and the last depth of the round-0 buffer left unwritten (the
+  lockstep starts from a NaN workspace, holds (a)'s fine depths as a share
+  beyond 1e-4 of the span and its bounds as a share of rays, and its
+  round-0 depths to d_init exactly).
 """
 from __future__ import annotations
 
@@ -155,6 +161,17 @@ SAMPLER_MUTANTS = {
         "csrc/volsdf_fine_sample.cu", "if (den < 1e-5f) den = 1.f;", ""),
     "background sphere's min dropped": (
         "csrc/volsdf_fine_sample.cu", "if (bg_r >= 0.f) v = fminf(v, bg_r - sqrtf(sq));", ""),
+    "(a): convergence checked at beta+": (
+        "csrc/volsdf_fine_sample.cu", "m = fmaxf(m, bn);", "m = fmaxf(m, bp);"),
+    "(a): checkpoint-0 draw at (1 / beta+, beta+)": (
+        "csrc/volsdf_fine_sample.cu", "crow[ch.k0 + i + 1] = 1.f - decay;",
+        "crow[ch.k0 + i + 1] = 1.f - expf(-Rp);"),
+    "(a): last interval left out of the partition": (
+        "csrc/volsdf_fine_sample.cu", "chunk_of<T>(n0 - 1, ch.k0, ch.cnt);",
+        "chunk_of<T>(n0 - 2, ch.k0, ch.cnt);"),
+    "(a): last depth of the round-0 buffer not written": (
+        "csrc/volsdf_fine_sample.cu", "d_buf[r * S + j] = t;",
+        "if (j < n0 - 1) d_buf[r * S + j] = t;"),
 }
 
 # the checks take the card one at a time (the nablas check's plain version
@@ -205,7 +222,7 @@ print(json.dumps({"passes": ok, "errors": err}))
 '''
 
 _SAMPLER_CODE = r'''
-import json, sys
+import json, re, sys
 import torch
 sys.path.insert(0, ROOT)
 import chip_smoke
@@ -222,7 +239,19 @@ lines = []
 with chip_smoke.mock.patch("builtins.print", lambda *a, **k: lines.append(" ".join(map(str, a)))):
     ok, err, _ = chip_smoke._sampler_check(checked.implicit_surface, rays_o, rays_d, far,
                                            (0.1, 0.01, 0.001), 512, 512, 6, SEED, "")
-print(json.dumps({"passes": bool(ok), "errors": err, "lines": lines}))
+# the lockstep readings past phase 14's gates, and whether the depths were equal
+over, equal = {}, True
+for line in lines:
+    m = re.search(r"lockstep [^{]*(\{.*\}); round-0 and merged depths equal (\w+)", line)
+    if m:
+        equal &= m.group(2) == "True"
+        for kernel, e in json.loads(m.group(1)).items():
+            for key, v in e.items():
+                limit = {"sdf": 1e-5, "unsorted_rays": 0.0}.get(key, 0.01)
+                if (key.endswith("share") or key in ("sdf", "unsorted_rays")) and not v <= limit:
+                    over[f"{kernel}.{key}"] = max(over.get(f"{kernel}.{key}", 0.0), v)
+print(json.dumps({"passes": bool(ok), "errors": err, "lockstep_over_gates": over,
+                  "depths_equal": equal}))
 '''
 
 _CODE = r'''
@@ -305,7 +334,7 @@ def _judge_sdf(line):
 
 def _judge_phase(line):
     res = json.loads(line)
-    return bool(res["passes"]), {"errors": res["errors"]}
+    return bool(res["passes"]), {k: v for k, v in res.items() if k != "passes"}
 
 
 def main(argv=None):

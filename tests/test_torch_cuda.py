@@ -472,9 +472,10 @@ def test_draw_and_merge_kernels_at_ties_and_flat_segments(cuda):
 @pytest.mark.parametrize("beta", [0.1, 0.001])
 def test_checkpoint_kernel_in_lockstep(cuda, beta):
     """Each of kernels (a)-(c) on its plain stage's inputs (chip_smoke's
-    `_lockstep`): merged depths bit-equal to the stable sort, every share at
-    most 1% (phase 14's gates), the det draws of (b) and of (c)'s tail
-    sorted, and the merged sdf within 1e-5."""
+    `_lockstep`): (a)'s round-0 depths equal d_init and the merged depths
+    the stable sort's, bit for bit, every share at most 1% (phase 14's
+    gates), the det draws of (b) and of (c)'s tail sorted, and the round-0
+    and merged sdf within 1e-5."""
     import chip_smoke
 
     surf, rays_o, rays_d, far, d_init = _sampler_inputs(cuda)
@@ -519,6 +520,57 @@ def test_fused_draw_matches_draw_plain_on_its_own_bounds(cuda):
     torch.cuda.synchronize()
     assert bool((nd2[:, 1:] >= nd2[:, :-1]).all())
     assert float(((nd2 - want).abs() > 1e-4 * far).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", [0.1, 0.001])
+@pytest.mark.parametrize("N", [1, 203, 1024])
+@pytest.mark.parametrize("n0", [2, 50, 512, 2048])
+def test_init_kernel_matches_init_plain(cuda, n0, N, beta):
+    """Kernel (a) alone against `init_plain` on the same finished sdf (a
+    sphere of radius 1 with seeded noise, min the background sphere): n0 = 2
+    is one interval (most threads own none), 2,048 the chunk of 8. Phase
+    14's lockstep gates: the finished sdf within 1e-5, at most 1% of the
+    bounds beyond rtol 1e-3 / atol 1e-6, at most 1% of the rays off in beta
+    (rtol 1e-3 / atol 1e-5), in converged or in iter_usage, at most 1% of
+    the fine depths beyond 1e-4 of the span; the round-0 depths equal d_init
+    exactly. The workspace starts as NaN, and its rows have a stride of n0 +
+    5 entries."""
+    n_final, S = 16, n0 + 5
+    rays_o, rays_d = _rays(N, cuda, seed=n0)
+    far = torch.full((N, 1), 6.0, device=cuda)
+    d_init = (far * linspace01(n0, cuda)).contiguous()
+    pts = rays_o[:, None] + rays_d[:, None] * d_init[..., None]
+    g = torch.Generator(cuda).manual_seed(n0 + N)
+    raw = (pts.norm(dim=-1) - 1.0 + 0.02 * torch.randn(N, n0, device=cuda, generator=g))
+    u = torch.rand(N, 3 * n_final, device=cuda, generator=g)
+    ab = torch.tensor([1.0 / beta, beta], device=cuda)
+    ws = fused_fine_sample.workspace(N, S, n_final, cuda)
+    for t in ws.values():
+        if torch.is_tensor(t) and t.is_floating_point():
+            t.fill_(float("nan"))
+    before = fused_fine_sample.launch_init.launches
+    with torch.no_grad():
+        fused_fine_sample.launch_init(
+            ws, rays_o, rays_d, d_init, raw.reshape(-1).contiguous(), far, ab, u,
+            n_final=n_final, u_stride=u.shape[1], eps=0.1,
+            beta_c=fused_fine_sample.beta_plus_denominator(n0, 0.1), prior_r=-1.0, bg_r=3.0)
+        sdf = fused_fine_sample.background_min(raw, pts, 3.0)
+        want = fused_fine_sample.init_plain(d_init, sdf, far, ab[0], ab[1], u[:, :n_final],
+                                            eps=0.1)
+    torch.cuda.synchronize()
+    assert fused_fine_sample.launch_init.launches == before + 1
+
+    def off(a, b, rtol, atol):
+        return float((~((a - b).abs() <= atol + rtol * b.abs())).float().mean())
+
+    assert torch.equal(ws["d"][0][:, :n0], d_init)
+    assert float((ws["s"][0][:, :n0] - sdf).abs().max()) <= 1e-5
+    assert off(ws["bounds"][:, :n0 - 1], want["bounds"], 1e-3, 1e-6) <= 0.01
+    assert off(ws["beta"], want["beta"][:, 0], 1e-3, 1e-5) <= 0.01
+    assert float((ws["converged"].bool() != want["converged"]).float().mean()) <= 0.01
+    assert float((ws["iter_usage"] != want["iter_usage"]).float().mean()) <= 0.01
+    assert off(ws["fine"], want["fine"], 0.0, 1e-4 * 6.0) <= 0.01
 
 
 @pytest.mark.cuda

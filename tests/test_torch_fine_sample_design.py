@@ -1,5 +1,6 @@
-"""The design of the VolSDF sampler's det draw (kernels (b) and (c) of
-`csrc/volsdf_fine_sample.cu`), emulated in torch on the CPU.
+"""The design of the VolSDF sampler's kernels (`csrc/volsdf_fine_sample.cu`),
+emulated in torch on the CPU: the det draw of kernels (b) and (c), and the
+one-pass sweeps of kernel (a).
 
 The kernels invert the det cdf as a merge: the uniforms u_j = (j + 1) step
 ascend, so each thread counts, for each cdf entry of its chunk, the uniforms
@@ -10,7 +11,15 @@ the chunks' sums let the cdf fall at a chunk boundary, the kernel searches
 as before. These tests hold an emulation of that logic, step for step, to
 `sample_pdf` and to `torch.searchsorted`, on seeded bounds with zero
 bounds, bounds clipped at 1e5 beside them (flat cdf segments), and exact
-ties of u with cdf entries. This file imports no JAX.
+ties of u with cdf entries.
+
+Kernel (a) runs its two error-bound sweeps (at the net's beta and at beta+)
+in one pass over each thread's chunk with one block scan of the four sums,
+and takes the opacity cdf 1 - exp(-R) from the net sweep's own exp(-R). The
+emulation below sums in the kernel's order (per thread over `chunk_of`'s
+partition, the warps' Hillis-Steele scans, then the same scan of the warp
+totals) and is held to `init_plain`, and its cdf to a separate opacity pass
+bit for bit. This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -206,3 +215,140 @@ def test_sampler_bounds_count_the_sfu():
     assert b["volsdf_draw"][2] == "bytes"
     for v in b.values():
         assert v[0] >= v[3] > 0
+
+
+# ---- kernel (a): both sweeps and the opacity cdf in one pass
+
+
+def _thread_sums(x, threads):
+    """x [..., n] per-interval terms -> (per-thread sums [..., T] in the
+    chunk's order, the terms as [..., T, c]): thread t owns intervals
+    [t c, t c + c) of n, c = ceil(n / T), zero-width padding past n."""
+    n = x.shape[-1]
+    c = -(-n // threads)
+    v = torch.zeros(*x.shape[:-1], threads * c)
+    v[..., :n] = x
+    v = v.view(*x.shape[:-1], threads, c)
+    tot = torch.zeros(*x.shape[:-1], threads)
+    for i in range(c):
+        tot = tot + v[..., i]
+    return tot, v
+
+
+def _hillis_steele(v):
+    """Inclusive scan along the last axis, lane k adding lane k - o for o =
+    1, 2, 4, ... (the warp shuffles' order)."""
+    o = 1
+    while o < v.shape[-1]:
+        w = v.clone()
+        w[..., o:] = v[..., o:] + v[..., :-o]
+        v, o = w, 2 * o
+    return v
+
+
+def _scan_block(tot, threads):
+    """scan_block's exclusive scan of [..., T]: each warp's scan, then every
+    warp adds the scanned total of the warps before it."""
+    inc = _hillis_steele(tot.view(*tot.shape[:-1], threads // 32, 32))
+    ex = torch.zeros_like(inc)
+    ex[..., 1:] = inc[..., :-1]
+    warps = _hillis_steele(inc[..., 31])
+    ex[..., 1:, :] = warps[..., :-1, None] + ex[..., 1:, :]
+    return ex.reshape(tot.shape)
+
+
+def _terms(d, sdf, alpha, beta):
+    """(sigma * delta, the error term) of every interval [..., n], as the
+    kernels' `terms` round them."""
+    e = 0.5 * torch.exp(-torch.abs(sdf[..., :-1]) / beta)
+    sigma = alpha * torch.where(sdf[..., :-1] >= 0, e, 1 - e)
+    delta = d[..., 1:] - d[..., :-1]
+    dstar = torch.clamp(0.5 * (sdf[..., :-1].abs() + sdf[..., 1:].abs() - delta), min=0.0)
+    return sigma * delta, alpha / (4 * beta) * (delta * delta) * torch.exp(-dstar / beta)
+
+
+def emulate_init(d, sdf, far, alpha_net, beta_net, u, eps, threads=256):
+    """Kernel (a)'s sweeps and draws on rays [R, n0] in float32: one pass,
+    one scan of four sums (net sigma * delta, net error, beta+ sigma * delta,
+    beta+ error, summed apart). Returns the init state and the cdf [R, n0]."""
+    n0 = d.shape[-1]
+    n = n0 - 1
+    beta = torch.sqrt(far * far / torch.tensor(ffs.beta_plus_denominator(n0, eps)))
+    terms = torch.stack([*_terms(d, sdf, alpha_net, beta_net), *_terms(d, sdf, 1.0 / beta, beta)],
+                        1)  # [R, 4, n]
+    tot, v = _thread_sums(terms, threads)
+    run = _scan_block(tot, threads)  # [R, 4, T]: R_net, E_net, R_plus, E_plus
+    bounds, cdf = [], []
+    for i in range(v.shape[-1]):
+        run[:, 1] = run[:, 1] + v[:, 1, :, i]
+        run[:, 3] = run[:, 3] + v[:, 3, :, i]
+        decay = torch.exp(-run[:, 0])
+        b = torch.exp(-run[:, 2:3]) * (torch.exp(run[:, 3:4]) - 1)
+        bn = decay * (torch.exp(run[:, 1]) - 1)
+        bounds.append(torch.stack([bn, b[:, 0]], 1))
+        cdf.append(1 - decay)
+        run[:, 0] = run[:, 0] + v[:, 0, :, i]
+        run[:, 2] = run[:, 2] + v[:, 2, :, i]
+    bounds = torch.stack(bounds, -1).flatten(-2)[..., :n]  # [R, 2, n], chunk by chunk
+    bounds = torch.where(torch.isnan(bounds), torch.full_like(bounds, float("inf")), bounds)
+    cdf = torch.cat([torch.zeros(d.shape[0], 1), torch.stack(cdf, -1).flatten(-2)[:, :n]], -1)
+    bad = bounds[:, 0].amax(-1) > eps
+    lo = torch.searchsorted(cdf, u.contiguous(), right=False)  # the first cdf >= u
+    below, above = (lo - 1).clamp(min=0), lo.clamp(max=n0 - 1)
+    cb, ca = cdf.gather(1, below), cdf.gather(1, above)
+    bb, ba = d.gather(1, below), d.gather(1, above)
+    den = torch.where(ca - cb < 1e-5, torch.ones_like(ca), ca - cb)
+    fine = bb + (u - cb) / den * (ba - bb)
+    return ({"bounds": torch.clamp(bounds[:, 1], 0.0, 1e5), "beta": beta, "converged": ~bad,
+             "iter_usage": torch.where(bad, -1, 0).int(), "fine": fine}, cdf)
+
+
+def _init_inputs(n0, R=48, n_final=32):
+    rng = np.random.RandomState(n0)
+    far = torch.tensor(rng.uniform(4.5, 6.0, (R, 1)).astype(np.float32))
+    d = (far * linspace01(n0)).contiguous()
+    sdf = ((d - 3.0).abs() - 1.0 + torch.tensor(rng.normal(0, 0.02, (R, n0)).astype(np.float32)))
+    u = torch.tensor(rng.uniform(0, 1, (R, n_final)).astype(np.float32))
+    return d, sdf, far, u
+
+
+@pytest.mark.parametrize("n0", [2, 50, 512, 2048])
+def test_one_pass_init_matches_init_plain(n0):
+    """The one-pass emulation of kernel (a) against `init_plain` (its plain
+    version, cumsum order) on seeded sdf crossing zero twice a ray, at
+    beta_net 0.1 and 0.001: beta bit-equal, the clipped beta+ bounds within
+    rtol 1e-4 / atol 1e-6, the convergence flags equal, the fine depths
+    within 1e-5 of the span. n0 = 2 is one interval; n0 = 2,048 the chunk
+    of 8."""
+    d, sdf, far, u = _init_inputs(n0)
+    for beta_net in (0.1, 0.001):
+        a, b = torch.tensor(1.0 / beta_net), torch.tensor(beta_net)
+        got, _ = emulate_init(d, sdf, far, a, b, u, 0.1)
+        want = ffs.init_plain(d, sdf, far, a, b, u, eps=0.1)
+        assert torch.equal(got["beta"], want["beta"])
+        torch.testing.assert_close(got["bounds"], want["bounds"], rtol=1e-4, atol=1e-6)
+        assert torch.equal(got["converged"], want["converged"])
+        assert torch.equal(got["iter_usage"], want["iter_usage"])
+        assert float((got["fine"] - want["fine"]).abs().max()) <= 1e-5 * 6.0
+
+
+@pytest.mark.parametrize("n0", [2, 50, 512, 2048])
+def test_one_pass_cdf_is_the_opacity_pass(n0):
+    """The premise of kernel (a)'s one pass: the opacity cdf taken from the
+    net sweep's exp(-R), with the four sums scanned together, equals bit for
+    bit the cdf of a separate opacity pass (its own sigma * delta, its own
+    per-thread sums and scan of that one sum), as kernel (c)'s
+    `draw_opacity` makes it."""
+    d, sdf, far, u = _init_inputs(n0)
+    for beta_net in (0.1, 0.001):
+        a, b = torch.tensor(1.0 / beta_net), torch.tensor(beta_net)
+        _, cdf = emulate_init(d, sdf, far, a, b, u, 0.1)
+        tot, v = _thread_sums(_terms(d, sdf, a, b)[0], 256)
+        R = _scan_block(tot, 256)
+        steps = []
+        for i in range(v.shape[-1]):
+            steps.append(1 - torch.exp(-R))
+            R = R + v[..., i]
+        opacity = torch.cat([torch.zeros(d.shape[0], 1),
+                             torch.stack(steps, -1).flatten(-2)[:, :n0 - 1]], -1)
+        assert torch.equal(cdf, opacity)
