@@ -151,15 +151,63 @@ Phases, in order; any failure exits non-zero:
    per SIREN frame; one SIREN step and one frame split as phase 17 splits
    them.
 
+22. the file loaders: the synthetic sphere scene written in the DTU layout
+   (8 views at DTU's 1200x1600, cameras.npz with a scale_mat of a scale and a
+   shift), the BlendedMVS and the custom layouts (8 views at 300x400; the
+   BlendedMVS images as PNG, where real scans ship JPEG, which needs
+   imageio), its PNGs by `write_png`, which cycles the five row filters over the rows so
+   that the reader's every filter runs; each loaded through `get_data` at
+   downscale 1 and at configs/unisurf.yaml's val_downscale 8: every rgb
+   within 1/255 of the analytic render resized by the area rule written
+   apart from the loader's `area_resize` (`_area_mean`), masks equal (the
+   same mean > 127.5), intrinsics within 1e-5 of max|K| and poses within 1e-5 of the
+   scene's own (after scale_mat); seconds a load.
+23. `train.py` on configs/unisurf.yaml (`UNISURF`, held equal to the file
+   by tests/test_torch_unisurf.py) read from the DTU scene, with the cuts it
+   prints (data_dir, 40 steps of 450,000, i_val and i_val_mesh 20, mesh_N
+   128, the run's directories and logging): the launches exact (9 of kernel
+   4 and one each of kernels 1 and 3 a step, the two validations' chunks,
+   the step-20 mesh's 8 kernel-4 launches), every loss finite, the last 10
+   steps' mean below the first 10's, the logged interval within 1e-6 of
+   `interval_at`; median ms per step over steps 6-40 and rays/s. Then the
+   same 40 steps again with kernels 4, 1 and 3 replaced by their plain
+   versions (same init, batches and draws; no kernel launched): every
+   step's loss within rel 1e-3 of the kernel run's, the min and max logit
+   on a 128^3 grid at steps 20 and 40 within 1e-2 of the plain range, and
+   a zero set at the same checkpoints in both runs.
+24. on two sets of weights, the geometric init with seeded noise (every
+   weight seen) and phase 23's step-20 checkpoint (trained, with a
+   surface), 1,024 rays of the DTU scene: the root find through kernel 4
+   against the plain query (hit masks agree on >= 99.9% of the rays, depth
+   within 1e-4 of the span where both hit); the step's gradient with the
+   plain root find's output as surface_override and the same uniforms,
+   through kernels 1 and 3 against their plain versions (loss rel 1e-5,
+   every leaf within 5e-4 max|ref|); the final weights' hits (printed).
+25. two 120x160 frames of the final checkpoint through `render_view` (DTU
+   scene at --downscale 10, volume mode, the checkpoint's interval): exact
+   launches (kernel 4 9 and kernel 1 one a chunk, no kernel 3), finite; on
+   each of phase 24's two sets of weights a 2,048-ray patch against the
+   plain render (some rays hit, surface masks agree on >= 99.9%, rgb within
+   2e-3 where they agree); `extract_surface` of the step-20 checkpoint (the
+   final one has no zero set) at 256^3 over volume 3.0, non-empty and
+   closed, and the final weights' logit range on a 128^3 grid (printed).
+26. kernels 4 (the 262,144 points of a step's march), 1 and 3 (a step's
+   100,352 points) beside their plain versions and bounds; ms per step,
+   rays/s, s per frame, the DTU load's seconds; one step split into the
+   root find (kernel 4 and its glue), kernel 1, kernel 3, the radiance
+   forward, Adam and the rest, the device's busy share; one frame split the
+   same way.
+
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
 (`launches` from each slice's training run: phase 8 for kernels 1-4, phase
 16 for (a)-(c), phase 20 for the sine branch, whose rows are named
-`<kernel>[sine]`; `launches_by_path` for each path; the surface-MLP rows
-held to their 3xTF32 bounds, `bound_held_to`; kernel 1's `ms_130560` and
-kernel 2's `ms_512_rays` at a training step's shapes), then, as the last line,
-{"ok": true, "device": {...}}. Needs the repository checkout beside it; it
-imports no JAX.
+`<kernel>[sine]`; `launches_by_path` for each path, `unisurf_train` and
+`unisurf_render` among them; the surface-MLP rows held to their 3xTF32
+bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
+at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
+then, as the last line, {"ok": true, "device": {...}}. Needs the repository
+checkout beside it; it imports no JAX.
 """
 import argparse
 import contextlib
@@ -168,11 +216,13 @@ import functools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -545,6 +595,18 @@ def _train_timed(targs, zero_counts, read_counts):
     return out, launches, [evs[i].elapsed_time(evs[i + 1]) for i in range(len(starts))], secs
 
 
+def _plain1(surface, x, weights=None, packed=None):
+    """Kernel 1's plain version in its wrapper's place (the pack unread)."""
+    from neurecon_tpu_torch.ops import fused_nablas
+    return fused_nablas.forward_with_nablas_plain(surface, x, weights)
+
+
+def _plain3(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None):
+    """Kernel 3's plain version in its wrapper's place (the pack unread)."""
+    from neurecon_tpu_torch.ops import fused_nablas_vjp
+    return fused_nablas_vjp.nablas_vjp_plain(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h)
+
+
 def _step_grad_check(model, ray_loss, *args, **kwargs):
     """`ray_loss(*args, **kwargs)` and every parameter's gradient through the
     kernels and through the plain versions of kernels 1 and 3 (called by
@@ -558,16 +620,9 @@ def _step_grad_check(model, ray_loss, *args, **kwargs):
         total.backward()
         return total.item(), [p.grad.clone() for p in model.parameters()]
 
-    def plain1(surface, x, weights=None, packed=None):  # the kernels' pack unread
-        return fused_nablas.forward_with_nablas_plain(surface, x, weights)
-
-    def plain3(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None):
-        return fused_nablas_vjp.nablas_vjp_plain(surface, x, ws, bs, cot_sdf, cot_nablas,
-                                                 cot_h)
-
     loss_k, grads_k = step_grads()
-    with mock.patch.object(fused_nablas, "fused_forward_with_nablas", plain1), \
-            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp", plain3):
+    with mock.patch.object(fused_nablas, "fused_forward_with_nablas", _plain1), \
+            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp", _plain3):
         loss_p, grads_p = step_grads()
     model.zero_grad(set_to_none=True)
     names = [n for n, _ in model.named_parameters()]
@@ -1616,6 +1671,568 @@ def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     return 0, rows
 
 
+# ---- UNISURF and the file loaders (phases 22-26) ----
+
+# configs/unisurf.yaml as the file holds it (the card machine has no PyYAML
+# to read it; tests/test_torch_unisurf.py holds the two equal)
+UNISURF = {
+    "data": {"N_rays": 1024, "batch_size": 1, "data_dir": "./data/DTU/scan65",
+             "downscale": 1, "pin_memory": True, "val_downscale": 8, "val_rayschunk": 256},
+    "device_ids": -1,
+    "expname": "unisurf_65",
+    "model": {"W_geometry_feature": 256, "framework": "UNISURF", "obj_bounding_radius": 4.0,
+              "radiance": {"D": 4, "embed_multires": -1, "embed_multires_view": -1,
+                           "skips": []},
+              "surface": {"D": 8, "embed_multires": 6, "radius_init": 1.0, "skips": [4]},
+              "tau": 0.5},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "delta_beta": 1.5e-05, "delta_max": 1.0, "delta_min": 0.05,
+                 "i_backup": 50000, "i_save": 900, "i_val": 1000, "i_val_mesh": 20000,
+                 "log_root_dir": "./logs", "lr": 0.0001, "overlap_sampler": False,
+                 "fused_nablas_vjp": True, "monitoring": "tensorboard", "num_iters": 450000,
+                 "perturb_surface_pts": 0.01,
+                 "scheduler": {"gamma": 0.5, "milestones": [200000, 400000],
+                               "type": "multistep"},
+                 "w_reg": 0.01},
+}
+UNISURF_STEPS = 40  # phase 23's cut of configs/unisurf.yaml's 450,000 steps
+DTU_SHAPE = (8, 1200, 1600)  # views, H, W: DTU's image size, 8 of its 49-64 views
+SMALL_SHAPE = (8, 300, 400)  # the BlendedMVS and custom scenes
+# the DTU scene's scale_mat: normalized coordinates -> world, x_w = s x_n + c
+DTU_SCALE, DTU_SHIFT = 2.5, (0.3, -0.2, 0.5)
+
+
+def unisurf_train_config(data_dir, exp_root, seed):
+    """configs/unisurf.yaml with phase 23's cuts, and the cuts as
+    (dotted key, value) pairs (printed by the phase)."""
+    cuts = [("data.data_dir", data_dir), ("training.num_iters", UNISURF_STEPS),
+            ("training.i_val", UNISURF_STEPS // 2), ("training.i_val_mesh", UNISURF_STEPS // 2),
+            ("data.mesh_N", 128), ("training.exp_dir", os.path.join(exp_root, "run")),
+            ("training.log_root_dir", exp_root), ("training.i_log", 10),
+            ("training.i_backup", UNISURF_STEPS // 2), ("training.monitoring", "none"),
+            ("expname", "chip_smoke_unisurf"), ("seed", seed)]
+    cfg = copy.deepcopy(UNISURF)
+    for key, value in cuts:
+        *path, last = key.split(".")
+        node = cfg
+        for p in path:
+            node = node[p]
+        node[last] = value
+    return cfg, cuts
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path, img, filters=(0, 1, 2, 3, 4), palette=None, trns=None):
+    """Write `img` as a PNG with the standard library and numpy: uint8 or
+    uint16, [H, W] (grey) or [H, W, C] (C = 1 grey, 2 grey + alpha, 3 RGB,
+    4 RGBA), or uint8 palette indices [H, W] with `palette` [n, 3] (and
+    `trns`, the palette's alpha). Row r takes filter filters[r % len]: the
+    default cycles None, Sub, Up, Average and Paeth over the rows, so that a
+    reader's every filter runs."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else img.shape[-1]
+    ctype = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    depth = 16 if img.dtype == np.uint16 else 8
+    if depth == 8 and img.dtype != np.uint8:
+        raise ValueError(f"write_png: {img.dtype} pixels, want uint8 or uint16")
+    raw = (img.astype(">u2") if depth == 16 else img).tobytes()
+    x = np.frombuffer(raw, np.uint8).reshape(H, -1).astype(np.int16)
+    bpp = C * depth // 8
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]  # the byte one pixel to the left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]  # the byte above
+    c = np.zeros_like(x)
+    c[1:] = a[:-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    ft = np.asarray(filters, np.int16)[np.arange(H) % len(filters)][:, None]
+    pred = np.select([ft == 1, ft == 2, ft == 3, ft == 4], [a, b, (a + b) >> 1, paeth], 0)
+    rows = np.concatenate([ft, (x - pred) & 0xFF], 1).astype(np.uint8)
+    chunks = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, 0))]
+    if palette is not None:
+        chunks.append(_png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+        if trns is not None:
+            chunks.append(_png_chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes()))
+    chunks += [_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), _png_chunk(b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + b"".join(chunks))
+
+
+def _to_u8(x):
+    return np.round(np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0):
+    """The synthetic sphere scene (`make_synthetic_scene`) on disk in one of
+    the loaders' layouts, its images and masks as PNGs by `write_png`:
+
+      * "DTU": image/, mask/, cameras.npz with world_mat_i = K [R|t] in a
+        world frame x_w = DTU_SCALE x_n + DTU_SHIFT and scale_mat_i mapping
+        the normalized frame to it;
+      * "BlendedMVS": blended_images/ (and a `*_masked.png` the loader skips)
+        with cams_normalized/<name>_cam.txt;
+      * "custom": images/, mask/, mask_out/ (read as `masks_ignore`: a band
+        along the left edge) and cam.json with P and SCALE.
+
+    Returns the scene's normalized cameras and analytic images: {"c2w",
+    "intrinsics" [n, 4, 4], "rgb" [n, H, W, 3] float, "mask" [n, H, W] bool,
+    "mask_out" [n, H, W] bool or None}."""
+    from neurecon_tpu_torch.dataio.blendedmvs import write_cam
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+
+    scene = make_synthetic_scene(n_images=n_images, H=H, W=W, radius=radius,
+                                 cam_radius=cam_radius)
+    c2w, K = scene["c2w"].astype(np.float64), scene["intrinsics"][0].astype(np.float64)
+    rgb = scene["rgb"].reshape(n_images, H, W, 3)
+    mask = scene["object_mask"].reshape(n_images, H, W)
+    mask_out = None
+    S = np.diag([DTU_SCALE] * 3 + [1.0])
+    S[:3, 3] = DTU_SHIFT
+    names = [f"{i:06d}" for i in range(n_images)]
+    dirs = {"DTU": ("image", "mask"), "BlendedMVS": ("blended_images", None),
+            "custom": ("images", "mask")}[layout]
+    for d in dirs:
+        if d:
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+    world_mats = []
+    for i, name in enumerate(names):
+        c2w_w = c2w[i].copy()
+        c2w_w[:3, 3] = DTU_SCALE * c2w[i][:3, 3] + np.asarray(DTU_SHIFT)
+        world_mats.append(K @ np.linalg.inv(c2w_w))
+        write_png(os.path.join(root, dirs[0], f"{name}.png"), _to_u8(rgb[i]))
+        if dirs[1]:
+            write_png(os.path.join(root, dirs[1], f"{name}.png"),
+                      mask[i].astype(np.uint8) * 255)
+    if layout == "DTU":
+        np.savez(os.path.join(root, "cameras.npz"),
+                 **{f"world_mat_{i}": w for i, w in enumerate(world_mats)},
+                 **{f"scale_mat_{i}": S for i in range(n_images)})
+    elif layout == "BlendedMVS":
+        os.makedirs(os.path.join(root, "cams_normalized"), exist_ok=True)
+        for i, name in enumerate(names):
+            cam = np.zeros((2, 4, 4))
+            cam[0] = np.linalg.inv(c2w[i])
+            cam[1][:3, :3] = K[:3, :3]
+            cam[1][3] = (0.5, 0.01, 256, 3.06)
+            write_cam(os.path.join(root, "cams_normalized", f"{name}_cam.txt"), cam)
+        write_png(os.path.join(root, dirs[0], f"{names[0]}_masked.png"), _to_u8(rgb[0] * 0))
+    else:
+        mask_out = np.zeros_like(mask)
+        mask_out[:, :, : W // 8] = True
+        os.makedirs(os.path.join(root, "mask_out"), exist_ok=True)
+        for i, name in enumerate(names):
+            write_png(os.path.join(root, "mask_out", f"{name}.png"),
+                      mask_out[i].astype(np.uint8) * 255)
+        with open(os.path.join(root, "cam.json"), "w") as f:
+            json.dump({f"{name}.png": {"P": world_mats[i].tolist(), "SCALE": S.tolist()}
+                       for i, name in enumerate(names)}, f)
+    return {"c2w": c2w.astype(np.float32), "intrinsics": K.astype(np.float32),
+            "rgb": rgb, "mask": mask, "mask_out": mask_out}
+
+
+def _area_matrix(n_in, n_out):
+    """[n_out, n_in]: the share of source pixel j in output pixel i, the
+    overlap of [j, j + 1) with [i s, (i + 1) s) over s = n_in / n_out."""
+    s = n_in / n_out
+    lo = np.arange(n_out)[:, None] * s
+    j = np.arange(n_in)[None, :]
+    return np.clip(np.minimum(lo + s, j + 1) - np.maximum(lo, j), 0.0, None) / s
+
+
+def _area_mean(img, h, w):
+    """`img` [H, W, ...] shrunk to [h, w, ...] by the area rule written as two
+    overlap matrices in float64, apart from the loaders' `area_resize` (a
+    block mean where the sizes divide)."""
+    out = np.tensordot(_area_matrix(img.shape[0], h), np.asarray(img, np.float64), (1, 0))
+    return np.moveaxis(np.tensordot(_area_matrix(img.shape[1], w), out, (1, 1)), 0, 1)
+
+
+def _loader_phase(workdir):
+    """Phase 22: the synthetic scene written in the three layouts, loaded
+    through `get_data` at downscale 1 and at unisurf.yaml's val_downscale,
+    held to the scene's own images, masks and cameras. Returns (ok, the DTU
+    scene's root, its dataset at downscale 1, {layout: seconds of the load
+    at both scales})."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.utils import io as io_util
+
+    route = "imageio" if io_util._imageio() is not None else "the port's PNG reader"
+    print(f"phase 22: images decoded by {route}; resized by utils/io.py::area_resize")
+    val_ds = float(UNISURF["data"]["val_downscale"])
+    ok, dtu_root, dtu_full, load_s = True, None, None, {}
+    for layout, (n, H, W) in (("DTU", DTU_SHAPE), ("BlendedMVS", SMALL_SHAPE),
+                              ("custom", SMALL_SHAPE)):
+        root = os.path.join(workdir, f"scene_{layout.lower()}")
+        t0 = time.perf_counter()
+        scene = write_scene(root, layout, n, H, W)
+        write_s = time.perf_counter() - t0
+        # as train.py loads a scene: at downscale 1 and its val_downscale copy,
+        # from one decode of each file
+        args = ConfigDict({"data": {"type": layout, "data_dir": root, "downscale": 1.0}})
+        t0 = time.perf_counter()
+        both = get_data(args, return_val=True, val_downscale=val_ds)
+        secs = load_s[layout] = time.perf_counter() - t0
+        for ds, dset in zip((1.0, val_ds), both):
+            h, w = int(H / ds), int(W / ds)
+
+            def resized(img):
+                return img if ds == 1 else _area_mean(img, h, w)
+            rgb_ref = np.stack([resized(scene["rgb"][i]) for i in range(n)]).reshape(n, -1, 3)
+            e_rgb = float(np.abs(dset.rgb_images - rgb_ref).max())
+            masks_ok = True
+            for got, want in ((dset.object_masks, scene["mask"] if layout != "BlendedMVS"
+                               else None),
+                              (getattr(dset, "masks_ignore", None), scene["mask_out"])):
+                if want is None:
+                    masks_ok &= got is None
+                    continue
+                ref = np.stack([resized(m.astype(np.float32) * 255.0) > 127.5 for m in want])
+                masks_ok &= got is not None and np.array_equal(got, ref.reshape(n, -1))
+            K = scene["intrinsics"].astype(np.float64).copy()
+            K[0, 0], K[1, 1], K[0, 2], K[1, 2] = (K[0, 0] / ds, K[1, 1] / ds, K[0, 2] / ds,
+                                                  K[1, 2] / ds)
+            e_K = float(np.abs(dset.intrinsics_all - K).max() / np.abs(K).max())
+            e_pose = float(np.abs(dset.c2w_all - scene["c2w"]).max())
+            good = (len(dset) == n and (dset.H, dset.W) == (h, w) and e_rgb <= 1.0 / 255
+                    and masks_ok and e_K <= 1e-5 and e_pose <= 1e-5)
+            name = "BlendedMVS (as PNG; real scans are JPEG)" if layout == "BlendedMVS" else layout
+            print(f"phase 22: {name} {n} x {H}x{W} (written in {write_s:.2f} s, loaded at "
+                  f"downscale 1 and {val_ds:g} in {secs:.3f} s) at downscale "
+                  f"{ds:g}: {len(dset)} views of {dset.H}x{dset.W}; rgb "
+                  f"max|diff| {e_rgb:.2e} (gate 1/255), masks equal {masks_ok}, intrinsics "
+                  f"{e_K:.2e} of max|K|, poses {e_pose:.2e} (gates 1e-5)")
+            ok &= good
+            if layout == "DTU" and ds == 1.0:
+                dtu_root, dtu_full = root, dset
+        del both, dset
+    return ok, dtu_root, dtu_full, load_s
+
+
+def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 22-26 (the file loaders, UNISURF); returns (rc, {kernel name:
+    extra fields of its kernels-line row at UNISURF's shapes})."""
+    from neurecon_tpu_torch import bridge, train
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, unisurf
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, get_rays
+    from neurecon_tpu_torch.ops.sampling import linspace01
+    from neurecon_tpu_torch.tools import extract_surface, render_view
+    from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+    from neurecon_tpu_torch.utils.checkpoints import load_checkpoint
+
+    # ---- phase 22: the loaders
+    ok, dtu_root, dtu, load_s = _loader_phase(workdir)
+    print(f"phase 22: seconds a load at downscale 1 and {UNISURF['data']['val_downscale']} "
+          "(get_data as train.py calls it): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in load_s.items()) + f" {tag}")
+    if not ok:
+        print("FAIL phase 22: a loader disagrees with the scene it read", file=sys.stderr)
+        return 1, None
+
+    # ---- phase 23: train.py on configs/unisurf.yaml, read from the DTU scene
+    cfg, cuts = unisurf_train_config(dtu_root, os.path.join(workdir, "unisurf_train"), seed)
+    print("phase 23: configs/unisurf.yaml with the cuts " + ", ".join(f"{k}={v}"
+                                                                      for k, v in cuts))
+    targs = ConfigDict(copy.deepcopy(cfg))
+    S, N = UNISURF_STEPS, int(cfg["data"]["N_rays"])
+    n_steps = int(targs.model.get("N_steps", 256))
+    out, t_launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
+    by_path["unisurf_train"] = t_launches
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    logged = out["stats"]["scalars"]["interval"]
+    e_int = max((abs(v - unisurf.interval_at(targs, it - 1)) for it, v in logged),
+                default=float("inf"))
+    ply20 = os.path.join(out["exp_dir"], "meshes", f"{S // 2:08d}.ply")
+    v20, f20 = mesh_util.read_ply(ply20) if os.path.exists(ply20) else ([], [])
+    # the loop's launches: 1 march + 8 secant kernel-4 launches and one each of
+    # kernels 1 and 3 a step; two validations at val_downscale in chunks of
+    # val_rayschunk (kernel 4 x 9 and kernel 1 a chunk); the step-20 mesh's
+    # 128^3 grid in chunks of 262,144 points through kernel 4
+    vd, vchunk = float(cfg["data"]["val_downscale"]), int(cfg["data"]["val_rayschunk"])
+    val_chunks = 2 * math.ceil(int(DTU_SHAPE[1] / vd) * int(DTU_SHAPE[2] / vd) / vchunk)
+    want = {"sdf_forward": 9 * S + 9 * val_chunks + math.ceil(128 ** 3 / 262144),
+            "nablas_forward": S + val_chunks, "nablas_backward": S}
+    print(f"phase 23: train.py {S} UNISURF steps at configs/unisurf.yaml widths, {N} rays, "
+          f"{run_s:.1f} s in all: launches {t_launches} (want {want}); loss mean of steps "
+          f"1-10 {first:.5f}, of the last 10 {last:.5f}; interval logged {logged} "
+          f"(max|diff| to interval_at {e_int:.2e}); step-{S // 2} mesh {len(v20)} verts, "
+          f"{len(f20)} faces")
+    print(f"phase 23: median {ms_step:.2f} ms per UNISURF step over steps 6-{S} "
+          f"({N * 1e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]} "
+          f"{tag}")
+    if (any(t_launches[k] != v for k, v in want.items())
+            or any(t_launches[k] for k in t_launches if k not in want)
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first
+            or not logged or e_int > 1e-6 or not os.path.exists(ply20)):
+        print("FAIL phase 23: UNISURF training missed a kernel, diverged, did not lower "
+              "the loss, logged the wrong interval or wrote no mesh", file=sys.stderr)
+        return 1, None
+    # the same run with kernels 4, 1 and 3 replaced by their plain versions,
+    # from the same init on the same batches and draws (the run's seed): the
+    # course of the run (the surface it keeps or loses) is then the model's,
+    # not the kernels'
+    pcfg, _ = unisurf_train_config(dtu_root, os.path.join(workdir, "unisurf_plain"), seed)
+    zero_counts()
+    with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain), \
+            mock.patch.object(fused_nablas, "fused_forward_with_nablas", _plain1), \
+            mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp", _plain3):
+        out_plain = train.main_function(ConfigDict(copy.deepcopy(pcfg)), device="cuda")
+    torch.cuda.synchronize()
+    p_launches = read_counts()
+    totals_p = [v for _, v in out_plain["stats"]["losses"]["total_per_step"]]
+    e_loss = max((abs(a - b) / abs(b) for a, b in zip(totals, totals_p)), default=float("inf"))
+    probe, _, _, _ = get_model(ConfigDict(copy.deepcopy(cfg)), dev)
+
+    def logit_range(ckpt):  # on a 128^3 grid over volume 3.0, plain query
+        bridge.load_tree(probe, load_checkpoint(ckpt)["model"])
+        with torch.no_grad():
+            g = mesh_util.query_grid(
+                lambda x: fused_mlp.sdf_forward_plain(probe.implicit_surface, x), 128, 3.0,
+                device=dev)
+        return float(g.min()), float(g.max())
+    ranges = {run: [logit_range(os.path.join(o["exp_dir"], "ckpts", f"{S // 2:08d}.pt")),
+                    logit_range(o["final_ckpt"])]
+              for run, o in (("kernels", out), ("plain", out_plain))}
+    e_range = max(max(abs(a - c), abs(b - d)) / (d - c)
+                  for (a, b), (c, d) in zip(ranges["kernels"], ranges["plain"]))
+    crossings = {run: [lo < 0 < hi for lo, hi in r] for run, r in ranges.items()}
+    print(f"phase 23: the same {S} steps with kernels 4, 1 and 3 replaced by their plain "
+          f"versions (launches {p_launches}): loss per step max rel diff {e_loss:.2e} (gate "
+          f"1e-3), loss of steps 1, {S // 2}, {S}: kernels "
+          f"{[round(totals[i], 6) for i in (0, S // 2 - 1, S - 1)]} plain "
+          f"{[round(totals_p[i], 6) for i in (0, S // 2 - 1, S - 1)] if len(totals_p) == S else totals_p}; "
+          f"logits on a 128^3 grid at steps {S // 2} and {S}: kernels "
+          f"{[[round(v, 4) for v in r] for r in ranges['kernels']]} plain "
+          f"{[[round(v, 4) for v in r] for r in ranges['plain']]} (max diff {e_range:.2e} of "
+          f"the plain range, gate 1e-2); a zero set at steps {S // 2} and {S}: {crossings}")
+    if (any(p_launches.values()) or len(totals_p) != S or e_loss > 1e-3 or e_range > 1e-2
+            or crossings["kernels"] != crossings["plain"]):
+        print("FAIL phase 23: the run through the kernels and the run through their plain "
+              "versions part", file=sys.stderr)
+        return 1, None
+
+    # ---- phase 24: the root find and the step's gradient, kernels vs plain,
+    # on two sets of weights: the geometric init with seeded noise (every
+    # weight seen) and the step-20 checkpoint (trained; it still has a surface)
+    final_tree = load_checkpoint(out["final_ckpt"])["model"]
+    ckpt20 = os.path.join(out["exp_dir"], "ckpts", f"{S // 2:08d}.pt")
+    noisy, kw_train, kw_test, _ = get_model(ConfigDict(copy.deepcopy(cfg)), dev, seed=seed)
+    perturb_parameters(noisy, torch.Generator().manual_seed(seed + 1))
+    trained, _, _, _ = get_model(ConfigDict(copy.deepcopy(cfg)), dev)
+    bridge.load_tree(trained, load_checkpoint(ckpt20)["model"])
+    checked = {"the init with seeded noise": noisy, f"the step-{S // 2} checkpoint": trained}
+    kw_train["H"], kw_train["W"] = dtu.H, dtu.W
+    batch = {"c2w": torch.tensor(dtu.c2w_all[:1], device=dev),
+             "intrinsics": torch.tensor(dtu.intrinsics_all[:1], device=dev),
+             "rgb": torch.tensor(dtu.rgb_images[:1], device=dev).reshape(1, -1, 3)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, dtu.H, dtu.W, N)
+    sample_kw = {k: v for k, v in kw_train.items() if k not in ("H", "W")}
+    _, _, near, far = unisurf._prepare_rays(rb["rays_o"], rb["rays_d"],
+                                            kw_train["radius_of_interest"])
+    g_u = torch.Generator(dev).manual_seed(seed + 5)
+    uniforms = tuple(torch.rand(N, n, device=dev, generator=g_u)
+                     for n in (int(kw_train["N_query"]), int(kw_train["N_freespace"]), 3))
+    for label, net in checked.items():
+        surf_k = unisurf.compute_ray_samples(net, rb["rays_o"], rb["rays_d"], **sample_kw)
+        with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain):
+            surf_p = unisurf.compute_ray_samples(net, rb["rays_o"], rb["rays_d"], **sample_kw)
+        both = surf_k[2] & surf_p[2]
+        agree = float((surf_k[2] == surf_p[2]).float().mean())
+        e_depth = float(((surf_k[0] - surf_p[0]).abs() / (far - near))[both].max()) \
+            if bool(both.any()) else float("inf")
+        print(f"phase 24: root find on {N} rays, {label} (1 march of {n_steps} + 8 secant "
+              f"kernel-4 launches): hit masks agree on {100 * agree:.2f}% (gate 99.9%), "
+              f"{int(both.sum())} hit in both, depth max|diff| {e_depth:.2e} of the span "
+              f"(gate 1e-4)")
+        if agree < 0.999 or not bool(both.any()) or e_depth > 1e-4:
+            print("FAIL phase 24: the kernel-4 root find disagrees with the plain query",
+                  file=sys.stderr)
+            return 1, None
+        ray_loss = get_ray_loss_fn(targs, net, kw_train)
+        loss_k, loss_p, ratios = _step_grad_check(net, ray_loss, rb, it=S,
+                                                  surface_override=surf_p, uniforms=uniforms)
+        worst = max(ratios, key=ratios.get)
+        print(f"phase 24: UNISURF step, {label}: loss kernels {loss_k:.8f} plain "
+              f"{loss_p:.8f}; worst grad leaf {worst} {ratios[worst]:.2e} over {len(ratios)} "
+              "leaves")
+        if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > 5e-4:
+            print("FAIL phase 24: the UNISURF step's gradient through the kernels disagrees",
+                  file=sys.stderr)
+            return 1, None
+    model, _, _, _ = get_model(ConfigDict(copy.deepcopy(cfg)), dev)
+    bridge.load_tree(model, final_tree)
+    surf_final = unisurf.compute_ray_samples(model, rb["rays_o"], rb["rays_d"], **sample_kw)
+    print(f"phase 24: on phase 23's final weights {int(surf_final[2].sum())} of the {N} rays "
+          f"hit ({int(surf_final[3].sum())} change sign)")
+
+    # ---- phase 25: render_view on the final checkpoint, a patch, a mesh
+    vargs = ConfigDict(copy.deepcopy(cfg))
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 2,
+                  "camera_path": "interpolation", "rayschunk": 4096, "downscale": 10})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device=dev)
+    torch.cuda.synchronize()
+    launches = by_path["unisurf_render"] = read_counts()
+    H, W = int(DTU_SHAPE[1] / 10), int(DTU_SHAPE[2] / 10)
+    chunks = 2 * math.ceil(H * W / 4096)
+    want = {k: 0 for k in launches}
+    want.update({"sdf_forward": 9 * chunks, "nablas_forward": chunks})
+    interval = unisurf.interval_at(vargs, S)
+    print(f"phase 25: render_view UNISURF 2 x {H}x{W} at interval {interval:.6f}: launches "
+          f"{launches}, s/frame {[round(v, 4) for v in frames['seconds']]} {tag}")
+    if (launches != want or frames["rgb"].shape != (2, H, W, 3)
+            or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
+        print("FAIL phase 25: the UNISURF render missed a kernel or is not finite",
+              file=sys.stderr)
+        return 1, None
+    # the patch on phase 24's two sets of weights, whose surfaces the rays
+    # cross (the final weights have lost theirs: phase 23's lines)
+    o_all, d_all, _ = get_rays(torch.tensor(dtu.c2w_all[0], device=dev),
+                               torch.tensor(dtu.intrinsics_all[0], device=dev), dtu.H, dtu.W)
+    patch = torch.arange(dtu.H * dtu.W // 2 - 1024, dtu.H * dtu.W // 2 + 1024, device=dev)
+    for label, net in checked.items():
+        render_fn = unisurf.make_volume_render_fn(
+            net, detailed_output=False, calc_normal=True, interval=interval,
+            **{k: v for k, v in kw_test.items() if k not in ("H", "W")})
+        out_k = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+        with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain), \
+                mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                                  fused_nablas.forward_with_nablas_plain):
+            out_p = render_full_image(render_fn, o_all[patch], d_all[patch], rayschunk=4096)
+        same = out_k["mask_surface"] == out_p["mask_surface"]
+        e = {k: float(np.abs(out_k[k] - out_p[k])[same].max(initial=0))
+             for k in ("rgb", "depth_volume", "normals_volume", "mask_volume", "depth_surface")}
+        e_all = float(np.abs(out_k["rgb"] - out_p["rgb"]).max())
+        print(f"phase 25: 2,048-ray UNISURF patch, {label}, kernels vs plain: surface masks "
+              f"agree on {int(same.sum())} rays ({int(out_k['mask_surface'].sum())} hit), "
+              f"max|diff| there {e}; rgb over all rays {e_all:.2e}")
+        if same.mean() < 0.999 or e["rgb"] > 2e-3 or not out_k["mask_surface"].any():
+            print("FAIL phase 25: the UNISURF patch disagrees with the plain render",
+                  file=sys.stderr)
+            return 1, None
+    # the mesh of the step-20 checkpoint: the run empties its scene between
+    # steps 20 and 40 (phase 23's lines), so the final one has no zero set
+    ply = os.path.join(workdir, "unisurf_256.ply")
+    sc = cfg["model"]["surface"]
+    eargs = extract_surface.make_parser().parse_args(
+        ["--load_pt", ckpt20, "--out", ply, "--N", "256", "--volume_size", "3.0",
+         "--D", str(sc["D"]), "--W", str(sc.get("W", 256)), "--skip", str(sc["skips"][0]),
+         "--embed_multires", str(sc["embed_multires"]), "--init_r", str(sc["radius_init"]),
+         "--W_geo_feat", str(cfg["model"]["W_geometry_feature"]), "--device", str(dev)])
+    zero_counts()
+    ext = extract_surface.main_function(eargs)
+    torch.cuda.synchronize()
+    by_path["unisurf_extract_surface"] = read_counts()
+    v256, f256 = mesh_util.read_ply(ply)
+    closed = len(f256) > 0 and _closed(torch.as_tensor(f256, device=dev))
+    radii = np.linalg.norm(v256, axis=-1) if len(v256) else np.zeros(1)
+    grid = mesh_util.query_grid(model.implicit_surface.forward_query, 128, 3.0, device=dev)
+    final_faces = len(mesh_util.marching_tetrahedra(grid)[1])
+    print(f"phase 25: extract_surface 256^3 over volume 3.0 of the step-{S // 2} UNISURF "
+          f"checkpoint (level 0 of the logits): grid {ext['grid_s']:.3f} s; {len(v256)} verts, "
+          f"{len(f256)} faces, closed {closed}; vertex radius mean {radii.mean():.4f}, "
+          f"min {radii.min():.4f}, max {radii.max():.4f}; the step-{S} weights on a 128^3 "
+          f"grid: logits {float(grid.min()):.4f} to {float(grid.max()):.4f}, {final_faces} "
+          f"faces {tag}")
+    del grid
+    if not closed or by_path["unisurf_extract_surface"]["sdf_forward"] == 0:
+        print("FAIL phase 25: the UNISURF checkpoint meshes empty or open", file=sys.stderr)
+        return 1, None
+
+    # ---- phase 26: kernels 4, 1 and 3 at UNISURF's shapes; a step and a frame split
+    surface = model.implicit_surface
+    n_par = sum(p.numel() for p in surface.parameters())
+    r_o, r_d, near, far = unisurf._prepare_rays(rb["rays_o"], rb["rays_d"],
+                                                kw_train["radius_of_interest"])
+    t = linspace01(n_steps, dev)
+    x4 = (r_o[:, None] + r_d[:, None] * (near[:, None] * (1 - t) + far[:, None] * t)[..., None]
+          ).reshape(-1, 3).contiguous()
+    captured = []
+    real_vjp = fused_nablas_vjp.forward_with_nablas_vjp
+
+    def capture(surf, x):
+        captured.append(x.detach().clone())
+        return real_vjp(surf, x)
+    model.zero_grad(set_to_none=True)
+    with mock.patch.object(fused_nablas_vjp, "forward_with_nablas_vjp", capture):
+        get_ray_loss_fn(targs, model, kw_train)(rb, torch.Generator(dev).manual_seed(seed),
+                                                it=S)[0].backward()
+    model.zero_grad(set_to_none=True)
+    x1 = captured[0]
+    M4, M1 = x4.shape[0], x1.shape[0]
+    g3 = torch.Generator(dev).manual_seed(seed + 2)
+    cots = (torch.randn(M1, device=dev, generator=g3), torch.randn(M1, 3, device=dev, generator=g3),
+            torch.randn(M1, surface.W_geo_feat, device=dev, generator=g3))
+    ws, bs = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+    specs = {
+        "sdf_forward": (lambda: fused_mlp.fused_sdf_forward(surface, x4),
+                        lambda: fused_mlp.sdf_forward_plain(surface, x4),
+                        _bounds(2.0 * _surface_macs(surface, sdf_only=True) * M4,
+                                4.0 * (M4 * 4 + n_par)), M4),
+        "nablas_forward": (lambda: fused_nablas.fused_forward_with_nablas(surface, x1),
+                           lambda: fused_nablas.forward_with_nablas_plain(surface, x1),
+                           _bounds(2.0 * _surface_macs(surface) * M1,
+                                   4.0 * (M1 * (3 + 4 + surface.W_geo_feat) + n_par)), M1),
+        "nablas_backward": (lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x1, ws, bs, *cots),
+                            lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x1, ws, bs, *cots),
+                            _bounds(2.0 * _surface_macs(surface, backward=True) * M1,
+                                    4.0 * (M1 * (3 + 1 + 3 + surface.W_geo_feat + 3)
+                                           + 2 * n_par)), M1),
+    }
+    fields = {}
+    for name, (fn, plain, bb, M) in specs.items():
+        ms = _time_ms(fn)
+        with torch.no_grad():
+            pms = _time_ms(plain, reps=3)
+        fields[name] = {"ms_unisurf": ms, "plain_ms_unisurf": pms,
+                        "bound_ms_unisurf": bb[1][0], "bound_by_unisurf": bb[1][1],
+                        "points_unisurf": M}
+        print(f"phase 26: {name} {M} points (UNISURF step): {ms:.3f} ms (plain {pms:.3f} ms, "
+              f"fp32 bound {bb[0][0]:.3f} ms, 3xTF32 bound {bb[1][0]:.3f} ms) {tag}")
+    print(f"phase 26: median {ms_step:.2f} ms per UNISURF step over steps 6-{S}, "
+          f"{N * 1e3 / ms_step:.0f} rays/s; s per UNISURF {H}x{W} frame "
+          f"{[round(v, 4) for v in frames['seconds']]}; seconds to load the "
+          f"{DTU_SHAPE[0]}-view {DTU_SHAPE[1]}x{DTU_SHAPE[2]} DTU scene and its val copy "
+          f"{load_s['DTU']:.3f} {tag}")
+    parts = {"root find (whole)": (unisurf, "root_finding_surface_points"),
+             "sdf_forward (root find)": (fused_mlp, "fused_sdf_forward")}
+    step_total, split, busy = _step_split(
+        targs, dev, {**parts, "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward")}, tree=final_tree)
+    glue = split["root find (whole)"] - split["sdf_forward (root find)"]
+    rest = step_total - sum(v for k, v in split.items() if k != "sdf_forward (root find)")
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    print(f"phase 26: one UNISURF step ({N} rays, phase 23's final weights) {step_total:.2f} "
+          "ms: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the root find's glue {glue:.2f} ms, the rest (radiance backward, compositing, "
+          f"loss, glue) {rest:.2f} ms; device over three steps {busy} {tag}")
+    frame_ms, fsplit = _frame_split(
+        render_view.render_frames, vargs,
+        {**parts, "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+         "radiance_net": (RadianceNet, "forward")})
+    frest = frame_ms - sum(v for k, v in fsplit.items() if k != "sdf_forward (root find)")
+    print(f"phase 26: one {H}x{W} UNISURF frame (phase 23's final checkpoint) {frame_ms:.2f} "
+          "ms wall: " + ", ".join(f"{k} {v:.2f} ms" for k, v in fsplit.items())
+          + f", everything else {frest:.2f} ms {tag}")
+    return 0, fields
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2123,6 +2740,10 @@ def main(argv=None):
                                    work.name)
     if rc:
         return rc
+    rc, unisurf_fields = _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path,
+                                         work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -2156,6 +2777,7 @@ def main(argv=None):
         # a Softplus row counts no launch of its kernel's sine instantiation
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
                                  if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
+        r.update(unisurf_fields.get(r["name"], {}))
     results += siren_rows
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 The pytree, as numpy (a checkpoint's "model" entry, or
 `jax.tree_util.tree_map(np.asarray, params)`):
 
-    {"ln_s": [1] (NeuS) or "ln_beta": [1] (VolSDF),
+    {"ln_s": [1] (NeuS) or "ln_beta": [1] (VolSDF); UNISURF has neither,
      "implicit_surface": {"layers": [{"v", "g", "b"} or {"w", "b"}, ...]},
      "radiance_net": {"layers": [...]}}
 
@@ -24,17 +24,19 @@ def _layers_to_tree(layers):
     return {"layers": out}
 
 
-def _scalar(model) -> str:
-    """The name of the model's learnable scale: ln_s (NeuS), ln_beta (VolSDF)."""
-    return "ln_beta" if hasattr(model, "ln_beta") else "ln_s"
+def _scalars(model) -> tuple:
+    """The names of the model's learnable scales: ln_s (NeuS), ln_beta
+    (VolSDF), none (UNISURF)."""
+    return tuple(n for n in ("ln_s", "ln_beta") if hasattr(model, n))
 
 
 def model_to_tree(model) -> dict:
     """The model's parameters as the JAX pytree of numpy arrays."""
-    name = _scalar(model)
-    return {name: getattr(model, name).detach().cpu().numpy().copy(),
-            "implicit_surface": _layers_to_tree(model.implicit_surface.layers),
-            "radiance_net": _layers_to_tree(model.radiance_net.layers)}
+    tree = {name: getattr(model, name).detach().cpu().numpy().copy()
+            for name in _scalars(model)}
+    tree["implicit_surface"] = _layers_to_tree(model.implicit_surface.layers)
+    tree["radiance_net"] = _layers_to_tree(model.radiance_net.layers)
+    return tree
 
 
 @torch.no_grad()
@@ -57,14 +59,15 @@ def _load_layers(layers, tree, what):
 
 @torch.no_grad()
 def load_tree(model, tree: dict, strict: bool = True) -> None:
-    """Copy a JAX NeuS or VolSDF pytree (numpy) into the port's model, in
-    place. With strict=False, top-level entries missing from the tree are
-    left as they are (a checkpoint loaded with ignore_keys / only_use_keys)."""
-    scalar = _scalar(model)
-    for name in (scalar, "implicit_surface", "radiance_net"):
+    """Copy a JAX NeuS, VolSDF or UNISURF pytree (numpy) into the port's
+    model, in place. With strict=False, top-level entries missing from the
+    tree are left as they are (a checkpoint loaded with ignore_keys /
+    only_use_keys)."""
+    scalars = _scalars(model)
+    for name in (*scalars, "implicit_surface", "radiance_net"):
         if name not in tree and not strict:
             continue
-        if name == scalar:
+        if name in scalars:
             getattr(model, name).copy_(torch.tensor(np.asarray(tree[name], np.float32)))
         else:
             _load_layers(getattr(model, name).layers, tree[name], name)
@@ -81,10 +84,10 @@ def grads_to_tree(model) -> dict:
         return {"layers": [{n: g(getattr(layer, n)) for n in
                             (("v", "g", "b") if layer.weight_norm else ("w", "b"))}
                            for layer in mod.layers]}
-    name = _scalar(model)
-    return {name: g(getattr(model, name)),
-            "implicit_surface": layers(model.implicit_surface),
-            "radiance_net": layers(model.radiance_net)}
+    tree = {name: g(getattr(model, name)) for name in _scalars(model)}
+    tree["implicit_surface"] = layers(model.implicit_surface)
+    tree["radiance_net"] = layers(model.radiance_net)
+    return tree
 
 
 def load_surface_tree(surface, tree: dict) -> None:

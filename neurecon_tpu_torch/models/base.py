@@ -17,7 +17,7 @@
     per-module learning rates
 
 The NeRF-like (W_geo_feat < 0) surface head is not in the port yet (ROADMAP
-Queue A, item 5).
+Queue A, [A3]).
 """
 from __future__ import annotations
 
@@ -175,7 +175,7 @@ class ImplicitSurface(nn.Module):
         if W_geo_feat <= 0:
             raise NotImplementedError(
                 "the NeRF-like surface head (W_geo_feat < 0) is not ported "
-                "yet (ROADMAP Queue A, item 5)")
+                "yet (ROADMAP Queue A, [A3])")
         self.W, self.D = W, D
         self.skips = tuple(skips)
         self.W_geo_feat = W_geo_feat

@@ -6,21 +6,22 @@ def _module(framework: str):
         from neurecon_tpu_torch.models.frameworks import volsdf
         return volsdf
     if framework == "UNISURF":
-        raise NotImplementedError("UNISURF is not ported yet (ROADMAP Queue A, item 2)")
+        from neurecon_tpu_torch.models.frameworks import unisurf
+        return unisurf
     raise NotImplementedError(framework)
 
 
 def get_model(args, device=None, seed: int = 0):
-    """Dispatch on args.model.framework (NeuS, VolSDF; UNISURF is ROADMAP
-    Queue A item 8). Returns (model, render_kwargs_train, render_kwargs_test,
-    render_factory)."""
+    """Dispatch on args.model.framework (NeuS, VolSDF, UNISURF). Returns
+    (model, render_kwargs_train, render_kwargs_test, render_factory)."""
     return _module(args.model.framework).get_model(args, device=device, seed=seed)
 
 
 def get_ray_loss_fn(args, model, render_kwargs_train):
     """The framework's ray-batch loss: ray_loss(rb, generator=None, it=0, ...)
     -> (total, (losses, extras)); NeuS takes `d_all=`, VolSDF
-    `fine_override=` and `eik_pts=`."""
+    `fine_override=` and `eik_pts=`, UNISURF `surface_override=` and
+    `uniforms=`."""
     return _module(args.model.framework).make_ray_loss_fn(model, args, render_kwargs_train)
 
 
@@ -32,8 +33,13 @@ def make_trainer(args, model, render_kwargs_train):
 
 def checkpoint_render_kwargs(args, step=None):
     """Render kwargs that depend on the training step a checkpoint was saved
-    at. NeuS and VolSDF have none (s and beta live in the parameters);
-    UNISURF's decaying interval is ported with UNISURF (ROADMAP Queue A,
-    item 8)."""
-    _module(args.model.framework)
-    return {}
+    at, for the render factory: UNISURF's sampling interval at that step
+    ({"interval": interval_at(args, step)}; `step` None or negative, as from
+    a checkpoint without a global step, reads as the end of training).
+    NeuS and VolSDF have none (s and beta live in the parameters)."""
+    module = _module(args.model.framework)
+    if args.model.framework != "UNISURF":
+        return {}
+    if step is None or step < 0:
+        step = int(args.training.num_iters)
+    return {"interval": module.interval_at(args, step)}

@@ -10,7 +10,7 @@ point queries for the surface renderer and the mesh grids
 (`forward_surface_fast`, CUDA kernel `sdf_forward`), for models
 without the NeRF++ background (`N_outside == 0`, `with_mask: true`). The
 other two upsample algorithms and the NeRF++ branch wait for later slices
-(ROADMAP Queue A, items 6 and 4).
+(ROADMAP Queue A, [A4/A5] and [A2/A3/A4]).
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def neus_upsample(model: NeuS, rays_o, rays_d, d_coarse, *, N_importance: int,
     if upsample_algo != "official_solution":
         raise NotImplementedError(
             f"upsample_algo {upsample_algo!r} is not ported yet (ROADMAP "
-            "Queue A, item 6); only official_solution is")
+            "Queue A, [A4/A5]); only official_solution is")
     n_per_iter = N_importance // N_upsample_iters
     u = _uniforms(rays_o.shape[0], N_upsample_iters, n_per_iter, perturb,
                   generator, rays_o.device)
@@ -150,7 +150,7 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
     if N_outside > 0:
         raise NotImplementedError(
             "the NeRF++ outside branch (N_outside > 0) is not ported yet "
-            "(ROADMAP Queue A, item 4)")
+            "(ROADMAP Queue A, [A2/A3/A4])")
     rays_o, rays_d, near, far = _prepare_rays(
         rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
 
@@ -304,7 +304,7 @@ def get_model(args, device=None, seed: int = 0):
     if not args.training.with_mask:
         raise NotImplementedError(
             "NeuS with the NeRF++ background (with_mask: false) is not "
-            "ported yet (ROADMAP Queue A, item 4)")
+            "ported yet (ROADMAP Queue A, [A2/A3/A4])")
     model_config = {
         "obj_bounding_radius": args.model.obj_bounding_radius,
         "W_geo_feat": args.model.setdefault("W_geometry_feature", 256),

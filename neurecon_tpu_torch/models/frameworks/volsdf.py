@@ -10,7 +10,7 @@ radiance net, the p_i / tau_i compositor, the L1 + eikonal (+ optional sdf
 anchor) losses, and the model's point queries for the surface renderer and
 the mesh grids, for Softplus and SIREN nets alike (a SIREN surface is
 pretrained to a sphere by `train.py`). The NeRF++ background
-(`outside_scene: nerf++`) waits for a later slice (ROADMAP Queue A, item 4).
+(`outside_scene: nerf++`) waits for a later slice (ROADMAP Queue A, [A2/A3/A4]).
 """
 from __future__ import annotations
 
@@ -114,7 +114,7 @@ def _refuse_nerfplusplus(use_nerfplusplus):
     if use_nerfplusplus:
         raise NotImplementedError(
             "VolSDF with the NeRF++ background (outside_scene: nerf++) is not "
-            "ported yet (ROADMAP Queue A, item 4)")
+            "ported yet (ROADMAP Queue A, [A2/A3/A4])")
 
 
 @torch.no_grad()

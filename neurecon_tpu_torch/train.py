@@ -1,29 +1,35 @@
-"""NeuS and VolSDF training on one CUDA card (port of `neurecon_tpu/train.py`):
+"""NeuS, VolSDF and UNISURF training on one CUDA card (port of
+`neurecon_tpu/train.py`):
 
     python -m neurecon_tpu_torch.train --config configs/synthetic_smoke.yaml
     python -m neurecon_tpu_torch.train --config configs/synthetic_smoke.yaml \
         --device cpu --training:num_iters 40   # the plain path, on the CPU
     python -m neurecon_tpu_torch.train --config configs/synthetic_quality_volsdf.yaml
+    python -m neurecon_tpu_torch.train --config configs/unisurf.yaml \
+        --data:data_dir ./data/DTU/scan65   # a DTU, BlendedMVS or custom scene
 
 The loop of the JAX trainer on one device, eager: the dataset held on the
 device; the image order from `np.random.RandomState(seed + epoch)`; one step
 = sample rays, render (the framework's sampler and the forward kernels),
 loss, backward (through the eikonal backward kernel), Adam, schedule;
-validation renders at step 0 and every `i_val` steps (with VolSDF's beta
-heat-map and upsampling-round images); a SIREN surface's sphere pretrain
+validation renders at step 0 and every `i_val` steps, at the step's render
+kwargs (UNISURF's interval, `checkpoint_render_kwargs`), with VolSDF's beta
+heat-map and upsampling-round images and UNISURF's surface depth and mask;
+a SIREN surface's sphere pretrain
 (`models/base.py::pretrain_siren_sdf`, at `training.lr_pretrain`) before the
 first step of a fresh run, saved as `latest.pt`; meshes of the surface (`exp_dir/meshes/
 <step>.ply`, a `data.mesh_N`^3 grid over `data.volume_size`, queried through
-the sdf-only kernel) at steps 3000, 5000 and 7000 and every `i_val_mesh`
+the sdf-only kernel, at level 0: UNISURF's occupancy 0.5) at steps 3000,
+5000 and 7000 and every `i_val_mesh`
 steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
 the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
 (every `i_save` seconds), numbered backup and `final` checkpoints, and a save
 on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
 loop's checks: eager PyTorch has no dispatch to amortize.
 
-Not ported yet, and refused before the first step (ROADMAP.md): UNISURF,
-VolSDF's NeRF++ background, several devices,
-`training.overlap_sampler` and the profiler window (`training.profile_steps`).
+Not ported yet, and refused before the first step (ROADMAP.md): VolSDF's
+and NeuS's NeRF++ background, several devices, `training.overlap_sampler`
+and the profiler window (`training.profile_steps`).
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ from neurecon_tpu_torch import config as config_lib
 from neurecon_tpu_torch.dataio import get_data
 from neurecon_tpu_torch.models.base import (count_parameters, make_optimizer,
                                             make_schedule, pretrain_siren_sdf)
-from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
+from neurecon_tpu_torch.models.frameworks import (checkpoint_render_kwargs, get_model,
+                                                  make_trainer)
 from neurecon_tpu_torch.ops import get_rays, lin2img
 from neurecon_tpu_torch.training import (fast_forward_schedule, make_train_step,
                                          render_full_image)
@@ -69,8 +76,6 @@ def _refuse_unported(args) -> None:
     def refuse(what):
         raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
-    if args.model.framework not in ("NeuS", "VolSDF"):
-        refuse(f"training {args.model.framework}")
     ids = args.get("device_ids", -1)
     if isinstance(ids, (list, tuple)) and len(ids) > 1:
         refuse("training on several devices")
@@ -167,7 +172,6 @@ def main_function(args, device=None) -> dict:
     # ---- validation renderer ----
     val_kwargs = {k: v for k, v in render_kwargs_test.items()
                   if k not in ("H", "W", "rayschunk")}
-    render_fn_test = render_factory(detailed_output=False, calc_normal=True, **val_kwargs)
     val_rayschunk = int(args.data.get("val_rayschunk", 4096))
 
     def do_validation(it):
@@ -178,6 +182,9 @@ def main_function(args, device=None) -> dict:
             torch.as_tensor(np.asarray(val_in["c2w"], np.float32), device=dev),
             torch.as_tensor(np.asarray(val_in["intrinsics"], np.float32), device=dev),
             Hv, Wv)
+        # at the current step's render kwargs (UNISURF's decayed interval)
+        render_fn_test = render_factory(detailed_output=False, calc_normal=True,
+                                        **val_kwargs, **checkpoint_render_kwargs(args, it))
         ret = render_full_image(render_fn_test, rays_o, rays_d, rayschunk=val_rayschunk,
                                 generator=torch.Generator(device=dev).manual_seed(seed + it))
 
@@ -188,6 +195,12 @@ def main_function(args, device=None) -> dict:
         depth = ret["depth_volume"][..., None]
         logger.add_imgs(to_img(depth / (depth.max() + 1e-10)), "val/pred_depth_volume", it)
         logger.add_imgs(to_img(ret["mask_volume"][..., None]), "val/pred_mask_volume", it)
+        if "depth_surface" in ret:  # UNISURF's root-found surface
+            ds = ret["depth_surface"][..., None]
+            logger.add_imgs(to_img(ds / (ds.max() + 1e-10)), "val/pred_depth_surface", it)
+        if "mask_surface" in ret:
+            logger.add_imgs(to_img(ret["mask_surface"][..., None].astype(np.float32)),
+                            "val/predicted_mask", it)
         logger.add_imgs(to_img(ret["normals_volume"] / 2.0 + 0.5),
                         "val/predicted_normals", it)
         if "beta_map" in ret:  # VolSDF diagnostics (ref volsdf.py:647-683)

@@ -682,3 +682,94 @@ def test_sine_kernels_follow_the_activation(cuda):
         for got in (got4, got1):
             assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
+
+
+def _unisurf(device, seed=0):
+    """A UNISURF at configs/unisurf.yaml's widths (surface D=8 W=256 skip 4,
+    radiance D=4 W=256, no encodings but the surface's), geometric init plus
+    seeded noise on every weight."""
+    from neurecon_tpu_torch.models.frameworks.unisurf import UNISURF
+    model = UNISURF(W_geo_feat=256,
+                    surface_cfg=dict(W=256, D=8, skips=[4], radius_init=1.0, embed_multires=6),
+                    radiance_cfg=dict(D=4, W=256, skips=[], embed_multires=-1,
+                                      embed_multires_view=-1))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    perturb_parameters(model, torch.Generator().manual_seed(seed + 1))
+    return model.to(device)
+
+
+UNISURF_KW = dict(logit_tau=0.0, radius_of_interest=4.0, N_steps=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1024, 4099])
+def test_unisurf_root_find_kernel_matches_plain(cuda, N):
+    """UNISURF's root find (a 256-step march and 8 secant steps through kernel
+    4) against the plain query: hit masks agree on >= 99.9% of the rays, the
+    surface depth within 1e-4 of the span where both hit (chip_smoke.py
+    phase 24's gates)."""
+    from neurecon_tpu_torch.models.frameworks.unisurf import _prepare_rays, compute_ray_samples
+    model = _unisurf(cuda)
+    o, d = _rays(N, cuda, seed=3)
+    before = fused_mlp.fused_sdf_forward.launches
+    got = compute_ray_samples(model, o, d, **UNISURF_KW)
+    assert fused_mlp.fused_sdf_forward.launches - before == 9
+    orig = fused_mlp.fused_sdf_forward
+    try:
+        fused_mlp.fused_sdf_forward = fused_mlp.sdf_forward_plain
+        ref = compute_ray_samples(model, o, d, **UNISURF_KW)
+    finally:
+        fused_mlp.fused_sdf_forward = orig
+    _, _, near, far = _prepare_rays(o, d, 4.0)
+    both = got[2] & ref[2]
+    assert both.sum() > N // 4
+    assert (got[2] == ref[2]).float().mean() >= 0.999
+    assert float(((got[0] - ref[0]).abs() / (far - near))[both].max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_unisurf_step_gradient_matches_plain(cuda):
+    """The UNISURF ray loss on 1,024 rays with a fixed surface_override and
+    fixed uniforms, backward through kernels 1 and 3 and through their plain
+    versions: loss to rel 1e-5, every parameter's grad within 5e-4 of its
+    max|ref|."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.frameworks.unisurf import (compute_ray_samples,
+                                                              make_ray_loss_fn)
+    model = _unisurf(cuda)
+    N = 1024
+    o, d = _rays(N, cuda, seed=4)
+    surf = compute_ray_samples(model, o, d, **UNISURF_KW)
+    g = torch.Generator(cuda).manual_seed(5)
+    uniforms = tuple(torch.rand(N, n, device=cuda, generator=g) for n in (64, 32, 3))
+    rb = {"rays_o": o, "rays_d": d, "target_rgb": torch.rand(N, 3, device=cuda, generator=g)}
+    args = ConfigDict({"training": {"w_reg": 0.01, "perturb_surface_pts": 0.01,
+                                    "delta_max": 1.0, "delta_min": 0.05, "delta_beta": 1.5e-5}})
+    ray_loss = make_ray_loss_fn(model, args, dict(UNISURF_KW, perturb=True, N_query=64,
+                                                  N_freespace=32))
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = ray_loss(rb, it=1000, surface_override=surf, uniforms=uniforms)
+        total.backward()
+        return total.item(), [p.grad.clone() for p in model.parameters()]
+
+    b1 = fused_nablas.fused_forward_with_nablas.launches
+    b3 = fused_nablas_vjp.fused_nablas_vjp.launches
+    loss_k, g_k = grads()
+    assert fused_nablas.fused_forward_with_nablas.launches - b1 == 1
+    assert fused_nablas_vjp.fused_nablas_vjp.launches - b3 == 1
+    orig1, orig3 = fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp
+    try:
+        fused_nablas.fused_forward_with_nablas = (
+            lambda s, x, weights=None, packed=None:
+            fused_nablas.forward_with_nablas_plain(s, x, weights))
+        fused_nablas_vjp.fused_nablas_vjp = (
+            lambda s, x, ws, bs, c0, c1, c2, packed=None:
+            fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, c0, c1, c2))
+        loss_p, g_p = grads()
+    finally:
+        fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp = orig1, orig3
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for (name, _), a, b in zip(model.named_parameters(), g_k, g_p):
+        assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max()), name

@@ -12,14 +12,16 @@ the root of the repository:
     JAX_PLATFORMS=cpu python -u -c "import chip_smoke; from tests.test_torch_siren_train \
         import compare_trainers; compare_trainers(chip_smoke.VOLSDF, 20)"
 
-with `chip_smoke.VOLSDF_SIREN` for the SIREN run. Both sides start from
+with `chip_smoke.VOLSDF_SIREN` for the SIREN run; a UNISURF config (such as
+`chip_smoke.unisurf_train_config(<a scene written by chip_smoke.write_scene>,
+...)[0]` with narrower nets) runs the same way. Both sides start from
 the same weights (the JAX init, and for SIREN the JAX pretrain, copied
 through `bridge.py`) and take the same ray batches (the same pixels of the
 same images); each runs its own train step (its own sampler draws and
 eikonal points, from its own generator). Printed as JSON
 lines: every step's loss terms on both sides, and at steps 0, 10, 20, ...
-`ln_beta` and the min / max sdf of the surface on a 64^3 grid over the
-scene's volume (`data.volume_size`).
+`ln_beta` (VolSDF) and the min / max sdf (UNISURF: logit) of the surface on
+a 64^3 grid over the scene's volume (`data.volume_size`).
 """
 import copy
 import json
@@ -37,6 +39,8 @@ from neurecon_tpu.config import ConfigDict as JaxConfigDict
 from neurecon_tpu.dataio import get_data as jax_get_data
 from neurecon_tpu.models.base import make_optimizer as jax_make_optimizer
 from neurecon_tpu.models.base import pretrain_siren_sdf as jax_pretrain
+from neurecon_tpu.models.frameworks import get_model as jax_framework_model
+from neurecon_tpu.models.frameworks import get_ray_loss_fn as jax_framework_loss
 from neurecon_tpu.models.frameworks.volsdf import get_model as jax_get_model
 from neurecon_tpu.models.frameworks.volsdf import make_ray_loss_fn as jax_ray_loss_fn
 from neurecon_tpu.ops.ray import get_rays_at as jax_get_rays_at
@@ -72,7 +76,7 @@ def compare_trainers(cfg: dict, steps: int, seed: int = 0, every: int = 10, out=
     `steps` steps from the same weights on the same ray batches; print a JSON
     line per step and per checkpoint (see the module docstring)."""
     jargs = JaxConfigDict(copy.deepcopy(cfg))
-    jm, _, jkw, _, _ = jax_get_model(jargs)
+    jm, _, jkw, _, _ = jax_framework_model(jargs)
     root = jax.random.PRNGKey(seed)
     init_key, _ = jax.random.split(root)
     params = jax.jit(jm.init)(init_key)
@@ -92,7 +96,7 @@ def compare_trainers(cfg: dict, steps: int, seed: int = 0, every: int = 10, out=
     ds = jax_get_data(jargs)
     H, W, N = ds.H, ds.W, int(cfg["data"]["N_rays"])
     rgb = np.asarray(ds.rgb_images, np.float32).reshape(len(ds), -1, 3)
-    j_loss = jax_ray_loss_fn(jm, jargs, jkw)
+    j_loss = jax_framework_loss(jargs, jm, jkw)
     opt = jax_make_optimizer(jargs, params)
     j_step = jax.jit(jax_make_train_step(j_loss, opt, jit=False))
     state = TrainState(params=params, opt_state=opt.init(params), step=jnp.asarray(0))
@@ -114,10 +118,12 @@ def compare_trainers(cfg: dict, steps: int, seed: int = 0, every: int = 10, out=
                 port = grid_range(lambda x: tm.implicit_surface(torch.tensor(x)).numpy())
             jaxr = grid_range(lambda x: surf.forward(state.params["implicit_surface"],
                                                      jnp.asarray(x)))
-            out(json.dumps({"step": it, "ln_beta": {
-                "jax": float(np.asarray(state.params["ln_beta"]).reshape(-1)[0]),
-                "port": float(tm.ln_beta.detach()[0])},
-                "grid_sdf_min_max": {"jax": jaxr, "port": port}}))
+            row = {"step": it, "grid_sdf_min_max": {"jax": jaxr, "port": port}}
+            if "ln_beta" in state.params:
+                row["ln_beta"] = {
+                    "jax": float(np.asarray(state.params["ln_beta"]).reshape(-1)[0]),
+                    "port": float(tm.ln_beta.detach()[0])}
+            out(json.dumps(row))
         if it == steps:
             break
         img = rng.randint(len(ds))
