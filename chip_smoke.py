@@ -198,15 +198,49 @@ Phases, in order; any failure exits non-zero:
    forward, Adam and the rest, the device's busy share; one frame split the
    same way.
 
+27. NeuS without a mask at configs/synthetic_quality_nomask.yaml's widths
+   (`NEUS_NOMASK`, held equal to the file by tests/test_torch_nerfpp.py; the
+   NeRF++ background net, D=8 W=256, on the midpoints and 32 samples beyond
+   the sphere), seeded noise on every weight, the background's included: a
+   2,048-ray patch of the 240x320 envmap view through kernels 1 and 2
+   against the plain versions (rgb and acc within 2e-3, the background's
+   sigma and rgb at the samples beyond the sphere within 1e-5); the step's
+   loss and every gradient leaf on 512 rays with fixed d_all and outside
+   jitter (loss rel 1e-5, each leaf within `NOMASK_GRAD_GATE` of its
+   max|ref|); a ray through the exact origin (a midpoint at |x| = 0), every
+   gradient finite.
+28. `train.py` on the same config (cuts printed: 60 steps, warm-up 10,
+   validation at steps 0 and 30 at the file's val_downscale 2, a 256^3
+   mesh at step 30): kernels 1-3 once a step (and kernels 1 and 2 per
+   validation chunk) exactly, every loss finite, the last 10 steps' mean
+   below the first 10's; median ms per step over steps 6-60, rays/s; two
+   240x320 frames through `render_view` (exact launches, finite); one step
+   split by CUDA events with the background net's forward and backward as
+   their own parts, beside its fp32 bound, and the device's busy share.
+29. VolSDF with nerf++ (`VOLSDF_NERFPP`, configs/volsdf_nerfpp.yaml as the
+   file holds it) read from the synthetic envmap scene written in DTU's
+   layout (8 views at 1200x1600, scale_radius 3.0): kernels (a)-(c) against
+   the plain sampler on 1,024 rays whose fars come from the sphere (768 of
+   view 0, far 3-5.7; 128 leaving it, far ~0.3-1; 128 from outside it that
+   miss it, far 0), beta_net 0.1 / 0.01 / 0.001, det and perturb, end to end
+   per far band at phase 14's gates and in lockstep; the step's gradient on
+   1,024 rays with fixed fine samples, eikonal points and outside jitter
+   (phase 16's gates); `train.py` 40 steps (cut from 100,000; validation and
+   a 128^3 mesh at step 20) with exact launches (a step: 1 + 1 + 5 of
+   (a)-(c), 6 of kernel 4, one of kernels 1 and 3), finite losses that fall;
+   median ms per step; two 120x160 frames (`--downscale 10`, exact
+   launches); one step split as phase 28's.
+
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
 (`launches` from each slice's training run: phase 8 for kernels 1-4, phase
 16 for (a)-(c), phase 20 for the sine branch, whose rows are named
-`<kernel>[sine]`; `launches_by_path` for each path, `unisurf_train` and
-`unisurf_render` among them; the surface-MLP rows held to their 3xTF32
+`<kernel>[sine]`; `launches_by_path` for each path, `unisurf_train`,
+`unisurf_render`, `nomask_train` and `volsdf_nerfpp_train` among them; the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
-then, as the last line, {"ok": true, "device": {...}}. Needs the repository
+then the run's wall seconds, then, as the last line, {"ok": true, "device":
+{...}}. Needs the repository
 checkout beside it; it imports no JAX.
 """
 import argparse
@@ -630,12 +664,53 @@ def _step_grad_check(model, ray_loss, *args, **kwargs):
                             for n, a, b in zip(names, grads_k, grads_p)}
 
 
-def _step_split(args, dev, parts, n_warm=3, tree=None):
+@contextlib.contextmanager
+def _backward_span(net, spans):
+    """CUDA events around `net`'s share of each backward: from the first
+    cotangent that reaches one of its forward's outputs to the accumulation
+    of its first point layer's weight gradient, the last one its backward
+    computes (other backward work queued in between counts too)."""
+    cls = type(net)
+    fwd = cls.forward
+    pending = []
+
+    def forward(self, *a, **k):
+        out = fwd(self, *a, **k)
+        if self is net and torch.is_grad_enabled():
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            started = []
+
+            def start(grad):
+                if not started:
+                    ev[0].record()
+                    started.append(True)
+            for t in out:
+                t.register_hook(start)
+            pending.append(ev)
+        return out
+
+    def done(param):
+        if pending:
+            ev = pending.pop(0)
+            ev[1].record()
+            spans.append(ev)
+
+    handle = net.pts_linears[0].w.register_post_accumulate_grad_hook(done)
+    try:
+        with mock.patch.object(cls, "forward", forward):
+            yield
+    finally:
+        handle.remove()
+
+
+def _step_split(args, dev, parts, n_warm=3, tree=None, backward_of=None):
     """One training step split by CUDA events around each call of the
     `parts` ({name: (module or class, attribute)}; "adam_step" is the
-    optimizer's step), then the device's busy share over three more steps;
-    the model from seed 0, or with the weights of `tree` (a JAX pytree of
-    numpy arrays); returns (step ms, {part: ms}, busy share)."""
+    optimizer's step) and around the backward of each net of `backward_of`
+    ({name: the model's attribute}, `_backward_span`), then the device's
+    busy share over three more steps; the model from seed 0, or with the
+    weights of `tree` (a JAX pytree of numpy arrays); returns (step ms,
+    {part: ms}, busy share)."""
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.dataio import get_data
     from neurecon_tpu_torch.models.base import make_optimizer
@@ -657,10 +732,13 @@ def _step_split(args, dev, parts, n_warm=3, tree=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     for i in range(n_warm):
         step(batch, gen, i)
-    spans = {k: [] for k in (*parts, "adam_step")}
+    backward_of = backward_of or {}
+    spans = {k: [] for k in (*parts, *backward_of, "adam_step")}
     with contextlib.ExitStack() as stack:
         for k, (mod, attr) in parts.items():
             stack.enter_context(_spans(mod, attr, spans[k]))
+        for k, attr in backward_of.items():
+            stack.enter_context(_backward_span(getattr(model, attr), spans[k]))
         stack.enter_context(_spans(opt, "step", spans["adam_step"]))
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -709,7 +787,7 @@ def _lockstep(surface, rays_o, rays_d, d_init, far, ab, u, *, n_up, max_iter, n_
 
     N, n0 = d_init.shape
     kw = {"n_final": n_final, "u_stride": u.shape[1], "eps": eps, "prior_r": -1.0,
-          "bg_r": bg_r}
+          "bg_r": -1.0 if bg_r is None else bg_r}  # None: no background sphere (NeRF++)
     if surface.sphere_residual:
         kw["prior_r"] = float(surface.radius_init)
     ws = ffs.workspace(N, n0 + max_iter * n_up, n_final, d_init.device)
@@ -825,7 +903,8 @@ def _sampler_edges(surface, rays_o, rays_d, d_init, far, ab, u, *, n_final, bg_r
 
     N, n0 = d_init.shape
     dev = d_init.device
-    kw = {"n_final": n_final, "u_stride": u.shape[1], "eps": eps, "bg_r": bg_r,
+    kw = {"n_final": n_final, "u_stride": u.shape[1], "eps": eps,
+          "bg_r": -1.0 if bg_r is None else bg_r,
           "prior_r": float(surface.radius_init) if surface.sphere_residual else -1.0}
     out = {}
 
@@ -1354,24 +1433,30 @@ def sine_kernel_checks(seed, dev, report=print):
 
 
 def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed, label,
-                   n_final=64):
+                   n_final=64, bg_r=3.0, bands=None):
     """Kernels (a)-(c) with kernel 4 against the plain sampler, end to end
     and each kernel in lockstep on its plain stage's inputs, with phase 14's
-    gates, at each beta_net of `betas`, det and perturb uniforms. Returns
-    (ok, {kernel: worst depth error}, (the last (alpha, beta), its uniforms))."""
+    gates, at each beta_net of `betas`, det and perturb uniforms; the
+    background sphere of radius `bg_r` (None: none, as under NeRF++). Per
+    ray band ({name: ray mask}; default all rays) the end-to-end gates: the
+    share of fine depths beyond 1e-4 of the ray's far (a ray of far 0
+    counts any difference), of beta maps off (rtol 1e-3, atol 1e-5) and of
+    equal iter_usage. Returns (ok, {kernel: worst depth error}, (the last
+    (alpha, beta), its uniforms))."""
     from neurecon_tpu_torch.ops import fused_fine_sample as ffs
     from neurecon_tpu_torch.ops.sampling import linspace01
 
     dev = rays_o.device
     N = rays_o.shape[0]
+    bands = bands or {"all": torch.ones(N, dtype=torch.bool, device=dev)}
     d_init = (far * linspace01(n0, dev)).contiguous()
     kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
-          "n_up": n_up, "sphere_bg_r": 3.0}
+          "n_up": n_up, "sphere_bg_r": bg_r}
     ok, k_err = True, {}
     ab = (torch.tensor(1.0 / betas[0], device=dev), torch.tensor(betas[0], device=dev))
     with torch.no_grad():
         edges = _sampler_edges(surface, rays_o, rays_d, d_init, far, ab,
-                               ffs.det_uniforms(n_final, 4, N, dev), n_final=n_final)
+                               ffs.det_uniforms(n_final, 4, N, dev), n_final=n_final, bg_r=bg_r)
     print(f"{label}: merge ties and det-draw edges (kernels vs plain): {json.dumps(edges)}")
     if edges["merge_ties_sdf"] > 1e-5 or edges["draw_ties"] > 0 or edges["draw_flat_share"] > 0.01:
         ok = False
@@ -1387,17 +1472,22 @@ def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed
                                                  **kw)
             torch.cuda.synchronize()
             dd = (gd - rd).abs()
-            fine_share = float((dd > 1e-4 * 6.0).float().mean())
-            beta_off = int(((gb - rb).abs() > 1e-5 + 1e-3 * rb.abs()).sum())
-            iter_eq = float((gi == ri).float().mean())
+            off = ~(dd <= 1e-4 * far)
+            beta_off = ~((gb - rb).abs() <= 1e-5 + 1e-3 * rb.abs())
+            per_band = {name: {"rays": int(m.sum()),
+                               "fine_share": float(off[m].float().mean()),
+                               "beta_off_share": float(beta_off[m].float().mean()),
+                               "iter_usage_equal": float((gi[m] == ri[m]).float().mean()),
+                               "rounds (-1, 0..)": torch.bincount(
+                                   (ri[m] + 1).long(), minlength=max_iter + 2).tolist()}
+                        for name, m in bands.items()}
             with torch.no_grad():
                 lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
-                                               n_up=n_up, max_iter=max_iter, n_final=n_final)
-            rounds = torch.bincount((ri + 1).long(), minlength=max_iter + 2).tolist()
+                                               n_up=n_up, max_iter=max_iter, n_final=n_final,
+                                               bg_r=bg_r)
             print(f"{label}: sampler beta_net {beta} {mode}, {N} rays, "
-                  f"{n0 + max_iter * n_up} depths: fine max|diff| {float(dd.max()):.3e}, share "
-                  f"beyond 1e-4 span {fine_share:.5f}; beta map off on {beta_off} rays; "
-                  f"iter_usage equal on {iter_eq:.4f}; rounds (-1, 0..{max_iter}) {rounds}; "
+                  f"{n0 + max_iter * n_up} depths: fine max|diff| {float(dd.max()):.3e}; "
+                  f"per band {json.dumps(per_band)}; "
                   f"lockstep (each kernel on the plain stage's inputs) {json.dumps(lock)}; "
                   f"round-0 and merged depths equal {merged_equal}")
             for name, e in lock.items():
@@ -1405,8 +1495,9 @@ def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed
                                   e.get("next_depths", 0.0))
             shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
             finite = all(bool(torch.isfinite(t_).all()) for t_ in (gd, gb))
-            if (fine_share > 0.02 or beta_off > 0.01 * N or iter_eq < 0.9 or not finite
-                    or not merged_equal or max(shares) > 0.01
+            if (any(b["fine_share"] > 0.02 or b["beta_off_share"] > 0.01
+                    or b["iter_usage_equal"] < 0.9 for b in per_band.values())
+                    or not finite or not merged_equal or max(shares) > 0.01
                     or max(e.get("sdf", 0.0) for e in lock.values()) > 1e-5
                     or max(e.get("unsorted_rays", 0.0) for e in lock.values()) > 0):
                 ok = False
@@ -1702,6 +1793,19 @@ SMALL_SHAPE = (8, 300, 400)  # the BlendedMVS and custom scenes
 DTU_SCALE, DTU_SHIFT = 2.5, (0.3, -0.2, 0.5)
 
 
+def _with_cuts(base, cuts):
+    """A deep copy of the config `base` with each (dotted key, value) of
+    `cuts` set."""
+    cfg = copy.deepcopy(base)
+    for key, value in cuts:
+        *path, last = key.split(".")
+        node = cfg
+        for p in path:
+            node = node[p]
+        node[last] = value
+    return cfg
+
+
 def unisurf_train_config(data_dir, exp_root, seed):
     """configs/unisurf.yaml with phase 23's cuts, and the cuts as
     (dotted key, value) pairs (printed by the phase)."""
@@ -1711,14 +1815,7 @@ def unisurf_train_config(data_dir, exp_root, seed):
             ("training.log_root_dir", exp_root), ("training.i_log", 10),
             ("training.i_backup", UNISURF_STEPS // 2), ("training.monitoring", "none"),
             ("expname", "chip_smoke_unisurf"), ("seed", seed)]
-    cfg = copy.deepcopy(UNISURF)
-    for key, value in cuts:
-        *path, last = key.split(".")
-        node = cfg
-        for p in path:
-            node = node[p]
-        node[last] = value
-    return cfg, cuts
+    return _with_cuts(UNISURF, cuts), cuts
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -1771,7 +1868,7 @@ def _to_u8(x):
     return np.round(np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0):
+def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, background="black"):
     """The synthetic sphere scene (`make_synthetic_scene`) on disk in one of
     the loaders' layouts, its images and masks as PNGs by `write_png`:
 
@@ -1783,6 +1880,8 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0):
       * "custom": images/, mask/, mask_out/ (read as `masks_ignore`: a band
         along the left edge) and cam.json with P and SCALE.
 
+    `background`: "black" or "envmap" (make_synthetic_scene's).
+
     Returns the scene's normalized cameras and analytic images: {"c2w",
     "intrinsics" [n, 4, 4], "rgb" [n, H, W, 3] float, "mask" [n, H, W] bool,
     "mask_out" [n, H, W] bool or None}."""
@@ -1790,7 +1889,7 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0):
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
 
     scene = make_synthetic_scene(n_images=n_images, H=H, W=W, radius=radius,
-                                 cam_radius=cam_radius)
+                                 cam_radius=cam_radius, background=background)
     c2w, K = scene["c2w"].astype(np.float64), scene["intrinsics"][0].astype(np.float64)
     rgb = scene["rgb"].reshape(n_images, H, W, 3)
     mask = scene["object_mask"].reshape(n_images, H, W)
@@ -2233,11 +2332,418 @@ def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     return 0, fields
 
 
+# configs/synthetic_quality_nomask.yaml as the file holds it (held equal to the
+# file by tests/test_torch_nerfpp.py): NeuS without a mask, the NeRF++
+# background (N_outside 32) on the synthetic sphere with its envmap
+# background, 16 views at 240x320, 512 rays a step.
+NEUS_NOMASK = {
+    "expname": "synthetic_quality_nomask", "device_ids": -1,
+    "data": {"type": "synthetic", "background": "envmap", "batch_size": 1, "data_dir": None,
+             "downscale": 1, "n_images": 16, "H": 240, "W": 320, "N_rays": 512,
+             "val_rayschunk": 8192, "val_downscale": 2},
+    "model": {"framework": "NeuS", "N_outside": 32, "obj_bounding_radius": 1.0,
+              "variance_init": 0.05, "upsample_algo": "official_solution",
+              "N_upsample_iters": 4, "N_samples": 64, "N_importance": 64,
+              "surface": {"D": 8, "W": 256, "skips": [4], "radius_init": 0.5,
+                          "embed_multires": 6},
+              "radiance": {"D": 4, "W": 256, "skips": [], "embed_multires": -1,
+                           "embed_multires_view": 4}},
+    "training": {"lr": 0.0005, "speed_factor": 10.0, "with_mask": False, "w_eikonal": 0.1,
+                 "w_mask": 1.0, "log_root_dir": "logs",
+                 "scheduler": {"type": "warmupcosine", "warmup_steps": 200},
+                 "num_iters": 4000, "steps_per_call": 50, "ckpt_file": None,
+                 "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "monitoring": "tensorboard", "i_save": 900, "i_backup": -1, "i_val": 2000,
+                 "i_val_mesh": -1, "i_log": 50},
+}
+NOMASK_STEPS = 60  # phase 28's cut of the file's 4,000 steps
+# phase 27's gate on the no-mask step's gradient through the kernels, each
+# leaf's max|diff| over its max|ref|, the JAX package's full-step bound.
+# `tools/step_grad_sensitivity.py --nomask` read (H100, PR 11) kernel 1's
+# route at 7.6e-5 (its sdf off the plain one's by std 1.9e-7, 65 alpha clamps
+# flipped), the plain route with sdf noise of std 3e-7 at <= 1.3e-5 and of
+# 1e-6 at 1.1e-4-5.5e-4: the background's alpha takes the midpoints outside
+# the sphere, so this step turns on the clamps less than phase 7's does
+NOMASK_GRAD_GATE = 5e-4
+
+# configs/volsdf_nerfpp.yaml as the file holds it (held equal to the file by
+# tests/test_torch_nerfpp.py): VolSDF with the NeRF++ background read from a
+# DTU scan (phase 29 writes the synthetic envmap scene in DTU's layout).
+VOLSDF_NERFPP = {
+    "data": {"N_rays": 1024, "batch_size": 1, "data_dir": "./data/DTU/scan40", "downscale": 1,
+             "far": 6.0, "near": 0.0, "pin_memory": True, "scale_radius": 3.0,
+             "val_downscale": 8, "val_rayschunk": 256},
+    "device_ids": -1, "expname": "volsdf_nerf++_40",
+    "model": {"W_geometry_feature": 256, "framework": "VolSDF", "max_upsample_iter": 5,
+              "obj_bounding_radius": 3.0, "outside_scene": "nerf++",
+              "radiance": {"D": 4, "embed_multires": -1, "embed_multires_view": -1,
+                           "skips": []},
+              "surface": {"D": 8, "embed_multires": 6, "radius_init": 1.0, "skips": [4]}},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0005, "monitoring": "tensorboard",
+                 "num_iters": 100000, "scheduler": {"type": "warmupcosine", "warmup_steps": 0},
+                 "speed_factor": 10.0, "w_eikonal": 0.1},
+}
+NERFPP_STEPS = 40  # phase 29's cut of the file's 100,000 steps
+
+
+def nomask_inputs(seed, dev):
+    """Phase 27's inputs: the NEUS_NOMASK model from the seed and its copy
+    with seeded noise on every weight, the background net's included (seed
+    + 1); the envmap scene's first view at 240x320 and its rays; a training
+    step's 512 rays drawn from the seed with their d_all from kernel 2 (det
+    uniforms) and the outside samples' jitter uniforms (seed + 5)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, _uniforms
+    from neurecon_tpu_torch.ops import fused_upsample, get_rays
+    from neurecon_tpu_torch.training import sample_ray_batch
+
+    args = ConfigDict(copy.deepcopy(NEUS_NOMASK))
+    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
+    checked = copy.deepcopy(model)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    H, W = NEUS_NOMASK["data"]["H"], NEUS_NOMASK["data"]["W"]
+    scene = make_synthetic_scene(n_images=1, H=H, W=W, background="envmap")
+    c2w = torch.tensor(scene["c2w"][:1], device=dev)
+    K = torch.tensor(scene["intrinsics"][:1], device=dev)
+    o_all, d_all_dirs, _ = get_rays(c2w[0], K[0], H, W)
+    batch = {"c2w": c2w, "intrinsics": K,
+             "rgb": torch.tensor(scene["rgb"][:1], device=dev).reshape(1, -1, 3)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, H, W, 512)
+    o, d, near, far = _prepare_rays(rb["rays_o"], rb["rays_d"], 1.0)
+    t = torch.linspace(0, 1, 64, device=dev)
+    d_all = fused_upsample.fused_neus_upsample(
+        checked.implicit_surface, o, d, (near * (1 - t) + far * t).contiguous(),
+        _uniforms(512, 4, 16, False, None, dev), n_iters=4, n_per_iter=16)
+    u_out = torch.rand(512, 32, device=dev, generator=torch.Generator(dev).manual_seed(seed + 5))
+    return {"args": args, "model": model, "checked": checked, "kw_train": kw_train,
+            "kw_test": kw_test, "o_all": o_all, "d_all_dirs": d_all_dirs, "rb": rb,
+            "rays_o": o, "rays_d": d, "d_all": d_all, "u_out": u_out}
+
+
+def _net_bound_ms(net, points):
+    """The fp32 bound of a plain MLP's forward and backward (input and
+    weight gradients, twice the forward's work) on `points` points: its
+    multiply-adds a point over 67 TFLOP/s; its bytes (the inputs and outputs,
+    a few words a point) bound nothing."""
+    from neurecon_tpu_torch.models.base import DenseLayer
+
+    macs = sum(m.in_dim * m.out_dim for m in net.modules() if isinstance(m, DenseLayer))
+    fwd = 1e3 * 2.0 * macs * points / FP32_PEAK
+    return macs, fwd, 2.0 * fwd
+
+
+def _nerfpp_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 27-29 (the NeRF++ background: NeuS without a mask, VolSDF with
+    outside_scene nerf++); returns rc."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.models.base import NeRF, RadianceNet, perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, neus, volsdf
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample, get_rays
+    from neurecon_tpu_torch.ops.sampling import linspace01
+    from neurecon_tpu_torch.tools import render_view
+    from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+
+    plain_routes = (
+        (fused_nablas, "fused_forward_with_nablas", fused_nablas.forward_with_nablas_plain),
+        (fused_upsample, "fused_neus_upsample", fused_upsample.neus_upsample_plain),
+        (ffs, "fused_fine_sample", ffs.fine_sample_plain))
+
+    def plain_patch(render_fn, o, d):
+        with contextlib.ExitStack() as stack:
+            for mod, name, plain in plain_routes:
+                stack.enter_context(mock.patch.object(mod, name, plain))
+            return render_full_image(render_fn, o, d, rayschunk=4096)
+
+    bg_parts = {"background forward": (NeRF, "forward")}
+    bg_backward = {"background backward": "nerf_outside"}
+
+    # ---- phase 27: NeuS without a mask at synthetic_quality_nomask.yaml's widths
+    c = nomask_inputs(seed, dev)
+    checked, kw_test = c["checked"], c["kw_test"]
+    H, W = NEUS_NOMASK["data"]["H"], NEUS_NOMASK["data"]["W"]
+    patch = torch.arange(H // 2 * W - 1024, H // 2 * W + 1024, device=dev)
+    render_fn = neus.make_volume_render_fn(checked, detailed_output=True, calc_normal=True,
+                                           **kw_test)
+    out_k = render_full_image(render_fn, c["o_all"][patch], c["d_all_dirs"][patch],
+                              rayschunk=4096)
+    out_p = plain_patch(render_fn, c["o_all"][patch], c["d_all_dirs"][patch])
+    n_out = NEUS_NOMASK["model"]["N_outside"]
+    e = {k: float(np.abs(out_k[k] - out_p[k]).max())
+         for k in ("rgb", "depth_volume", "mask_volume", "normals_volume", "sigma_out",
+                   "radiance_out")}
+    e["sigma_out beyond the sphere"] = float(np.abs(out_k["sigma_out"][:, -n_out:]
+                                                    - out_p["sigma_out"][:, -n_out:]).max())
+    e["radiance_out beyond the sphere"] = float(np.abs(out_k["radiance_out"][:, -n_out:]
+                                                       - out_p["radiance_out"][:, -n_out:]).max())
+    finite = all(np.isfinite(out_k[k]).all() for k in ("rgb", "depth_volume", "sigma_out"))
+    print(f"phase 27: 2,048-ray no-mask patch of the 240x320 envmap view, kernels vs plain: "
+          f"max|diff| {e}; finite {finite}")
+    if (e["rgb"] > 2e-3 or e["mask_volume"] > 2e-3 or e["sigma_out beyond the sphere"] > 1e-5
+            or e["radiance_out beyond the sphere"] > 1e-5 or not finite):
+        print("FAIL phase 27: the no-mask patch disagrees with the plain render",
+              file=sys.stderr)
+        return 1
+    ray_loss = get_ray_loss_fn(c["args"], checked, c["kw_train"])
+    loss_k, loss_p, ratios = _step_grad_check(checked, ray_loss, c["rb"], d_all=c["d_all"],
+                                              u_out=c["u_out"])
+    worst = max(ratios, key=ratios.get)
+    bg = {k: v for k, v in ratios.items() if k.startswith("nerf_outside")}
+    bg_worst = max(bg, key=bg.get)
+    print(f"phase 27: no-mask step (512 rays, perturb with fixed outside jitter) loss kernels "
+          f"{loss_k:.8f} plain {loss_p:.8f}; worst grad leaf {worst} {ratios[worst]:.2e} over "
+          f"{len(ratios)} leaves, of the background's {len(bg)} {bg_worst} {bg[bg_worst]:.2e} "
+          f"(gate {NOMASK_GRAD_GATE:g})")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > NOMASK_GRAD_GATE:
+        print("FAIL phase 27: the no-mask step's gradient through the kernels disagrees",
+              file=sys.stderr)
+        return 1
+    # the origin ray: a midpoint at exactly r = 0 (sections at 3 -+ 2^-7 on a
+    # ray from (0, 0, -3) along +z), through kernels 1 and 3
+    o = torch.tensor([[0.0, 0.0, -3.0], [0.1, 0.0, -3.0]], device=dev)
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], device=dev)
+    d_origin = (2.0 + 2.0 * linspace01(128, dev)).repeat(2, 1)
+    d_origin[0, 63], d_origin[0, 64] = 3.0 - 2.0 ** -7, 3.0 + 2.0 ** -7
+    checked.zero_grad(set_to_none=True)
+    ret = neus.volume_render_rays(checked, o, d, d_all_override=d_origin,
+                                  u_out=torch.full((2, n_out), 0.5, device=dev),
+                                  **c["kw_train"])
+    r_min = float(torch.linalg.norm(o[0] + d[0] * ret["d_final"][0, 63]))
+    torch.mean(torch.abs(ret["rgb"])).backward()
+    finite_grads = all(bool(torch.isfinite(p.grad).all()) for p in checked.parameters())
+    checked.zero_grad(set_to_none=True)
+    print(f"phase 27: the origin ray (a midpoint at |x| = {r_min:g}): every gradient finite "
+          f"{finite_grads}")
+    if r_min != 0.0 or not finite_grads:
+        print("FAIL phase 27: the origin ray's gradients are not finite", file=sys.stderr)
+        return 1
+
+    # ---- phase 28: train.py on the same config
+    tdir = os.path.join(workdir, "nomask_train")
+    cuts = [("training.num_iters", NOMASK_STEPS), ("training.scheduler.warmup_steps", 10),
+            ("training.i_val", NOMASK_STEPS // 2), ("training.i_val_mesh", NOMASK_STEPS // 2),
+            ("data.mesh_N", 256), ("training.i_log", 10), ("training.i_backup", -1),
+            ("training.monitoring", "none"), ("training.log_root_dir", tdir),
+            ("training.exp_dir", os.path.join(tdir, "run")),
+            ("expname", "chip_smoke_nomask_train"), ("seed", seed)]
+    print("phase 28: configs/synthetic_quality_nomask.yaml with the cuts "
+          + ", ".join(f"{k}={v}" for k, v in cuts))
+    targs = ConfigDict(_with_cuts(NEUS_NOMASK, cuts))
+    S = NOMASK_STEPS
+    out, launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
+    by_path["nomask_train"] = launches
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    mesh30 = os.path.join(out["exp_dir"], "meshes", f"{S // 2:08d}.ply")
+    n_f30 = len(mesh_util.read_ply(mesh30)[1]) if os.path.exists(mesh30) else -1
+    # two validations at 120x160 in chunks of 8,192 rays: 3 launches each of kernels 1 and 2
+    val_chunks = 2 * math.ceil((H // 2) * (W // 2) / NEUS_NOMASK["data"]["val_rayschunk"])
+    want = {"nablas_forward": S + val_chunks, "neus_upsample": S + val_chunks,
+            "nablas_backward": S}
+    print(f"phase 28: train.py {S} no-mask steps at 512 rays, {run_s:.1f} s in all: launches "
+          f"{launches} (kernels 1-3 want {want}: one each a step, two validations of "
+          f"{val_chunks // 2} chunks); loss mean of steps 1-10 {first:.5f}, of the last 10 "
+          f"{last:.5f}; in-loop 256^3 mesh at step {S // 2}: {n_f30} faces, "
+          f"{out['stats']['perf'].get('mesh_sec')} s")
+    print(f"phase 28: median {ms_step:.2f} ms/step over steps 6-{S} ({512e3 / ms_step:.0f} "
+          f"rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
+    if (any(launches[k] != v for k, v in want.items()) or launches["sdf_forward"] == 0
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first
+            or n_f30 < 0):
+        print("FAIL phase 28: no-mask training missed a kernel, diverged, did not lower the "
+              "loss, or wrote no mesh", file=sys.stderr)
+        return 1
+    vargs = ConfigDict(copy.deepcopy(NEUS_NOMASK))
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 2, "camera_path": "interpolation",
+                  "rayschunk": 4096})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    f_launches = by_path["nomask_render_view"] = read_counts()
+    n_chunks = 2 * math.ceil(H * W / 4096)
+    print(f"phase 28: render_view no-mask 2 x {H}x{W}: launches {f_launches} (kernels 1 and 2 "
+          f"want {n_chunks} each), s/frame {[round(v, 4) for v in frames['seconds']]} {tag}")
+    if (f_launches["nablas_forward"] != n_chunks or f_launches["neus_upsample"] != n_chunks
+            or not all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))):
+        print("FAIL phase 28: the no-mask render missed a kernel or is not finite",
+              file=sys.stderr)
+        return 1
+    step_total, split, busy = _step_split(
+        targs, dev, {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
+                     "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward"), **bg_parts},
+        backward_of=bg_backward)
+    rest = step_total - sum(split.values())
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    bg_points = 512 * (127 + n_out)
+    macs, b_fwd, b_bwd = _net_bound_ms(checked.nerf_outside, bg_points)
+    print(f"phase 28: one no-mask step (512 rays; the background net on {bg_points} points, "
+          f"{macs} multiply-adds a point, fp32 bound forward {b_fwd:.3f} ms, backward "
+          f"{b_bwd:.3f} ms) {step_total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the rest (radiance backward, compositing, loss, glue) {rest:.2f} ms; device "
+          f"over three steps {busy} {tag}")
+
+    # ---- phase 29: VolSDF with NeRF++ (configs/volsdf_nerfpp.yaml) read from a DTU scene
+    root = os.path.join(workdir, "scene_dtu_envmap")
+    t0 = time.perf_counter()
+    write_scene(root, "DTU", *DTU_SHAPE, background="envmap")
+    write_s = time.perf_counter() - t0
+    n0 = 128 * 4
+    max_iter = VOLSDF_NERFPP["model"]["max_upsample_iter"]
+    args = ConfigDict(_with_cuts(VOLSDF_NERFPP, [("data.data_dir", root)]))
+    t0 = time.perf_counter()
+    ds = get_data(args)
+    load_s = time.perf_counter() - t0
+    model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
+    vchecked = copy.deepcopy(model)
+    perturb_parameters(vchecked, torch.Generator().manual_seed(seed + 1))
+    Hd, Wd = ds.H, ds.W
+    c2w = torch.tensor(ds.c2w_all[0], device=dev)
+    K = torch.tensor(ds.intrinsics_all[0], device=dev)
+    o_all, d_all, _ = get_rays(c2w, K, Hd, Wd)
+    # the sampler's far bands: 768 rays of view 0 (cameras inside the sphere,
+    # rays crossing it: far ~3-5.7), 128 from view 0's camera pointing away
+    # from the centre (far ~0.27-1), 128 from cameras at twice the distance,
+    # outside the sphere, that miss it (far 0)
+    idx = torch.linspace(0, Hd * Wd - 1, 768, device=dev).long()
+    cam = c2w[:3, 3]
+    g = torch.Generator(dev).manual_seed(seed + 6)
+    away = cam / torch.linalg.norm(cam) + 0.3 * torch.randn(128, 3, device=dev, generator=g)
+    side = torch.linalg.cross(cam.expand(128, 3), torch.randn(128, 3, device=dev, generator=g))
+    o_b = torch.cat([o_all[idx], cam.expand(128, 3), 2.0 * cam.expand(128, 3)])
+    d_b = torch.cat([d_all[idx], away, side])
+    r_o, r_d, _, far = volsdf._ray_bounds(o_b, d_b, 0.0, 6.0, 3.0, True)
+    bands = {"full (far > 2)": far[:, 0] > 2.0,
+             "short (0 < far <= 2)": (far[:, 0] > 0) & (far[:, 0] <= 2.0),
+             "zero (far = 0)": far[:, 0] == 0}
+    print(f"phase 29: the DTU-layout envmap scene, {DTU_SHAPE[0]} views at {DTU_SHAPE[1]}x"
+          f"{DTU_SHAPE[2]}: written in {write_s:.2f} s, loaded in {load_s:.3f} s; sampler rays "
+          f"per far band " + ", ".join(f"{k} {int(m.sum())}" for k, m in bands.items())
+          + f", fars {float(far.min()):.4f}-{float(far.max()):.4f}")
+    ok, _, _ = _sampler_check(vchecked.implicit_surface, r_o, r_d, far.contiguous(),
+                              (0.1, 0.01, 0.001), n0, n0, max_iter, seed, "phase 29",
+                              bg_r=None, bands=bands)
+    if not ok or min(int(m.sum()) for m in bands.values()) < 64:
+        print("FAIL phase 29: the fine-sampler kernels disagree with their plain versions in "
+              "a far band", file=sys.stderr)
+        return 1
+    batch = {"c2w": torch.tensor(ds.c2w_all[:1], device=dev),
+             "intrinsics": torch.tensor(ds.intrinsics_all[:1], device=dev),
+             "rgb": torch.tensor(ds.rgb_images[:1], device=dev).reshape(1, -1, 3)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, Hd, Wd, 1024)
+    eik = (torch.rand(1, 1024, 1, 3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + 4)) * 2 - 1) * 3.0
+    u_out = torch.rand(1024, 32, device=dev, generator=torch.Generator(dev).manual_seed(seed + 5))
+    fine = volsdf.compute_ray_samples(vchecked, rb["rays_o"], rb["rays_d"],
+                                      **{**kw_train, "perturb": False})
+    v_loss = get_ray_loss_fn(args, vchecked, kw_train)
+    loss_k, loss_p, ratios = _step_grad_check(vchecked, v_loss, rb, fine_override=fine,
+                                              eik_pts=eik, u_out=u_out)
+    worst = max(ratios, key=ratios.get)
+    bg = {k: v for k, v in ratios.items() if k.startswith("nerf_outside")}
+    bg_worst = max(bg, key=bg.get)
+    print(f"phase 29: VolSDF nerf++ step (1,024 rays) loss kernels {loss_k:.8f} plain "
+          f"{loss_p:.8f}; worst grad leaf {worst} {ratios[worst]:.2e} over {len(ratios)} "
+          f"leaves, of the background's {bg_worst} {bg[bg_worst]:.2e} (phase 16's gate 5e-4)")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or ratios[worst] > 5e-4:
+        print("FAIL phase 29: the nerf++ step's gradient through the kernels disagrees",
+              file=sys.stderr)
+        return 1
+    tdir = os.path.join(workdir, "nerfpp_train")
+    S = NERFPP_STEPS
+    cuts = [("data.data_dir", root), ("training.num_iters", S), ("training.i_val", S // 2),
+            ("training.i_val_mesh", S // 2), ("data.mesh_N", 128), ("data.volume_size", 3.0),
+            ("training.i_log", 10), ("training.i_backup", S // 2),
+            ("training.monitoring", "none"), ("training.log_root_dir", tdir),
+            ("training.exp_dir", os.path.join(tdir, "run")),
+            ("expname", "chip_smoke_volsdf_nerfpp"), ("seed", seed)]
+    print("phase 29: configs/volsdf_nerfpp.yaml with the cuts "
+          + ", ".join(f"{k}={v}" for k, v in cuts))
+    targs = ConfigDict(_with_cuts(VOLSDF_NERFPP, cuts))
+    out, launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
+    by_path["volsdf_nerfpp_train"] = launches
+    ms_step = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    # a step: 1 + 1 + max_iter of (a)-(c), 1 + max_iter of kernel 4, one of
+    # kernels 1 and 3; a validation chunk the same but kernel 3
+    vd, vchunk = float(VOLSDF_NERFPP["data"]["val_downscale"]), 256
+    val_chunks = 2 * math.ceil(int(DTU_SHAPE[1] / vd) * int(DTU_SHAPE[2] / vd) / vchunk)
+    calls = S + val_chunks
+    want = {"volsdf_init": calls, "volsdf_draw": calls, "volsdf_checkpoint": max_iter * calls,
+            "nablas_forward": calls, "nablas_backward": S}
+    print(f"phase 29: train.py {S} VolSDF nerf++ steps at 1,024 rays, {run_s:.1f} s in all: "
+          f"launches {launches} (want {want} and kernel 4 {(1 + max_iter) * calls} plus the "
+          f"step-{S // 2} mesh's: a step {1} + {1} + {max_iter} of (a)-(c), {1 + max_iter} of "
+          f"kernel 4, one of kernels 1 and 3; {val_chunks // 2} chunks a validation); loss mean "
+          f"of steps 1-10 {first:.5f}, of the last 10 {last:.5f}; beta at the logs "
+          f"{[round(v, 5) for _, v in out['stats']['scalars']['beta']]}")
+    print(f"phase 29: median {ms_step:.2f} ms/step over steps 6-{S} ({1024e3 / ms_step:.0f} "
+          f"rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
+    if (any(launches[k] != v for k, v in want.items())
+            or launches["sdf_forward"] < (1 + max_iter) * calls
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first):
+        print("FAIL phase 29: nerf++ training missed a kernel, diverged or did not lower the "
+              "loss", file=sys.stderr)
+        return 1
+    vargs = ConfigDict(_with_cuts(VOLSDF_NERFPP, [("data.data_dir", root)]))
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 2, "camera_path": "interpolation",
+                  "rayschunk": 4096, "downscale": 10})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    f_launches = by_path["volsdf_nerfpp_render_view"] = read_counts()
+    fh, fw = frames["rgb"].shape[1:3]
+    chunks = 2 * math.ceil(fh * fw / 4096)
+    f_want = {"nablas_forward": chunks, "neus_upsample": 0, "nablas_backward": 0,
+              "sdf_forward": (1 + max_iter) * chunks, "volsdf_init": chunks,
+              "volsdf_draw": chunks, "volsdf_checkpoint": max_iter * chunks}
+    print(f"phase 29: render_view VolSDF nerf++ 2 x {fh}x{fw}: launches {f_launches} (want "
+          f"{f_want}), s/frame {[round(v, 4) for v in frames['seconds']]} {tag}")
+    if f_launches != f_want or not all(np.isfinite(frames[k]).all()
+                                       for k in ("rgb", "depth", "normal")):
+        print("FAIL phase 29: the nerf++ render missed a kernel or is not finite",
+              file=sys.stderr)
+        return 1
+    sampler = {"sampler (whole)": (ffs, "fused_fine_sample"),
+               "sdf_forward (sampler)": (ffs, "launch_sdf_forward"),
+               "volsdf_init": (ffs, "launch_init"), "volsdf_draw": (ffs, "launch_draw"),
+               "volsdf_checkpoint": (ffs, "launch_checkpoint")}
+    inner = ("sdf_forward (sampler)", "volsdf_init", "volsdf_draw", "volsdf_checkpoint")
+    step_total, split, busy = _step_split(
+        targs, dev, {**sampler, "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+                     "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+                     "radiance_forward": (RadianceNet, "forward"), **bg_parts},
+        backward_of=bg_backward)
+    rest = step_total - sum(v for k, v in split.items() if k not in inner)
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    _, b_fwd, b_bwd = _net_bound_ms(vchecked.nerf_outside, 1024 * 32)
+    print(f"phase 29: one VolSDF nerf++ step (1,024 rays; the background net on {1024 * 32} "
+          f"points, fp32 bound forward {b_fwd:.3f} ms, backward {b_bwd:.3f} ms) "
+          f"{step_total:.2f} ms: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the rest (radiance backward, compositing, loss, glue) {rest:.2f} ms; device "
+          f"over three steps {busy} {tag}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights (init, and the checked copy's noise)")
     seed = ap.parse_args(argv).seed
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2744,6 +3250,9 @@ def main(argv=None):
                                          work.name)
     if rc:
         return rc
+    rc = _nerfpp_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -2779,6 +3288,7 @@ def main(argv=None):
                                  if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
         r.update(unisurf_fields.get(r["name"], {}))
     results += siren_rows
+    print(f"chip_smoke: phases 1-29 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -5,7 +5,12 @@ The pytree, as numpy (a checkpoint's "model" entry, or
 
     {"ln_s": [1] (NeuS) or "ln_beta": [1] (VolSDF); UNISURF has neither,
      "implicit_surface": {"layers": [{"v", "g", "b"} or {"w", "b"}, ...]},
-     "radiance_net": {"layers": [...]}}
+     "radiance_net": {"layers": [...]},
+     "nerf_outside": {"pts_linears": [{"w", "b"}, ...], "views_linear",
+                      "feature_linear", "alpha_linear", "rgb_linear"}}
+
+`nerf_outside` (the NeRF++ background) is there only for NeuS without a
+mask and VolSDF with `outside_scene: nerf++`.
 
 Both sides store linear weights as [out, in], so values copy one to one.
 """
@@ -15,13 +20,45 @@ import numpy as np
 import torch
 
 
-def _layers_to_tree(layers):
-    out = []
-    for layer in layers:
-        names = ("v", "g", "b") if layer.weight_norm else ("w", "b")
-        out.append({n: getattr(layer, n).detach().cpu().numpy().copy()
-                    for n in names})
-    return {"layers": out}
+def _names(layer):
+    return ("v", "g", "b") if layer.weight_norm else ("w", "b")
+
+
+def _layer_to_tree(layer, leaf):
+    return {n: leaf(getattr(layer, n)) for n in _names(layer)}
+
+
+def _value(p):
+    return p.detach().cpu().numpy().copy()
+
+
+def _grad(p):
+    return (np.zeros(tuple(p.shape), np.float32) if p.grad is None
+            else p.grad.detach().cpu().numpy().copy())
+
+
+def _nets(model) -> tuple:
+    """The model's networks by pytree name: the surface, the radiance net
+    and, where the model has one, the NeRF++ background."""
+    names = ("implicit_surface", "radiance_net")
+    if getattr(model, "nerf_outside", None) is not None:
+        names += ("nerf_outside",)
+    return names
+
+
+def _layers_to_tree(layers, leaf=_value):
+    """{"layers": [...]} of a list of DenseLayers."""
+    return {"layers": [_layer_to_tree(l, leaf) for l in layers]}
+
+
+def _net_to_tree(net, leaf):
+    """A network's subtree: {"layers": [...]} for the surface and the
+    radiance net, the NeRF pytree for the background."""
+    if hasattr(net, "pts_linears"):
+        tree = {"pts_linears": [_layer_to_tree(l, leaf) for l in net.pts_linears]}
+        tree.update({n: _layer_to_tree(getattr(net, n), leaf) for n in net.HEADS})
+        return tree
+    return _layers_to_tree(net.layers, leaf)
 
 
 def _scalars(model) -> tuple:
@@ -30,66 +67,76 @@ def _scalars(model) -> tuple:
     return tuple(n for n in ("ln_s", "ln_beta") if hasattr(model, n))
 
 
-def model_to_tree(model) -> dict:
-    """The model's parameters as the JAX pytree of numpy arrays."""
-    tree = {name: getattr(model, name).detach().cpu().numpy().copy()
-            for name in _scalars(model)}
-    tree["implicit_surface"] = _layers_to_tree(model.implicit_surface.layers)
-    tree["radiance_net"] = _layers_to_tree(model.radiance_net.layers)
+def _to_tree(model, leaf) -> dict:
+    tree = {name: leaf(getattr(model, name)) for name in _scalars(model)}
+    tree.update({name: _net_to_tree(getattr(model, name), leaf) for name in _nets(model)})
     return tree
 
 
+def model_to_tree(model) -> dict:
+    """The model's parameters as the JAX pytree of numpy arrays."""
+    return _to_tree(model, _value)
+
+
 @torch.no_grad()
+def _load_layer(layer, p, what):
+    names = _names(layer)
+    if set(p) != set(names):
+        raise ValueError(f"{what}: keys {sorted(p)}, want {names}")
+    for n in names:
+        dst = getattr(layer, n)
+        src = torch.tensor(np.asarray(p[n], np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}.{n}: shape {tuple(src.shape)}, want {tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+def _load_list(layers, ps, what):
+    if len(ps) != len(layers):
+        raise ValueError(f"{what}: {len(ps)} layers in the tree, {len(layers)} in the model")
+    for i, (layer, p) in enumerate(zip(layers, ps)):
+        _load_layer(layer, p, f"{what}[{i}]")
+
+
 def _load_layers(layers, tree, what):
-    if len(tree["layers"]) != len(layers):
-        raise ValueError(f"{what}: {len(tree['layers'])} layers in the tree, "
-                         f"{len(layers)} in the model")
-    for i, (layer, p) in enumerate(zip(layers, tree["layers"])):
-        names = ("v", "g", "b") if layer.weight_norm else ("w", "b")
-        if set(p) != set(names):
-            raise ValueError(f"{what}.layers[{i}]: keys {sorted(p)}, want {names}")
-        for n in names:
-            dst = getattr(layer, n)
-            src = torch.tensor(np.asarray(p[n], np.float32))
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"{what}.layers[{i}].{n}: shape "
-                                 f"{tuple(src.shape)}, want {tuple(dst.shape)}")
-            dst.copy_(src)
+    """Load {"layers": [...]} into a list of DenseLayers."""
+    _load_list(layers, tree["layers"], f"{what}.layers")
+
+
+def _load_net(net, tree, what):
+    if hasattr(net, "pts_linears"):
+        want = {"pts_linears", *net.HEADS}
+        if set(tree) != want:
+            raise ValueError(f"{what}: keys {sorted(tree)}, want {sorted(want)}")
+        _load_list(net.pts_linears, tree["pts_linears"], f"{what}.pts_linears")
+        for n in net.HEADS:
+            _load_layer(getattr(net, n), tree[n], f"{what}.{n}")
+    else:
+        _load_layers(net.layers, tree, what)
 
 
 @torch.no_grad()
 def load_tree(model, tree: dict, strict: bool = True) -> None:
     """Copy a JAX NeuS, VolSDF or UNISURF pytree (numpy) into the port's
-    model, in place. With strict=False, top-level entries missing from the
-    tree are left as they are (a checkpoint loaded with ignore_keys /
-    only_use_keys)."""
+    model, in place, the NeRF++ background included where the model has one.
+    With strict=False, top-level entries missing from the tree are left as
+    they are (a checkpoint loaded with ignore_keys / only_use_keys)."""
     scalars = _scalars(model)
-    for name in (*scalars, "implicit_surface", "radiance_net"):
+    for name in (*scalars, *_nets(model)):
         if name not in tree and not strict:
             continue
         if name in scalars:
             getattr(model, name).copy_(torch.tensor(np.asarray(tree[name], np.float32)))
         else:
-            _load_layers(getattr(model, name).layers, tree[name], name)
+            _load_net(getattr(model, name), tree[name], name)
 
 
 def grads_to_tree(model) -> dict:
     """The parameters' .grad as the JAX pytree of numpy arrays (zeros where a
     parameter has none), to compare leaf by leaf with jax.grad."""
-    def g(p):
-        return (np.zeros(tuple(p.shape), np.float32) if p.grad is None
-                else p.grad.detach().cpu().numpy().copy())
-
-    def layers(mod):
-        return {"layers": [{n: g(getattr(layer, n)) for n in
-                            (("v", "g", "b") if layer.weight_norm else ("w", "b"))}
-                           for layer in mod.layers]}
-    tree = {name: g(getattr(model, name)) for name in _scalars(model)}
-    tree["implicit_surface"] = layers(model.implicit_surface)
-    tree["radiance_net"] = layers(model.radiance_net)
-    return tree
+    return _to_tree(model, _grad)
 
 
 def load_surface_tree(surface, tree: dict) -> None:
     """Copy an `implicit_surface` subtree (numpy) into an ImplicitSurface."""
-    _load_layers(surface.layers, tree, "implicit_surface")
+    _load_net(surface, tree, "implicit_surface")

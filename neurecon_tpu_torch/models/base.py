@@ -11,6 +11,9 @@
     sphere_residual prior sdf = (|x| - r) + f(x)
   * RadianceNet: [x_emb, view_emb, normals, geo] -> ReLU (or SIREN sine) MLP
     -> sigmoid rgb
+  * NeRF: the NeRF++ background MLP (plain ReLU layers, a skip that
+    concatenates [input, h] after its layer, raw sigma and sigmoid rgb), fed
+    the inverted-sphere coordinates (x / r, 1 / r)
   * pretrain_siren_sdf: a SIREN surface fitted to a sphere's sdf before
     training (plain PyTorch, Adam on an L1 loss)
   * make_schedule / make_optimizer: the per-iteration lr factor and Adam with
@@ -375,6 +378,57 @@ class RadianceNet(nn.Module):
             else:
                 h = sine_w0(h) if self.use_siren else torch.relu(h)
         return h.reshape(prefix + (3,))
+
+
+class NeRF(nn.Module):
+    """The vanilla NeRF MLP of the NeRF++ background: D ReLU layers of width
+    W on the encoded input (`multires` octaves), whose skip layers
+    concatenate [input_pts, h] after their activation; raw sigma from
+    `alpha_linear`, and rgb from feature_linear -> [feature, view_emb] ->
+    views_linear (W / 2, ReLU) -> rgb_linear -> sigmoid. Returns (sigma
+    [...], rgb [..., 3]). Plain layers (no weight norm), initialized as
+    nn.Linear is. (The JAX package's net without view dirs has no caller.)"""
+
+    HEADS = ("views_linear", "feature_linear", "alpha_linear", "rgb_linear")
+
+    def __init__(self, D: int = 8, W: int = 256, input_ch: int = 3,
+                 input_ch_view: int = 3, multires: int = -1,
+                 multires_view: int = -1, skips: Sequence[int] = (4,)):
+        super().__init__()
+        self.D, self.W = D, W
+        self.skips = tuple(skips)
+        self.embed_fn, self.input_ch = get_embedder(multires, input_ch)
+        self.embed_fn_view, self.input_ch_view = get_embedder(multires_view, input_ch_view)
+        dims = [(self.input_ch, W)] + [(W + self.input_ch if i in self.skips else W, W)
+                                       for i in range(D - 1)]
+        self.pts_linears = nn.ModuleList(DenseLayer(i, o, False) for i, o in dims)
+        self.views_linear = DenseLayer(self.input_ch_view + W, W // 2, False)
+        self.feature_linear = DenseLayer(W, W, False)
+        self.alpha_linear = DenseLayer(W, 1, False)
+        self.rgb_linear = DenseLayer(W // 2, 3, False)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator):
+        for layer in [*self.pts_linears, *(getattr(self, n) for n in self.HEADS)]:
+            layer.set_weight(*_torch_linear_default(layer.in_dim, layer.out_dim, gen))
+
+    def forward(self, input_pts, input_views):
+        input_pts = self.embed_fn(input_pts)
+        h = input_pts
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(layer(h))
+            if i in self.skips:
+                h = torch.cat([input_pts, h], dim=-1)
+        sigma = self.alpha_linear(h)
+        h = torch.cat([self.feature_linear(h), self.embed_fn_view(input_views)], dim=-1)
+        rgb = self.rgb_linear(torch.relu(self.views_linear(h)))
+        return sigma[..., 0], torch.sigmoid(rgb)
+
+
+def outside_nerf() -> NeRF:
+    """The background net of NeuS (no mask) and VolSDF (`outside_scene:
+    nerf++`): input (x / r, 1 / r), 10 octaves, 4 view octaves, D=8, W=256."""
+    return NeRF(input_ch=4, multires=10, multires_view=4)
 
 
 def pretrain_siren_sdf(surface: ImplicitSurface, num_iters: int = 5000, lr: float = 1.0e-4,

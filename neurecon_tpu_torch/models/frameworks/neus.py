@@ -5,12 +5,14 @@ hierarchical upsampler (CUDA kernel `neus_upsample`, gradient-free), one
 batched sdf + nablas + geometry query over sections and midpoints (CUDA
 kernel `nablas_forward`, and in training its backward `nablas_backward`
 through `ops/fused_nablas_vjp.py`), the radiance net, the sdf -> alpha ->
-visibility-weight compositor, the L1 + eikonal + mask losses, and the model's
-point queries for the surface renderer and the mesh grids
-(`forward_surface_fast`, CUDA kernel `sdf_forward`), for models
-without the NeRF++ background (`N_outside == 0`, `with_mask: true`). The
-other two upsample algorithms and the NeRF++ branch wait for later slices
-(ROADMAP Queue A, [A4/A5] and [A2/A3/A4]).
+visibility-weight compositor, the L1 + eikonal (+ mask) losses, and the
+model's point queries for the surface renderer and the mesh grids
+(`forward_surface_fast`, CUDA kernel `sdf_forward`). Without a mask
+(`with_mask: false`) the NeRF++ background (`models/base.py::NeRF`, plain
+PyTorch layers, as the JAX package computes it outside any kernel) takes
+the midpoints outside the bounding sphere and N_outside samples beyond it,
+in the inverted-sphere coordinates (x / r, 1 / r). The other two upsample
+algorithms wait for a later slice (ROADMAP Queue A, [A4/A5]).
 """
 from __future__ import annotations
 
@@ -21,9 +23,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet
+import torch.nn.functional as F
+
+from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet, outside_nerf
 from neurecon_tpu_torch.ops import fused_upsample, near_far_from_sphere
-from neurecon_tpu_torch.ops.sampling import alpha_to_w
+from neurecon_tpu_torch.ops.sampling import alpha_to_w, linspace01, stratified_jitter
 
 
 def cdf_Phi_s(x, s):
@@ -43,6 +47,7 @@ class NeuS(nn.Module):
                  speed_factor: float = 1.0,
                  input_ch: int = 3,
                  W_geo_feat: int = -1,
+                 use_outside_nerf: bool = False,
                  obj_bounding_radius: float = 1.0,
                  surface_cfg: Optional[dict] = None,
                  radiance_cfg: Optional[dict] = None):
@@ -56,12 +61,15 @@ class NeuS(nn.Module):
         if W_geo_feat < 0:
             W_geo_feat = self.implicit_surface.W
         self.radiance_net = RadianceNet(W_geo_feat=W_geo_feat, **(radiance_cfg or {}))
+        self.nerf_outside = outside_nerf() if use_outside_nerf else None
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):
         self.ln_s.fill_(self.ln_s_init)
         self.implicit_surface.reset_parameters(gen)
         self.radiance_net.reset_parameters(gen)
+        if self.nerf_outside is not None:
+            self.nerf_outside.reset_parameters(gen)
 
     def forward_s(self):
         return torch.exp(self.ln_s[0] * self.speed_factor)
@@ -141,16 +149,16 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
                        calc_normal: bool = False,
                        detailed_output: bool = True,
                        d_all_override=None,
+                       u_out=None,
                        **dummy_kwargs):
     """Render a flat batch of rays [N, 3] -> dict of per-ray outputs;
     rays_d need not be normalized. Differentiable in the model's parameters
     where grad is on (training); the samples d_all never carry a gradient.
     Under no_grad (the render) no graph is built and only the forward
-    kernels run."""
-    if N_outside > 0:
-        raise NotImplementedError(
-            "the NeRF++ outside branch (N_outside > 0) is not ported yet "
-            "(ROADMAP Queue A, [A2/A3/A4])")
+    kernels run. With N_outside > 0 the model's NeRF++ background takes the
+    midpoints outside the sphere of `obj_bounding_radius` and N_outside
+    samples at far / t beyond `far`, jittered under `perturb` by the
+    uniforms `u_out` [N, N_outside] (drawn from `generator` when None)."""
     rays_o, rays_d, near, far = _prepare_rays(
         rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
 
@@ -179,11 +187,45 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
                      if use_view_dirs else None)
     radiances = model.radiance_net(pts_mid, view_dirs_mid, nablas_mid, h_mid)
 
+    sigma_out = radiance_out = None
+    if N_outside > 0:
+        t_out = linspace01(N_outside + 2, rays_o.device)[1:-1]
+        d_vals_out = far / torch.flip(t_out, dims=[-1])  # [N, N_outside]
+        if perturb:
+            if u_out is None:
+                u_out = torch.rand(d_vals_out.shape, generator=generator, device=rays_o.device)
+            d_vals_out = stratified_jitter(d_vals_out, u_out.reshape(d_vals_out.shape))
+        d_vals_out = torch.cat([d_mid, d_vals_out], dim=-1)  # sorted
+        pts_out = rays_o[:, None, :] + rays_d[:, None, :] * d_vals_out[..., None]
+        # the safe norm: a midpoint at the exact origin (a principal ray of a
+        # centred camera) would give 0 / 0 here; the where-merge below hides
+        # it in the forward but not in the background net's gradients, so
+        # the square is clamped before the root (zero gradient at the clamp)
+        r = torch.sqrt(torch.clamp(torch.sum(pts_out ** 2, dim=-1, keepdim=True),
+                                   min=1e-12))
+        x_out = torch.cat([pts_out / r, 1.0 / r], dim=-1)
+        views_out = rays_d[:, None, :].expand_as(pts_out) if use_view_dirs else None
+        sigma_out, radiance_out = model.nerf_outside(x_out, views_out)
+        dists = d_vals_out[..., 1:] - d_vals_out[..., :-1]
+        dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+        # softplus, not relu, as in the official NeuS repo
+        alpha_out = 1 - torch.exp(-F.softplus(sigma_out) * dists)
+        n_mid = d_mid.shape[-1]
+        inside = torch.linalg.norm(pts_mid, dim=-1) <= obj_bounding_radius
+        opacity_alpha = torch.cat([torch.where(inside, opacity_alpha, alpha_out[:, :n_mid]),
+                                   alpha_out[:, n_mid:]], dim=-1)
+        radiances = torch.cat([torch.where(inside[..., None], radiances,
+                                           radiance_out[:, :n_mid]),
+                               radiance_out[:, n_mid:]], dim=-2)
+        d_final = d_vals_out
+    else:
+        d_final = d_mid
+
     visibility_weights = alpha_to_w(opacity_alpha)
     rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
     depth_map = torch.sum(
         visibility_weights
-        / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_mid,
+        / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_final,
         dim=-1)
     acc_map = torch.sum(visibility_weights, dim=-1)
     if white_bkgd:
@@ -200,20 +242,23 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
         ret.update({"implicit_nablas": nablas, "implicit_surface": sdf,
                     "radiance": radiances, "alpha": opacity_alpha,
                     "cdf": cdf, "visibility_weights": visibility_weights,
-                    "d_final": d_mid, "d_all": d_all})
+                    "d_final": d_final, "d_all": d_all})
+        if N_outside > 0:
+            ret.update({"sigma_out": sigma_out, "radiance_out": radiance_out})
     return ret
 
 
 def make_volume_render_fn(model: NeuS, **render_kwargs):
-    """(rays_o, rays_d, generator=None, d_all=None) -> (rgb, depth, extras),
-    leading batch dims preserved; static render options bound here."""
+    """(rays_o, rays_d, generator=None, d_all=None, u_out=None) -> (rgb,
+    depth, extras), leading batch dims preserved; static render options
+    bound here."""
     for k in ("H", "W", "rayschunk", "netchunk", "batched"):
         render_kwargs.pop(k, None)
 
-    def render(rays_o, rays_d, generator=None, d_all=None):
+    def render(rays_o, rays_d, generator=None, d_all=None, u_out=None):
         prefix = rays_o.shape[:-1]
         ret = volume_render_rays(model, rays_o, rays_d, generator=generator,
-                                 d_all_override=d_all, **render_kwargs)
+                                 d_all_override=d_all, u_out=u_out, **render_kwargs)
         ret = {k: v.reshape(prefix + v.shape[1:]) for k, v in ret.items()}
         return ret["rgb"], ret["depth_volume"], ret
 
@@ -223,11 +268,11 @@ def make_volume_render_fn(model: NeuS, **render_kwargs):
 def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
                    w_eikonal: float, with_mask: bool, w_mask: float = 0.0,
                    target_mask=None, mask_ignore=None, generator=None,
-                   d_all=None):
+                   d_all=None, u_out=None):
     """NeuS training losses: L1 rgb + eikonal on the section points + the
-    mask BCE on the clamped accumulation map. Returns (total, (losses,
-    extras))."""
-    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all)
+    mask BCE on the clamped accumulation map (with a mask). Returns (total,
+    (losses, extras))."""
+    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all, u_out=u_out)
 
     nablas = extras["implicit_nablas"]
     nablas_norm = torch.linalg.norm(nablas, dim=-1)
@@ -258,8 +303,10 @@ def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
 
 
 def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict):
-    """ray_loss(rb, generator=None, it=0, d_all=None) -> (total, (losses,
-    extras)) on a ray batch from `training.sample_ray_batch`."""
+    """ray_loss(rb, generator=None, it=0, d_all=None, u_out=None) -> (total,
+    (losses, extras)) on a ray batch from `training.sample_ray_batch`
+    (`u_out`: the outside samples' jitter uniforms, see
+    `volume_render_rays`)."""
     with_mask = bool(args.training.with_mask)
     w_mask = float(args.training.setdefault("w_mask", 0.0))
     w_eikonal = float(args.training.w_eikonal)
@@ -267,12 +314,13 @@ def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict):
         model, detailed_output=True, **{k: v for k, v in render_kwargs_train.items()
                                         if k not in ("H", "W")})
 
-    def ray_loss(rb, generator=None, it=0, d_all=None):
+    def ray_loss(rb, generator=None, it=0, d_all=None, u_out=None):
         return compute_losses(
             model, rb["rays_o"], rb["rays_d"], rb["target_rgb"],
             render_fn=render_fn, w_eikonal=w_eikonal, with_mask=with_mask,
             w_mask=w_mask, target_mask=rb.get("target_mask"),
-            mask_ignore=rb.get("mask_ignore"), generator=generator, d_all=d_all)
+            mask_ignore=rb.get("mask_ignore"), generator=generator, d_all=d_all,
+            u_out=u_out)
 
     return ray_loss
 
@@ -302,12 +350,12 @@ def get_model(args, device=None, seed: int = 0):
     from neurecon_tpu_torch import get_device
 
     if not args.training.with_mask:
-        raise NotImplementedError(
-            "NeuS with the NeRF++ background (with_mask: false) is not "
-            "ported yet (ROADMAP Queue A, [A2/A3/A4])")
+        if not ("N_outside" in args.model and args.model.N_outside > 0):
+            raise ValueError("Please specify a positive model:N_outside for neus with nerf++")
     model_config = {
         "obj_bounding_radius": args.model.obj_bounding_radius,
         "W_geo_feat": args.model.setdefault("W_geometry_feature", 256),
+        "use_outside_nerf": not args.training.with_mask,
         "speed_factor": args.training.setdefault("speed_factor", 1.0),
         "variance_init": args.model.setdefault("variance_init", 0.05),
     }

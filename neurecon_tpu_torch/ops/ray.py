@@ -1,8 +1,9 @@
 """Ray generation and ray/sphere geometry (port of `neurecon_tpu/ops/ray.py`).
 
 Full-image rays (the render), random pixel batches drawn from a
-`torch.Generator` (training), rays at given pixels, and the conservative
-bounding-sphere near/far.
+`torch.Generator` (training), rays at given pixels, the conservative
+bounding-sphere near/far, and the exact ray-sphere geometry of the NeRF++
+background (`get_sphere_intersection`, `get_dvals_from_radius`).
 """
 from __future__ import annotations
 
@@ -83,6 +84,34 @@ def near_far_from_sphere(rays_o, rays_d, r: float = 1.0, keepdim: bool = True):
     near = torch.clamp(mid - r, min=0.0)
     far = torch.clamp(mid + r, min=r)
     return near, far
+
+
+def get_sphere_intersection(rays_o, rays_d, r: float = 1.0):
+    """Exact ray-sphere intersections. rays_d normalized. Returns (near,
+    far, mask_intersect) [..., 1]; near and far are zero where the ray
+    misses the sphere, and clamped at 0."""
+    rayso_norm_sq = torch.sum(rays_o ** 2, dim=-1, keepdim=True)
+    ray_cam_dot = torch.sum(rays_o * rays_d, dim=-1, keepdim=True)
+    under_sqrt = ray_cam_dot ** 2 + r ** 2 - rayso_norm_sq
+    mask_intersect = under_sqrt > 0
+    sqrt = torch.sqrt(torch.clamp(under_sqrt, min=0.0))
+    zero = torch.zeros_like(sqrt)
+    near = torch.where(mask_intersect, -sqrt - ray_cam_dot, zero)
+    far = torch.where(mask_intersect, sqrt - ray_cam_dot, zero)
+    return torch.clamp(near, min=0.0), torch.clamp(far, min=0.0), mask_intersect
+
+
+def get_dvals_from_radius(rays_o, rays_d, rs, far_end: bool = True):
+    """Depth along the ray at which |o + d t| == rs (the NeRF++ outside
+    points): rays [..., 3] (d normalized), rs [..., N] -> [..., N]; the far
+    root, or the near one clamped at 0."""
+    rayso_norm_sq = torch.sum(rays_o ** 2, dim=-1, keepdim=True)
+    ray_cam_dot = torch.sum(rays_o * rays_d, dim=-1, keepdim=True)
+    under_sqrt = rs ** 2 - (rayso_norm_sq - ray_cam_dot ** 2)
+    sqrt = torch.sqrt(torch.clamp(under_sqrt, min=0.0))
+    if far_end:
+        return -ray_cam_dot + sqrt
+    return torch.clamp(-ray_cam_dot - sqrt, min=0.0)
 
 
 def lin2img(tensor, H: int, W: int):

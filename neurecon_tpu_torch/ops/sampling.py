@@ -30,6 +30,16 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     return t
 
 
+def stratified_jitter(vals, u):
+    """One value in each stratum around the sorted vals [..., K] (the
+    midpoints as bounds, the ends as the outer bounds), at the uniforms u
+    [..., K]: the NeRF++ outside samples' jitter."""
+    mids = 0.5 * (vals[..., 1:] + vals[..., :-1])
+    upper = torch.cat([mids, vals[..., -1:]], dim=-1)
+    lower = torch.cat([vals[..., :1], mids], dim=-1)
+    return lower + (upper - lower) * u
+
+
 def searchsorted(a, v, side: str = "left"):
     """Batched insertion indices: a [..., M] (sorted), v [..., N] -> [..., N].
 

@@ -1,7 +1,7 @@
 """How far `chip_smoke.py` phase 7's whole-step gradient check moves under
 sdf rounding, on one CUDA card:
 
-    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N]
+    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N] [--nomask]
 
 Phase 7 holds every parameter's gradient of the flagship NeuS ray loss
 through the kernels to the plain route's within 5e-4 of its max|ref|. The
@@ -15,7 +15,11 @@ whose clamp decision differs; phase 7's measure for routes that take one
 piece from the kernels and the rest from the plain versions (kernel 1's
 outputs, each of its three outputs alone, kernel 3); and the measure of the
 plain route against itself with seeded Gaussian noise of std sigma added to
-its sdf, two seeds a sigma.
+its sdf, two seeds a sigma. With `--nomask` the same on phase 27's step
+(`chip_smoke.nomask_inputs`: NeuS without a mask at
+configs/synthetic_quality_nomask.yaml's widths, the NeRF++ background, 512
+rays of the envmap scene with their fixed outside jitter), whose gate
+(`chip_smoke.NOMASK_GRAD_GATE`) these readings set.
 """
 from __future__ import annotations
 
@@ -29,7 +33,10 @@ import torch
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    seed = ap.parse_args(argv).seed
+    ap.add_argument("--nomask", action="store_true",
+                    help="phase 27's no-mask step instead of phase 7's")
+    opts = ap.parse_args(argv)
+    seed = opts.seed
     import chip_smoke
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
@@ -40,18 +47,29 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    c = chip_smoke.render_chunk_inputs(seed, dev)
-    model, t = c["checked"], c["t"]
+    if opts.nomask:
+        c = chip_smoke.nomask_inputs(seed, dev)
+        model, rb, d_all, o, d = c["checked"], c["rb"], c["d_all"], c["rays_o"], c["rays_d"]
+        ray_loss = get_ray_loss_fn(c["args"], model, c["kw_train"])
+        extra = {"u_out": c["u_out"]}
+    else:
+        c = chip_smoke.render_chunk_inputs(seed, dev)
+        model, t = c["checked"], c["t"]
+        scene = make_synthetic_scene(n_images=1, H=120, W=160)
+        batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
+                 "intrinsics": torch.tensor(scene["intrinsics"][:1], device=dev),
+                 "rgb": torch.tensor(scene["rgb"][:1], device=dev).reshape(1, -1, 3),
+                 "object_mask": torch.tensor(scene["object_mask"][:1],
+                                             device=dev).reshape(1, -1)}
+        rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, 120, 160, 512)
+        o, d, near, far = _prepare_rays(rb["rays_o"], rb["rays_d"], 1.0)
+        d_all = fused_upsample.fused_neus_upsample(
+            model.implicit_surface, o, d, (near * (1 - t) + far * t).contiguous(),
+            c["u_det"][:512], n_iters=4, n_per_iter=16)
+        ray_loss = get_ray_loss_fn(ConfigDict(chip_smoke._train_config("unused", seed)), model,
+                                   c["kw_test"])
+        extra = {}
     surface = model.implicit_surface
-    scene = make_synthetic_scene(n_images=1, H=120, W=160)
-    batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
-             "intrinsics": torch.tensor(scene["intrinsics"][:1], device=dev),
-             "rgb": torch.tensor(scene["rgb"][:1], device=dev).reshape(1, -1, 3),
-             "object_mask": torch.tensor(scene["object_mask"][:1], device=dev).reshape(1, -1)}
-    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, 120, 160, 512)
-    o, d, near, far = _prepare_rays(rb["rays_o"], rb["rays_d"], 1.0)
-    d_all = fused_upsample.fused_neus_upsample(surface, o, d, (near * (1 - t) + far * t).contiguous(),
-                                               c["u_det"][:512], n_iters=4, n_per_iter=16)
     x = (o[:, None] + d[:, None] * d_all[..., None]).reshape(-1, 3).contiguous()
     k_sdf = fused_nablas.fused_forward_with_nablas(surface, x)[0].view(512, -1)
     p_sdf = fused_nablas.forward_with_nablas_plain(surface, x)[0].view(512, -1)
@@ -64,8 +82,6 @@ def main(argv=None):
            "sdf_err_mean": float(err.mean()),
            "clamp_flips": int(((raw[0] > 0) != (raw[1] > 0)).sum())}
 
-    ray_loss = get_ray_loss_fn(ConfigDict(chip_smoke._train_config("unused", seed)), model,
-                               c["kw_test"])
     kernel1 = fused_nablas.fused_forward_with_nablas
     kernel3 = fused_nablas_vjp.fused_nablas_vjp
 
@@ -91,7 +107,7 @@ def main(argv=None):
         with mock.patch.object(fused_nablas, "fused_forward_with_nablas", route1), \
                 mock.patch.object(fused_nablas_vjp, "fused_nablas_vjp", route3):
             model.zero_grad(set_to_none=True)
-            ray_loss(rb, d_all=d_all)[0].backward()
+            ray_loss(rb, d_all=d_all, **extra)[0].backward()
             return [q.grad.clone() for q in model.parameters()]
 
     def measure(got, ref):
@@ -99,6 +115,7 @@ def main(argv=None):
                    for a, b in zip(got, ref))
 
     ref = grads(noisy(0.0, 0))
+    res["step"] = "phase 27 (no mask)" if opts.nomask else "phase 7"
     res["phase7_measure"] = {
         "kernel1": measure(grads(kernel1), ref),
         "kernel1_sdf": measure(grads(mixed((True, False, False))), ref),

@@ -27,9 +27,12 @@ the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
 on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
 loop's checks: eager PyTorch has no dispatch to amortize.
 
-Not ported yet, and refused before the first step (ROADMAP.md): VolSDF's
-and NeuS's NeRF++ background, several devices, `training.overlap_sampler`
-and the profiler window (`training.profile_steps`).
+NeuS without a mask and VolSDF with `outside_scene: nerf++` train their
+NeRF++ background net with the rest (its own parameter group under a
+per-module lr dict, else the default group). Not ported yet, and refused
+before the first step (ROADMAP.md): several devices,
+`training.overlap_sampler` and the profiler window
+(`training.profile_steps`).
 """
 from __future__ import annotations
 

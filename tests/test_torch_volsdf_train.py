@@ -235,10 +235,27 @@ def test_train_resumes_and_evaluates(tmp_path):
 
 
 def test_unported_volsdf_options_are_refused(tmp_path):
+    """NeRF++ (ported) builds and takes a step whose every background leaf
+    gets a finite gradient, SIREN builds, overlap_sampler is refused."""
     cfg = _cfg()
-    cfg["model"]["outside_scene"] = "nerf++"
-    with pytest.raises(NotImplementedError, match="NeRF\\+\\+"):
-        get_model(ConfigDict(cfg), "cpu")
+    cfg["model"].update(outside_scene="nerf++", N_outside=4)
+    targs = ConfigDict(cfg)
+    model, kw, _, _ = get_model(targs, "cpu")
+    assert model.nerf_outside is not None and not model.use_sphere_bg
+    ds = jax_get_data(JaxConfigDict(cfg))
+    batch = {"c2w": _t(ds.c2w_all[:1]), "intrinsics": _t(ds.intrinsics_all[:1]),
+             "rgb": _t(ds.rgb_images[:1]).reshape(1, -1, 3)}
+    kw["H"], kw["W"] = ds.H, ds.W
+    from neurecon_tpu_torch.models.frameworks import make_trainer
+    opt, sched = make_optimizer(targs, model)
+    step = make_train_step(make_trainer(targs, model, kw), model, opt, sched)
+    metrics = step(batch, torch.Generator().manual_seed(0), 0)
+    assert np.isfinite(metrics["losses"]["total"].item())
+    assert set(metrics["grad_norms"]) == {"ln_beta", "implicit_surface", "radiance_net",
+                                          "nerf_outside"}
+    g = bridge.grads_to_tree(model)["nerf_outside"]
+    assert all(np.isfinite(x).all() for x in jax.tree_util.tree_leaves(g))
+    assert np.abs(g["rgb_linear"]["w"]).max() > 0
     cfg = _cfg()
     cfg["model"]["surface"].update(use_siren=True, skips=[])  # SIREN is ported (no skips)
     model, _, _, _ = get_model(ConfigDict(cfg), "cpu")
