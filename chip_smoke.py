@@ -230,13 +230,42 @@ Phases, in order; any failure exits non-zero:
    (a)-(c), 6 of kernel 4, one of kernels 1 and 3), finite losses that fall;
    median ms per step; two 120x160 frames (`--downscale 10`, exact
    launches); one step split as phase 28's.
+30. Ray-parallel training (`neurecon_tpu_torch/parallel/`): `train.py` run
+   as ranks of this script (`--rank-job`), started by the port's launcher
+   under torchrun's variables, each rank with its own launch counters,
+   every group with a time limit (`DDP_TIMEOUT`). (1) One rank over NCCL at
+   phase 8's config and seed, with a profiler window over steps 10-11:
+   every step's loss within rel 1e-5 of phase 8's and each parameter leaf
+   as the tests hold Adam runs (at most 1% of its elements beyond 1e-3 of
+   its move, none beyond 0.1; bit-equality is printed), kernels 1-3 on
+   every step and kernel 4 for the mesh; its median ms per step against
+   phase 8's (the one-rank group's cost) and the window's device idle
+   share. (2) Two ranks on the one card over gloo, 10 NeuS steps at 512
+   rays (a mesh at step 5): each rank launches kernels 1-3 every step,
+   only rank 0 kernel 4; rank 1 starts from other weights, and after the
+   first broadcast both ranks hold the same surface pack, made anew and
+   equal to a fresh pack; the ranks' global losses are equal and within
+   `DDP_LOSS_REL` of the one-rank run's first 10. (3) In the same ranks,
+   5 VolSDF steps at `VOLSDF`'s widths and 1,024 rays: kernel 4 and
+   (a)-(c) on every step of each rank. (4) Where more than one card is
+   visible, one rank a card over NCCL, 10 steps, the same checks (not
+   reached on a one-card machine).
+31. The sharded validation render: the same two ranks render a 120x160
+   NeuS frame (the flagship net with seeded noise, det, rayschunk 4,096)
+   split by pixel; the gathered frame against the one-rank frame (every
+   output within `FRAME_ATOL`), kernels 1 and 2 launched on each rank.
+
+Phases 1-29 run in this process on one card (no launcher: a world of one);
+phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but for (4).
 
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
 (`launches` from each slice's training run: phase 8 for kernels 1-4, phase
 16 for (a)-(c), phase 20 for the sine branch, whose rows are named
 `<kernel>[sine]`; `launches_by_path` for each path, `unisurf_train`,
-`unisurf_render`, `nomask_train` and `volsdf_nerfpp_train` among them; the surface-MLP rows held to their 3xTF32
+`unisurf_render`, `nomask_train`, `volsdf_nerfpp_train`, and phases 30-31's
+`ddp1_train`, `ddp2_train_rank<r>`, `ddp2_volsdf_rank<r>` and
+`sharded_render_rank<r>` among them; the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
 then the run's wall seconds, then, as the last line, {"ok": true, "device":
@@ -594,19 +623,43 @@ def _train_config(tmp, seed):
     return cfg
 
 
-def _train_timed(targs, zero_counts, read_counts):
+def _launch_counters():
+    """({kernel: its wrapper, whose `launches` counts its launches}, a
+    function that sets every count to 0, one that reads them)."""
+    from neurecon_tpu_torch.ops import (fused_fine_sample, fused_mlp, fused_nablas,
+                                        fused_nablas_vjp, fused_upsample)
+    counters = {"nablas_forward": fused_nablas.fused_forward_with_nablas,
+                "neus_upsample": fused_upsample.fused_neus_upsample,
+                "nablas_backward": fused_nablas_vjp.fused_nablas_vjp,
+                "sdf_forward": fused_mlp.fused_sdf_forward,
+                "volsdf_init": fused_fine_sample.launch_init,
+                "volsdf_draw": fused_fine_sample.launch_draw,
+                "volsdf_checkpoint": fused_fine_sample.launch_checkpoint}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+    return counters, zero_counts, read_counts
+
+
+def _train_timed(targs, zero_counts, read_counts, around_make=None):
     """train.py's `main_function` on `targs` on the card, with a CUDA event
     recorded at the start of every step, the kernels' launch counters set to
-    0 just before and read just after. Returns (its result, the launch
-    counts, each step's ms up to the next step's start or the run's end, the
-    run's wall seconds)."""
+    0 just before and read just after (`around_make(make_train_step, *args)`,
+    if given, makes the step in place of `make_train_step`). Returns (its
+    result, the launch counts, each step's ms up to the next step's start or
+    the run's end, the run's wall seconds)."""
     from neurecon_tpu_torch import train
 
     starts = []
     real_make_step = train.make_train_step
 
     def make_step_timed(*a, **k):
-        step = real_make_step(*a, **k)
+        step = (around_make(real_make_step, *a, **k) if around_make
+                else real_make_step(*a, **k))
 
         def timed_step(*sa, **sk):
             ev = torch.cuda.Event(enable_timing=True)
@@ -2738,15 +2791,344 @@ def _nerfpp_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     return 0
 
 
+# ---- phases 30-31: ray-parallel training and the sharded validation render
+# over several ranks (neurecon_tpu_torch/parallel/), each rank a process of
+# this script (`--rank-job`) started under torchrun's variables by the port's
+# launcher
+
+DDP_TIMEOUT = 300  # seconds a group of ranks may take before it is ended
+DDP_LOSS_REL = 1e-3  # two ranks' step losses against one rank's, 10 Adam steps
+FRAME_ATOL = 1e-5  # the sharded frame against the one-rank frame
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _rank_train(task, rank, zero_counts, read_counts):
+    """train.py on this rank (`_train_timed`), with the surface pack read
+    before and after the step's first broadcast; ranks other than 0 first
+    perturb their weights when the task asks, so the broadcast must replace
+    them and the pack must be made anew from rank 0's values."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.ops.surface_pack import pack, packed_surface
+
+    info = {}
+
+    def around_make(real, loss_fn, model, optimizer, scheduler, group=None):
+        surface = model.implicit_surface
+        if task.get("perturb_others") and rank != 0:
+            perturb_parameters(model, torch.Generator().manual_seed(99))
+        info["before"] = _digest(packed_surface(surface).params)
+        n0 = packed_surface.packs
+        step = real(loss_fn, model, optimizer, scheduler, group=group)
+        info["after"] = _digest(packed_surface(surface).params)
+        info["packs_made"] = packed_surface.packs - n0
+        info["fresh"] = _digest(pack(surface).params)
+        return step
+
+    targs = ConfigDict(copy.deepcopy(task["config"]))
+    if task.get("profile"):
+        targs.training["profile_steps"] = task["profile"]
+    out, launches, step_ms, secs = _train_timed(targs, zero_counts, read_counts, around_make)
+    return {"launches": launches, "step_ms": step_ms, "secs": secs, "pack": info,
+            "totals": [v for _, v in out["stats"]["losses"]["total_per_step"]],
+            "final_ckpt": out["final_ckpt"], "exp_dir": out["exp_dir"]}
+
+
+def sharded_frame_inputs(seed, dev):
+    """Phase 31's frame: the flagship NeuS from the seed with seeded noise
+    (seed + 1), its det render fn with normals, and the 19,200 rays of a
+    120x160 view of the synthetic scene."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model
+    from neurecon_tpu_torch.ops import get_rays
+
+    model, _, kw_test, factory = get_model(ConfigDict(copy.deepcopy(FLAGSHIP)), dev, seed=seed)
+    perturb_parameters(model, torch.Generator().manual_seed(seed + 1))
+    scene = make_synthetic_scene(n_images=1, H=120, W=160)
+    o, d, _ = get_rays(torch.tensor(scene["c2w"][0], device=dev),
+                       torch.tensor(scene["intrinsics"][0], device=dev), 120, 160)
+    kw = {k: v for k, v in kw_test.items() if k not in ("H", "W", "rayschunk")}
+    return factory(detailed_output=False, calc_normal=True, **kw), o, d
+
+
+def _rank_render(task, rank, zero_counts, read_counts):
+    """Phase 31's frame split over the ranks by pixel; rank 0 keeps it."""
+    from neurecon_tpu_torch.parallel import process_group
+    from neurecon_tpu_torch.training import render_full_image
+
+    fn, o, d = sharded_frame_inputs(task["seed"], torch.device("cuda"))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    ret = render_full_image(fn, o, d, rayschunk=4096, group=process_group())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    if rank == 0:
+        np.savez(os.path.join(task["out"], "frame.npz"), **ret)
+    return {"launches": launches, "secs": secs}
+
+
+def _rank_job(job_file) -> int:
+    """One rank of phases 30-31: join the group from the launcher's
+    variables, run the job's tasks, write this rank's results as JSON."""
+    from neurecon_tpu_torch.parallel import distributed
+
+    with open(job_file) as f:
+        job = json.load(f)
+    rank, _, world = distributed.init_env(device="cuda")
+    _counters, zero_counts, read_counts = _launch_counters()
+    out = {"rank": rank, "world": world, "card": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend(), "tasks": {}}
+    for task in job["tasks"]:
+        run = {"train": _rank_train, "render": _rank_render}[task["kind"]]
+        out["tasks"][task["name"]] = run(task, rank, zero_counts, read_counts)
+    torch.distributed.barrier()
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.release()
+    return 0
+
+
+def _run_ranks(workdir, name, world, tasks, cards):
+    """`world` ranks of this script's `--rank-job` on the cards `cards`
+    (CUDA_VISIBLE_DEVICES), started by the port's launcher with a time limit;
+    each rank's results, or None (the log's tail printed) when a rank failed
+    or the group ran past DDP_TIMEOUT."""
+    from neurecon_tpu_torch.parallel.launch import run_local
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    for t in tasks:
+        t["out"] = d
+    job = os.path.join(d, "job.json")
+    with open(job, "w") as f:
+        json.dump({"tasks": tasks, "out": d}, f)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards)
+    log_path = os.path.join(d, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        codes = run_local([sys.executable, os.path.abspath(__file__), "--rank-job", job],
+                          world, env=env, timeout=DDP_TIMEOUT, stdout=logf,
+                          stderr=subprocess.STDOUT)
+    secs = time.perf_counter() - t0
+    if any(codes):
+        with open(log_path) as f:
+            print(f.read()[-6000:], file=sys.stderr)
+        print(f"{name}: rank exit codes {codes} (124: past {DDP_TIMEOUT} s)", file=sys.stderr)
+        return None, secs
+    res = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res, secs
+
+
+def _trace_busy(profile_dir):
+    """The device's busy share over the profiler window's trace: the summed
+    time of its kernels, copies and sets (one stream) over the window's
+    span, from its first event to its last."""
+    names = sorted(os.listdir(profile_dir)) if os.path.isdir(profile_dir) else []
+    if not names:
+        return "not measured (no trace)"
+    with open(os.path.join(profile_dir, names[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    devs = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not devs:
+        return "not measured (no device events in the trace)"
+    busy, end = 0.0, -float("inf")
+    for a, b in devs:  # the union of the device intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / span
+
+
+def _tree_gap(got, ref, p0):
+    """(bit-equal, the largest |diff|, the worst leaf's share of elements
+    beyond 1e-3 of how far the leaf moved from p0, the worst max|diff| over
+    that distance)."""
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return [np.asarray(t, np.float64)]
+    equal, worst, share, ratio = True, 0.0, 0.0, 0.0
+    for g, r, a in zip(leaves(got), leaves(ref), leaves(p0)):
+        diff = np.abs(g - r)
+        moved = np.abs(r - a).max() + 1e-30
+        equal &= bool(np.array_equal(g, r))
+        worst = max(worst, float(diff.max()))
+        share = max(share, float((diff > 1e-3 * moved).mean()))
+        ratio = max(ratio, float(diff.max() / moved))
+    return equal, worst, share, ratio
+
+
+def _ddp_phases(seed, dev, tag, by_path, workdir, phase8):
+    """Phases 30-31 (see the module docstring). `phase8`: phase 8's step
+    totals, median ms per step and final checkpoint. Returns 0 or 1."""
+    from neurecon_tpu_torch import bridge
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.frameworks import get_model
+    from neurecon_tpu_torch.training import render_full_image
+    from neurecon_tpu_torch.utils.checkpoints import load_checkpoint
+
+    kernels13 = ("nablas_forward", "neus_upsample", "nablas_backward")
+    sampler = ("sdf_forward", "volsdf_init", "volsdf_draw", "volsdf_checkpoint")
+    one_card = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+
+    # ---- phase 30 (1): one rank over NCCL at phase 8's cuts and seed, with a
+    # 2-step profiler window
+    cfg1 = _train_config(os.path.join(workdir, "ddp1"), seed)
+    res, secs = _run_ranks(workdir, "ddp1", 1, [
+        {"kind": "train", "name": "neus", "config": cfg1, "profile": "10:12"}], one_card)
+    if res is None:
+        print("FAIL phase 30: the one-rank NCCL run failed", file=sys.stderr)
+        return 1
+    r1 = res[0]["tasks"]["neus"]
+    by_path["ddp1_train"] = r1["launches"]
+    p0 = bridge.model_to_tree(get_model(ConfigDict(copy.deepcopy(FLAGSHIP)), dev, seed=seed)[0])
+    equal, worst, share, ratio = _tree_gap(load_checkpoint(r1["final_ckpt"])["model"],
+                                           load_checkpoint(phase8["final_ckpt"])["model"], p0)
+    t1, t8 = np.asarray(r1["totals"]), np.asarray(phase8["totals"])
+    loss_rel = float(np.max(np.abs(t1 - t8) / np.abs(t8))) if len(t1) == len(t8) else float("inf")
+    ms1 = float(np.median(r1["step_ms"][5:]))
+    busy = _trace_busy(os.path.join(r1["exp_dir"], "profile"))
+    busy_s = (f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+              if isinstance(busy, float) else busy)
+    print(f"phase 30: one rank over {res[0]['backend']} (train.py under torchrun's variables, "
+          f"phase 8's config and seed, {secs:.1f} s with the process's start): launches "
+          f"{r1['launches']}; step losses {'bit-equal to' if loss_rel == 0 else 'against'} "
+          f"phase 8's (max rel {loss_rel:.3e}); final parameters "
+          f"{'bit-equal' if equal else 'not bit-equal'} (max|diff| {worst:.3e}, worst leaf "
+          f"{ratio:.3e} of its move, {share:.4f} of a leaf's elements beyond 1e-3 of it)")
+    print(f"phase 30: median {ms1:.2f} ms/step over steps 6-60 against phase 8's "
+          f"{phase8['ms_step']:.2f} ({100 * (ms1 / phase8['ms_step'] - 1):+.2f}%: the one-rank "
+          f"group's all-reduces) {tag}")
+    print(f"phase 30: profiler window steps 10-11 on rank 0: device {busy_s} {tag}")
+    if (len(t1) != 60 or loss_rel > 1e-5 or share > 0.01 or ratio > 0.1
+            or min(r1["launches"][k] for k in kernels13) < 60 or r1["launches"]["sdf_forward"] == 0):
+        print("FAIL phase 30: the one-rank run missed a kernel or left phase 8's run",
+              file=sys.stderr)
+        return 1
+
+    # ---- phase 30 (2)-(3) and 31: two ranks on the one card over gloo
+    cfg2 = _train_config(os.path.join(workdir, "ddp2"), seed)
+    cfg2["data"]["mesh_N"] = 64
+    cfg2["training"].update({"num_iters": 10, "i_val": 5, "i_val_mesh": 5, "i_log": 5})
+    vcfg = copy.deepcopy(VOLSDF)
+    vdir = os.path.join(workdir, "ddp2", "volsdf")
+    vcfg.update({"expname": "chip_smoke_ddp_volsdf", "seed": seed})
+    vcfg["training"].update({"num_iters": 5, "i_log": 5, "i_val_mesh": -1, "monitoring": "none",
+                             "log_root_dir": vdir, "exp_dir": os.path.join(vdir, "run")})
+    res, secs = _run_ranks(workdir, "ddp2", 2, [
+        {"kind": "train", "name": "neus", "config": cfg2, "perturb_others": True},
+        {"kind": "train", "name": "volsdf", "config": vcfg},
+        {"kind": "render", "name": "frame", "seed": seed}], one_card)
+    if res is None:
+        print("FAIL phase 30: the two-rank run failed", file=sys.stderr)
+        return 1
+    ok = [x["backend"] for x in res] == ["gloo", "gloo"]
+    for r, x in enumerate(res):
+        n, v, f = x["tasks"]["neus"], x["tasks"]["volsdf"], x["tasks"]["frame"]
+        by_path[f"ddp2_train_rank{r}"] = n["launches"]
+        by_path[f"ddp2_volsdf_rank{r}"] = v["launches"]
+        by_path[f"sharded_render_rank{r}"] = f["launches"]
+        print(f"phase 30: rank {r} of 2 (card {x['card']}, {x['backend']}): NeuS 10 steps at 512 "
+              f"rays (256 a rank) launches {n['launches']}; VolSDF 5 steps at 1,024 rays launches "
+              f"{v['launches']}; pack before the broadcast {n['pack']['before']}, after "
+              f"{n['pack']['after']} ({n['pack']['packs_made']} made; a fresh pack "
+              f"{n['pack']['fresh']})")
+        ok &= min(n["launches"][k] for k in kernels13) >= 10
+        ok &= (n["launches"]["sdf_forward"] > 0) == (r == 0)  # the in-loop mesh: rank 0
+        ok &= min(v["launches"][k] for k in sampler) >= 5 and v["launches"]["nablas_backward"] >= 5
+        ok &= min(f["launches"][k] for k in ("nablas_forward", "neus_upsample")) > 0
+        ok &= n["pack"]["after"] == res[0]["tasks"]["neus"]["pack"]["after"] == n["pack"]["fresh"]
+        ok &= n["pack"]["packs_made"] >= 1
+        ok &= n["totals"] == res[0]["tasks"]["neus"]["totals"] and len(n["totals"]) == 10
+        ok &= v["totals"] == res[0]["tasks"]["volsdf"]["totals"] and len(v["totals"]) == 5
+        ok &= bool(np.isfinite(v["totals"]).all())
+    ok &= res[1]["tasks"]["neus"]["pack"]["before"] != res[0]["tasks"]["neus"]["pack"]["before"]
+    t2 = np.asarray(res[0]["tasks"]["neus"]["totals"])
+    rel2 = float(np.max(np.abs(t2 - t1[:10]) / np.abs(t1[:10])))
+    ms2 = float(np.median(res[0]["tasks"]["neus"]["step_ms"][5:]))
+    print(f"phase 30: two ranks' global step losses against the one-rank run's first 10: max rel "
+          f"{rel2:.3e} (gate {DDP_LOSS_REL:g}); rank 1 started from other weights and after the "
+          f"broadcast packs rank 0's; median {ms2:.2f} ms/step over steps 6-10 (two processes "
+          f"on one card, gloo through the host) {tag}")
+    if not ok or rel2 > DDP_LOSS_REL:
+        print("FAIL phase 30: a rank missed a kernel, the ranks disagree, the pack kept a "
+              "rank's own weights, or two ranks left the one-rank run", file=sys.stderr)
+        return 1
+
+    # ---- phase 30 (4): one rank a card over NCCL, where the machine has several
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cfgn = _train_config(os.path.join(workdir, "ddpn"), seed)
+        cfgn["training"].update({"num_iters": 10, "i_val": 5, "i_val_mesh": -1, "i_log": 5})
+        resn, secs = _run_ranks(workdir, "ddpn", n_cards, [
+            {"kind": "train", "name": "neus", "config": cfgn}],
+            os.environ.get("CUDA_VISIBLE_DEVICES") or ",".join(map(str, range(n_cards))))
+        if resn is None:
+            print("FAIL phase 30: the one-rank-a-card run failed", file=sys.stderr)
+            return 1
+        tn = np.asarray(resn[0]["tasks"]["neus"]["totals"])
+        reln = float(np.max(np.abs(tn - t1[:10]) / np.abs(t1[:10])))
+        for r, x in enumerate(resn):
+            by_path[f"ddp{n_cards}_train_rank{r}"] = x["tasks"]["neus"]["launches"]
+        print(f"phase 30: {n_cards} ranks, one a card ({[x['card'] for x in resn]}, "
+              f"{resn[0]['backend']}): launches {[x['tasks']['neus']['launches'] for x in resn]}; "
+              f"losses against one rank's max rel {reln:.3e}; median "
+              f"{float(np.median(resn[0]['tasks']['neus']['step_ms'][5:])):.2f} ms/step {tag}")
+        if reln > DDP_LOSS_REL or any(min(x["tasks"]["neus"]["launches"][k] for k in kernels13)
+                                      < 10 for x in resn):
+            print("FAIL phase 30: the one-rank-a-card run missed a kernel or left the "
+                  "one-rank run", file=sys.stderr)
+            return 1
+    else:
+        print("phase 30: one card visible: the branch of one rank a card over NCCL is not "
+              "reached")
+
+    # ---- phase 31: the sharded frame against the one-rank frame
+    fn, o, d = sharded_frame_inputs(seed, dev)
+    want = render_full_image(fn, o, d, rayschunk=4096)
+    got = dict(np.load(os.path.join(workdir, "ddp2", "frame.npz")))
+    gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
+    fin = all(np.isfinite(v).all() for v in got.values())
+    print(f"phase 31: a 120x160 NeuS frame (rayschunk 4,096, 19,200 rays) split by pixel over "
+          f"2 ranks: max|diff| from the one-rank frame {gaps}; "
+          f"{[round(x['tasks']['frame']['secs'], 3) for x in res]} s a rank {tag}")
+    if set(got) != set(want) or not fin or max(gaps.values()) > FRAME_ATOL:
+        print("FAIL phase 31: the sharded frame differs from the one-rank frame",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights (init, and the checked copy's noise)")
-    seed = ap.parse_args(argv).seed
+    ap.add_argument("--rank-job", default=None,
+                    help="run one rank of phases 30-31 (started by the script itself)")
+    cli = ap.parse_args(argv)
+    seed = cli.seed
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if cli.rank_job:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return _rank_job(cli.rank_job)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2769,20 +3151,7 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # removed at exit
-    counters = {"nablas_forward": fused_nablas.fused_forward_with_nablas,
-                "neus_upsample": fused_upsample.fused_neus_upsample,
-                "nablas_backward": fused_nablas_vjp.fused_nablas_vjp,
-                "sdf_forward": fused_mlp.fused_sdf_forward,
-                "volsdf_init": fused_fine_sample.launch_init,
-                "volsdf_draw": fused_fine_sample.launch_draw,
-                "volsdf_checkpoint": fused_fine_sample.launch_checkpoint}
-
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {k: fn.launches for k, fn in counters.items()}
+    counters, zero_counts, read_counts = _launch_counters()
 
     by_path = {}
     card = _card_line()
@@ -2977,6 +3346,7 @@ def main(argv=None):
     by_path["train"] = launches
     ms_step = float(np.median(step_ms[5:]))
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    phase8 = {"totals": list(totals), "ms_step": ms_step, "final_ckpt": out["final_ckpt"]}
     logged = [v for _, v in out["stats"]["losses"]["total"]]
     vargs = ConfigDict(FLAGSHIP)
     vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
@@ -3253,6 +3623,9 @@ def main(argv=None):
     rc = _nerfpp_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
     if rc:
         return rc
+    rc = _ddp_phases(seed, dev, tag, by_path, work.name, phase8)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -3288,7 +3661,7 @@ def main(argv=None):
                                  if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
         r.update(unisurf_fields.get(r["name"], {}))
     results += siren_rows
-    print(f"chip_smoke: phases 1-29 in {time.perf_counter() - t_start:.1f} s wall {tag}")
+    print(f"chip_smoke: phases 1-31 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -13,6 +13,9 @@ The pytree, as numpy (a checkpoint's "model" entry, or
 mask and VolSDF with `outside_scene: nerf++`.
 
 Both sides store linear weights as [out, in], so values copy one to one.
+A model wrapped for data parallelism (`DistributedDataParallel`, whose
+parameter names carry a `module.` prefix) reads and loads as the model it
+wraps.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ import torch
 
 def _names(layer):
     return ("v", "g", "b") if layer.weight_norm else ("w", "b")
+
+
+def unwrap(model):
+    """The model inside a data-parallel wrapper (its `.module`), else the
+    model itself."""
+    while isinstance(model, (torch.nn.parallel.DistributedDataParallel,
+                             torch.nn.DataParallel)):
+        model = model.module
+    return model
 
 
 def _layer_to_tree(layer, leaf):
@@ -68,6 +80,7 @@ def _scalars(model) -> tuple:
 
 
 def _to_tree(model, leaf) -> dict:
+    model = unwrap(model)
     tree = {name: leaf(getattr(model, name)) for name in _scalars(model)}
     tree.update({name: _net_to_tree(getattr(model, name), leaf) for name in _nets(model)})
     return tree
@@ -121,6 +134,7 @@ def load_tree(model, tree: dict, strict: bool = True) -> None:
     model, in place, the NeRF++ background included where the model has one.
     With strict=False, top-level entries missing from the tree are left as
     they are (a checkpoint loaded with ignore_keys / only_use_keys)."""
+    model = unwrap(model)
     scalars = _scalars(model)
     for name in (*scalars, *_nets(model)):
         if name not in tree and not strict:

@@ -17,18 +17,23 @@ def get_model(args, device=None, seed: int = 0):
     return _module(args.model.framework).get_model(args, device=device, seed=seed)
 
 
-def get_ray_loss_fn(args, model, render_kwargs_train):
+def get_ray_loss_fn(args, model, render_kwargs_train, shard=None):
     """The framework's ray-batch loss: ray_loss(rb, generator=None, it=0, ...)
-    -> (total, (losses, extras)); NeuS takes `d_all=`, VolSDF
-    `fine_override=` and `eik_pts=`, UNISURF `surface_override=` and
-    `uniforms=`."""
-    return _module(args.model.framework).make_ray_loss_fn(model, args, render_kwargs_train)
+    -> (total, (losses, extras)); NeuS takes `d_all=`, `u_up=` and `u_out=`,
+    VolSDF `fine_override=`, `eik_pts=`, `u_fin=` and `u_out=`, UNISURF
+    `surface_override=` and `uniforms=`. With a `shard`
+    (`parallel.RayShard`), `rb` is this rank's block and each loss its share
+    of the loss over the whole batch."""
+    return _module(args.model.framework).make_ray_loss_fn(model, args, render_kwargs_train,
+                                                          shard=shard)
 
 
-def make_trainer(args, model, render_kwargs_train):
+def make_trainer(args, model, render_kwargs_train, shard=None):
     """The framework's loss_fn(batch, generator, it) -> (total, (losses,
-    extras)) on one image batch (see `training.make_train_step`)."""
-    return _module(args.model.framework).make_trainer(model, args, render_kwargs_train)
+    extras)) on one image batch (see `training.make_train_step`): every draw
+    of the step at N_rays, and with a `shard` this rank's block of each."""
+    return _module(args.model.framework).make_trainer(model, args, render_kwargs_train,
+                                                      shard=shard)
 
 
 def checkpoint_render_kwargs(args, step=None):

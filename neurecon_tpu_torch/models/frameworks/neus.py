@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet, outside_nerf
 from neurecon_tpu_torch.ops import fused_upsample, near_far_from_sphere
 from neurecon_tpu_torch.ops.sampling import alpha_to_w, linspace01, stratified_jitter
+from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
 
 
 def cdf_Phi_s(x, s):
@@ -105,15 +106,17 @@ def _uniforms(N, n_iters, n_per_iter, perturb, generator, device):
 def neus_upsample(model: NeuS, rays_o, rays_d, d_coarse, *, N_importance: int,
                   N_upsample_iters: int, perturb: bool,
                   generator: Optional[torch.Generator] = None,
-                  upsample_algo: str = "official_solution"):
-    """Hierarchical up-sampling, gradient-free: returns the sorted d_all."""
+                  upsample_algo: str = "official_solution", u_up=None):
+    """Hierarchical up-sampling, gradient-free: returns the sorted d_all.
+    `u_up` [N, N_importance]: the rounds' uniforms (`_uniforms`) in place of
+    drawing them."""
     if upsample_algo != "official_solution":
         raise NotImplementedError(
             f"upsample_algo {upsample_algo!r} is not ported yet (ROADMAP "
             "Queue A, [A4/A5]); only official_solution is")
     n_per_iter = N_importance // N_upsample_iters
-    u = _uniforms(rays_o.shape[0], N_upsample_iters, n_per_iter, perturb,
-                  generator, rays_o.device)
+    u = u_up if u_up is not None else _uniforms(
+        rays_o.shape[0], N_upsample_iters, n_per_iter, perturb, generator, rays_o.device)
     return fused_upsample.fused_neus_upsample(
         model.implicit_surface, rays_o, rays_d, d_coarse.contiguous(), u,
         n_iters=N_upsample_iters, n_per_iter=n_per_iter)
@@ -150,6 +153,7 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
                        detailed_output: bool = True,
                        d_all_override=None,
                        u_out=None,
+                       u_up=None,
                        **dummy_kwargs):
     """Render a flat batch of rays [N, 3] -> dict of per-ray outputs;
     rays_d need not be normalized. Differentiable in the model's parameters
@@ -158,7 +162,8 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
     kernels run. With N_outside > 0 the model's NeRF++ background takes the
     midpoints outside the sphere of `obj_bounding_radius` and N_outside
     samples at far / t beyond `far`, jittered under `perturb` by the
-    uniforms `u_out` [N, N_outside] (drawn from `generator` when None)."""
+    uniforms `u_out` [N, N_outside] (drawn from `generator` when None).
+    `u_up`: the upsampler's uniforms (see `neus_upsample`)."""
     rays_o, rays_d, near, far = _prepare_rays(
         rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
 
@@ -171,7 +176,7 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
             d_all = neus_upsample(
                 model, rays_o, rays_d, d_coarse, N_importance=N_importance,
                 N_upsample_iters=N_upsample_iters, perturb=perturb,
-                generator=generator, upsample_algo=upsample_algo)
+                generator=generator, upsample_algo=upsample_algo, u_up=u_up)
 
     # sdf on sections, radiance on midpoints; one batched query
     pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
@@ -249,16 +254,17 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
 
 
 def make_volume_render_fn(model: NeuS, **render_kwargs):
-    """(rays_o, rays_d, generator=None, d_all=None, u_out=None) -> (rgb,
-    depth, extras), leading batch dims preserved; static render options
-    bound here."""
+    """(rays_o, rays_d, generator=None, d_all=None, u_out=None, u_up=None) ->
+    (rgb, depth, extras), leading batch dims preserved; static render
+    options bound here."""
     for k in ("H", "W", "rayschunk", "netchunk", "batched"):
         render_kwargs.pop(k, None)
 
-    def render(rays_o, rays_d, generator=None, d_all=None, u_out=None):
+    def render(rays_o, rays_d, generator=None, d_all=None, u_out=None, u_up=None):
         prefix = rays_o.shape[:-1]
         ret = volume_render_rays(model, rays_o, rays_d, generator=generator,
-                                 d_all_override=d_all, u_out=u_out, **render_kwargs)
+                                 d_all_override=d_all, u_out=u_out, u_up=u_up,
+                                 **render_kwargs)
         ret = {k: v.reshape(prefix + v.shape[1:]) for k, v in ret.items()}
         return ret["rgb"], ret["depth_volume"], ret
 
@@ -268,11 +274,14 @@ def make_volume_render_fn(model: NeuS, **render_kwargs):
 def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
                    w_eikonal: float, with_mask: bool, w_mask: float = 0.0,
                    target_mask=None, mask_ignore=None, generator=None,
-                   d_all=None, u_out=None):
+                   d_all=None, u_out=None, u_up=None, shard: Optional[RayShard] = None):
     """NeuS training losses: L1 rgb + eikonal on the section points + the
     mask BCE on the clamped accumulation map (with a mask). Returns (total,
-    (losses, extras))."""
-    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all, u_out=u_out)
+    (losses, extras)). With a `shard`, the rays are this rank's block and
+    each loss is its share of the loss over the whole batch."""
+    shard = shard or RayShard()
+    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all, u_out=u_out,
+                                    u_up=u_up)
 
     nablas = extras["implicit_nablas"]
     nablas_norm = torch.linalg.norm(nablas, dim=-1)
@@ -282,19 +291,21 @@ def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
 
     losses = {}
     loss_img = torch.abs(rgb - target_rgb)
-    losses["loss_eikonal"] = w_eikonal * torch.mean((nablas_norm - 1.0) ** 2)
+    losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
     if with_mask:
         tm = target_mask.float()
         bce = -(tm * torch.log(mask_volume) + (1 - tm) * torch.log(1 - mask_volume))
-        losses["loss_mask"] = w_mask * torch.mean(bce)
+        losses["loss_mask"] = w_mask * shard.mean(bce)
         if mask_ignore is not None:
             tm = (target_mask.bool() & mask_ignore.bool()).float()
-        losses["loss_img"] = torch.sum(loss_img * tm[..., None]) / (torch.sum(tm) + 1e-10)
+        losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * tm[..., None]),
+                                               torch.sum(tm))
     elif mask_ignore is not None:
         mi = mask_ignore.float()
-        losses["loss_img"] = torch.sum(loss_img * mi[..., None]) / (torch.sum(mi) + 1e-10)
+        losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
+                                               torch.sum(mi))
     else:
-        losses["loss_img"] = torch.mean(loss_img)
+        losses["loss_img"] = shard.mean(loss_img)
 
     losses["total"] = sum(losses.values())
     extras["implicit_nablas_norm"] = nablas_norm
@@ -302,11 +313,13 @@ def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
     return losses["total"], (losses, extras)
 
 
-def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict):
-    """ray_loss(rb, generator=None, it=0, d_all=None, u_out=None) -> (total,
-    (losses, extras)) on a ray batch from `training.sample_ray_batch`
-    (`u_out`: the outside samples' jitter uniforms, see
-    `volume_render_rays`)."""
+def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict,
+                     shard: Optional[RayShard] = None):
+    """ray_loss(rb, generator=None, it=0, d_all=None, u_out=None, u_up=None)
+    -> (total, (losses, extras)) on a ray batch from
+    `training.sample_ray_batch` (`u_out`: the outside samples' jitter
+    uniforms, `u_up` the upsampler's, see `volume_render_rays`). With a
+    `shard`, `rb` is this rank's block and the losses its shares."""
     with_mask = bool(args.training.with_mask)
     w_mask = float(args.training.setdefault("w_mask", 0.0))
     w_eikonal = float(args.training.w_eikonal)
@@ -314,31 +327,49 @@ def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict):
         model, detailed_output=True, **{k: v for k, v in render_kwargs_train.items()
                                         if k not in ("H", "W")})
 
-    def ray_loss(rb, generator=None, it=0, d_all=None, u_out=None):
+    def ray_loss(rb, generator=None, it=0, d_all=None, u_out=None, u_up=None):
         return compute_losses(
             model, rb["rays_o"], rb["rays_d"], rb["target_rgb"],
             render_fn=render_fn, w_eikonal=w_eikonal, with_mask=with_mask,
             w_mask=w_mask, target_mask=rb.get("target_mask"),
             mask_ignore=rb.get("mask_ignore"), generator=generator, d_all=d_all,
-            u_out=u_out)
+            u_out=u_out, u_up=u_up, shard=shard)
 
     return ray_loss
 
 
-def make_trainer(model: NeuS, args, render_kwargs_train: dict):
+def draw_step_uniforms(render_kwargs_train: dict, N: int, generator, device) -> dict:
+    """A training step's draws after its pixels, at N rays, in the order the
+    render makes them: the upsampler's uniforms (`u_up`), then the outside
+    samples' jitter (`u_out`, with a background under `perturb`)."""
+    kw = render_kwargs_train
+    n_iters = kw["N_upsample_iters"]
+    draws = {"u_up": _uniforms(N, n_iters, kw["N_importance"] // n_iters, kw["perturb"],
+                               generator, device)}
+    if kw["N_outside"] > 0 and kw["perturb"]:
+        draws["u_out"] = torch.rand(N, kw["N_outside"], generator=generator, device=device)
+    return draws
+
+
+def make_trainer(model: NeuS, args, render_kwargs_train: dict,
+                 shard: Optional[RayShard] = None):
     """loss_fn(batch, generator, it) -> (total, (losses, extras)); batch is
     one image {'c2w' [1,4,4], 'intrinsics' [1,4,4], 'rgb' [1,H*W,3],
     'object_mask' [1,H*W], ...} on the device, and N_rays pixels of it are
-    drawn from `generator`."""
+    drawn from `generator`, then the step's uniforms. With a `shard`, every
+    draw is made at N_rays and the rank takes its block of each."""
     from neurecon_tpu_torch.training import sample_ray_batch
 
+    shard = shard or RayShard()
     H, W = render_kwargs_train["H"], render_kwargs_train["W"]
     N_rays = int(args.data.N_rays)
-    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train)
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
 
     def loss_fn(batch, generator, it):
         rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        return ray_loss(rb, generator, it)
+        draws = draw_step_uniforms(render_kwargs_train, N_rays, generator,
+                                   rb["rays_o"].device)
+        return ray_loss(shard_rays(rb, shard), generator, it, **take_rows(draws, shard))
 
     return loss_fn
 

@@ -35,6 +35,7 @@ import torch.nn as nn
 from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet
 from neurecon_tpu_torch.models.ray_casting import root_finding_surface_points
 from neurecon_tpu_torch.ops import linspace01, near_far_from_sphere
+from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
 
 
 class UNISURF(nn.Module):
@@ -281,10 +282,13 @@ def make_volume_render_fn(model: UNISURF, default_interval: float = 1.0,
     return render
 
 
-def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict):
+def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict,
+                     shard: Optional[RayShard] = None):
     """ray_loss(rb, generator=None, it=0, surface_override=None,
     uniforms=None) -> (total, (losses, extras)) on a ray batch from
-    `training.sample_ray_batch`."""
+    `training.sample_ray_batch`. With a `shard`, `rb` is this rank's block
+    and the losses its shares."""
+    shard = shard or RayShard()
     w_reg = float(args.training.setdefault("w_reg", 0.0))
     perturb_surface_pts = float(args.training.setdefault("perturb_surface_pts", 0.01))
     deltas = (float(args.training.delta_max), float(args.training.delta_min),
@@ -302,12 +306,12 @@ def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict):
         rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
                                         interval=interval, surface_override=surface_override,
                                         uniforms=uniforms)
-        losses = {"loss_img": torch.mean(torch.abs(rgb - rb["target_rgb"]))}
+        losses = {"loss_img": shard.mean(torch.abs(rgb - rb["target_rgb"]))}
         if w_reg > 0:
             # the unit normals: unnormalized occupancy nablas blow up the
             # gradient
             reg = extras["nablas_surface_reg"]
-            losses["loss_reg"] = w_reg * torch.mean(
+            losses["loss_reg"] = w_reg * shard.mean(
                 (unit(reg[..., 1, :]) - unit(reg[..., 0, :])) ** 2)
         else:
             losses["loss_reg"] = torch.zeros((), device=rgb.device)
@@ -318,18 +322,41 @@ def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict):
     return ray_loss
 
 
-def make_trainer(model: UNISURF, args, render_kwargs_train: dict):
+def draw_step_uniforms(render_kwargs_train: dict, w_reg: float, N: int, generator,
+                       device) -> tuple:
+    """A training step's draws after its pixels, at N rays, in the order the
+    render makes them (`volume_render_rays`' `uniforms`): the interval's and
+    the free space's under `perturb`, then the regularisation neighbours'
+    (with `w_reg` > 0)."""
+    kw = render_kwargs_train
+
+    def draw(*shape):
+        return torch.rand(*shape, generator=generator, device=device)
+    return (draw(N, kw["N_query"]) if kw["perturb"] else None,
+            draw(N, kw["N_freespace"]) if kw["perturb"] else None,
+            draw(N, 3) if w_reg > 0 else None)
+
+
+def make_trainer(model: UNISURF, args, render_kwargs_train: dict,
+                 shard: Optional[RayShard] = None):
     """loss_fn(batch, generator, it) -> (total, (losses, extras)): N_rays
-    pixels of one image batch on the device, drawn from `generator`."""
+    pixels of one image batch on the device, drawn from `generator`, then
+    the step's uniforms. With a `shard`, every draw is made at N_rays and
+    the rank takes its block of each."""
     from neurecon_tpu_torch.training import sample_ray_batch
 
+    shard = shard or RayShard()
     H, W = render_kwargs_train["H"], render_kwargs_train["W"]
     N_rays = int(args.data.N_rays)
-    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train)
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
+    w_reg = float(args.training.setdefault("w_reg", 0.0))
 
     def loss_fn(batch, generator, it):
         rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        return ray_loss(rb, generator, it)
+        uniforms = draw_step_uniforms(render_kwargs_train, w_reg, N_rays, generator,
+                                      rb["rays_o"].device)
+        return ray_loss(shard_rays(rb, shard), generator, it,
+                        uniforms=take_rows(uniforms, shard))
 
     return loss_fn
 

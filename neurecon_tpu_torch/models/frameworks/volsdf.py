@@ -31,6 +31,7 @@ from neurecon_tpu_torch.ops import fused_fine_sample as ffs
 from neurecon_tpu_torch.ops import get_dvals_from_radius, get_sphere_intersection
 from neurecon_tpu_torch.ops.fused_fine_sample import error_bound, opacity_approx, sdf_to_sigma
 from neurecon_tpu_torch.ops.sampling import linspace01, stratified_jitter
+from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
 
 __all__ = ["VolSDF", "sdf_to_sigma", "error_bound", "opacity_approx", "volume_render_rays",
            "compute_ray_samples", "make_volume_render_fn", "make_ray_loss_fn",
@@ -147,9 +148,12 @@ def compute_ray_samples(model: VolSDF, rays_o, rays_d, *,
                         max_bisection_steps: int = 10,
                         epsilon: float = 0.1,
                         fine_sample_mul: int = 4,
+                        u_fin=None,
                         **dummy_kwargs):
     """The gradient-free §3.4 sampler: (d_fine [N, N_importance], beta_map
-    [N], iter_usage [N] int32), flat over rays."""
+    [N], iter_usage [N] int32), flat over rays. `u_fin` [N, (max_upsample_steps
+    + 2) * N_importance]: the draws' uniforms (`_draw_uniforms`) in place of
+    drawing them."""
     rays_o, rays_d, nears, fars = _ray_bounds(rays_o, rays_d, near, far, obj_bounding_radius,
                                               use_nerfplusplus)
     N = rays_o.shape[0]
@@ -157,8 +161,9 @@ def compute_ray_samples(model: VolSDF, rays_o, rays_d, *,
     # a denser d_init speeds up the up-sampling's convergence (ref volsdf.py:425-435)
     t_init = linspace01(N_samples * fine_sample_mul, rays_o.device)
     d_init = (nears * (1 - t_init) + fars * t_init).contiguous()
-    u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
-                           rays_o.device)
+    if u_fin is None:
+        u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
+                               rays_o.device)
     return ffs.fused_fine_sample(
         model.implicit_surface, rays_o, rays_d, d_init, fars, alpha.detach(), beta.detach(),
         u_fin, eps=epsilon, max_iter=max_upsample_steps,
@@ -188,6 +193,7 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
                        eik_pts=None,
                        fine_override=None,
                        u_out=None,
+                       u_fin=None,
                        **dummy_kwargs):
     """Render a flat batch of rays [N, 3] -> dict of per-ray outputs.
 
@@ -197,7 +203,8 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
     and returned as ret['eik_nablas']. `fine_override` (d_fine, beta_map,
     iter_usage) replaces the sampler's output. Under NeRF++ the N_outside
     radii are jittered under `perturb` by the uniforms `u_out` [N,
-    N_outside] (drawn from `generator` when None)."""
+    N_outside] (drawn from `generator` when None); `u_fin` is the sampler's
+    (see `compute_ray_samples`)."""
     rays_o, rays_d, nears, fars = _ray_bounds(rays_o, rays_d, near, far, obj_bounding_radius,
                                               use_nerfplusplus)
     view_dirs = rays_d if use_view_dirs else None
@@ -216,7 +223,7 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
             obj_bounding_radius=obj_bounding_radius, use_nerfplusplus=use_nerfplusplus,
             perturb=perturb, N_samples=N_samples, N_importance=N_importance,
             max_upsample_steps=max_upsample_steps, max_bisection_steps=max_bisection_steps,
-            epsilon=epsilon, fine_sample_mul=fine_sample_mul)
+            epsilon=epsilon, fine_sample_mul=fine_sample_mul, u_fin=u_fin)
 
     # the paper samples the fine set only; the coarse concat avoids early
     # local minima (ref volsdf.py:439-443)
@@ -282,31 +289,36 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
 
 def make_volume_render_fn(model: VolSDF, **render_kwargs):
     """(rays_o, rays_d, generator=None, eik_pts=None, fine_override=None,
-    u_out=None) -> (rgb, depth, extras), leading batch dims preserved."""
+    u_out=None, u_fin=None) -> (rgb, depth, extras), leading batch dims
+    preserved."""
     for k in ("H", "W", "rayschunk", "netchunk", "batched"):
         render_kwargs.pop(k, None)
 
-    def render(rays_o, rays_d, generator=None, eik_pts=None, fine_override=None, u_out=None):
+    def render(rays_o, rays_d, generator=None, eik_pts=None, fine_override=None, u_out=None,
+               u_fin=None):
         prefix = rays_o.shape[:-1]
         if eik_pts is not None:
             eik_pts = eik_pts.reshape(-1, *eik_pts.shape[len(prefix):])
         ret = volume_render_rays(model, rays_o, rays_d, generator=generator,
                                  eik_pts=eik_pts, fine_override=fine_override,
-                                 u_out=u_out, **render_kwargs)
+                                 u_out=u_out, u_fin=u_fin, **render_kwargs)
         ret = {k: v.reshape(prefix + v.shape[1:]) for k, v in ret.items()}
         return ret["rgb"], ret["depth_volume"], ret
 
     return render
 
 
-def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict):
+def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict,
+                     shard: Optional[RayShard] = None):
     """ray_loss(rb, generator=None, it=0, fine_override=None, eik_pts=None,
-    u_out=None) -> (total, (losses, extras)), per ref volsdf.py:572-644: L1
-    rgb (over `mask_ignore` where given) + eikonal on the max-visibility
-    sample and one uniform box point per ray (`eik_pts` [..., N_rays, 1, 3]
-    replaces the draw from `generator`; `u_out` the NeRF++ radii's jitter,
-    see `volume_render_rays`) + the optional decaying sdf anchor at the
-    origin."""
+    u_out=None, u_fin=None) -> (total, (losses, extras)), per ref
+    volsdf.py:572-644: L1 rgb (over `mask_ignore` where given) + eikonal on
+    the max-visibility sample and one uniform box point per ray (`eik_pts`
+    [..., N_rays, 1, 3] replaces the draw from `generator`; `u_out` the
+    NeRF++ radii's jitter and `u_fin` the sampler's uniforms, see
+    `volume_render_rays`) + the optional decaying sdf anchor at the origin.
+    With a `shard`, `rb` is this rank's block and the losses its shares."""
+    shard = shard or RayShard()
     w_eikonal = float(args.training.w_eikonal)
     eik_bounding_box = float(args.model.obj_bounding_radius)
     w_anchor = float(args.training.get("w_sdf_anchor", 0.0))
@@ -316,7 +328,8 @@ def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict):
         model, detailed_output=True,
         **{k: v for k, v in render_kwargs_train.items() if k not in ("H", "W")})
 
-    def ray_loss(rb, generator=None, it=0, fine_override=None, eik_pts=None, u_out=None):
+    def ray_loss(rb, generator=None, it=0, fine_override=None, eik_pts=None, u_out=None,
+                 u_fin=None):
         target_rgb = rb["target_rgb"]
         mask_ignore = rb.get("mask_ignore")
         if eik_pts is None:
@@ -324,7 +337,7 @@ def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict):
                                   device=target_rgb.device) * 2 - 1) * eik_bounding_box
         rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
                                         eik_pts=eik_pts, fine_override=fine_override,
-                                        u_out=u_out)
+                                        u_out=u_out, u_fin=u_fin)
 
         nablas = extras["implicit_nablas"]  # [..., N_rays, P, 3]
         # one max-visibility surface point per ray (§3.5 of the paper)
@@ -336,17 +349,19 @@ def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict):
 
         losses = {}
         loss_img = torch.abs(rgb - target_rgb)
-        losses["loss_eikonal"] = w_eikonal * torch.mean((nablas_norm - 1.0) ** 2)
+        losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
         if mask_ignore is not None:
             mi = mask_ignore.float()
-            losses["loss_img"] = torch.sum(loss_img * mi[..., None]) / (torch.sum(mi) + 1e-10)
+            losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
+                                                   torch.sum(mi))
         else:
-            losses["loss_img"] = torch.mean(loss_img)
+            losses["loss_img"] = shard.mean(loss_img)
         sdf0 = None
         if w_anchor > 0.0:
             sdf0 = model.forward_surface(torch.zeros(1, 3, device=target_rgb.device))
             wt = w_anchor * max(0.0, 1.0 - it / anchor_until)
-            losses["loss_sdf_anchor"] = wt * torch.mean((sdf0 - anchor_target) ** 2)
+            losses["loss_sdf_anchor"] = shard.replicated(
+                wt * torch.mean((sdf0 - anchor_target) ** 2))
 
         losses["total"] = sum(losses.values())
         extras["implicit_nablas_norm"] = nablas_norm
@@ -359,18 +374,41 @@ def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict):
     return ray_loss
 
 
-def make_trainer(model: VolSDF, args, render_kwargs_train: dict):
+def draw_step_uniforms(render_kwargs_train: dict, eik_bounding_box: float, N: int,
+                       generator, device) -> dict:
+    """A training step's draws after its pixels, at N rays, in the order the
+    loss and the render make them: the eikonal box points (`eik_pts`), the
+    sampler's uniforms (`u_fin`), then the NeRF++ radii's jitter (`u_out`,
+    with a background under `perturb`)."""
+    kw = render_kwargs_train
+    draws = {"eik_pts": (torch.rand(N, 1, 3, generator=generator, device=device) * 2 - 1)
+             * eik_bounding_box,
+             "u_fin": _draw_uniforms(N, kw["max_upsample_steps"] + 2, kw["N_importance"],
+                                     kw["perturb"], generator, device)}
+    if kw["use_nerfplusplus"] and kw["perturb"]:
+        draws["u_out"] = torch.rand(N, kw["N_outside"], generator=generator, device=device)
+    return draws
+
+
+def make_trainer(model: VolSDF, args, render_kwargs_train: dict,
+                 shard: Optional[RayShard] = None):
     """loss_fn(batch, generator, it) -> (total, (losses, extras)) on N_rays
-    pixels of one image batch, drawn from `generator`."""
+    pixels of one image batch, drawn from `generator`, then the step's
+    uniforms. With a `shard`, every draw is made at N_rays and the rank takes
+    its block of each."""
     from neurecon_tpu_torch.training import sample_ray_batch
 
+    shard = shard or RayShard()
     H, W = render_kwargs_train["H"], render_kwargs_train["W"]
     N_rays = int(args.data.N_rays)
-    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train)
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
+    box = float(args.model.obj_bounding_radius)
 
     def loss_fn(batch, generator, it):
         rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        return ray_loss(rb, generator, it)
+        draws = draw_step_uniforms(render_kwargs_train, box, N_rays, generator,
+                                   rb["rays_o"].device)
+        return ray_loss(shard_rays(rb, shard), generator, it, **take_rows(draws, shard))
 
     return loss_fn
 

@@ -4,6 +4,10 @@ Each `csrc/<name>.cu` is compiled on first use by nvcc, for sm_90a, into
 `build/neurecon_tpu_torch/lib<name>.so` at the root of the checkout, and bound
 with ctypes. The sources have a plain C interface (no PyTorch headers), so a
 build takes seconds. `build_all` starts one nvcc per source, all at once.
+Processes that build at once (the ranks of a run on first use) each write
+their own library and nvcc log under a name that carries the process id,
+and move them into place when nvcc is done, so no process reads another's
+log and a library is swapped in whole.
 
 Nothing here runs at import time: the CPU tests import every module on a host
 without nvcc.
@@ -51,10 +55,16 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest_src
 
 
+def _own_paths(name: str, pid: int) -> tuple:
+    """This process's library and log while nvcc runs: (lib<name>.<pid>.so,
+    <name>.<pid>.log), moved to lib<name>.so and <name>.log when done."""
+    return BUILD_DIR / f"lib{name}.{pid}.so", BUILD_DIR / f"{name}.{pid}.log"
+
+
 def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
-    log = open(BUILD_DIR / f"{name}.log", "w")
+    tmp, log_path = _own_paths(name, os.getpid())
+    log = open(log_path, "w")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
@@ -64,7 +74,8 @@ def _start(name: str):
 def _finish(name: str, proc, tmp: Path, log) -> None:
     rc = proc.wait()
     log.close()
-    text = (BUILD_DIR / f"{name}.log").read_text()
+    text = Path(log.name).read_text()
+    os.replace(log.name, BUILD_DIR / f"{name}.log")
     if rc != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc={rc}):\n{text}")
     os.replace(tmp, _lib_path(name))  # atomic against a concurrent build

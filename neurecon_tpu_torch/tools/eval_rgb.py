@@ -66,8 +66,10 @@ def masked_psnr_decomposition(pred, gt, mask_flat, H, W, edge_px: int = 2):
 
 
 def render_psnrs(render_fn, dataset, n_eval: int, rayschunk: int, edge_px: int,
-                 device) -> dict:
-    """PSNR of the first `n_eval` views of `dataset` rendered by `render_fn`:
+                 device, microchunk=None) -> dict:
+    """PSNR of the first `n_eval` views of `dataset` rendered by `render_fn`
+    (in `microchunk`-ray blocks within each chunk, see
+    `training.render_full_image`):
     {"psnr": [...]} and, where the views carry object masks, "psnr_masked"
     and "decomp" (masked_psnr_decomposition per view); "masked_means" holds
     the means over the views of psnr_masked, psnr_interior, psnr_edge and
@@ -84,7 +86,8 @@ def render_psnrs(render_fn, dataset, n_eval: int, rayschunk: int, edge_px: int,
             torch.as_tensor(np.asarray(model_input["intrinsics"], np.float32), device=device),
             H, W)
         ret = render_full_image(render_fn, rays_o, rays_d, rayschunk=rayschunk,
-                                generator=torch.Generator(device=device).manual_seed(i))
+                                generator=torch.Generator(device=device).manual_seed(i),
+                                microchunk=microchunk)
         out["psnr"].append(psnr(ret["rgb"], gt["rgb"]))
         if "object_mask" in model_input:
             m = np.asarray(model_input["object_mask"], bool)
@@ -127,7 +130,7 @@ def main_function(args, device=None) -> dict:
     edge_px = int(args.get("edge_px", 2))
     n_eval = min(len(dataset), int(args.get("n_eval", len(dataset))))
     r = render_psnrs(render_fn, dataset, n_eval, int(args.get("rayschunk", 4096)),
-                     edge_px, dev)
+                     edge_px, dev, microchunk=int(args.get("microchunk", 0)) or None)
     for i, p in enumerate(r["psnr"]):
         msg = f"view {i}: psnr={p:.2f}"
         if r["decomp"]:
@@ -152,6 +155,8 @@ def _extra_args(parser):
     parser.add_argument("--load_pt", type=str, default=None)
     parser.add_argument("--downscale", type=float, default=None)
     parser.add_argument("--rayschunk", type=int, default=4096)
+    parser.add_argument("--microchunk", type=int, default=0,
+                        help="rays per block within a chunk (0: the whole chunk)")
     parser.add_argument("--n_eval", type=int, default=10**9)
     parser.add_argument("--edge_px", type=int, default=2,
                         help="silhouette band width for the masked-PSNR "

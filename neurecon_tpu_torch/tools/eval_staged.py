@@ -20,10 +20,12 @@ import numpy as np
 
 
 def evaluate_ckpts(args, ckpts, gt_mesh=None, n_eval=None, rayschunk=8192,
-                   mesh_N=256, n_samples=100000, edge_px=2, out_path=None,
+                   microchunk=0, mesh_N=256, n_samples=100000, edge_px=2, out_path=None,
                    device=None):
     """One row per checkpoint: {"ckpt", "step", "psnr", "psnr_min",
-    "psnr_max"[, masked metrics][, "chamfer", "accuracy", "completeness"]}."""
+    "psnr_max"[, masked metrics][, "chamfer", "accuracy", "completeness"]};
+    views rendered in `microchunk`-ray blocks within each chunk (0: whole
+    chunks)."""
     from neurecon_tpu_torch import bridge, get_device
     from neurecon_tpu_torch.dataio import get_data
     from neurecon_tpu_torch.models.frameworks import (checkpoint_render_kwargs,
@@ -54,7 +56,8 @@ def evaluate_ckpts(args, ckpts, gt_mesh=None, n_eval=None, rayschunk=8192,
         row = {"ckpt": os.path.basename(ckpt), "step": step}
         render_fn = render_factory(detailed_output=False,
                                    **kwargs, **checkpoint_render_kwargs(args, step))
-        r = render_psnrs(render_fn, dataset, n_eval, rayschunk, edge_px, dev)
+        r = render_psnrs(render_fn, dataset, n_eval, rayschunk, edge_px, dev,
+                         microchunk=microchunk or None)
         row["psnr"] = float(np.mean(r["psnr"]))
         # the per-view spread: a low mean with a healthy max points at a
         # per-view or eval-path artifact rather than a bad model
@@ -93,6 +96,7 @@ def _extra_args(parser):
     parser.add_argument("--gt_mesh", type=str, default=None)
     parser.add_argument("--n_eval", type=int, default=None)
     parser.add_argument("--rayschunk", type=int, default=8192)
+    parser.add_argument("--microchunk", type=int, default=0)
     parser.add_argument("--mesh_N", type=int, default=256)
     parser.add_argument("--edge_px", type=int, default=2)
     parser.add_argument("--out", type=str, default=None)
@@ -105,6 +109,7 @@ if __name__ == "__main__":
     evaluate_ckpts(config, config.ckpts, gt_mesh=config.get("gt_mesh"),
                    n_eval=config.get("n_eval"),
                    rayschunk=int(config.get("rayschunk", 8192)),
+                   microchunk=int(config.get("microchunk", 0)),
                    mesh_N=int(config.get("mesh_N", 256)),
                    edge_px=int(config.get("edge_px", 2)),
                    out_path=config.get("out"), device=config.get("device"))

@@ -176,6 +176,17 @@ SAMPLER_MUTANTS = {
 
 # the checks take the card one at a time (the nablas check's plain version
 # alone holds tens of GB at 1,044,480 points)
+# the parallel step's global masked mean (`parallel/sharding.py`), held on
+# the CPU by tests/test_torch_parallel.py: two gloo ranks against the JAX
+# package's sharded step on a 2-device mesh, whose masked L1 divides by the
+# mask count of the whole batch; this mutant lets each rank divide by its own
+# count and averages the ranks' means
+PARALLEL_MUTANTS = {
+    "per_rank_masked_mean": ("parallel/sharding.py",
+                             "return num / (self.all_sum(den.detach()) + 1e-10)",
+                             "return self.replicated(num / (den + 1e-10))"),
+}
+
 _LOCKED = r'''
 import fcntl
 _lock = open(LOCK, "w")

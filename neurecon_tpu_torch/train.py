@@ -1,4 +1,4 @@
-"""NeuS, VolSDF and UNISURF training on one CUDA card (port of
+"""NeuS, VolSDF and UNISURF training on CUDA cards (port of
 `neurecon_tpu/train.py`):
 
     python -m neurecon_tpu_torch.train --config configs/synthetic_smoke.yaml
@@ -7,8 +7,22 @@
     python -m neurecon_tpu_torch.train --config configs/synthetic_quality_volsdf.yaml
     python -m neurecon_tpu_torch.train --config configs/unisurf.yaml \
         --data:data_dir ./data/DTU/scan65   # a DTU, BlendedMVS or custom scene
+    torchrun --nproc_per_node 4 -m neurecon_tpu_torch.train --config configs/neus.yaml
 
-The loop of the JAX trainer on one device, eager: the dataset held on the
+Over several cards the run is data-parallel over the ray axis, one process
+(rank) a card (`parallel/`): started by torchrun or SLURM, or, without a
+launcher on a machine with several visible cards, by this module itself, one
+rank per card (`CUDA_VISIBLE_DEVICES` narrows the set), as the JAX trainer
+takes every local device. Each rank holds the dataset and the parameters;
+each step's N_rays are drawn alike on every rank and split into contiguous
+blocks, and the gradients are summed, so an N-rank run is the one-rank run.
+Validation frames are split by pixel. Only rank 0 writes (stats, images,
+checkpoints, meshes, the config backup); every rank reads a resume
+checkpoint. `N_rays` must split into equal blocks: where the JAX trainer
+falls back to one device, this raises a ValueError on every rank before the
+first collective. `device_ids` is read and ignored, as the JAX trainer does.
+
+The loop of the JAX trainer, eager: the dataset held on the
 device; the image order from `np.random.RandomState(seed + epoch)`; one step
 = sample rays, render (the framework's sampler and the forward kernels),
 loss, backward (through the eikonal backward kernel), Adam, schedule;
@@ -25,14 +39,16 @@ steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
 the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
 (every `i_save` seconds), numbered backup and `final` checkpoints, and a save
 on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
-loop's checks: eager PyTorch has no dispatch to amortize.
+loop's checks: eager PyTorch has no dispatch to amortize. The profiler window
+(`training.profile_steps` or `NEURECON_PROFILE_STEPS`, '<start>:<stop>'):
+rank 0 records steps start..stop-1 with `torch.profiler` (the card's
+activity too) and writes a Chrome trace under `exp_dir/profile`; a window
+still open at the end is closed there.
 
 NeuS without a mask and VolSDF with `outside_scene: nerf++` train their
 NeRF++ background net with the rest (its own parameter group under a
 per-module lr dict, else the default group). Not ported yet, and refused
-before the first step (ROADMAP.md): several devices,
-`training.overlap_sampler` and the profiler window
-(`training.profile_steps`).
+before the first step (ROADMAP.md): `training.overlap_sampler`.
 """
 from __future__ import annotations
 
@@ -51,6 +67,8 @@ from neurecon_tpu_torch.models.base import (count_parameters, make_optimizer,
 from neurecon_tpu_torch.models.frameworks import (checkpoint_render_kwargs, get_model,
                                                   make_trainer)
 from neurecon_tpu_torch.ops import get_rays, lin2img
+from neurecon_tpu_torch.parallel import distributed
+from neurecon_tpu_torch.parallel.sharding import RayShard
 from neurecon_tpu_torch.training import (fast_forward_schedule, make_train_step,
                                          render_full_image)
 from neurecon_tpu_torch.utils import io as io_util
@@ -76,29 +94,94 @@ def mesh_steps(it: int, i_val_mesh: int, num_iters: int) -> list:
 
 def _refuse_unported(args) -> None:
     """Raise on any option of the JAX trainer that the port does not carry."""
-    def refuse(what):
-        raise NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
-
-    ids = args.get("device_ids", -1)
-    if isinstance(ids, (list, tuple)) and len(ids) > 1:
-        refuse("training on several devices")
     if args.training.get("overlap_sampler", False):
-        refuse("training.overlap_sampler")
-    if args.training.get("profile_steps", None):
-        refuse("the profiler window (training.profile_steps)")
+        raise NotImplementedError("training.overlap_sampler is not ported yet (see ROADMAP.md)")
+
+
+def profile_window(spec) -> tuple:
+    """(start, stop) of a '<start>:<stop>' profiler window, (-1, -1) for
+    none; a malformed window, or stop <= start, raises ValueError."""
+    if spec is None or str(spec).strip() == "":
+        return -1, -1
+    try:
+        start, stop = (int(v) for v in str(spec).split(":"))
+    except ValueError as e:
+        raise ValueError(f"profile_steps {spec!r}: want '<start>:<stop>'") from e
+    if start < 0 or stop <= start:
+        raise ValueError(f"profile_steps {spec!r}: need 0 <= start < stop")
+    return start, stop
+
+
+class _ProfilerWindow:
+    """torch.profiler over the steps start..stop-1 (the card's activity as
+    well on a card), written as a Chrome trace under `out_dir`."""
+
+    def __init__(self, start: int, stop: int, out_dir: str, dev: torch.device):
+        self.start, self.stop, self.out_dir, self.dev = start, stop, out_dir, dev
+        self.prof = None
+
+    def at(self, it: int) -> None:
+        if self.prof is None and 0 <= self.start <= it < self.stop:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.dev)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+            log.info(f"=> profiler window opened at it={it}")
+        elif self.prof is not None and it >= self.stop:
+            self.close(it)
+
+    def close(self, it: int) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.prof.__exit__(None, None, None)
+        io_util.cond_mkdir(self.out_dir)
+        path = os.path.join(self.out_dir, f"trace_{self.start:08d}_{it:08d}.json")
+        self.prof.export_chrome_trace(path)
+        log.info(f"=> profiler trace written to {path}")
+        self.prof = None
+        self.start = -1
 
 
 def main_function(args, device=None) -> dict:
-    """Train; returns {"it", "exp_dir", "final_ckpt", "stats", "resumed_opt"}."""
+    """Train; returns {"it", "exp_dir", "final_ckpt", "stats", "resumed_opt",
+    "rank", "world"}. Under a launcher (or a process group made by the
+    caller) this is one rank of the run."""
     dev = get_device(device if device is not None else args.get("device", None))
+    made_here = not torch.distributed.is_initialized()  # else the caller's group
+    rank, _local_rank, world = distributed.init_env(args, device=dev.type)
+    try:
+        return _train(args, dev, rank, world)
+    finally:
+        if made_here:
+            distributed.release()
+
+
+def _train(args, dev, rank: int, world: int) -> dict:
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    N_rays = int(args.data.N_rays)
+    if N_rays % world:
+        raise ValueError(f"data.N_rays {N_rays} does not split into {world} equal blocks "
+                         "(one a rank)")
+    prof_start, prof_stop = profile_window(os.environ.get(
+        "NEURECON_PROFILE_STEPS", args.training.get("profile_steps", None)))
+    master = rank == 0
+    group = distributed.process_group()
     exp_dir = args.training.exp_dir
-    io_util.cond_mkdir(exp_dir)
+    if master:
+        io_util.cond_mkdir(exp_dir)
     logger = Logger(log_dir=exp_dir, img_dir=os.path.join(exp_dir, "imgs"),
                     monitoring=args.training.get("monitoring", "tensorboard"),
-                    monitoring_dir=os.path.join(exp_dir, "events"))
-    log.info(f"=> Experiments dir: {exp_dir} (device {dev})")
-    io_util.backup(os.path.join(exp_dir, "backup"))
-    config_lib.save_config(args, os.path.join(exp_dir, "config.yaml"))
+                    monitoring_dir=os.path.join(exp_dir, "events"), writes=master)
+    log.info(f"=> Experiments dir: {exp_dir} (device {dev}, {world} rank(s))")
+    if master:
+        io_util.backup(os.path.join(exp_dir, "backup"))
+        config_lib.save_config(args, os.path.join(exp_dir, "config.yaml"))
 
     dataset, val_dataset = get_data(args, return_val=True,
                                     val_downscale=args.data.get("val_downscale", 4.0))
@@ -113,7 +196,8 @@ def main_function(args, device=None) -> dict:
     base_lr = float(lr_cfg["default"] if isinstance(lr_cfg, dict) else lr_cfg)
 
     # ---- checkpoints ----
-    checkpoint_io = CheckpointIO(checkpoint_dir=os.path.join(exp_dir, "ckpts"))
+    checkpoint_io = CheckpointIO(checkpoint_dir=os.path.join(exp_dir, "ckpts"),
+                                 allow_mkdir=master)
     load_dict = checkpoint_io.load_file(
         args.training.get("ckpt_file", None),
         ignore_keys=args.training.get("ckpt_ignore_keys", []),
@@ -123,6 +207,12 @@ def main_function(args, device=None) -> dict:
     epoch_idx = int(load_dict.get("epoch_idx", 0))
     num_iters = int(args.training.num_iters)
     _refuse_unported(args)
+    if group is not None:  # every rank must resume at the same step
+        at = torch.tensor([it, -it, epoch_idx, -epoch_idx], dtype=torch.float64, device=dev)
+        torch.distributed.all_reduce(at, op=torch.distributed.ReduceOp.MAX, group=group)
+        if at[0] != -at[1] or at[2] != -at[3]:
+            raise RuntimeError(f"rank {rank} resumes at step {it}, epoch {epoch_idx}; "
+                               "another rank read another checkpoint")
     if "model" in load_dict:
         bridge.load_tree(model, load_dict["model"], strict=False)
     resumed_opt = "torch_opt_state" in load_dict
@@ -136,14 +226,16 @@ def main_function(args, device=None) -> dict:
         log.info(f"=> resumed the lr schedule at it={it}; Adam's moments restart")
 
     def save(filename):
-        checkpoint_io.save(filename, global_step=it, epoch_idx=epoch_idx,
-                           model=bridge.model_to_tree(model),
-                           torch_opt_state=optimizer_state_to_numpy(optimizer))
+        if master:
+            checkpoint_io.save(filename, global_step=it, epoch_idx=epoch_idx,
+                               model=bridge.model_to_tree(model),
+                               torch_opt_state=optimizer_state_to_numpy(optimizer))
 
-    # ---- SIREN sphere pretrain (after the checkpoint load, as in the JAX trainer)
+    # ---- SIREN sphere pretrain (after the checkpoint load, as in the JAX
+    # trainer), on rank 0: the step's first broadcast carries it to the others
     surface = model.implicit_surface
     if (surface.use_siren and surface.geometric_init and it == 0
-            and "model" not in load_dict):
+            and "model" not in load_dict and master):
         log.info("=> pretraining SIREN sdf to a sphere ...")
         pre_losses = pretrain_siren_sdf(
             surface, lr=float(args.training.get("lr_pretrain", 1e-4)),
@@ -167,9 +259,9 @@ def main_function(args, device=None) -> dict:
         data_dev["mask_ignore"] = torch.as_tensor(
             np.asarray(dataset.masks_ignore), device=dev).reshape(len(dataset), -1)
     n_images = int(data_dev["c2w"].shape[0])
-    N_rays = int(args.data.N_rays)
-    step_fn = make_train_step(make_trainer(args, model, render_kwargs_train),
-                              model, optimizer, scheduler)
+    step_fn = make_train_step(make_trainer(args, model, render_kwargs_train,
+                                           shard=RayShard(group)),
+                              model, optimizer, scheduler, group=group)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     # ---- validation renderer ----
@@ -189,7 +281,10 @@ def main_function(args, device=None) -> dict:
         render_fn_test = render_factory(detailed_output=False, calc_normal=True,
                                         **val_kwargs, **checkpoint_render_kwargs(args, it))
         ret = render_full_image(render_fn_test, rays_o, rays_d, rayschunk=val_rayschunk,
-                                generator=torch.Generator(device=dev).manual_seed(seed + it))
+                                generator=torch.Generator(device=dev).manual_seed(seed + it),
+                                group=group)
+        if not master:
+            return
 
         def to_img(t):
             return np.asarray(lin2img(torch.as_tensor(np.asarray(t)), Hv, Wv))
@@ -216,6 +311,8 @@ def main_function(args, device=None) -> dict:
     mesh_dir = os.path.join(exp_dir, "meshes")
 
     def do_mesh(it):
+        if not master:
+            return
         io_util.cond_mkdir(mesh_dir)
         out = extract_mesh(model.implicit_surface.forward_query,
                            volume_size=float(args.data.get("volume_size", 2.0)),
@@ -243,6 +340,8 @@ def main_function(args, device=None) -> dict:
     next_val = _next_multiple(it, i_val) if i_val > 0 else None
     mesh_its = mesh_steps(it, int(args.training.get("i_val_mesh", 10000)), num_iters)
     next_log = it + i_log
+    window = _ProfilerWindow(prof_start if master else -1, prof_stop,
+                             os.path.join(exp_dir, "profile"), dev)
     try:
         while it < num_iters:
             if next_val is not None and it >= next_val:
@@ -251,6 +350,7 @@ def main_function(args, device=None) -> dict:
                     next_val += i_val
             while mesh_its and it >= mesh_its[0]:
                 do_mesh(mesh_its.pop(0))
+            window.at(it)
 
             K_eff = min(K, num_iters - it)
             for _ in range(K_eff):
@@ -279,7 +379,8 @@ def main_function(args, device=None) -> dict:
                 vals = torch.stack([v.float().reshape(()) for _, v in flat]).cpu().tolist()
                 m = {key: v for (key, _), v in zip(flat, vals)}
                 step_totals = []
-                # NaN watchdog: save the state at the failure and halt
+                # NaN watchdog: save the state at the failure and halt; the
+                # loss is the whole batch's, so every rank halts together
                 if not np.isfinite(m[("losses", "total")]):
                     log.error(f"non-finite loss at it={it} — saving nan_{it:08d}.pt")
                     save(f"nan_{it:08d}.pt")
@@ -306,7 +407,8 @@ def main_function(args, device=None) -> dict:
                 log.info(f"it={it} loss={m[('losses', 'total')]:.4f} "
                          f"({dt * 1000:.0f} ms/step, {N_rays / max(dt, 1e-9):.0f} rays/s)")
 
-            if i_save > 0 and time.time() - t0 > i_save:
+            # rank 0's clock alone: no collective hangs on it
+            if master and i_save > 0 and time.time() - t0 > i_save:
                 save("latest.pt")
                 logger.save_stats("stats.p")
                 t0 = time.time()
@@ -316,6 +418,8 @@ def main_function(args, device=None) -> dict:
         save("latest.pt")
         logger.save_stats("stats.p")
         sys.exit()
+    finally:
+        window.close(it)
 
     final = f"final_{it:08d}.pt"
     save(final)
@@ -323,7 +427,7 @@ def main_function(args, device=None) -> dict:
     log.info("Everything done.")
     return {"it": it, "exp_dir": exp_dir, "stats": logger.stats,
             "final_ckpt": os.path.join(checkpoint_io.checkpoint_dir, final),
-            "resumed_opt": resumed_opt}
+            "resumed_opt": resumed_opt, "rank": rank, "world": world}
 
 
 def _extra_args(parser):
@@ -331,6 +435,30 @@ def _extra_args(parser):
                         help="cuda (the default) or cpu (plain PyTorch path)")
 
 
-if __name__ == "__main__":
-    config, _args = config_lib.parse_cli(extra_args_fn=_extra_args)
+def ranks_to_start(device) -> int:
+    """How many ranks this module starts itself: one a visible card when it
+    runs on the cards without a launcher and sees more than one, else 0
+    (this process is the run, or one rank of it)."""
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        return 0
+    if distributed.launcher_env() is not None or not torch.cuda.is_available():
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    config, _args = config_lib.parse_cli(argv=argv, extra_args_fn=_extra_args)
+    n = ranks_to_start(config.get("device", None))
+    if n:
+        from neurecon_tpu_torch.parallel.launch import run_local
+        log.info(f"=> {n} cards: one rank each")
+        codes = run_local([sys.executable, "-m", "neurecon_tpu_torch.train", *argv], n)
+        return next((c for c in codes if c), 0)
     main_function(config)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

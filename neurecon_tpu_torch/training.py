@@ -1,10 +1,12 @@
 """Training-step machinery (port of `neurecon_tpu/training.py`).
 
-One eager step: zero the grads, loss, backward, Adam step, scheduler step.
-Metrics stay on the device (the loop fetches them every `i_log` steps), so no
-step waits on the host. `render_full_image` is the chunked render of the
-validation images and `tools/render_view.py`. `microchunk` and the
-multi-device render are not ported (ROADMAP Queue A, [A4/A5] and [A10]).
+One eager step: zero the grads, loss, backward, (over several ranks) one sum
+of the gradients and metrics over the process group, Adam step, scheduler
+step. Metrics stay on the device (the loop fetches them every `i_log`
+steps), so no step waits on the host. `render_full_image` is the chunked
+render of the validation images and the eval tools, split over the ranks by
+pixel when given a process group, and in `microchunk`-ray blocks inside each
+chunk when asked.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from neurecon_tpu_torch.bridge import unwrap
+from neurecon_tpu_torch.parallel.sharding import (RayShard, broadcast_parameters,
+                                                  make_sharded_render)
 
 
 def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
@@ -37,7 +44,7 @@ def grad_norms_by_module(model) -> Dict[str, torch.Tensor]:
     """Global grad norm per top-level entry of the JAX pytree (`ln_s` or
     `ln_beta`, `implicit_surface`, `radiance_net`), as a device tensor each."""
     sq = {}
-    for name, p in model.named_parameters():
+    for name, p in unwrap(model).named_parameters():
         if p.grad is not None:
             top = name.split(".")[0]
             sq[top] = sq.get(top, 0.0) + torch.sum(p.grad.float() ** 2)
@@ -49,16 +56,18 @@ _EXTRAS_STAT_KEYS = ("radiance", "alpha", "implicit_surface",
                      "implicit_nablas_norm", "sigma_out", "radiance_out")
 
 
+def _stat_inputs(extras):
+    """(name, detached float tensor) of each logged intermediate present."""
+    if not isinstance(extras, dict):
+        return []
+    return [(n, extras[n].detach().float()) for n in _EXTRAS_STAT_KEYS
+            if extras.get(n) is not None]
+
+
 def extras_stats(extras) -> Dict[str, torch.Tensor]:
     """mean/min/max/norm of the render intermediates, on the device."""
     out = {}
-    if not isinstance(extras, dict):
-        return out
-    for n in _EXTRAS_STAT_KEYS:
-        v = extras.get(n)
-        if v is None:
-            continue
-        v = v.detach().float()
+    for n, v in _stat_inputs(extras):
         out[f"{n}.mean"] = v.mean()
         out[f"{n}.min"] = v.min()
         out[f"{n}.max"] = v.max()
@@ -66,20 +75,65 @@ def extras_stats(extras) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_train_step(loss_fn: Callable, model, optimizer, scheduler) -> Callable:
-    """loss_fn(batch, generator, it) -> (total, (losses, extras)).
+def _reduce_step(shard: RayShard, params, losses, extras):
+    """Over the ranks: sum the gradients (in place) and the loss shares in one
+    all-reduce with each intermediate's mean share and sum of squares, then
+    take the intermediates' max and min in one more. Returns the global
+    (losses, extras_stats)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    keys = list(losses)
+    inter = _stat_inputs(extras)
+    sums = [losses[k].detach().float().reshape(()) for k in keys]
+    sums += [shard.mean(v) for _, v in inter] + [torch.sum(v * v) for _, v in inter]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(sums)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=shard.group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    tail = flat[offset:]
+    out_losses = {k: tail[i] for i, k in enumerate(keys)}
+    stats = {}
+    if inter:
+        n = len(inter)
+        means, sumsq = tail[len(keys):len(keys) + n], tail[len(keys) + n:]
+        ext = torch.stack([v.max() for _, v in inter] + [-v.min() for _, v in inter])
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=shard.group)
+        for i, (name, _) in enumerate(inter):
+            stats[f"{name}.mean"] = means[i]
+            stats[f"{name}.min"] = -ext[n + i]
+            stats[f"{name}.max"] = ext[i]
+            stats[f"{name}.norm"] = torch.sqrt(sumsq[i])
+    return out_losses, stats
 
-    Returns step(batch, generator, it) -> metrics: the step's losses,
+
+def make_train_step(loss_fn: Callable, model, optimizer, scheduler, group=None) -> Callable:
+    """loss_fn(batch, generator, it, **kw) -> (total, (losses, extras)).
+
+    Returns step(batch, generator, it, **kw) -> metrics: the step's losses,
     per-module grad norms, extras['scalars'] and the intermediates' stats,
-    all as device tensors (nothing is fetched here)."""
+    all as device tensors (nothing is fetched here).
 
-    def step(batch, generator, it):
+    With a process group (`group`), `loss_fn` returns this rank's share of
+    the loss over the whole batch (a framework loss made with
+    `RayShard(group)`): the rank-0 parameters are broadcast once here, and
+    every step sums the gradients over the ranks before Adam, so the metrics
+    are those of the whole batch on every rank."""
+    shard = RayShard(group)
+    params = [p for p in model.parameters() if p.requires_grad]
+    if shard.sharded:
+        broadcast_parameters(model, group)
+
+    def step(batch, generator, it, **kw):
         optimizer.zero_grad(set_to_none=True)
-        total, (losses, extras) = loss_fn(batch, generator, it)
+        total, (losses, extras) = loss_fn(batch, generator, it, **kw)
         total.backward()
-        metrics = {"losses": {k: v.detach() for k, v in losses.items()},
-                   "grad_norms": grad_norms_by_module(model),
-                   "extras_stats": extras_stats(extras)}
+        if shard.sharded:
+            losses, stats = _reduce_step(shard, params, losses, extras)
+        else:
+            losses, stats = {k: v.detach() for k, v in losses.items()}, extras_stats(extras)
+        metrics = {"losses": losses, "grad_norms": grad_norms_by_module(model),
+                   "extras_stats": stats}
         optimizer.step()
         scheduler.step()
         if isinstance(extras, dict) and "scalars" in extras:
@@ -110,11 +164,24 @@ def fast_forward_schedule(optimizer, scheduler, step: int) -> None:
 def render_full_image(render_fn, rays_o, rays_d, *, rayschunk: int = 4096,
                       generator: Optional[torch.Generator] = None,
                       cull_sphere_r: Optional[float] = None,
-                      miss_rgb: float = 0.0):
+                      miss_rgb: float = 0.0, microchunk: Optional[int] = None,
+                      group=None):
     """Render all rays of an image in chunks of `rayschunk` rays.
 
     render_fn: (rays_o [n,3], rays_d [n,3], generator) -> (rgb, depth,
     extras). Returns a dict of host numpy arrays, one row per ray.
+
+    `microchunk`: each chunk is rendered in blocks of that many rays, one
+    after the other (peak memory set by the block, as the JAX package's
+    `lax.map` inside a dispatch); `rayschunk` must be a multiple of it, and
+    each block draws its own uniforms from `generator`. None, 0 or a block
+    no smaller than the chunk: one block a chunk.
+
+    `group` (a process group): every rank calls this with the same rays, and
+    each block is split over the ranks by pixel (`parallel.
+    make_sharded_render`); `rayschunk` and `microchunk` are first rounded up
+    to multiples of the world size, as the JAX package rounds them to its
+    mesh. Every rank returns the whole image.
 
     `cull_sphere_r`: only rays that pass within that radius of the origin go
     through the network; the others get `miss_rgb` and zeros (their depth
@@ -138,7 +205,8 @@ def render_full_image(render_fn, rays_o, rays_d, *, rayschunk: int = 4096,
             probe_idx = hit_idx if hit_idx.size else np.asarray([0])
             idx_t = torch.as_tensor(probe_idx, device=rays_o.device)
             sub = render_full_image(render_fn, rays_o[idx_t], rays_d[idx_t],
-                                    rayschunk=rayschunk, generator=generator)
+                                    rayschunk=rayschunk, generator=generator,
+                                    microchunk=microchunk, group=group)
             out = {}
             for k, v in sub.items():
                 full = np.zeros((N,) + v.shape[1:], v.dtype)
@@ -149,11 +217,22 @@ def render_full_image(render_fn, rays_o, rays_d, *, rayschunk: int = 4096,
                 out[k] = full
             return out
 
+    if group is not None:
+        w = RayShard(group).world
+        rayschunk = -(-rayschunk // w) * w
+        if microchunk and microchunk > 0:
+            microchunk = -(-int(microchunk) // w) * w
+        render_fn = make_sharded_render(render_fn, group)
+    if not microchunk or microchunk <= 0 or microchunk >= rayschunk:
+        microchunk = rayschunk
+    if rayschunk % microchunk:
+        raise ValueError(f"rayschunk {rayschunk} must be a multiple of microchunk {microchunk}")
+
     outs = []
     with torch.no_grad():
-        for i in range(0, N, rayschunk):
-            rgb, depth, extras = render_fn(rays_o[i:i + rayschunk],
-                                           rays_d[i:i + rayschunk], generator)
+        for i in range(0, N, microchunk):
+            rgb, depth, extras = render_fn(rays_o[i:i + microchunk],
+                                           rays_d[i:i + microchunk], generator)
             chunk = {"rgb": rgb, "depth_volume": depth}
             chunk.update({k: v for k, v in extras.items()
                           if k not in ("rgb", "depth_volume")})

@@ -4,7 +4,8 @@ in-memory stats dict, pickled to `stats.p_<rank>`, and images as PNGs.
 TensorBoard (`torch.utils.tensorboard`) and `imageio` are imported only when
 used, and a missing one does not stop training: without TensorBoard the
 logger writes files only, and without imageio an image is saved as a `.npy`
-array instead of a PNG.
+array instead of a PNG. With `writes=False` (the ranks other than 0 of a run
+over several ranks) it keeps its stats in memory and writes nothing.
 """
 from __future__ import annotations
 
@@ -20,14 +21,18 @@ from neurecon_tpu_torch.utils.console import log
 class Logger:
     def __init__(self, log_dir: str, img_dir: Optional[str] = None,
                  monitoring: Optional[str] = None,
-                 monitoring_dir: Optional[str] = None, rank: int = 0):
+                 monitoring_dir: Optional[str] = None, rank: int = 0,
+                 writes: bool = True):
         self.stats = {}
         self.log_dir = log_dir
         self.img_dir = img_dir or os.path.join(log_dir, "imgs")
         self.rank = rank
+        self.writes = writes
+        self.tb = None
+        if not writes:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         os.makedirs(self.img_dir, exist_ok=True)
-        self.tb = None
         if monitoring == "tensorboard":
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -54,6 +59,8 @@ class Logger:
 
     def add_imgs(self, imgs: np.ndarray, class_name: str, it: int):
         """imgs: [B, H, W, C] or [H, W, C] float in [0, 1], HWC."""
+        if not self.writes:
+            return
         imgs = np.asarray(imgs)
         if imgs.ndim == 3:
             imgs = imgs[None]
@@ -76,6 +83,8 @@ class Logger:
         return os.path.join(self.log_dir, f"{filename}_{self.rank}")
 
     def save_stats(self, filename: str = "stats.p"):
+        if not self.writes:
+            return
         with open(self._stats_path(filename), "wb") as f:
             pickle.dump(self.stats, f)
 

@@ -278,11 +278,20 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_options_are_refused(tmp_path):
-    # meshes in the loop are ported (tests/test_torch_mesh.py); the profiler
-    # window is not
+    # meshes in the loop (tests/test_torch_mesh.py) and the profiler window
+    # are ported: the window writes a Chrome trace of its steps under
+    # exp_dir/profile, and a window with stop <= start raises; the overlap
+    # sampler is refused
     args = _smoke_args(tmp_path, 4)
     args.training["profile_steps"] = "2:3"
-    with pytest.raises(NotImplementedError, match="profiler window"):
+    out = train.main_function(args)
+    traces = os.listdir(os.path.join(out["exp_dir"], "profile"))
+    assert traces == ["trace_00000002_00000003.json"]
+    with open(os.path.join(out["exp_dir"], "profile", traces[0])) as f:
+        assert '"traceEvents"' in f.read()
+    args = _smoke_args(tmp_path, 4)
+    args.training["profile_steps"] = "3:3"
+    with pytest.raises(ValueError, match="start < stop"):
         train.main_function(args)
     with pytest.raises(NotImplementedError, match="overlap_sampler"):
         train.main_function(_smoke_args(tmp_path, 4, "--training:overlap_sampler", "true"))
