@@ -255,8 +255,44 @@ Phases, in order; any failure exits non-zero:
    split by pixel; the gathered frame against the one-rank frame (every
    output within `FRAME_ATOL`), kernels 1 and 2 launched on each rank.
 
-Phases 1-29 run in this process on one card (no launcher: a world of one);
-phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but for (4).
+32. The pipelined trainer (`training.overlap_sampler`, steps_per_call
+   `PIPE_K`) at phase 8's config, seed and cuts: `PIPE_LR0_STEPS` steps at
+   lr 0 pipelined and standard through train.py, every step's loss and
+   every final parameter bit-equal; then the 60 trained steps with a
+   profiler window over steps 12-13 (`PIPE_WINDOW`): the launches of phase
+   8's run exactly, kernel 2 on the side stream in the trace
+   (`stream_overlap`) and no sampler kernel on the main stream, finite losses whose last 10 steps' mean is below the
+   first 10's; the median ms per step against phase 8's, and the device
+   time in which the side stream's kernels overlap the main stream's.
+33. The same at phase 16's VolSDF config and cuts (kernel 4 and (a)-(c) on
+   the side stream; the sampler's overlapped share).
+34. The same at phase 23's UNISURF config and cuts, read from phase 22's
+   DTU-layout scene (the root find's march and eight secant launches of
+   kernel 4 on the side stream; the window's idle share).
+35. NeuS's `direct_use` and `direct_more` upsamplers on the flagship NeuS
+   with seeded noise: d_all through kernel 4 against the plain query on
+   4,096 rays, det and perturb, at phase 3's gate (one kernel-4 launch a
+   call); a 2,048-ray patch against the plain render (rgb 2e-3);
+   `DIRECT_STEPS` training steps each through train.py (kernels 4, 1 and 3
+   once a step, kernel 2 never; a falling loss) and a 120x160 frame of the
+   result (5 chunks: kernels 4 and 1 five times); ms per step and s per
+   frame.
+36. The tools' card paths: `vis_surface_and_cam`'s mesh of phase 8's final
+   checkpoint (128^3 through kernel 4) against the plain grid's (Chamfer
+   below 1e-3 of the volume); `test_volsdf_algo --load_pt` on phase 16's
+   final checkpoint, the probe ray's fine samples through kernel 4 and
+   (a)-(c) against the plain sampler at phase 14's gates; `supervise`
+   around a 4-step pipelined train.py run in a child process, which must
+   exit 0 with its final checkpoint; the number halves of the other tools on
+   the card (`test_volsdf_algo`'s closed-form oracle: the bound above the
+   error, 64 finite fine depths; `plot_neus_bias`'s NeuS peaks within a
+   sample spacing of the first surface; `vis_ray`'s probe rays from the
+   camera centres, of unit length); the figures are not drawn (the card
+   machine has no matplotlib: a figure raises an error that says so).
+
+Phases 1-29 and 32-36 run in this process on one card (no launcher: a
+world of one); phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but
+for (4).
 
 Every path above is driven with the kernels' launch counters set to 0 just
 before it and read just after. Prints one JSON line of per-kernel results
@@ -265,7 +301,10 @@ before it and read just after. Prints one JSON line of per-kernel results
 `<kernel>[sine]`; `launches_by_path` for each path, `unisurf_train`,
 `unisurf_render`, `nomask_train`, `volsdf_nerfpp_train`, and phases 30-31's
 `ddp1_train`, `ddp2_train_rank<r>`, `ddp2_volsdf_rank<r>` and
-`sharded_render_rank<r>` among them; the surface-MLP rows held to their 3xTF32
+`sharded_render_rank<r>` among them, and phases 32-36's
+`pipelined_<framework>_train`, `pipelined_<framework>_lr0`,
+`direct_<use|more>_train`, `direct_<use|more>_render`,
+`vis_surface_and_cam` and `test_volsdf_algo`; the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
 then the run's wall seconds, then, as the last line, {"ok": true, "device":
@@ -645,19 +684,34 @@ def _launch_counters():
     return counters, zero_counts, read_counts
 
 
-def _train_timed(targs, zero_counts, read_counts, around_make=None):
+def _train_timed(targs, zero_counts, read_counts, around_make=None, order="side"):
     """train.py's `main_function` on `targs` on the card, with a CUDA event
     recorded at the start of every step, the kernels' launch counters set to
-    0 just before and read just after (`around_make(make_train_step, *args)`,
-    if given, makes the step in place of `make_train_step`). Returns (its
-    result, the launch counts, each step's ms up to the next step's start or
-    the run's end, the run's wall seconds)."""
-    from neurecon_tpu_torch import train
+    0 just before and read just after (`around_make(make_pipelined_train_step,
+    *args)`, if given, makes train.py's step in place of
+    `make_pipelined_train_step`). `order`: "side", as train.py runs (the
+    pipelined step's sampler on a second stream); "serial", the sampler on
+    the current stream, in the same host order; "stress", every sampler
+    call held back by a spin kernel of `STRESS_SPIN` cycles ahead of it on
+    its stream, so that on the side stream the backward, Adam and the next
+    forward run first, and an ordering the step leaves out shows in its
+    numbers. Returns (its result, the launch counts, each step's ms up to
+    the next step's start or the run's end, the run's wall seconds)."""
+    from neurecon_tpu_torch import train, training
 
     starts = []
-    real_make_step = train.make_train_step
+    real_make_step = train.make_pipelined_train_step
 
     def make_step_timed(*a, **k):
+        if order == "stress":
+            fns = dict(a[0])
+            sample = fns["depth_sample"]
+
+            def held_back(rb, draws):
+                torch.cuda._sleep(STRESS_SPIN)
+                return sample(rb, draws)
+            fns["depth_sample"] = held_back
+            a = (fns,) + a[1:]
         step = (around_make(real_make_step, *a, **k) if around_make
                 else real_make_step(*a, **k))
 
@@ -668,9 +722,11 @@ def _train_timed(targs, zero_counts, read_counts, around_make=None):
             return step(*sa, **sk)
         return timed_step
 
+    new_stream = torch.cuda.current_stream if order == "serial" else training._new_stream
     zero_counts()
     t0 = time.perf_counter()
-    with mock.patch.object(train, "make_train_step", make_step_timed):
+    with mock.patch.object(train, "make_pipelined_train_step", make_step_timed), \
+            mock.patch.object(training, "_new_stream", new_stream):
         out = train.main_function(targs, device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1138,8 +1194,10 @@ def volsdf_check_inputs(seed, dev):
     return args, model, checked, (kw_train, kw_test), ds, (o_all, d_all), (rays_o, rays_d, far)
 
 
-def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
-    """Phases 14-17 (the VolSDF slice); returns (rc, kernel rows, train launches)."""
+def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, record=None):
+    """Phases 14-17 (the VolSDF slice); returns (rc, kernel rows, train launches).
+    `record` (a dict) gets phase 16's median ms per step and final
+    checkpoint."""
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.models.base import RadianceNet
@@ -1240,6 +1298,8 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     out, t_launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
     by_path["volsdf_train"] = t_launches
     ms_step = float(np.median(step_ms[5:]))
+    if record is not None:
+        record.update(volsdf_ms=ms_step, volsdf_ckpt=out["final_ckpt"])
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
     first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
     mesh20 = os.path.join(out["exp_dir"], "meshes", "00000020.ply")
@@ -2070,9 +2130,11 @@ def _loader_phase(workdir):
     return ok, dtu_root, dtu_full, load_s
 
 
-def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, record=None):
     """Phases 22-26 (the file loaders, UNISURF); returns (rc, {kernel name:
-    extra fields of its kernels-line row at UNISURF's shapes})."""
+    extra fields of its kernels-line row at UNISURF's shapes}). `record` (a
+    dict) gets phase 23's median ms per step and phase 22's DTU-layout
+    scene."""
     from neurecon_tpu_torch import bridge, train
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.models.base import RadianceNet, perturb_parameters
@@ -2103,6 +2165,8 @@ def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     out, t_launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
     by_path["unisurf_train"] = t_launches
     ms_step = float(np.median(step_ms[5:]))
+    if record is not None:
+        record.update(unisurf_ms=ms_step, dtu_root=dtu_root)
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
     first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
     logged = out["stats"]["scalars"]["interval"]
@@ -2817,13 +2881,13 @@ def _rank_train(task, rank, zero_counts, read_counts):
 
     info = {}
 
-    def around_make(real, loss_fn, model, optimizer, scheduler, group=None):
+    def around_make(real, pipeline_fns, model, optimizer, scheduler, group=None):
         surface = model.implicit_surface
         if task.get("perturb_others") and rank != 0:
             perturb_parameters(model, torch.Generator().manual_seed(99))
         info["before"] = _digest(packed_surface(surface).params)
         n0 = packed_surface.packs
-        step = real(loss_fn, model, optimizer, scheduler, group=group)
+        step = real(pipeline_fns, model, optimizer, scheduler, group=group)
         info["after"] = _digest(packed_surface(surface).params)
         info["packs_made"] = packed_surface.packs - n0
         info["fresh"] = _digest(pack(surface).params)
@@ -3110,6 +3174,509 @@ def _ddp_phases(seed, dev, tag, by_path, workdir, phase8):
         print("FAIL phase 31: the sharded frame differs from the one-rank frame",
               file=sys.stderr)
         return 1
+    return 0
+
+
+PIPE_K = 10  # phases 32-34's steps_per_call: the first step of every 10 samples fresh
+PIPE_LR0_STEPS = 20  # the lr-0 runs of phases 32-34, pipelined against standard
+PIPE_WINDOW = "12:14"  # two pipelined steps (12 and 13 of the group 10-19)
+DIRECT_STEPS = 20  # phase 35's training steps for each of direct_use / direct_more
+_SIDE_KERNELS = ("neus_upsample_kernel", "sdf_forward_kernel", "init_kernel", "draw_kernel",
+                 "checkpoint_kernel")
+
+
+def _union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_ms(u, v):
+    """The length of the intersection of two unions of intervals."""
+    i = j = 0
+    total = 0.0
+    while i < len(u) and j < len(v):
+        total += max(0.0, min(u[i][1], v[j][1]) - max(u[i][0], v[j][0]))
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(profile_dir):
+    """From a profiler window's Chrome trace: the device time of the main
+    stream (the one with the most kernels, copies and sets: the forward,
+    the backward and Adam run there) and of the others (the side stream),
+    the device time in which the side stream's work overlaps the main
+    stream's, the window's span and busy share, and the side stream's
+    kernels by name, with the host's synchronising CUDA calls in the window
+    by the CPU op they ran in (the window's own close makes one). None
+    without a trace or device events."""
+    names = sorted(os.listdir(profile_dir)) if os.path.isdir(profile_dir) else []
+    if not names:
+        return None
+    with open(os.path.join(profile_dir, names[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    streams = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            s = (e.get("args") or {}).get("stream", e.get("tid"))
+            streams.setdefault(s, []).append((e["ts"], e["ts"] + e["dur"], e.get("name", "")))
+    if not streams:
+        return None
+    length = lambda u: sum(b - a for a, b in u)  # noqa: E731
+    unions = {s: _union([(a, b) for a, b, _ in iv]) for s, iv in streams.items()}
+    main = max(streams, key=lambda s: len(streams[s]))
+    side = _union([(a, b) for s, iv in streams.items() if s != main for a, b, _ in iv])
+    kernels = {}
+    for s, iv in streams.items():
+        if s != main:
+            for _, _, n in iv:
+                k = next((k for k in _SIDE_KERNELS if k in n), "other")
+                kernels[k] = kernels.get(k, 0) + 1
+    main_kernels = {}
+    for _, _, n in streams[main]:
+        k = next((k for k in _SIDE_KERNELS if k in n), None)
+        if k:
+            main_kernels[k] = main_kernels.get(k, 0) + 1
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy = length(_union([(a, b) for iv in streams.values() for a, b, _ in iv]))
+    # each synchronising CUDA call, by the innermost CPU op around it
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    syncs = {}
+    for e in events:
+        if e.get("name", "") in ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+                                 "cudaEventSynchronize"):
+            around = [o for o in ops if o["ts"] <= e["ts"] <= o["ts"] + o["dur"]]
+            k = min(around, key=lambda o: o["dur"])["name"] if around else e["name"]
+            syncs[k] = syncs.get(k, 0) + 1
+    return {"main_ms": length(unions[main]) / 1e3, "side_ms": length(side) / 1e3,
+            "overlap_ms": _overlap_ms(unions[main], side) / 1e3, "span_ms": span / 1e3,
+            "busy": busy / span, "streams": len(streams), "side_kernels": kernels,
+            "main_sampler_kernels": main_kernels, "host_syncs": syncs}
+
+
+def _fmt_overlap(ov):
+    if ov is None:
+        return "not measured (no device events in the trace)"
+    return (f"main stream {ov['main_ms']:.2f} ms, side stream {ov['side_ms']:.2f} ms, of it "
+            f"{ov['overlap_ms']:.2f} ms ({100 * ov['overlap_ms'] / max(ov['side_ms'], 1e-9):.1f}%)"
+            f" under the main stream's work; span {ov['span_ms']:.2f} ms, busy "
+            f"{100 * ov['busy']:.1f}%; side-stream kernels {ov['side_kernels']}; sampler "
+            f"kernels on the main stream {ov['main_sampler_kernels']}; host syncs "
+            f"{ov['host_syncs']}")
+
+
+def _pipelined_cfg(base, workdir, sub, *, steps=None, overlap=True, lr=None, quiet=False,
+                   window=None, **model):
+    """`base` (a config dict) as train.py's config for a phase-32-36 run
+    under workdir/sub: steps_per_call PIPE_K, `training.overlap_sampler`
+    `overlap`; `lr` replaces the lr; `quiet` drops the validations,
+    meshes and numbered backups; `window` a profiler window."""
+    from neurecon_tpu_torch.config import ConfigDict
+
+    targs = ConfigDict(copy.deepcopy(base))
+    d = os.path.join(workdir, sub)
+    targs.training.update({"log_root_dir": d, "exp_dir": os.path.join(d, "run"),
+                           "overlap_sampler": overlap, "steps_per_call": PIPE_K,
+                           "monitoring": "none"})
+    if steps is not None:
+        targs.training["num_iters"] = steps
+    if lr is not None:
+        targs.training["lr"] = lr
+    if quiet:
+        targs.training.update({"i_val": 0, "i_val_mesh": -1, "i_backup": 0})
+    if window:
+        targs.training["profile_steps"] = window
+    targs.model.update(model)
+    return targs
+
+
+def _lr0_pair(base, workdir, sub, zero_counts, read_counts):
+    """PIPE_LR0_STEPS steps at lr 0 through train.py, pipelined and standard:
+    (bit-equal in every step's loss and every final parameter, the
+    pipelined run's launches, the standard run's)."""
+    from neurecon_tpu_torch.utils.checkpoints import load_checkpoint
+
+    runs = []
+    for overlap in (True, False):
+        targs = _pipelined_cfg(base, workdir, f"{sub}_lr0_{'pipe' if overlap else 'std'}",
+                               steps=PIPE_LR0_STEPS, overlap=overlap, lr=0.0, quiet=True)
+        out, launches, _, _ = _train_timed(targs, zero_counts, read_counts)
+        totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+        runs.append((totals, load_checkpoint(out["final_ckpt"])["model"], launches))
+    (ta, pa, la), (tb, pb, lb) = runs
+    equal = len(ta) == PIPE_LR0_STEPS and ta == tb and _tree_gap(pa, pb, pb)[0]
+    return equal, la, lb
+
+
+def _same_run(a, b):
+    """(bit-equal, max|loss diff|) of two train.py results: every step's
+    loss and every final parameter."""
+    from neurecon_tpu_torch.utils.checkpoints import load_checkpoint
+
+    ta, tb = ([v for _, v in r["stats"]["losses"]["total_per_step"]] for r in (a, b))
+    pa, pb = (load_checkpoint(r["final_ckpt"])["model"] for r in (a, b))
+    gap = max((abs(x - y) for x, y in zip(ta, tb)), default=float("inf"))
+    return len(ta) == len(tb) and ta == tb and _tree_gap(pa, pb, pb)[0], gap
+
+
+def _volsdf_pipe_base(seed):
+    """Phase 33's config: phase 16's VolSDF (`VOLSDF`, 1,024 rays, 40 steps)."""
+    vol = copy.deepcopy(VOLSDF)
+    vol.update({"expname": "chip_smoke_volsdf_train", "seed": seed})
+    vol["data"]["mesh_N"] = 128
+    vol["training"].update({"num_iters": VOLSDF_STEPS, "i_val": 20, "i_log": 10,
+                            "i_val_mesh": 20, "i_backup": 20})
+    return vol
+
+
+STRESS_SPIN = 150_000_000  # cycles a sampler is held back in the stress order: ~76 ms at 1.98 GHz
+_ORDERS = {"serial": "the sampler on the current stream in place of a second one (same draws, "
+                      "serial order)",
+           "stress": f"every sampler held back by a {STRESS_SPIN:,}-cycle spin on its stream"}
+
+
+def _order_gate(label, base, workdir, sub, ref, zero_counts, read_counts, steps=None,
+                **training):
+    """The stream-order gate: train.py on `base` (its `steps` pipelined
+    steps, `training` over its training section) with the sampler on the
+    current stream, and again with every sampler held back on its stream
+    (`_train_timed`'s "serial" and "stress"), each bit-equal in
+    every step's loss and every final parameter, with the same launches, to
+    `ref` ((result, launches) of the run as train.py runs it; None: that run
+    too, without a profiler window). Returns (ok, max|loss diff|)."""
+    runs = {}
+    for order in ("side", "serial", "stress"):
+        if order == "side" and ref is not None:
+            runs[order] = ref
+            continue
+        targs = _pipelined_cfg(base, workdir, f"{sub}_{order}", steps=steps)
+        targs.training.update(training)
+        out, launches, _, secs = _train_timed(targs, zero_counts, read_counts, order=order)
+        runs[order] = (out, launches)
+        if order != "side":
+            same, gap = _same_run(runs["side"][0], out)
+            print(f"{label}: the same trained steps with {_ORDERS[order]}, {secs:.1f} s: every "
+                  f"step's loss and every final parameter bit-equal {same} (max|loss diff| "
+                  f"{gap:.3e}); launches equal {launches == runs['side'][1]}")
+            runs[order] += (same and launches == runs["side"][1], gap)
+    return (all(runs[o][2] for o in ("serial", "stress")),
+            max(runs[o][3] for o in ("serial", "stress")))
+
+
+def stream_order_check(seed, workdir, steps=2 * PIPE_K):
+    """Phases 32-34's stream-order gate on its own (`tools/mutants.py`'s
+    `stream` group): `steps` pipelined VolSDF steps at phase 33's config and
+    lr (no validations, meshes or backups, no halt on a NaN), as train.py
+    runs them, against the serial order and the held-back sampler:
+    {"passes": all bit-equal, "max_loss_diff"}."""
+    _, zero_counts, read_counts = _launch_counters()
+    ok, gap = _order_gate("stream order", _volsdf_pipe_base(seed), workdir, "order", None,
+                          zero_counts, read_counts, steps=steps, i_val=0, i_val_mesh=-1,
+                          i_backup=0, halt_on_nan=False)
+    return {"passes": bool(ok), "max_loss_diff": float(gap)}
+
+
+def _pipelined_phase(n, name, base, ref_launches, ref_ms, workdir, tag, zero_counts,
+                     read_counts, by_path, side_kernel):
+    """One of phases 32-34: the lr-0 pair, then the trained run with a
+    profiler window over two pipelined steps: its launches against the
+    standard run's (`ref_launches`, the same config and cuts), `side_kernel`
+    on the side stream in the trace, finite losses whose last 10 steps' mean
+    is below the first 10's; then the stream-order gate (`_order_gate`):
+    the same trained run with the sampler on the current stream (the same
+    draws in the same host order, every kernel on one stream) and with
+    every sampler held back by a spin on its stream, each bit-equal to it in
+    every step's loss and every final parameter: the side stream's ordering
+    (the waits, `record_stream`) must leave no trace.
+    Returns (ok, {ms, ref_ms, overlap})."""
+    t0 = time.perf_counter()
+    equal, la, lb = _lr0_pair(base, workdir, f"pipe_{name}", zero_counts, read_counts)
+    by_path[f"pipelined_{name}_lr0"] = la
+    print(f"phase {n}: {PIPE_LR0_STEPS} {name} steps at lr 0 through train.py, pipelined "
+          f"(steps_per_call {PIPE_K}) against standard: every step's loss and every final "
+          f"parameter bit-equal {equal}; launches {la} against {lb}")
+    targs = _pipelined_cfg(base, workdir, f"pipe_{name}", window=PIPE_WINDOW)
+    out, launches, step_ms, secs = _train_timed(targs, zero_counts, read_counts)
+    by_path[f"pipelined_{name}_train"] = launches
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    S = len(totals)
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    ms_step = float(np.median(step_ms[5:]))
+    ov = stream_overlap(os.path.join(out["exp_dir"], "profile"))
+    print(f"phase {n}: train.py {S} {name} steps pipelined (steps_per_call {PIPE_K}, the "
+          f"sampler of steps 2-{PIPE_K} of a group on a second CUDA stream), {secs:.1f} s: "
+          f"launches {launches} (the standard run's {ref_launches}); loss mean of steps 1-10 "
+          f"{first:.5f}, of the last 10 {last:.5f}")
+    print(f"phase {n}: median {ms_step:.2f} ms/step over steps 6-{S} pipelined against "
+          f"{ref_ms:.2f} standard ({100 * (ms_step / ref_ms - 1):+.2f}%); all steps ms "
+          f"{[round(v, 1) for v in step_ms]} {tag}")
+    print(f"phase {n}: profiler window over steps {PIPE_WINDOW.replace(':', '-')} (exclusive "
+          f"end): {_fmt_overlap(ov)} {tag}")
+    same, _ = _order_gate(f"phase {n}", base, workdir, f"pipe_{name}", (out, launches),
+                          zero_counts, read_counts)
+    ok = (equal and same and launches == ref_launches
+          and ov is not None
+          and ov["side_kernels"].get(side_kernel, 0) >= 1 and not ov["main_sampler_kernels"]
+          and len(totals) == int(targs.training.num_iters) and np.isfinite(totals).all()
+          and last < first)
+    print(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+    return ok, {"ms": ms_step, "ref_ms": ref_ms, "overlap": ov}
+
+
+def _direct_d_all_check(model, kw, rays_o, rays_d, algo, u, label):
+    """compute_ray_samples with `algo` through kernel 4 against the plain
+    sdf query, at phase 3's gate: |d_all diff| <= 1e-3 (far - near) on >=
+    99.9% of the entries, where in det mode one entry a ray in the last bin
+    of the weighted depths on both sides (the u = 1.0 tie) is exempt; every
+    depth finite. Returns (ok, max|diff|, kernel-4 launches)."""
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, compute_ray_samples
+    from neurecon_tpu_torch.ops import fused_mlp
+    from neurecon_tpu_torch.ops.sampling import linspace01
+
+    before = fused_mlp.fused_sdf_forward.launches
+    got = compute_ray_samples(model, rays_o, rays_d, u_up=u, **kw)
+    launched = fused_mlp.fused_sdf_forward.launches - before
+    with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain):
+        ref = compute_ray_samples(model, rays_o, rays_d, u_up=u, **kw)
+    torch.cuda.synchronize()
+    _, _, near, far = _prepare_rays(rays_o, rays_d, kw["obj_bounding_radius"])
+    n = kw["N_samples"] if algo == "direct_use" else kw["N_nograd_samples"]
+    t = linspace01(n, rays_o.device)[-2]
+    last_bin = near * (1 - t) + far * t
+    diff = (got - ref).abs()
+    off = diff > 1e-3 * (far - near)
+    tie = off & (got >= last_bin) & (ref >= last_bin)
+    exempt = tie & (tie.sum(1, keepdim=True) <= 1) if not kw["perturb"] else torch.zeros_like(off)
+    frac = float((off & ~exempt).float().mean())
+    print(f"{label}: {algo} d_all through kernel 4 ({launched} launch) against the plain "
+          f"query, {'perturb' if kw['perturb'] else 'det'}: max|diff| {float(diff.max()):.3e}, "
+          f"share beyond 1e-3 (far - near) {float(off.float().mean()):.5f}, {int(exempt.sum())} "
+          f"u=1.0 tie entries exempt, share of the rest {frac:.5f}")
+    return (frac <= 1e-3 and bool(torch.isfinite(got).all()) and launched == 1,
+            float(diff.max()), launched)
+
+
+def _pipeline_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, refs):
+    """Phases 32-36 (see the module docstring). `refs`: phase 8's, 16's and
+    23's median ms per step, phase 8's and 16's final checkpoints and
+    phase 22's DTU-layout scene. Returns 0 or 1."""
+    from neurecon_tpu_torch import bridge
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.frameworks.neus import _uniforms, make_volume_render_fn
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.tools import (plot_neus_bias, render_view, supervise,
+                                          test_volsdf_algo, vis_camera, vis_ray,
+                                          vis_surface_and_cam)
+    from neurecon_tpu_torch.tools.eval_mesh import chamfer_distance
+    from neurecon_tpu_torch.training import render_full_image
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+
+    t_all = time.perf_counter()
+    # ---- phase 32: NeuS pipelined at phase 8's config, seed and cuts
+    neus = _train_config(os.path.join(workdir, "unused"), seed)
+    ok, _ = _pipelined_phase(32, "neus", neus, by_path["train"], refs["neus_ms"], workdir, tag,
+                             zero_counts, read_counts, by_path, "neus_upsample_kernel")
+    if not ok:
+        print("FAIL phase 32: the pipelined NeuS run is not bit-equal at lr 0 or to its serial "
+              "order, missed a kernel, ran its sampler on no second stream, diverged or did not "
+              "lower the loss", file=sys.stderr)
+        return 1
+
+    # ---- phase 33: VolSDF pipelined at phase 16's config and cuts
+    ok, _ = _pipelined_phase(33, "volsdf", _volsdf_pipe_base(seed), by_path["volsdf_train"],
+                             refs["volsdf_ms"],
+                             workdir, tag, zero_counts, read_counts, by_path,
+                             "sdf_forward_kernel")
+    if not ok:
+        print("FAIL phase 33: the pipelined VolSDF run is not bit-equal at lr 0 or to its serial "
+              "order, missed a kernel, ran its sampler on no second stream, diverged or did not "
+              "lower the loss", file=sys.stderr)
+        return 1
+
+    # ---- phase 34: UNISURF pipelined at phase 23's config and cuts
+    uni, _ = unisurf_train_config(refs["dtu_root"], os.path.join(workdir, "unused"), seed)
+    ok, _ = _pipelined_phase(34, "unisurf", uni, by_path["unisurf_train"], refs["unisurf_ms"],
+                             workdir, tag, zero_counts, read_counts, by_path,
+                             "sdf_forward_kernel")
+    if not ok:
+        print("FAIL phase 34: the pipelined UNISURF run is not bit-equal at lr 0 or to its serial "
+              "order, missed a kernel, ran its root find on no second stream, diverged or did "
+              "not lower the loss", file=sys.stderr)
+        return 1
+
+    # ---- phase 35: the direct_use and direct_more upsamplers
+    t0 = time.perf_counter()
+    c = render_chunk_inputs(seed, dev)
+    checked, kw_test = c["checked"], dict(c["kw_test"])
+    kw_test.pop("rayschunk", None)
+    o_all, d_dirs = c["o_all"], c["d_all_dirs"]
+    idx = torch.linspace(0, 120 * 160 - 1, 4096, device=dev).long()
+    patch = torch.arange(60 * 160 - 1024, 60 * 160 + 1024, device=dev)
+    for algo in ("direct_use", "direct_more"):
+        kw = dict(kw_test, upsample_algo=algo)
+        for perturb in (False, True):
+            u = _uniforms(4096, 1, 64, perturb, torch.Generator(dev).manual_seed(seed), dev)
+            ok, _, _ = _direct_d_all_check(checked, dict(kw, perturb=perturb), o_all[idx],
+                                           d_dirs[idx], algo, u, "phase 35")
+            if not ok:
+                print(f"FAIL phase 35: {algo}'s d_all through kernel 4 disagrees with the "
+                      "plain query", file=sys.stderr)
+                return 1
+        render_fn = make_volume_render_fn(checked, detailed_output=False, calc_normal=True, **kw)
+        zero_counts()
+        out_k = render_full_image(render_fn, o_all[patch], d_dirs[patch], rayschunk=4096)
+        patch_launches = read_counts()
+        with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain), \
+                mock.patch.object(fused_nablas, "fused_forward_with_nablas",
+                                  fused_nablas.forward_with_nablas_plain):
+            out_p = render_full_image(render_fn, o_all[patch], d_dirs[patch], rayschunk=4096)
+        e = {k: float(np.abs(out_k[k] - out_p[k]).max())
+             for k in ("rgb", "depth_volume", "mask_volume")}
+        print(f"phase 35: {algo} 2048-ray patch, kernels 4 and 1 vs plain: max|diff| {e}; "
+              f"launches {patch_launches}")
+        if e["rgb"] > 2e-3 or patch_launches["sdf_forward"] != 1 or patch_launches[
+                "neus_upsample"]:
+            print(f"FAIL phase 35: the {algo} patch disagrees with the plain render",
+                  file=sys.stderr)
+            return 1
+        base = _train_config(os.path.join(workdir, "unused"), seed)
+        targs = _pipelined_cfg(base, workdir, algo, steps=DIRECT_STEPS, overlap=False,
+                               quiet=True, upsample_algo=algo)
+        out, launches, step_ms, secs = _train_timed(targs, zero_counts, read_counts)
+        by_path[f"{algo}_train"] = launches
+        totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+        first, last = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
+        ms_step = float(np.median(step_ms[5:]))
+        want = {"nablas_forward": DIRECT_STEPS, "neus_upsample": 0,
+                "nablas_backward": DIRECT_STEPS, "sdf_forward": DIRECT_STEPS,
+                "volsdf_init": 0, "volsdf_draw": 0, "volsdf_checkpoint": 0}
+        vargs = ConfigDict(copy.deepcopy(FLAGSHIP))
+        vargs.model["upsample_algo"] = algo
+        vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
+                      "camera_path": "interpolation", "rayschunk": 4096})
+        zero_counts()
+        frame = render_view.render_frames(vargs, device="cuda")
+        torch.cuda.synchronize()
+        f_launches = by_path[f"{algo}_render"] = read_counts()
+        print(f"phase 35: train.py {DIRECT_STEPS} flagship steps with upsample_algo {algo} "
+              f"({secs:.1f} s): launches {launches} (want {want}); loss mean of steps 1-5 "
+              f"{first:.5f}, of steps {DIRECT_STEPS - 4}-{DIRECT_STEPS} {last:.5f}; median "
+              f"{ms_step:.2f} ms/step over steps 6-{DIRECT_STEPS} ({512e3 / ms_step:.0f} "
+              f"rays/s) {tag}")
+        print(f"phase 35: render_view {algo} 1 x 120x160: launches {f_launches}, s/frame "
+              f"{[round(s, 4) for s in frame['seconds']]} {tag}")
+        if (launches != want or not np.isfinite(totals).all() or not last < first
+                or f_launches["sdf_forward"] != 5 or f_launches["nablas_forward"] != 5
+                or not all(np.isfinite(frame[k]).all() for k in ("rgb", "depth", "normal"))):
+            print(f"FAIL phase 35: {algo} training or its frame missed a kernel, diverged or "
+                  "did not lower the loss", file=sys.stderr)
+            return 1
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 36: the tools' card paths
+    t0 = time.perf_counter()
+    fargs = ConfigDict(copy.deepcopy(FLAGSHIP))
+    zero_counts()
+    vk, fk = vis_surface_and_cam.extract_mesh_from_ckpt(refs["neus_ckpt"], fargs, N=128,
+                                                        device="cuda")
+    torch.cuda.synchronize()
+    mesh_launches = by_path["vis_surface_and_cam"] = read_counts()
+    with mock.patch.object(fused_mlp, "fused_sdf_forward", fused_mlp.sdf_forward_plain):
+        vp, fp = vis_surface_and_cam.extract_mesh_from_ckpt(refs["neus_ckpt"], fargs, N=128,
+                                                            device="cuda")
+    cd = chamfer_distance(vk, vp)[0] if min(len(vk), len(vp)) else float("inf")
+    print(f"phase 36: vis_surface_and_cam's mesh of phase 8's final checkpoint (128^3, kernel "
+          f"4): {len(vk)} verts, {len(fk)} faces; the plain grid's {len(vp)} / {len(fp)}; "
+          f"Chamfer {cd:.3e}; launches {mesh_launches}")
+    if cd >= 1e-3 * 2.0 or mesh_launches["sdf_forward"] != math.ceil(128 ** 3 / 262144):
+        print("FAIL phase 36: vis_surface_and_cam's kernel-4 mesh disagrees with the plain "
+              "grid's", file=sys.stderr)
+        return 1
+    vcfg = ConfigDict(copy.deepcopy(VOLSDF))
+    zero_counts()
+    nk = test_volsdf_algo.volsdf_algo_numbers(load_pt=refs["volsdf_ckpt"], config=vcfg,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    algo_launches = by_path["test_volsdf_algo"] = read_counts()
+    npl = test_volsdf_algo.volsdf_algo_numbers(load_pt=refs["volsdf_ckpt"], config=vcfg,
+                                               device="cuda", plain=True)
+    span = 6.0
+    share = float((np.abs(nk["d_fine"] - npl["d_fine"]) > 1e-4 * span).mean())
+    print(f"phase 36: test_volsdf_algo --load_pt (phase 16's final checkpoint, learned beta "
+          f"{nk['beta_net']:.5f}): the probe ray's 64 fine depths through kernel 4 and (a)-(c) "
+          f"against the plain sampler: share beyond 1e-4 of the span {share:.4f}, max|diff| "
+          f"{float(np.abs(nk['d_fine'] - npl['d_fine']).max()):.3e}; beta map {nk['beta_map']:.6f}"
+          f" / {npl['beta_map']:.6f}, rounds {nk['iter_usage']} / {npl['iter_usage']}; "
+          f"launches {algo_launches}")
+    if (share > 0.02 or abs(nk["beta_map"] - npl["beta_map"]) > 1e-5 + 1e-3 * abs(
+            npl["beta_map"]) or nk["iter_usage"] != npl["iter_usage"]
+            or algo_launches["volsdf_init"] != 1
+            or algo_launches["volsdf_checkpoint"] != test_volsdf_algo.MAX_ITER):
+        print("FAIL phase 36: test_volsdf_algo's sampler through the kernels disagrees with "
+              "the plain sampler", file=sys.stderr)
+        return 1
+    # the other tools' numbers, on the card by default
+    oracle = test_volsdf_algo.volsdf_algo_numbers()
+    worst_peak = max(p["peak_err"] - 2.5 / (p["N"] - 1)
+                     for row in plot_neus_bias.bias_curves() for p in row)
+    rargs = ConfigDict(copy.deepcopy(FLAGSHIP))
+    ro, rd, _ = vis_ray.probe_rays(rargs)
+    centres = np.asarray(get_data(rargs).c2w_all)[:, :3, 3]
+    ray_gap = (float(np.abs(ro - centres).max()),
+               float(np.abs(np.linalg.norm(rd, axis=-1) - 1).max()))
+    print(f"phase 36: on the card: test_volsdf_algo's closed-form oracle max error "
+          f"{oracle['err'].max():.4g} within its bound {oracle['within']}, rounds "
+          f"{oracle['iter_usage']}, 64 fine depths finite "
+          f"{bool(np.isfinite(oracle['d_fine']).all())}; plot_neus_bias's worst NeuS peak "
+          f"beyond a sample spacing {worst_peak:.4g}; vis_ray's {len(ro)} probe rays: origin "
+          f"to camera centre {ray_gap[0]:.3e}, | |d| - 1 | {ray_gap[1]:.3e}")
+    if (not oracle["within"] or oracle["d_fine"].shape != (64,)
+            or not np.isfinite(oracle["d_fine"]).all() or worst_peak > 0
+            or ray_gap[0] > 1e-5 or ray_gap[1] > 1e-5):
+        print("FAIL phase 36: a tool's numbers on the card are wrong", file=sys.stderr)
+        return 1
+    # supervise around a short train.py run in a child process (its config as
+    # JSON: the card machine has no PyYAML); the memory this process's
+    # allocator keeps cached goes back to the card first, or the child's
+    # kernel-3 workspace does not fit
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sup = _pipelined_cfg(_train_config(os.path.join(workdir, "unused"), seed), workdir,
+                         "supervised", steps=4, overlap=True, quiet=True)
+    job = os.path.join(workdir, "supervised.json")
+    with open(job, "w") as f:
+        json.dump(sup.to_dict(), f)
+    child = ("import json, sys; from neurecon_tpu_torch import train; "
+             "from neurecon_tpu_torch.config import ConfigDict; "
+             "train.main_function(ConfigDict(json.load(open(sys.argv[1]))), device='cuda')")
+    lines = []
+    ts = time.perf_counter()
+    rc = supervise.supervise([sys.executable, "-c", child, job], stall_sec=240,
+                             max_restarts=1, poll_sec=0.5, log=lines.append)
+    finals = [n for n in os.listdir(os.path.join(sup.training.exp_dir, "ckpts"))
+              if n.startswith("final_")] if rc == 0 else []
+    print(f"phase 36: supervise around train.py (4 pipelined steps in a child process): rc {rc} "
+          f"in {time.perf_counter() - ts:.1f} s, {finals}; " + "; ".join(lines))
+    if rc != 0 or finals != ["final_00000004.pt"]:
+        print("FAIL phase 36: supervise's train.py run did not finish", file=sys.stderr)
+        return 1
+    try:
+        vis_camera.pyplot()
+        drawn = "matplotlib is installed (figures not drawn here)"
+    except RuntimeError as e:
+        drawn = f"no matplotlib here, a figure raises: {e}"
+        if "needs matplotlib" not in str(e):
+            return 1
+    print(f"phase 36: {drawn}; {time.perf_counter() - t0:.1f} s")
+    print(f"phases 32-36: {time.perf_counter() - t_all:.1f} s {tag}")
     return 0
 
 
@@ -3608,8 +4175,9 @@ def main(argv=None):
         print("FAIL phase 13: eval_staged gave no finite PSNR or Chamfer", file=sys.stderr)
         return 1
 
+    record = {"neus_ms": phase8["ms_step"], "neus_ckpt": phase8["final_ckpt"]}
     rc, vol_rows, _ = _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path,
-                                     work.name)
+                                     work.name, record)
     if rc:
         return rc
     rc, siren_rows = _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path,
@@ -3617,13 +4185,16 @@ def main(argv=None):
     if rc:
         return rc
     rc, unisurf_fields = _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path,
-                                         work.name)
+                                         work.name, record)
     if rc:
         return rc
     rc = _nerfpp_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
     if rc:
         return rc
     rc = _ddp_phases(seed, dev, tag, by_path, work.name, phase8)
+    if rc:
+        return rc
+    rc = _pipeline_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name, record)
     if rc:
         return rc
 
@@ -3661,7 +4232,7 @@ def main(argv=None):
                                  if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
         r.update(unisurf_fields.get(r["name"], {}))
     results += siren_rows
-    print(f"chip_smoke: phases 1-31 in {time.perf_counter() - t_start:.1f} s wall {tag}")
+    print(f"chip_smoke: phases 1-36 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -30,10 +30,31 @@ def get_ray_loss_fn(args, model, render_kwargs_train, shard=None):
 
 def make_trainer(args, model, render_kwargs_train, shard=None):
     """The framework's loss_fn(batch, generator, it) -> (total, (losses,
-    extras)) on one image batch (see `training.make_train_step`): every draw
-    of the step at N_rays, and with a `shard` this rank's block of each."""
-    return _module(args.model.framework).make_trainer(model, args, render_kwargs_train,
-                                                      shard=shard)
+    extras)) on one image batch (see `training.make_train_step`): its
+    pipeline functions (`get_pipeline_fns`) in order on one step's draws:
+    the pixels and uniforms (every draw at N_rays, and with a `shard` this
+    rank's block of each), the gradient-free sampler, then the loss."""
+    import torch
+
+    fns = get_pipeline_fns(args, model, render_kwargs_train, shard=shard)
+
+    def loss_fn(batch, generator, it):
+        rb, draws = fns["draw_step"](batch, generator)
+        with torch.no_grad():
+            samples = fns["depth_sample"](rb, draws)
+        return fns["loss_with_samples"](rb, samples, draws, generator, it)
+
+    return loss_fn
+
+
+def get_pipeline_fns(args, model, render_kwargs_train, shard=None):
+    """The framework's training step split for the pipelined step
+    (`training.make_pipelined_train_step`, `training.overlap_sampler`):
+    {draw_step, depth_sample, loss_with_samples}; NeuS's samples are d_all,
+    VolSDF's its `fine_override`, UNISURF's its `surface_override`. All
+    three frameworks have them."""
+    return _module(args.model.framework).make_pipeline_fns(model, args, render_kwargs_train,
+                                                           shard=shard)
 
 
 def checkpoint_render_kwargs(args, step=None):

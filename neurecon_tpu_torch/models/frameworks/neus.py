@@ -1,7 +1,10 @@
 """NeuS volume rendering (port of `neurecon_tpu/models/frameworks/neus.py`).
 
 The port carries the render and the training loss: the `official_solution`
-hierarchical upsampler (CUDA kernel `neus_upsample`, gradient-free), one
+hierarchical upsampler (CUDA kernel `neus_upsample`, gradient-free) and the
+`direct_use` / `direct_more` upsamplers (the sdf at the coarse depths, or at
+N_nograd_samples depths from near to far, through the sdf-only kernel
+`sdf_forward`, then one inverse-CDF draw at s = 1 / fixed_s_recp), one
 batched sdf + nablas + geometry query over sections and midpoints (CUDA
 kernel `nablas_forward`, and in training its backward `nablas_backward`
 through `ops/fused_nablas_vjp.py`), the radiance net, the sdf -> alpha ->
@@ -11,8 +14,10 @@ model's point queries for the surface renderer and the mesh grids
 (`with_mask: false`) the NeRF++ background (`models/base.py::NeRF`, plain
 PyTorch layers, as the JAX package computes it outside any kernel) takes
 the midpoints outside the bounding sphere and N_outside samples beyond it,
-in the inverted-sphere coordinates (x / r, 1 / r). The other two upsample
-algorithms wait for a later slice (ROADMAP Queue A, [A4/A5]).
+in the inverted-sphere coordinates (x / r, 1 / r). `compute_ray_samples`
+runs the upsampler apart from the render, and `make_pipeline_fns` splits a
+training step into that sampler and the loss on its depths, for the
+pipelined step (`training.overlap_sampler`).
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ import torch.nn.functional as F
 
 from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet, outside_nerf
 from neurecon_tpu_torch.ops import fused_upsample, near_far_from_sphere
-from neurecon_tpu_torch.ops.sampling import alpha_to_w, linspace01, stratified_jitter
-from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
+from neurecon_tpu_torch.ops.sampling import (alpha_to_w, linspace01, sample_pdf,
+                                              stratified_jitter)
+from neurecon_tpu_torch.parallel.sharding import RayShard
 
 
 def cdf_Phi_s(x, s):
@@ -40,6 +46,12 @@ def sdf_to_alpha(sdf, s):
     cdf = cdf_Phi_s(sdf, s)
     opacity_alpha = (cdf[..., :-1] - cdf[..., 1:]) / (cdf[..., :-1] + 1e-10)
     return cdf, torch.clamp(opacity_alpha, min=0.0)
+
+
+def sdf_to_w(sdf, s):
+    """sdf at section points [..., P] -> (cdf, alpha, visibility weights)."""
+    cdf, alpha = sdf_to_alpha(sdf, s)
+    return cdf, alpha, alpha_to_w(alpha)
 
 
 class NeuS(nn.Module):
@@ -103,23 +115,44 @@ def _uniforms(N, n_iters, n_per_iter, perturb, generator, device):
     return torch.sort(u, dim=-1).values.reshape(N, -1)
 
 
+def upsample_rounds(upsample_algo: str, N_upsample_iters: int) -> int:
+    """Rounds of uniforms the upsampler draws: N_upsample_iters for
+    `official_solution`, one draw of N_importance for the direct ones."""
+    return N_upsample_iters if upsample_algo == "official_solution" else 1
+
+
 def neus_upsample(model: NeuS, rays_o, rays_d, d_coarse, *, N_importance: int,
                   N_upsample_iters: int, perturb: bool,
                   generator: Optional[torch.Generator] = None,
-                  upsample_algo: str = "official_solution", u_up=None):
+                  upsample_algo: str = "official_solution", u_up=None,
+                  N_nograd_samples: int = 2048, fixed_s_recp: float = 1 / 64.0,
+                  near=None, far=None):
     """Hierarchical up-sampling, gradient-free: returns the sorted d_all.
-    `u_up` [N, N_importance]: the rounds' uniforms (`_uniforms`) in place of
-    drawing them."""
-    if upsample_algo != "official_solution":
-        raise NotImplementedError(
-            f"upsample_algo {upsample_algo!r} is not ported yet (ROADMAP "
-            "Queue A, [A4/A5]); only official_solution is")
-    n_per_iter = N_importance // N_upsample_iters
+    `u_up` [N, N_importance]: the uniforms (`_uniforms`, one round per
+    `upsample_rounds`) in place of drawing them. `direct_use` weighs the
+    coarse depths by their sdf, `direct_more` N_nograd_samples depths from
+    `near` to `far` ([N, 1]), each at s = 1 / fixed_s_recp, and draws
+    N_importance depths from those weights (the sdf through the sdf-only
+    kernel on a card)."""
+    if upsample_algo not in ("official_solution", "direct_use", "direct_more"):
+        raise ValueError(f"unknown upsample_algo {upsample_algo!r}")
+    n_iters = upsample_rounds(upsample_algo, N_upsample_iters)
+    n_per_iter = N_importance // n_iters
     u = u_up if u_up is not None else _uniforms(
-        rays_o.shape[0], N_upsample_iters, n_per_iter, perturb, generator, rays_o.device)
-    return fused_upsample.fused_neus_upsample(
-        model.implicit_surface, rays_o, rays_d, d_coarse.contiguous(), u,
-        n_iters=N_upsample_iters, n_per_iter=n_per_iter)
+        rays_o.shape[0], n_iters, n_per_iter, perturb, generator, rays_o.device)
+    if upsample_algo == "official_solution":
+        return fused_upsample.fused_neus_upsample(
+            model.implicit_surface, rays_o, rays_d, d_coarse.contiguous(), u,
+            n_iters=n_iters, n_per_iter=n_per_iter)
+    if upsample_algo == "direct_use":
+        d = d_coarse
+    else:
+        t = linspace01(N_nograd_samples, rays_o.device)
+        d = near * (1 - t) + far * t
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * d[..., None]
+    *_, w = sdf_to_w(model.forward_surface_fast(pts), 1.0 / fixed_s_recp)
+    d_fine = sample_pdf(d, w, u)
+    return torch.sort(torch.cat([d_coarse, d_fine], dim=-1), dim=-1).values
 
 
 def _prepare_rays(rays_o, rays_d, obj_bounding_radius,
@@ -135,6 +168,49 @@ def _prepare_rays(rays_o, rays_d, obj_bounding_radius,
     return rays_o.contiguous(), rays_d.contiguous(), near, far
 
 
+@torch.no_grad()
+def _sample_depths(model: NeuS, rays_o, rays_d, near, far, *, generator, perturb, N_samples,
+                   N_importance, upsample_algo, N_upsample_iters, N_nograd_samples,
+                   fixed_s_recp, u_up):
+    """The coarse linspace from near to far, then the upsampler: d_all."""
+    _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
+    d_coarse = near * (1 - _t) + far * _t
+    return neus_upsample(
+        model, rays_o, rays_d, d_coarse, N_importance=N_importance,
+        N_upsample_iters=N_upsample_iters, perturb=perturb, generator=generator,
+        upsample_algo=upsample_algo, u_up=u_up, N_nograd_samples=N_nograd_samples,
+        fixed_s_recp=fixed_s_recp, near=near, far=far)
+
+
+def compute_ray_samples(model: NeuS, rays_o, rays_d,
+                        *,
+                        generator: Optional[torch.Generator] = None,
+                        obj_bounding_radius: float = 1.0,
+                        near_bypass: Optional[float] = None,
+                        far_bypass: Optional[float] = None,
+                        perturb: bool = False,
+                        fixed_s_recp: float = 1 / 64.0,
+                        N_samples: int = 64,
+                        N_importance: int = 64,
+                        upsample_algo: str = "official_solution",
+                        N_nograd_samples: int = 2048,
+                        N_upsample_iters: int = 4,
+                        u_up=None,
+                        **dummy_kwargs):
+    """The gradient-free section depths d_all [N, N_samples + N_importance]
+    that `volume_render_rays` samples when given no `d_all_override`, apart
+    from the render: the same rays, bounds and draws give the same depths,
+    so this followed by the render on its output is the render. The
+    pipelined training step runs it for the next step's rays."""
+    rays_o, rays_d, near, far = _prepare_rays(
+        rays_o, rays_d, obj_bounding_radius, near_bypass, far_bypass)
+    return _sample_depths(
+        model, rays_o, rays_d, near, far, generator=generator, perturb=perturb,
+        N_samples=N_samples, N_importance=N_importance, upsample_algo=upsample_algo,
+        N_upsample_iters=N_upsample_iters, N_nograd_samples=N_nograd_samples,
+        fixed_s_recp=fixed_s_recp, u_up=u_up)
+
+
 def volume_render_rays(model: NeuS, rays_o, rays_d,
                        *,
                        generator: Optional[torch.Generator] = None,
@@ -144,10 +220,12 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
                        near_bypass: Optional[float] = None,
                        far_bypass: Optional[float] = None,
                        perturb: bool = False,
+                       fixed_s_recp: float = 1 / 64.0,
                        N_samples: int = 64,
                        N_importance: int = 64,
                        N_outside: int = 0,
                        upsample_algo: str = "official_solution",
+                       N_nograd_samples: int = 2048,
                        N_upsample_iters: int = 4,
                        calc_normal: bool = False,
                        detailed_output: bool = True,
@@ -170,13 +248,11 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
     if d_all_override is not None:
         d_all = d_all_override.reshape(rays_o.shape[0], -1).float().detach()
     else:
-        _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
-        d_coarse = near * (1 - _t) + far * _t
-        with torch.no_grad():  # the upsampler is gradient-free
-            d_all = neus_upsample(
-                model, rays_o, rays_d, d_coarse, N_importance=N_importance,
-                N_upsample_iters=N_upsample_iters, perturb=perturb,
-                generator=generator, upsample_algo=upsample_algo, u_up=u_up)
+        d_all = _sample_depths(
+            model, rays_o, rays_d, near, far, generator=generator, perturb=perturb,
+            N_samples=N_samples, N_importance=N_importance, upsample_algo=upsample_algo,
+            N_upsample_iters=N_upsample_iters, N_nograd_samples=N_nograd_samples,
+            fixed_s_recp=fixed_s_recp, u_up=u_up)
 
     # sdf on sections, radiance on midpoints; one batched query
     pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
@@ -343,7 +419,7 @@ def draw_step_uniforms(render_kwargs_train: dict, N: int, generator, device) -> 
     render makes them: the upsampler's uniforms (`u_up`), then the outside
     samples' jitter (`u_out`, with a background under `perturb`)."""
     kw = render_kwargs_train
-    n_iters = kw["N_upsample_iters"]
+    n_iters = upsample_rounds(kw["upsample_algo"], kw["N_upsample_iters"])
     draws = {"u_up": _uniforms(N, n_iters, kw["N_importance"] // n_iters, kw["perturb"],
                                generator, device)}
     if kw["N_outside"] > 0 and kw["perturb"]:
@@ -351,27 +427,45 @@ def draw_step_uniforms(render_kwargs_train: dict, N: int, generator, device) -> 
     return draws
 
 
-def make_trainer(model: NeuS, args, render_kwargs_train: dict,
-                 shard: Optional[RayShard] = None):
-    """loss_fn(batch, generator, it) -> (total, (losses, extras)); batch is
-    one image {'c2w' [1,4,4], 'intrinsics' [1,4,4], 'rgb' [1,H*W,3],
-    'object_mask' [1,H*W], ...} on the device, and N_rays pixels of it are
-    drawn from `generator`, then the step's uniforms. With a `shard`, every
-    draw is made at N_rays and the rank takes its block of each."""
-    from neurecon_tpu_torch.training import sample_ray_batch
+def _draw_step(args, render_kwargs_train: dict, shard: RayShard):
+    from neurecon_tpu_torch.training import make_draw_step
 
+    return make_draw_step(
+        render_kwargs_train["H"], render_kwargs_train["W"], int(args.data.N_rays),
+        lambda N, g, dev: draw_step_uniforms(render_kwargs_train, N, g, dev), shard)
+
+
+def make_pipeline_fns(model: NeuS, args, render_kwargs_train: dict,
+                      shard: Optional[RayShard] = None) -> dict:
+    """The training step in three parts (`frameworks.make_trainer` runs them
+    in order; the pipelined step of `training.overlap_sampler`,
+    `training.make_pipelined_train_step`, runs depth_sample a step ahead):
+
+      draw_step(batch, generator) -> (rb, draws): N_rays pixels of one image
+          batch {'c2w' [1,4,4], 'intrinsics' [1,4,4], 'rgb' [1,H*W,3],
+          'object_mask' [1,H*W], ...} on the device, then the step's
+          uniforms, each drawn at N_rays (with a `shard`, this rank's block
+          of each);
+      depth_sample(rb, draws) -> d_all: the upsampler, gradient-free;
+      loss_with_samples(rb, d_all, draws, generator, it) -> (total, aux):
+          the render on those depths and the losses.
+
+    In that order they are the render's own loss on the same draws, exactly
+    (`make_ray_loss_fn` without `d_all`)."""
     shard = shard or RayShard()
-    H, W = render_kwargs_train["H"], render_kwargs_train["W"]
-    N_rays = int(args.data.N_rays)
     ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
+    sample_kwargs = {k: v for k, v in render_kwargs_train.items()
+                     if k not in ("H", "W", "rayschunk")}
 
-    def loss_fn(batch, generator, it):
-        rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        draws = draw_step_uniforms(render_kwargs_train, N_rays, generator,
-                                   rb["rays_o"].device)
-        return ray_loss(shard_rays(rb, shard), generator, it, **take_rows(draws, shard))
+    def depth_sample(rb, draws):
+        return compute_ray_samples(model, rb["rays_o"], rb["rays_d"], u_up=draws["u_up"],
+                                   **sample_kwargs)
 
-    return loss_fn
+    def loss_with_samples(rb, d_all, draws, generator, it):
+        return ray_loss(rb, generator, it, d_all=d_all, u_out=draws.get("u_out"))
+
+    return {"draw_step": _draw_step(args, render_kwargs_train, shard),
+            "depth_sample": depth_sample, "loss_with_samples": loss_with_samples}
 
 
 def get_model(args, device=None, seed: int = 0):
@@ -417,6 +511,7 @@ def get_model(args, device=None, seed: int = 0):
 
     render_kwargs_train = {
         "upsample_algo": args.model.setdefault("upsample_algo", "official_solution"),
+        "N_nograd_samples": args.model.setdefault("N_nograd_samples", 2048),
         "N_upsample_iters": args.model.setdefault("N_upsample_iters", 4),
         "N_samples": args.model.setdefault("N_samples", 64),
         "N_importance": args.model.setdefault("N_importance", 64),

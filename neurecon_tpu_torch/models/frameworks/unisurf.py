@@ -35,7 +35,7 @@ import torch.nn as nn
 from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet
 from neurecon_tpu_torch.models.ray_casting import root_finding_surface_points
 from neurecon_tpu_torch.ops import linspace01, near_far_from_sphere
-from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
+from neurecon_tpu_torch.parallel.sharding import RayShard
 
 
 class UNISURF(nn.Module):
@@ -337,28 +337,36 @@ def draw_step_uniforms(render_kwargs_train: dict, w_reg: float, N: int, generato
             draw(N, 3) if w_reg > 0 else None)
 
 
-def make_trainer(model: UNISURF, args, render_kwargs_train: dict,
-                 shard: Optional[RayShard] = None):
-    """loss_fn(batch, generator, it) -> (total, (losses, extras)): N_rays
-    pixels of one image batch on the device, drawn from `generator`, then
-    the step's uniforms. With a `shard`, every draw is made at N_rays and
-    the rank takes its block of each."""
-    from neurecon_tpu_torch.training import sample_ray_batch
+def _draw_step(args, render_kwargs_train: dict, shard: RayShard):
+    from neurecon_tpu_torch.training import make_draw_step
 
-    shard = shard or RayShard()
-    H, W = render_kwargs_train["H"], render_kwargs_train["W"]
-    N_rays = int(args.data.N_rays)
-    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
     w_reg = float(args.training.setdefault("w_reg", 0.0))
+    return make_draw_step(
+        render_kwargs_train["H"], render_kwargs_train["W"], int(args.data.N_rays),
+        lambda N, g, dev: draw_step_uniforms(render_kwargs_train, w_reg, N, g, dev), shard)
 
-    def loss_fn(batch, generator, it):
-        rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        uniforms = draw_step_uniforms(render_kwargs_train, w_reg, N_rays, generator,
-                                      rb["rays_o"].device)
-        return ray_loss(shard_rays(rb, shard), generator, it,
-                        uniforms=take_rows(uniforms, shard))
 
-    return loss_fn
+def make_pipeline_fns(model: UNISURF, args, render_kwargs_train: dict,
+                      shard: Optional[RayShard] = None) -> dict:
+    """The training step split for the pipelined step, as
+    `neus.make_pipeline_fns`: depth_sample(rb, uniforms) is the root find
+    (`compute_ray_samples`: a march and 8 secant steps through kernel 4 on a
+    card; it draws nothing), and loss_with_samples(rb, surface, uniforms,
+    generator, it) the loss with the root find's output as
+    `surface_override`, at step `it`'s interval."""
+    shard = shard or RayShard()
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
+    sample_kwargs = {k: v for k, v in render_kwargs_train.items()
+                     if k not in ("H", "W", "rayschunk")}
+
+    def depth_sample(rb, uniforms):
+        return compute_ray_samples(model, rb["rays_o"], rb["rays_d"], **sample_kwargs)
+
+    def loss_with_samples(rb, surface, uniforms, generator, it):
+        return ray_loss(rb, generator, it, surface_override=surface, uniforms=uniforms)
+
+    return {"draw_step": _draw_step(args, render_kwargs_train, shard),
+            "depth_sample": depth_sample, "loss_with_samples": loss_with_samples}
 
 
 def get_model(args, device=None, seed: int = 0):

@@ -31,11 +31,11 @@ from neurecon_tpu_torch.ops import fused_fine_sample as ffs
 from neurecon_tpu_torch.ops import get_dvals_from_radius, get_sphere_intersection
 from neurecon_tpu_torch.ops.fused_fine_sample import error_bound, opacity_approx, sdf_to_sigma
 from neurecon_tpu_torch.ops.sampling import linspace01, stratified_jitter
-from neurecon_tpu_torch.parallel.sharding import RayShard, shard_rays, take_rows
+from neurecon_tpu_torch.parallel.sharding import RayShard
 
 __all__ = ["VolSDF", "sdf_to_sigma", "error_bound", "opacity_approx", "volume_render_rays",
            "compute_ray_samples", "make_volume_render_fn", "make_ray_loss_fn",
-           "make_trainer", "get_model"]
+           "make_pipeline_fns", "get_model"]
 
 
 class VolSDF(nn.Module):
@@ -135,6 +135,25 @@ def _draw_uniforms(N, n_draws, n_final, perturb, generator, device):
 
 
 @torch.no_grad()
+def _fine_samples(model: VolSDF, rays_o, rays_d, nears, fars, *, generator, perturb,
+                  N_samples, N_importance, max_upsample_steps, max_bisection_steps, epsilon,
+                  fine_sample_mul, u_fin):
+    """The sampler on flat unit rays and their [near, far] (`_ray_bounds`)."""
+    N = rays_o.shape[0]
+    alpha, beta = model.forward_ab()
+    # a denser d_init speeds up the up-sampling's convergence (ref volsdf.py:425-435)
+    t_init = linspace01(N_samples * fine_sample_mul, rays_o.device)
+    d_init = (nears * (1 - t_init) + fars * t_init).contiguous()
+    if u_fin is None:
+        u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
+                               rays_o.device)
+    return ffs.fused_fine_sample(
+        model.implicit_surface, rays_o, rays_d, d_init, fars, alpha.detach(), beta.detach(),
+        u_fin, eps=epsilon, max_iter=max_upsample_steps,
+        max_bisection=max_bisection_steps, n_final=N_importance,
+        n_up=N_samples * fine_sample_mul, sphere_bg_r=model.sphere_bg_r)
+
+
 def compute_ray_samples(model: VolSDF, rays_o, rays_d, *,
                         generator: Optional[torch.Generator] = None,
                         near: float = 0.0,
@@ -151,24 +170,18 @@ def compute_ray_samples(model: VolSDF, rays_o, rays_d, *,
                         u_fin=None,
                         **dummy_kwargs):
     """The gradient-free §3.4 sampler: (d_fine [N, N_importance], beta_map
-    [N], iter_usage [N] int32), flat over rays. `u_fin` [N, (max_upsample_steps
-    + 2) * N_importance]: the draws' uniforms (`_draw_uniforms`) in place of
+    [N], iter_usage [N] int32), flat over rays, as `volume_render_rays`
+    samples them without a `fine_override` (so this followed by the render
+    on its output is the render). `u_fin` [N, (max_upsample_steps + 2) *
+    N_importance]: the draws' uniforms (`_draw_uniforms`) in place of
     drawing them."""
     rays_o, rays_d, nears, fars = _ray_bounds(rays_o, rays_d, near, far, obj_bounding_radius,
                                               use_nerfplusplus)
-    N = rays_o.shape[0]
-    alpha, beta = model.forward_ab()
-    # a denser d_init speeds up the up-sampling's convergence (ref volsdf.py:425-435)
-    t_init = linspace01(N_samples * fine_sample_mul, rays_o.device)
-    d_init = (nears * (1 - t_init) + fars * t_init).contiguous()
-    if u_fin is None:
-        u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
-                               rays_o.device)
-    return ffs.fused_fine_sample(
-        model.implicit_surface, rays_o, rays_d, d_init, fars, alpha.detach(), beta.detach(),
-        u_fin, eps=epsilon, max_iter=max_upsample_steps,
-        max_bisection=max_bisection_steps, n_final=N_importance,
-        n_up=N_samples * fine_sample_mul, sphere_bg_r=model.sphere_bg_r)
+    return _fine_samples(
+        model, rays_o, rays_d, nears, fars, generator=generator, perturb=perturb,
+        N_samples=N_samples, N_importance=N_importance, max_upsample_steps=max_upsample_steps,
+        max_bisection_steps=max_bisection_steps, epsilon=epsilon,
+        fine_sample_mul=fine_sample_mul, u_fin=u_fin)
 
 
 def volume_render_rays(model: VolSDF, rays_o, rays_d,
@@ -218,10 +231,9 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
         d_fine = d_fine.reshape(N, -1).float()
         beta_map, iter_usage = beta_map.reshape(N), iter_usage.reshape(N)
     else:
-        d_fine, beta_map, iter_usage = compute_ray_samples(
-            model, rays_o, rays_d, generator=generator, near=near, far=far,
-            obj_bounding_radius=obj_bounding_radius, use_nerfplusplus=use_nerfplusplus,
-            perturb=perturb, N_samples=N_samples, N_importance=N_importance,
+        d_fine, beta_map, iter_usage = _fine_samples(
+            model, rays_o, rays_d, nears, fars, generator=generator, perturb=perturb,
+            N_samples=N_samples, N_importance=N_importance,
             max_upsample_steps=max_upsample_steps, max_bisection_steps=max_bisection_steps,
             epsilon=epsilon, fine_sample_mul=fine_sample_mul, u_fin=u_fin)
 
@@ -390,27 +402,38 @@ def draw_step_uniforms(render_kwargs_train: dict, eik_bounding_box: float, N: in
     return draws
 
 
-def make_trainer(model: VolSDF, args, render_kwargs_train: dict,
-                 shard: Optional[RayShard] = None):
-    """loss_fn(batch, generator, it) -> (total, (losses, extras)) on N_rays
-    pixels of one image batch, drawn from `generator`, then the step's
-    uniforms. With a `shard`, every draw is made at N_rays and the rank takes
-    its block of each."""
-    from neurecon_tpu_torch.training import sample_ray_batch
+def _draw_step(args, render_kwargs_train: dict, shard: RayShard):
+    from neurecon_tpu_torch.training import make_draw_step
 
-    shard = shard or RayShard()
-    H, W = render_kwargs_train["H"], render_kwargs_train["W"]
-    N_rays = int(args.data.N_rays)
-    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
     box = float(args.model.obj_bounding_radius)
+    return make_draw_step(
+        render_kwargs_train["H"], render_kwargs_train["W"], int(args.data.N_rays),
+        lambda N, g, dev: draw_step_uniforms(render_kwargs_train, box, N, g, dev), shard)
 
-    def loss_fn(batch, generator, it):
-        rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        draws = draw_step_uniforms(render_kwargs_train, box, N_rays, generator,
-                                   rb["rays_o"].device)
-        return ray_loss(shard_rays(rb, shard), generator, it, **take_rows(draws, shard))
 
-    return loss_fn
+def make_pipeline_fns(model: VolSDF, args, render_kwargs_train: dict,
+                      shard: Optional[RayShard] = None) -> dict:
+    """The training step split for the pipelined step, as
+    `neus.make_pipeline_fns`: depth_sample(rb, draws) is the §3.4 sampler
+    (`compute_ray_samples`: kernel 4 and kernels (a)-(c) on a card) on the
+    draws' `u_fin`, and loss_with_samples(rb, fine, draws, generator, it)
+    the loss with its (d_fine, beta_map, iter_usage) as `fine_override`, the
+    eikonal points and the NeRF++ jitter from the draws."""
+    shard = shard or RayShard()
+    ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
+    sample_kwargs = {k: v for k, v in render_kwargs_train.items()
+                     if k not in ("H", "W", "rayschunk")}
+
+    def depth_sample(rb, draws):
+        return compute_ray_samples(model, rb["rays_o"], rb["rays_d"], u_fin=draws["u_fin"],
+                                   **sample_kwargs)
+
+    def loss_with_samples(rb, fine, draws, generator, it):
+        return ray_loss(rb, generator, it, fine_override=fine, eik_pts=draws["eik_pts"],
+                        u_out=draws.get("u_out"))
+
+    return {"draw_step": _draw_step(args, render_kwargs_train, shard),
+            "depth_sample": depth_sample, "loss_with_samples": loss_with_samples}
 
 
 def get_model(args, device=None, seed: int = 0):

@@ -21,13 +21,15 @@ COUNT_SEARCH_LIMIT = 1 << 18
 
 def linspace01(n: int, device=None) -> torch.Tensor:
     """jnp.linspace(0, 1, n) to the bit: i * float32(1 / (n - 1)), the last
-    entry exactly 1 (torch.linspace rounds some entries the other way)."""
+    entry exactly 1 (torch.linspace rounds some entries the other way). Made
+    on the device without a host copy: writing a Python number into a card
+    tensor (`t[-1] = 1.0`) copies it from pageable memory, which waits for
+    the stream, and would hold the pipelined step's side stream back."""
     if n == 1:
         return torch.zeros(1, device=device)
-    t = torch.arange(n, dtype=torch.float32, device=device) * float(
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) * float(
         np.float32(1.0) / np.float32(n - 1))
-    t[-1] = 1.0
-    return t
+    return torch.cat([t, torch.ones(1, device=device)])
 
 
 def stratified_jitter(vals, u):

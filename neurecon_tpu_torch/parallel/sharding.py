@@ -22,7 +22,11 @@ JAX package lets XLA insert the collectives, the port makes them itself:
   model's networks directly, never through the wrapper's `forward`, whose
   call DDP's gradient hooks need;
 * validation frames are split over the ranks by pixel
-  (`make_sharded_render`) and gathered in ray order.
+  (`make_sharded_render`) and gathered in ray order;
+* the pipelined step (`training.make_pipelined_train_step`) draws the next
+  step's rays and uniforms as the step draws its own and samples the rank's
+  block on its side stream; the sum over the ranks stays on the current
+  stream.
 
 `make_mesh` and `replicate` have no counterpart: without a mesh, a process
 group and the rank's block are all there is to place.

@@ -3,7 +3,7 @@ broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-Five groups, each with its unmutated copy. For the unmutated source and for
+Six groups, each with its unmutated copy. For the unmutated source and for
 each mutant, the port's package (and `chip_smoke.py`) is copied into a
 temporary directory (under `--workdir`, the system's temporary directory by
 default; removed after), one edit is made to the copy, and a fresh process
@@ -61,6 +61,15 @@ passes and every mutant fails.
   lockstep starts from a NaN workspace, holds (a)'s fine depths as a share
   beyond 1e-4 of the span and its bounds as a share of rays, and its
   round-0 depths to d_init exactly).
+* `stream`: the pipelined step's cross-stream ordering
+  (`training.make_pipelined_train_step`), held by the stream-order gate of
+  `chip_smoke.py` phases 32-34 (`stream_order_check`: 20 pipelined VolSDF
+  steps at phase 33's config and lr as train.py runs them, bit-equal in
+  every loss and final parameter to the same steps with the sampler on the
+  current stream, and to the same steps with every sampler held back by a
+  spin kernel on its stream, so that the backward, Adam and the next forward
+  run first). Its mutant drops the current stream's wait on the sampler
+  before Adam.
 """
 from __future__ import annotations
 
@@ -187,6 +196,33 @@ PARALLEL_MUTANTS = {
                              "return self.replicated(num / (den + 1e-10))"),
 }
 
+# the pipelined training step (`training.make_pipelined_train_step`).
+# `sample_after_update` runs the next step's sampler after Adam, on the
+# updated parameters: held on the CPU by tests/test_torch_pipeline.py against
+# the JAX package's pipelined block, whose sampler reads the parameters
+# before the update of the step ahead. `no_wait_before_adam` drops the
+# current stream's wait on the side stream's sampler before Adam: held on the
+# card by this tool's `stream` group (`chip_smoke.stream_order_check`, the
+# stream-order gate of phases 32-34 on phase 33's VolSDF: as train.py runs,
+# and with the main stream at a higher priority, the sampler finished before
+# Adam and the missing wait left no trace; its held-back run shows it)
+PIPELINE_MUTANTS = {
+    "sample_after_update": (
+        "training.py",
+        """        held, wait = sample_ahead(next_batch, generator) if next_batch is not None else (None, None)
+        metrics = finish(total, losses, extras, wait)
+""",
+        """        metrics = finish(total, losses, extras)
+        held, wait = sample_ahead(next_batch, generator) if next_batch is not None else (None, None)
+        if wait is not None:
+            wait()
+"""),
+    "no_wait_before_adam": ("training.py",
+                            "return (batch, rb, draws, samples), lambda: main.wait_event(done)",
+                            "return (batch, rb, draws, samples), lambda: None"),
+}
+STREAM_MUTANTS = {"no_wait_before_adam": PIPELINE_MUTANTS["no_wait_before_adam"]}
+
 _LOCKED = r'''
 import fcntl
 _lock = open(LOCK, "w")
@@ -230,6 +266,23 @@ _build.build_all(force=True)
 torch.backends.cuda.matmul.allow_tf32 = False
 ok, err, _, _ = chip_smoke.sine_kernel_checks(SEED, torch.device("cuda"), report=lambda s: None)
 print(json.dumps({"passes": ok, "errors": err}))
+'''
+
+_STREAM_CODE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke
+from neurecon_tpu_torch import training
+from neurecon_tpu_torch.ops import _build
+for mod in (chip_smoke, training):
+    if not mod.__file__.startswith(ROOT):
+        raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
+_build.build_all(force=True)
+''' + _LOCKED + r'''
+import tempfile
+with tempfile.TemporaryDirectory(dir=ROOT) as work:
+    print(json.dumps(chip_smoke.stream_order_check(SEED, work)))
 '''
 
 _SAMPLER_CODE = r'''
@@ -302,7 +355,7 @@ def _run_group(tmp, group, cases, code, seed, judge):
     fails. `judge(stdout's last line)` -> (passes, the line's fields)."""
     procs = {}
     for name, edit in cases.items():
-        root = Path(tmp) / f"copy{len(list(Path(tmp).iterdir()))}"
+        root = Path(tmp).resolve() / f"copy{len(list(Path(tmp).iterdir()))}"
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(CHIP_SMOKE, root / CHIP_SMOKE.name)
@@ -360,7 +413,8 @@ def main(argv=None):
                 ("sine", SINE_MUTANTS, _SINE_CODE, _judge_phase),
                 ("nablas", NABLAS_MUTANTS, _PHASE_CODE, _judge_phase),
                 ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase),
-                ("sampler", SAMPLER_MUTANTS, _SAMPLER_CODE, _judge_phase)):
+                ("sampler", SAMPLER_MUTANTS, _SAMPLER_CODE, _judge_phase),
+                ("stream", STREAM_MUTANTS, _STREAM_CODE, _judge_phase)):
             rc |= _run_group(tmp, group, {"unmutated": None, **mutants}, code, args.seed,
                              judge)
     return rc

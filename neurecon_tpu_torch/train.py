@@ -38,17 +38,25 @@ the sdf-only kernel, at level 0: UNISURF's occupancy 0.5) at steps 3000,
 steps, as the JAX trainer schedules them (`mesh_steps`); metrics fetched from
 the device only every `i_log` steps (one copy), with a NaN watchdog; `latest`
 (every `i_save` seconds), numbered backup and `final` checkpoints, and a save
-on KeyboardInterrupt. `training.steps_per_call` is read and only groups the
-loop's checks: eager PyTorch has no dispatch to amortize. The profiler window
+on KeyboardInterrupt. `training.steps_per_call` (K) groups the loop's checks
+(eager PyTorch has no dispatch to amortize) and, with
+`training.overlap_sampler`, sets where the samples are fresh: the pipelined
+step (`training.make_pipelined_train_step`, the JAX trainer's pipelined
+block) samples the first step of every group of K afresh, and every later
+step's depths (NeuS's d_all, VolSDF's fine samples, UNISURF's surface
+points) against the parameters before the step ahead of it updated them, on
+a second CUDA stream while that step's backward runs; a last group shorter
+than K runs step by step, every step fresh, as in JAX (so K = 1 changes
+nothing). The profiler window
 (`training.profile_steps` or `NEURECON_PROFILE_STEPS`, '<start>:<stop>'):
-rank 0 records steps start..stop-1 with `torch.profiler` (the card's
+rank 0 records steps start..stop-1 (at step granularity, within a group of
+steps too) with `torch.profiler` (the card's
 activity too) and writes a Chrome trace under `exp_dir/profile`; a window
 still open at the end is closed there.
 
 NeuS without a mask and VolSDF with `outside_scene: nerf++` train their
 NeRF++ background net with the rest (its own parameter group under a
-per-module lr dict, else the default group). Not ported yet, and refused
-before the first step (ROADMAP.md): `training.overlap_sampler`.
+per-module lr dict, else the default group).
 """
 from __future__ import annotations
 
@@ -65,11 +73,11 @@ from neurecon_tpu_torch.dataio import get_data
 from neurecon_tpu_torch.models.base import (count_parameters, make_optimizer,
                                             make_schedule, pretrain_siren_sdf)
 from neurecon_tpu_torch.models.frameworks import (checkpoint_render_kwargs, get_model,
-                                                  make_trainer)
+                                                  get_pipeline_fns)
 from neurecon_tpu_torch.ops import get_rays, lin2img
 from neurecon_tpu_torch.parallel import distributed
 from neurecon_tpu_torch.parallel.sharding import RayShard
-from neurecon_tpu_torch.training import (fast_forward_schedule, make_train_step,
+from neurecon_tpu_torch.training import (fast_forward_schedule, make_pipelined_train_step,
                                          render_full_image)
 from neurecon_tpu_torch.utils import io as io_util
 from neurecon_tpu_torch.utils.checkpoints import (CheckpointIO,
@@ -90,12 +98,6 @@ def mesh_steps(it: int, i_val_mesh: int, num_iters: int) -> list:
     return sorted({m for m in _MESH_STEPS if m > it}
                   | ({m for m in range(i_val_mesh, num_iters + 1, i_val_mesh) if m > it}
                      if i_val_mesh > 0 else set()))
-
-
-def _refuse_unported(args) -> None:
-    """Raise on any option of the JAX trainer that the port does not carry."""
-    if args.training.get("overlap_sampler", False):
-        raise NotImplementedError("training.overlap_sampler is not ported yet (see ROADMAP.md)")
 
 
 def profile_window(spec) -> tuple:
@@ -206,7 +208,6 @@ def _train(args, dev, rank: int, world: int) -> dict:
     it = int(load_dict.get("global_step", 0))
     epoch_idx = int(load_dict.get("epoch_idx", 0))
     num_iters = int(args.training.num_iters)
-    _refuse_unported(args)
     if group is not None:  # every rank must resume at the same step
         at = torch.tensor([it, -it, epoch_idx, -epoch_idx], dtype=torch.float64, device=dev)
         torch.distributed.all_reduce(at, op=torch.distributed.ReduceOp.MAX, group=group)
@@ -259,9 +260,20 @@ def _train(args, dev, rank: int, world: int) -> dict:
         data_dev["mask_ignore"] = torch.as_tensor(
             np.asarray(dataset.masks_ignore), device=dev).reshape(len(dataset), -1)
     n_images = int(data_dev["c2w"].shape[0])
-    step_fn = make_train_step(make_trainer(args, model, render_kwargs_train,
-                                           shard=RayShard(group)),
-                              model, optimizer, scheduler, group=group)
+    K = max(1, int(args.training.get("steps_per_call", 1)))
+    pipelined = bool(args.training.get("overlap_sampler", False))
+    # one step for both: called without `next_batch`, it is the standard step
+    step_fn = make_pipelined_train_step(
+        get_pipeline_fns(args, model, render_kwargs_train, shard=RayShard(group)),
+        model, optimizer, scheduler, group=group)
+    if pipelined:
+        # every framework has pipeline functions; the JAX trainer warns and
+        # takes the standard step for one without
+        log.info(f"=> pipelined sampler (training.overlap_sampler): each step after the "
+                 f"first of a group of {K} samples against the parameters before the "
+                 "update of the step ahead of it"
+                 + (" (on a second CUDA stream)" if dev.type == "cuda" else "")
+                 + ("; steps_per_call 1 makes every step fresh" if K == 1 else ""))
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     # ---- validation renderer ----
@@ -326,7 +338,6 @@ def _train(args, dev, rank: int, world: int) -> dict:
     i_val = int(args.training.get("i_val", 500))
     i_log = int(args.training.get("i_log", 20))
     i_param_hist = int(args.training.get("i_param_hist", -1))
-    K = max(1, int(args.training.get("steps_per_call", 1)))
     log.info(f"=> Start training..., it={it}, in {exp_dir} ({K} steps between checks)")
     t0 = t_last_log = time.time()
     it_last_log = it
@@ -350,9 +361,9 @@ def _train(args, dev, rank: int, world: int) -> dict:
                     next_val += i_val
             while mesh_its and it >= mesh_its[0]:
                 do_mesh(mesh_its.pop(0))
-            window.at(it)
 
             K_eff = min(K, num_iters - it)
+            batches = []
             for _ in range(K_eff):
                 if perm_pos >= n_images:
                     epoch_idx += 1
@@ -360,8 +371,14 @@ def _train(args, dev, rank: int, world: int) -> dict:
                     perm_pos = 0
                 idx = int(perm[perm_pos])
                 perm_pos += 1
-                batch = {k: v[idx:idx + 1] for k, v in data_dev.items()}
-                metrics = step_fn(batch, generator, it)
+                batches.append({k: v[idx:idx + 1] for k, v in data_dev.items()})
+            # the pipelined step samples ahead within a whole group only: a
+            # shorter last group runs step by step, every step fresh
+            ahead = pipelined and K_eff == K > 1
+            for j, batch in enumerate(batches):
+                window.at(it)  # opens and closes at steps, inside a group too
+                nxt = batches[j + 1] if ahead and j + 1 < K_eff else None
+                metrics = step_fn(batch, generator, it, next_batch=nxt)
                 step_totals.append((it, metrics["losses"]["total"]))
                 it += 1
 

@@ -3,7 +3,11 @@
 One eager step: zero the grads, loss, backward, (over several ranks) one sum
 of the gradients and metrics over the process group, Adam step, scheduler
 step. Metrics stay on the device (the loop fetches them every `i_log`
-steps), so no step waits on the host. `render_full_image` is the chunked
+steps), so no step waits on the host. `make_train_step` takes any loss;
+`make_pipelined_train_step`, train.py's step, takes a framework's pipeline
+functions and, given the next step's batch (`training.overlap_sampler`),
+samples that step's depths against the parameters before this step's
+update, on a second CUDA stream while this step's backward runs. `render_full_image` is the chunked
 render of the validation images and the eval tools, split over the ranks by
 pixel when given a process group, and in `microchunk`-ray blocks inside each
 chunk when asked.
@@ -18,7 +22,8 @@ import torch.distributed as dist
 
 from neurecon_tpu_torch.bridge import unwrap
 from neurecon_tpu_torch.parallel.sharding import (RayShard, broadcast_parameters,
-                                                  make_sharded_render)
+                                                  make_sharded_render, shard_rays,
+                                                  take_rows)
 
 
 def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
@@ -38,6 +43,23 @@ def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
         if k in batch:
             rb[out] = torch.gather(batch[k], -1, select_inds)
     return rb
+
+
+def make_draw_step(H: int, W: int, N_rays: int, draw_uniforms: Callable,
+                   shard: Optional[RayShard] = None) -> Callable:
+    """draw_step(batch, generator) -> (rb, draws): N_rays pixels of one image
+    batch (`sample_ray_batch`), then the step's uniforms
+    `draw_uniforms(N_rays, generator, device)` (a dict, tuple or list of flat
+    per-ray tensors), each drawn at the whole batch's shape, and this rank's
+    block of each (`shard`; the whole of each without one)."""
+    shard = shard or RayShard()
+
+    def draw_step(batch, generator):
+        rb = sample_ray_batch(generator, batch, H, W, N_rays)
+        draws = draw_uniforms(N_rays, generator, rb["rays_o"].device)
+        return shard_rays(rb, shard), take_rows(draws, shard)
+
+    return draw_step
 
 
 def grad_norms_by_module(model) -> Dict[str, torch.Tensor]:
@@ -107,6 +129,36 @@ def _reduce_step(shard: RayShard, params, losses, extras):
     return out_losses, stats
 
 
+def _update(model, optimizer, scheduler, group):
+    """The part of a step after the loss: finish(total, losses, extras,
+    before_adam=None) -> metrics runs the backward, (over several ranks)
+    the sum of the gradients and metrics, `before_adam()`, then Adam and
+    the schedule. With a group, the rank-0 parameters are broadcast once
+    here."""
+    shard = RayShard(group)
+    params = [p for p in model.parameters() if p.requires_grad]
+    if shard.sharded:
+        broadcast_parameters(model, group)
+
+    def finish(total, losses, extras, before_adam=None):
+        total.backward()
+        if shard.sharded:
+            losses, stats = _reduce_step(shard, params, losses, extras)
+        else:
+            losses, stats = {k: v.detach() for k, v in losses.items()}, extras_stats(extras)
+        metrics = {"losses": losses, "grad_norms": grad_norms_by_module(model),
+                   "extras_stats": stats}
+        if before_adam is not None:
+            before_adam()
+        optimizer.step()
+        scheduler.step()
+        if isinstance(extras, dict) and "scalars" in extras:
+            metrics["scalars"] = extras["scalars"]
+        return metrics
+
+    return finish
+
+
 def make_train_step(loss_fn: Callable, model, optimizer, scheduler, group=None) -> Callable:
     """loss_fn(batch, generator, it, **kw) -> (total, (losses, extras)).
 
@@ -119,25 +171,102 @@ def make_train_step(loss_fn: Callable, model, optimizer, scheduler, group=None) 
     `RayShard(group)`): the rank-0 parameters are broadcast once here, and
     every step sums the gradients over the ranks before Adam, so the metrics
     are those of the whole batch on every rank."""
-    shard = RayShard(group)
-    params = [p for p in model.parameters() if p.requires_grad]
-    if shard.sharded:
-        broadcast_parameters(model, group)
+    finish = _update(model, optimizer, scheduler, group)
 
     def step(batch, generator, it, **kw):
         optimizer.zero_grad(set_to_none=True)
         total, (losses, extras) = loss_fn(batch, generator, it, **kw)
-        total.backward()
-        if shard.sharded:
-            losses, stats = _reduce_step(shard, params, losses, extras)
+        return finish(total, losses, extras)
+
+    return step
+
+
+def _new_stream(dev):
+    """The pipelined step's side stream on `dev`'s card."""
+    return torch.cuda.Stream(dev)
+
+
+def make_pipelined_train_step(pipeline_fns: dict, model, optimizer, scheduler,
+                              group=None) -> Callable:
+    """train.py's step, and with `next_batch` the software-pipelined step of
+    `training.overlap_sampler` (the JAX package's
+    `make_sharded_train_block(pipeline_fns=...)`).
+
+    pipeline_fns: a framework's `make_pipeline_fns` (made with
+    `RayShard(group)` under a group): draw_step, depth_sample,
+    loss_with_samples. Returns step(batch, generator, it, next_batch=None)
+    -> metrics, as `make_train_step`'s step.
+
+    A call draws its rays and uniforms and samples its depths afresh, unless
+    the call before it was given this `batch` as its `next_batch`: that call
+    drew them (after its own, so the draws keep the standard step's order)
+    and sampled the depths right after its forward, against the parameters
+    it started from, before its update. The rendered values and the
+    gradients always use the current parameters: only where the samples lie
+    is one step stale. So a group of K steps called with `next_batch` from
+    its first to its last but one is the JAX package's K-step pipelined
+    block; a call without `next_batch` after a call without one is the
+    standard step; with lr 0 the two steps are equal.
+
+    On a card the next step's sampler runs on a second CUDA stream, under
+    no_grad, while this step's backward (and, over several ranks, its
+    all-reduce) runs on the current stream. The side stream first waits on
+    the current one (the ray batch, the uniforms and the surface pack that
+    this step's forward made), and the current stream waits on the side
+    stream's event before Adam writes the parameters the sampler reads. The
+    sampler's workspaces are allocated under the side stream; its outputs,
+    read on the current stream, are marked with `record_stream`. What the
+    sampler reads from the current stream (the ray batch, the uniforms, the
+    parameters and the surface pack, which the next forward replaces) stays
+    alive until the current stream has waited on the event. On the CPU the
+    same code runs in order."""
+    finish = _update(model, optimizer, scheduler, group)
+    draw_step = pipeline_fns["draw_step"]
+    depth_sample = pipeline_fns["depth_sample"]
+    loss_with_samples = pipeline_fns["loss_with_samples"]
+    side = {}  # the side stream, made on the first call on a card
+    ahead = {}  # the next step's batch, rays, uniforms and depths
+
+    def sample_ahead(batch, generator):
+        """Draw `batch`'s rays and uniforms, and enqueue their depths' sampler
+        (on the side stream on a card). Returns (held, wait): what the next
+        call takes, and what the current stream must run before Adam (None
+        on the CPU)."""
+        rb, draws = draw_step(batch, generator)
+        dev = rb["rays_o"].device
+        if dev.type != "cuda":
+            with torch.no_grad():
+                return (batch, rb, draws, depth_sample(rb, draws)), None
+        main = torch.cuda.current_stream(dev)
+        stream = side.get(dev)
+        if stream is None:
+            stream = side[dev] = _new_stream(dev)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream), torch.no_grad():
+            samples = depth_sample(rb, draws)
+            done = torch.cuda.Event()
+            done.record(stream)
+        for t in (samples if isinstance(samples, (tuple, list)) else (samples,)):
+            t.record_stream(main)
+        return (batch, rb, draws, samples), lambda: main.wait_event(done)
+
+    def step(batch, generator, it, next_batch=None):
+        held = ahead.pop("next", None)
+        if held is not None and held[0] is not batch:
+            raise ValueError("the pipelined step was given another batch than the "
+                             "next_batch of its call before")
+        if held is None:
+            rb, draws = draw_step(batch, generator)
+            with torch.no_grad():
+                samples = depth_sample(rb, draws)
         else:
-            losses, stats = {k: v.detach() for k, v in losses.items()}, extras_stats(extras)
-        metrics = {"losses": losses, "grad_norms": grad_norms_by_module(model),
-                   "extras_stats": stats}
-        optimizer.step()
-        scheduler.step()
-        if isinstance(extras, dict) and "scalars" in extras:
-            metrics["scalars"] = extras["scalars"]
+            _, rb, draws, samples = held
+        optimizer.zero_grad(set_to_none=True)
+        total, (losses, extras) = loss_with_samples(rb, samples, draws, generator, it)
+        held, wait = sample_ahead(next_batch, generator) if next_batch is not None else (None, None)
+        metrics = finish(total, losses, extras, wait)
+        if held is not None:
+            ahead["next"] = held
         return metrics
 
     return step

@@ -773,3 +773,165 @@ def test_unisurf_step_gradient_matches_plain(cuda):
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     for (name, _), a, b in zip(model.named_parameters(), g_k, g_p):
         assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max()), name
+
+
+def _pipeline_setup(cuda, framework="NeuS"):
+    """A small NeuS (W=64, 64 rays, perturb on), VolSDF or UNISURF on one
+    image of the 24x32 synthetic scene on the card, with its optimizer, and
+    its pipelined step (`training.make_pipelined_train_step`)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+    from neurecon_tpu_torch.models.base import make_optimizer
+    from neurecon_tpu_torch.models.frameworks import get_model, get_pipeline_fns
+    from neurecon_tpu_torch.training import make_pipelined_train_step
+
+    surface = dict(D=3, W=64, skips=[1], radius_init=0.5, embed_multires=4)
+    radiance = dict(D=2, W=64, skips=[], embed_multires=-1, embed_multires_view=2)
+    data = {"type": "synthetic", "downscale": 1, "n_images": 2, "H": 24, "W": 32,
+            "N_rays": 64, "val_rayschunk": 256}
+    train = {"w_eikonal": 0.1, "speed_factor": 10.0, "lr": 5e-4, "num_iters": 20,
+             "scheduler": {"type": "multistep", "milestones": [1000], "gamma": 0.5}}
+    if framework == "NeuS":
+        model_cfg = {"framework": "NeuS", "obj_bounding_radius": 1.0, "W_geometry_feature": 64,
+                     "N_samples": 16, "N_importance": 16, "N_upsample_iters": 2,
+                     "perturb": True}
+        train.update(with_mask=True, w_mask=1.0)
+    elif framework == "VolSDF":
+        surface["radius_init"] = 1.0
+        data.update(scale_radius=2.6, near=0.0, far=6.0)
+        model_cfg = {"framework": "VolSDF", "obj_bounding_radius": 3.0,
+                     "outside_scene": "builtin", "W_geometry_feature": 64, "N_samples": 8,
+                     "N_importance": 8, "fine_sample_mul": 2, "max_upsample_iter": 2,
+                     "perturb": True}
+    else:
+        surface["radius_init"] = 1.0
+        model_cfg = {"framework": "UNISURF", "obj_bounding_radius": 4.0,
+                     "W_geometry_feature": 64, "N_steps": 32, "N_query": 8, "N_freespace": 8,
+                     "tau": 0.5, "perturb": True}
+        train.update(w_reg=0.01, perturb_surface_pts=0.01, delta_max=1.0, delta_min=0.05,
+                     delta_beta=1.5e-05)
+    model_cfg.update(surface=surface, radiance=radiance)
+    args = ConfigDict({"expname": "pipe", "data": data, "model": model_cfg, "training": train})
+    model, kw, _, _ = get_model(args, cuda, seed=0)
+    ds = get_data(args)
+    kw["H"], kw["W"] = ds.H, ds.W
+    batch = {"c2w": torch.tensor(np.asarray(ds.c2w_all[:1], np.float32), device=cuda),
+             "intrinsics": torch.tensor(np.asarray(ds.intrinsics_all[:1], np.float32),
+                                        device=cuda),
+             "rgb": torch.tensor(np.asarray(ds.rgb_images[:1], np.float32),
+                                 device=cuda).reshape(1, -1, 3)}
+    if framework == "NeuS":
+        batch["object_mask"] = torch.tensor(np.asarray(ds.object_masks[:1]),
+                                            device=cuda).reshape(1, -1)
+    opt, sched = make_optimizer(args, model)
+    fns = get_pipeline_fns(args, model, kw)
+    return model, fns, make_pipelined_train_step(fns, model, opt, sched), batch
+
+
+@pytest.mark.cuda
+def test_one_pack_per_pipelined_training_step(cuda):
+    """The pipelined NeuS step in groups of 3: each step packs the surface's
+    weights once (the step's forward after the update of the step ahead, or
+    at a group's first step its fresh sampler) and the next step's sampler,
+    on the side stream, reads that pack; kernels 1 and 3 launch once a
+    step, and kernel 2 once a step in all (a group's first call launches
+    its own and its successor's, its last call none)."""
+    model, _, step, batch = _pipeline_setup(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    bs = [dict(batch) for _ in range(6)]
+    counters = (fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp)
+    k2 = fused_upsample.fused_neus_upsample.launches
+    for i in range(6):
+        packs, launches = surface_pack.pack.packs, [f.launches for f in counters]
+        m = step(bs[i], gen, i, next_batch=bs[i + 1] if i % 3 < 2 else None)
+        torch.cuda.synchronize()
+        assert np.isfinite(m["losses"]["total"].item())
+        assert surface_pack.pack.packs == packs + 1, i
+        assert [f.launches for f in counters] == [n + 1 for n in launches], i
+    assert fused_upsample.fused_neus_upsample.launches == k2 + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framework", ["NeuS", "VolSDF"])
+def test_side_stream_sampler_equals_main_stream(cuda, framework):
+    """The framework's gradient-free sampler (NeuS: kernel 2; VolSDF: kernel
+    4 and kernels (a)-(c)) launched on a second stream, as the pipelined
+    step launches it, equals the same launch on the current stream bit for
+    bit, and counts its launches alike."""
+    model, fns, _, batch = _pipeline_setup(cuda, framework)
+    rb, draws = fns["draw_step"](batch, torch.Generator(device=cuda).manual_seed(2))
+    fns_count = (fused_upsample.fused_neus_upsample, fused_mlp.fused_sdf_forward,
+                 fused_fine_sample.launch_init, fused_fine_sample.launch_checkpoint)
+    runs = []
+    for side in (False, True):
+        before = [f.launches for f in fns_count]
+        if side:
+            stream = torch.cuda.Stream(cuda)
+            stream.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(stream), torch.no_grad():
+                out = fns["depth_sample"](rb, draws)
+            torch.cuda.current_stream(cuda).wait_stream(stream)
+        else:
+            with torch.no_grad():
+                out = fns["depth_sample"](rb, draws)
+        torch.cuda.synchronize()
+        runs.append(([t.clone() for t in (out if isinstance(out, tuple) else (out,))],
+                     [f.launches - b for f, b in zip(fns_count, before)]))
+    (a, la), (b, lb) = runs
+    assert la == lb and sum(la) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framework", ["NeuS", "VolSDF", "UNISURF"])
+def test_pipelined_step_synchronizes_only_in_backward(cuda, framework):
+    """Three pipelined steps (steps_per_call 3, after a warm-up step that
+    makes the first-use uploads) under `set_sync_debug_mode("warn")`: at
+    most one host-device synchronisation a step, and that inside the step's
+    `total.backward()` (PyTorch's own). A synchronisation in the side
+    stream's sampler would hold the host until the forward ahead of it is
+    done, and serialise the two streams without any error."""
+    import traceback
+    import warnings
+
+    _, _, step, batch = _pipeline_setup(cuda, framework)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    bs = [dict(batch) for _ in range(4)]
+    step(bs[0], gen, 0, next_batch=bs[1])
+    torch.cuda.synchronize(cuda)
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not str(message).startswith("Synchronization debug mode"):  # the mode's notice
+            seen.append(traceback.extract_stack()[:-1])
+
+    shown = warnings.showwarning
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            step(bs[1], gen, 1, next_batch=bs[2])
+            step(bs[2], gen, 2, next_batch=bs[3])
+            step(bs[3], gen, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = shown
+    torch.cuda.synchronize(cuda)
+    assert len(seen) <= 3
+    for stack in seen:
+        assert any(f.name == "finish" and (f.line or "").strip() == "total.backward()"
+                   for f in stack), traceback.format_list(stack)
+
+
+@pytest.mark.cuda
+def test_linspace01_does_not_synchronize(cuda):
+    """linspace01 runs inside the pipelined step's side stream (VolSDF's
+    sampler, UNISURF's root find): it must make no host-device sync."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = linspace01(513, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(t[-1]) == 1.0 and t.shape == (513,)

@@ -254,9 +254,18 @@ def test_mesh_schedule_matches_jax_loop(it, i_val_mesh, num_iters):
 
 
 def test_flagship_schedule_is_not_refused(tmp_path):
+    # nothing of configs/neus.yaml is refused since the overlap sampler was
+    # ported: its model and both of its training steps build
+    from neurecon_tpu_torch.models.frameworks import get_model, get_pipeline_fns, make_trainer
+
     args, _ = parse_cli(argv=["--config", os.path.join(REPO, "configs", "neus.yaml")])
     args.data["type"] = "synthetic"
-    train._refuse_unported(args)  # 300,000 steps, i_val_mesh 10,000
+    model, kw, _, _ = get_model(args, "cpu")
+    kw["H"], kw["W"] = 120, 160
+    assert callable(make_trainer(args, model, kw))
+    assert set(get_pipeline_fns(args, model, kw)) == {"draw_step", "depth_sample",
+                                                     "loss_with_samples"}
+    # 300,000 steps, i_val_mesh 10,000
     steps = train.mesh_steps(0, int(args.training.i_val_mesh), int(args.training.num_iters))
     assert steps[:4] == [3000, 5000, 7000, 10000] and steps[-1] == 300000
 

@@ -117,3 +117,12 @@ def test_device_helper():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             get_device()
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 64, 257, 2048])
+def test_linspace01_matches_jnp_linspace(n):
+    """Bit for bit, as the port's samplers rely on (made without a host
+    copy since the pipelined step's side stream runs it)."""
+    from neurecon_tpu_torch.ops.sampling import linspace01
+
+    np.testing.assert_array_equal(linspace01(n).numpy(), np.asarray(jnp.linspace(0.0, 1.0, n)))

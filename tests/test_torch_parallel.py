@@ -115,16 +115,18 @@ def _case_batch(case, cfg):
     return batch, ds.H, ds.W
 
 
-def run_case(case, group=None):
+def run_case(case, group=None, pipelined=False):
     """STEPS training steps of a case through the framework's trainer and
-    `make_train_step` over `group` (None: one rank). Ranks other than 0
+    `make_train_step` over `group` (None: one rank); with `pipelined`,
+    through its pipeline functions and `make_pipelined_train_step`, the
+    STEPS steps one group (steps 2 and 3 sampled ahead). Ranks other than 0
     start from perturbed weights: the step's broadcast must replace them."""
     from neurecon_tpu_torch import bridge
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.models.base import make_optimizer, perturb_parameters
-    from neurecon_tpu_torch.models.frameworks import get_model, make_trainer
+    from neurecon_tpu_torch.models.frameworks import get_model, get_pipeline_fns, make_trainer
     from neurecon_tpu_torch.parallel import RayShard
-    from neurecon_tpu_torch.training import make_train_step
+    from neurecon_tpu_torch.training import make_pipelined_train_step, make_train_step
 
     cfg = _case_cfg(case)
     args = ConfigDict(copy.deepcopy(cfg))
@@ -136,12 +138,20 @@ def run_case(case, group=None):
     kw["H"], kw["W"] = H, W
     opt, sched = make_optimizer(args, model)
     own = bridge.model_to_tree(model)
-    step = make_train_step(make_trainer(args, model, kw, shard=shard), model, opt, sched,
-                           group=group)
+    if pipelined:
+        step = make_pipelined_train_step(get_pipeline_fns(args, model, kw, shard=shard), model,
+                                         opt, sched, group=group)
+    else:
+        step = make_train_step(make_trainer(args, model, kw, shard=shard), model, opt, sched,
+                               group=group)
     gen = torch.Generator().manual_seed(1)
     out = {"losses": [], "own": own, "p0": bridge.model_to_tree(model)}
+    batches = [dict(batch) for _ in range(STEPS)]
     for i in range(STEPS):
-        m = step(batch, gen, i)
+        if pipelined:
+            m = step(batches[i], gen, i, next_batch=batches[i + 1] if i + 1 < STEPS else None)
+        else:
+            m = step(batches[i], gen, i)
         out["losses"].append({k: v.item() for k, v in m["losses"].items()})
         if i == 0:
             out["grads"] = bridge.grads_to_tree(model)
@@ -290,11 +300,11 @@ def _train_argv(tmp, n_iters, n_rays=32):
             "--training:monitoring", "none"]
 
 
-def _train_cfg(tmp, n_iters, n_rays=32):
+def _train_cfg(tmp, n_iters, n_rays=32, *extra):
     from neurecon_tpu_torch import train
     from neurecon_tpu_torch.config import parse_cli
 
-    return parse_cli(argv=_train_argv(tmp, n_iters, n_rays),
+    return parse_cli(argv=_train_argv(tmp, n_iters, n_rays) + list(extra),
                      extra_args_fn=train._extra_args)[0]
 
 
@@ -314,12 +324,19 @@ def train_two_ranks(group, tmp):
         odd = None
     except ValueError as e:
         odd = str(e)
+    over = _train_cfg(tmp, 4, 32, "--training:overlap_sampler", "true",
+                      "--training:steps_per_call", "2")
+    over.training["log_root_dir"] = os.path.join(tmp, "runs_overlap")
+    over.training["exp_dir"] = os.path.join(tmp, "runs_overlap", "synthetic_smoke")
+    over = train.main_function(over, device="cpu")
     return {"it": out["it"], "final_ckpt": out["final_ckpt"], "totals": totals,
-            "writes": record, "odd": odd, "world": out["world"]}
+            "writes": record, "odd": odd, "world": out["world"],
+            "overlap_totals": [v for _, v in over["stats"]["losses"]["total_per_step"]]}
 
 
 JOBS = {
     "cases": lambda g, tmp: {c: run_case(c, g) for c in CASES},
+    "pipeline": lambda g, tmp: {c: run_case(c, g, pipelined=True) for c in CASES},
     "render": lambda g, tmp: {"plain": render_frame(g),
                               "micro": render_frame(g, microchunk=40)},
     "jax": jax_case_port,
@@ -424,12 +441,14 @@ def started(tmp_path_factory):
     groups = {"ranks4": spawn_start(4, ["seen", "cases", "render"], t4),
               "train2": spawn_start(2, ["train"], tt)}
     _jax_reference(t2)
-    groups["ranks2"] = spawn_start(2, ["seen", "cases", "render", "jax", "ddp_bridge"], t2)
+    groups["ranks2"] = spawn_start(2, ["seen", "cases", "render", "jax", "ddp_bridge",
+                                       "pipeline"], t2)
     tm = str(tmp_path_factory.mktemp("mutant"))
     shutil.copy(_jax_inputs_path(t2), _jax_inputs_path(tm))
     groups["mutant"] = spawn_start(2, ["jax"], tm, pkg_root=_mutated_copy(tm))
     torch.set_num_threads(1)
     refs = {c: run_case(c) for c in CASES}
+    refs.update({("pipeline", c): run_case(c, pipelined=True) for c in CASES})
     yield groups, refs
     for procs, _, _ in groups.values():
         for p in procs:
@@ -509,6 +528,32 @@ def test_parameters_after_adam_match_one_rank(ranks, case, ref_cases):
             assert np.array_equal(a, b)
     assert not all(np.array_equal(a, b) for a, b in zip(
         _leaves(ranks[-1]["cases"][case]["own"]), p0))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pipelined_two_ranks_match_one_rank(case, ranks2, ref_cases):
+    """The pipelined step (`make_pipelined_train_step`, 3 steps in one
+    group) on two ranks, each sampling ahead on its block of the global
+    draws, against one rank: each step's losses (rel 1e-5) and every
+    parameter after the 3 steps (the Adam bounds above), the two ranks
+    bit-equal."""
+    ref = ref_cases[("pipeline", case)]
+    p0 = _leaves(ref["p0"])
+    res = ranks2[0]
+    for r in res:
+        got = r["pipeline"][case]
+        for i in range(STEPS):
+            for k, want in ref["losses"][i].items():
+                assert abs(got["losses"][i][k] - want) <= LOSS_REL * abs(want) + 1e-12, (i, k)
+        for path, g, w, a in zip(_paths(ref["params"]), _leaves(got["params"]),
+                                 _leaves(ref["params"]), p0):
+            moved = np.abs(w - a).max()
+            off = np.abs(g - w) > PARAM_MOVED * moved + 1e-12
+            assert off.mean() <= PARAM_SHARE, (path, off.mean())
+            assert np.abs(g - w).max() <= PARAM_MAX * moved + 1e-12, path
+    for a, b in zip(_leaves(res[0]["pipeline"][case]["params"]),
+                    _leaves(res[1]["pipeline"][case]["params"])):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("ranks", [2, 4], indirect=True)
@@ -771,6 +816,14 @@ def test_train_py_two_ranks_matches_one_rank(train2, tmp_path):
     p0 = bridge.model_to_tree(get_model(_train_cfg(str(tmp_path), 4), "cpu", seed=42)[0])
     for path, g, w, a in zip(_paths(ref), _leaves(got), _leaves(ref), _leaves(p0)):
         assert np.abs(g - w).max() <= PARAM_MOVED * np.abs(w - a).max() + 1e-12, path
+
+
+def test_train_py_overlap_sampler_on_two_ranks(train2):
+    """train.py with `training.overlap_sampler` in groups of 2 steps on two
+    ranks: 4 finite step losses, the same on both ranks."""
+    res, _ = train2
+    a, b = (r["train"]["overlap_totals"] for r in res)
+    assert len(a) == 4 and np.isfinite(a).all() and a == b
 
 
 def test_train_py_refuses_uneven_rays_on_every_rank(train2):

@@ -278,10 +278,12 @@ def test_resume_from_jax_checkpoint(tmp_path):
 
 
 def test_unported_options_are_refused(tmp_path):
-    # meshes in the loop (tests/test_torch_mesh.py) and the profiler window
-    # are ported: the window writes a Chrome trace of its steps under
-    # exp_dir/profile, and a window with stop <= start raises; the overlap
-    # sampler is refused
+    # meshes in the loop (tests/test_torch_mesh.py), the profiler window and
+    # the overlap sampler are ported: the window writes a Chrome trace of its
+    # steps under exp_dir/profile, and a window with stop <= start raises;
+    # with lr 0, 4 pipelined steps in groups of 3 (the last group of one
+    # runs fresh) are bit-equal to 4 standard steps, so train.py draws in
+    # the standard order
     args = _smoke_args(tmp_path, 4)
     args.training["profile_steps"] = "2:3"
     out = train.main_function(args)
@@ -293,8 +295,15 @@ def test_unported_options_are_refused(tmp_path):
     args.training["profile_steps"] = "3:3"
     with pytest.raises(ValueError, match="start < stop"):
         train.main_function(args)
-    with pytest.raises(NotImplementedError, match="overlap_sampler"):
-        train.main_function(_smoke_args(tmp_path, 4, "--training:overlap_sampler", "true"))
+    totals = []
+    for i, overlap in enumerate(("false", "true")):
+        out = train.main_function(_smoke_args(
+            tmp_path / str(i), 4, "--training:overlap_sampler", overlap,
+            "--training:steps_per_call", "3", "--training:lr", "0.0",
+            "--training:i_log", "1", "--training:i_val", "0"))
+        totals.append([v for _, v in out["stats"]["losses"]["total_per_step"]])
+    assert len(totals[1]) == 4 and np.isfinite(totals[1]).all()
+    assert totals[0] == totals[1]
 
 
 def test_save_config_round_trips_through_yaml(tmp_path):

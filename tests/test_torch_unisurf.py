@@ -267,13 +267,14 @@ def test_train_resume_render_mesh_eval_on_dtu_scene(dtu_scene, tmp_path):
 
 
 def test_remaining_refusals(dtu_scene, tmp_path):
-    """UNISURF trains (above); the overlap sampler is still refused for it,
-    and the profiler window (now ported) writes its trace, a window left
-    open at the end of the run closed there."""
-    args = _train_args(tmp_path, dtu_scene, 2)
-    args.training["overlap_sampler"] = True
-    with pytest.raises(NotImplementedError, match="overlap_sampler"):
-        train.main_function(args, device="cpu")
+    """UNISURF trains (above); the overlap sampler (ported) trains it in a
+    group of 2 steps, and the profiler window (now ported) writes its
+    trace, a window left open at the end of the run closed there."""
+    args = _train_args(tmp_path / "overlap", dtu_scene, 2)
+    args.training.update(overlap_sampler=True, steps_per_call=2)
+    out = train.main_function(args, device="cpu")
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    assert out["it"] == 2 and len(totals) == 2 and np.isfinite(totals).all()
     args = _train_args(tmp_path, dtu_scene, 2)
     args.training["profile_steps"] = "0:5"
     out = train.main_function(args, device="cpu")

@@ -236,7 +236,8 @@ def test_train_resumes_and_evaluates(tmp_path):
 
 def test_unported_volsdf_options_are_refused(tmp_path):
     """NeRF++ (ported) builds and takes a step whose every background leaf
-    gets a finite gradient, SIREN builds, overlap_sampler is refused."""
+    gets a finite gradient, SIREN builds, overlap_sampler (ported) trains
+    through train.py in groups of 2 steps."""
     cfg = _cfg()
     cfg["model"].update(outside_scene="nerf++", N_outside=4)
     targs = ConfigDict(cfg)
@@ -261,9 +262,10 @@ def test_unported_volsdf_options_are_refused(tmp_path):
     model, _, _, _ = get_model(ConfigDict(cfg), "cpu")
     assert model.implicit_surface.use_siren
     args = _train_args(tmp_path, 4)
-    args.training["overlap_sampler"] = True
-    with pytest.raises(NotImplementedError, match="overlap_sampler"):
-        train.main_function(args)
+    args.training.update(overlap_sampler=True, steps_per_call=2)
+    out = train.main_function(args)
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    assert out["it"] == 4 and len(totals) == 4 and np.isfinite(totals).all()
 
 
 @pytest.fixture(scope="module")
