@@ -290,7 +290,35 @@ Phases, in order; any failure exits non-zero:
    camera centres, of unit length); the figures are not drawn (the card
    machine has no matplotlib: a figure raises an error that says so).
 
-Phases 1-29 and 32-36 run in this process on one card (no launcher: a
+37. JPEG scans: the BlendedMVS-layout envmap scene (`BLENDED_SHAPE`: 8
+   views at BlendedMVS's 576x768) and a custom-layout one (images/*.jpg,
+   cam.json, PNG masks), each written as JPEG by `write_jpeg` (q95, 4:2:0)
+   and as PNG; both loaded through `get_data` by the port's readers: the
+   decoded rgb's PSNR against the arrays written at least
+   `JPEG_PSNR_GATE`, cameras and masks equal to the PNG scene's, the log
+   naming utils/jpeg.py's route and no imageio, PIL or cv2 in sys.modules;
+   the decode ms of a frame; then `train.py` on configs/neus_nomask_blended
+   .yaml and configs/volsdf_nerfpp_blended.yaml as the files hold them
+   (`NEUS_NOMASK_BLENDED`, `VOLSDF_NERFPP_BLENDED`, held equal to the files
+   by tests/test_torch_jpeg.py) read from the JPEG scene, cuts printed
+   (`BLENDED_STEPS` steps, one validation at the files' val_downscale 4, a
+   64^3 mesh; NeuS's warm-up 10 steps): exact launches, finite losses that
+   fall; ms per step and rays/s.
+38. The NeRF-like head (`W_geometry_feature` -1) on the flagship NeuS:
+   kernels 2 and 4 against their plain versions on a perturbed copy
+   (phase 3's and phase 10's gates), kernels 1 and 3 refusing it; 20 steps
+   through train.py (kernel 2 once a step, kernels 1 and 3 never: the
+   nablas and the eikonal run on autograd; kernel 4 for a 64^3 mesh),
+   finite losses that fall; one 120x160 frame through render_view;
+   `ScalarField` on the card within 1e-5 of its CPU result.
+39. The seven probes under neurecon_tpu_torch/tools/ (`bench_ablate`,
+   `bench_volsdf_ablate`, `bench_render_cull`, `bench_fused_upsample`,
+   `bench_gradblock`, `bench_roadmap`, `probe_lax_map`) through their `main`
+   at a cut --K: their JSON rows, and their correctness rows as gates
+   (kernel 2's agreement at phase 3's bound, the culled frame's PSNR, the
+   microchunk walk bit-equal).
+
+Phases 1-29 and 32-39 run in this process on one card (no launcher: a
 world of one); phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but
 for (4).
 
@@ -304,7 +332,9 @@ before it and read just after. Prints one JSON line of per-kernel results
 `sharded_render_rank<r>` among them, and phases 32-36's
 `pipelined_<framework>_train`, `pipelined_<framework>_lr0`,
 `direct_<use|more>_train`, `direct_<use|more>_render`,
-`vis_surface_and_cam` and `test_volsdf_algo`; the surface-MLP rows held to their 3xTF32
+`vis_surface_and_cam` and `test_volsdf_algo`, and phases 37-39's
+`jpeg_<config>_train`, `nerf_head_train`, `nerf_head_render_view` and
+`probes`; the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
 then the run's wall seconds, then, as the last line, {"ok": true, "device":
@@ -1977,13 +2007,217 @@ def write_png(path, img, filters=(0, 1, 2, 3, 4), palette=None, trns=None):
         f.write(b"\x89PNG\r\n\x1a\n" + b"".join(chunks))
 
 
+# the example tables of ITU-T T.81 Annex K (libjpeg's defaults): quantisation
+# at quality 50 in natural order, and the Huffman tables as (counts of codes
+# of each length 1-16, the symbols in code order); of the AC tables only the
+# symbols of codes shorter than 16 bits are listed, the 16-bit codes take
+# the remaining symbols in increasing order
+_JPEG_QT = (np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+                      14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+                      18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                      49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+            np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                      24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+                     + [99] * 32))
+_JPEG_DC = (([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+            ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))))
+_AC_SYMBOLS = [0x00, 0xF0] + [r << 4 | s for r in range(16) for s in range(1, 11)]
+
+
+def _ac_table(counts, short):
+    short = list(bytes.fromhex(short))
+    return counts, short + sorted(set(_AC_SYMBOLS) - set(short))
+
+
+_JPEG_AC = (_ac_table([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D],
+                      "010203000411051221314106135161072271143281"
+                      "91a10823 42b1c11552d1f024336272 82".replace(" ", "")),
+            _ac_table([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77],
+                      "00010203110405213106124151076171132232810814"
+                      "4291a1b1c109233352f0156272d10a162434e125f1"))
+_JPEG_SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": (1, 2)}
+
+
+def _zigzag():
+    return np.array(sorted(range(64), key=lambda i: (i // 8 + i % 8,
+                                                     i // 8 if (i // 8 + i % 8) % 2 else i % 8)))
+
+
+def _huff_codes(counts, symbols):
+    """{symbol: (code, length)} of a canonical Huffman table."""
+    out, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            out[symbols[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return out
+
+
+def _category(v):
+    """JPEG's magnitude category of int array v (bits of |v|) and the extra
+    bits that follow its code (v, or v - 1 masked, for v < 0)."""
+    mag = np.abs(v)
+    s = np.zeros(v.shape, np.int64)
+    nz = mag > 0
+    s[nz] = np.floor(np.log2(mag[nz])).astype(np.int64) + 1
+    return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+
+def _pack_bits(vals, nbits):
+    """Items of `nbits` bits (MSB first) -> bytes, padded with 1 bits to a
+    byte, 0xFF stuffed with 0x00."""
+    total = int(nbits.sum())
+    start = np.cumsum(nbits) - nbits
+    item = np.repeat(np.arange(len(vals)), nbits)
+    j = np.arange(total) - start[item]
+    bits = (vals[item] >> (nbits[item] - 1 - j)) & 1
+    bits = np.concatenate([bits, np.ones((-total) % 8, np.int64)]).astype(np.uint8)
+    return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def write_jpeg(path, img, quality=95, subsampling="4:2:0", restart=0):
+    """Write uint8 `img` ([H, W, 3] RGB, or [H, W] grey) as a baseline JPEG
+    with numpy and the standard library: the Annex K quantisation tables
+    scaled by `quality` as libjpeg scales them, YCbCr with the chroma
+    box-averaged to `subsampling` ("4:4:4", "4:2:2", "4:2:0", "4:4:0"; the
+    luma factors 1x1, 2x1, 2x2, 1x2), an orthonormal float FDCT, the
+    standard Huffman tables, one interleaved scan, and a restart marker
+    every `restart` MCUs (0: none). Edges are padded by replication."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3
+                                                           and img.shape[-1] != 3):
+        raise ValueError(f"write_jpeg: want uint8 [H, W] or [H, W, 3], got {img.dtype} "
+                         f"{img.shape}")
+    H, W = img.shape[:2]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((t * scale + 50) // 100, 1, 255) for t in _JPEG_QT]
+    x = img.astype(np.float64)
+    if img.ndim == 2:
+        planes, factors, tables = [x], [(1, 1)], [0]
+    else:
+        R, G, B = x[..., 0], x[..., 1], x[..., 2]
+        planes = [0.299 * R + 0.587 * G + 0.114 * B,
+                  128 - 0.168736 * R - 0.331264 * G + 0.5 * B,
+                  128 + 0.5 * R - 0.418688 * G - 0.081312 * B]
+        factors = [_JPEG_SUBSAMPLING[subsampling], (1, 1), (1, 1)]
+        tables = [0, 1, 1]
+    hmax, vmax = factors[0]
+    mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    zz = _zigzag()
+    n = np.arange(8)
+    C = np.sqrt(np.where(n[:, None] == 0, 1 / 8, 2 / 8)) * np.cos(
+        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    coefs, shapes = [], []
+    for plane, (h, v), t in zip(planes, factors, tables):
+        plane = np.pad(plane, ((0, my * 8 * vmax - H), (0, mx * 8 * hmax - W)), mode="edge")
+        fy, fx = vmax // v, hmax // h
+        plane = plane.reshape(plane.shape[0] // fy, fy, plane.shape[1] // fx, fx).mean((1, 3))
+        by, bx = plane.shape[0] // 8, plane.shape[1] // 8
+        blk = plane.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3) - 128.0
+        F = np.einsum("ux,abxy,vy->abuv", C, blk, C).reshape(by, bx, 64)
+        q = np.round(F / qts[t]).astype(np.int64)
+        coefs.append(np.clip(q[..., zz], -1023, 1023))
+        shapes.append((v, h))
+    # blocks in scan order: MCU by MCU, in each the components' v x h blocks
+    seq_blocks, seq_comp = [], []
+    for k, (c, (v, h)) in enumerate(zip(coefs, shapes)):
+        b = c.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, v * h, 64)
+        seq_blocks.append(b)
+        seq_comp.append(np.full((my * mx, v * h), k))
+    Z = np.concatenate(seq_blocks, 1).reshape(-1, 64)
+    comp = np.concatenate(seq_comp, 1).reshape(-1)
+    per_mcu = comp.size // (my * mx)
+    mcu = np.arange(comp.size) // per_mcu
+    interval = mcu // restart if restart else np.zeros_like(mcu)
+    # DC differences, the prediction reset at each restart interval
+    diff = np.empty(len(Z), np.int64)
+    for k in range(len(coefs)):
+        idx = np.nonzero(comp == k)[0]
+        prev = np.concatenate([[0], Z[idx[:-1], 0]])
+        prev[np.concatenate([[True], interval[idx[1:]] != interval[idx[:-1]]])] = 0
+        diff[idx] = Z[idx, 0] - prev
+    def lut(tables_):  # [table, symbol] -> code, length
+        codes = [_huff_codes(*t) for t in tables_]
+        c, ln = np.zeros((2, 256), np.int64), np.zeros((2, 256), np.int64)
+        for t, cd in enumerate(codes):
+            for sym, (code, length) in cd.items():
+                c[t, sym], ln[t, sym] = code, length
+        return c, ln
+
+    dc_codes, ac_codes = lut(_JPEG_DC), lut(_JPEG_AC)
+    tab = np.asarray(tables)[comp]
+    keys, vals, nbits = [], [], []
+
+    def emit(key, table_idx, symbol, s, extra, codes):
+        """Items (sort key, the symbol's code followed by s extra bits)."""
+        cc, ll = codes[0][table_idx, symbol], codes[1][table_idx, symbol]
+        keys.append(key)
+        vals.append((cc << s) | (extra & ((1 << s) - 1)))
+        nbits.append(ll + s)
+
+    s_dc, e_dc = _category(diff)
+    emit(np.arange(len(Z)) * 1024, tab, s_dc, s_dc, e_dc, dc_codes)
+    rows, cols = np.nonzero(Z[:, 1:])
+    kpos = cols + 1
+    first = np.concatenate([[True], rows[1:] != rows[:-1]])
+    prev_k = np.where(first, 0, np.concatenate([[0], kpos[:-1]]))
+    run = kpos - prev_k - 1
+    s_ac, e_ac = _category(Z[rows, kpos])
+    emit(rows * 1024 + 4 * kpos + 3, tab[rows], (run % 16) << 4 | s_ac, s_ac, e_ac, ac_codes)
+    n_zrl = run // 16
+    zr = np.repeat(np.arange(len(rows)), n_zrl)
+    zj = np.arange(len(zr)) - np.repeat(np.cumsum(n_zrl) - n_zrl, n_zrl)
+    zero = np.zeros(len(zr), np.int64)
+    emit(rows[zr] * 1024 + 4 * kpos[zr] + zj, tab[rows[zr]], zero + 0xF0, zero, zero,
+         ac_codes)
+    last = np.zeros(len(Z), np.int64)
+    last[rows] = kpos  # the last nonzero position of each block (rows ascend)
+    eob = np.nonzero(last < 63)[0]
+    zero = np.zeros(len(eob), np.int64)
+    emit(eob * 1024 + 256, tab[eob], zero, zero, zero, ac_codes)
+    keys, vals, nbits = (np.concatenate(a) for a in (keys, vals, nbits))
+    order = np.argsort(keys, kind="stable")
+    vals, nbits, block = vals[order], nbits[order], keys[order] // 1024
+    item_interval = interval[block]
+    scan = b""
+    for i in range(int(interval[-1]) + 1):
+        sel = item_interval == i
+        if i:
+            scan += bytes([0xFF, 0xD0 + (i - 1) % 8])
+        scan += _pack_bits(vals[sel], nbits[sel])
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + payload
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t in sorted(set(tables)):
+        out += seg(0xDB, bytes([t]) + bytes(qts[t][zz].astype(np.uint8)))
+    ncomp = len(planes)
+    sof = struct.pack(">BHHB", 8, H, W, ncomp) + b"".join(
+        bytes([k + 1, h << 4 | v, t]) for k, ((h, v), t) in enumerate(zip(factors, tables)))
+    out += seg(0xC0, sof)
+    for t in sorted(set(tables)):
+        for cls, (counts, symbols) in ((0, _JPEG_DC[t]), (1, _JPEG_AC[t])):
+            out += seg(0xC4, bytes([cls << 4 | t] + list(counts) + list(symbols)))
+    if restart:
+        out += seg(0xDD, struct.pack(">H", restart))
+    out += seg(0xDA, bytes([ncomp]) + b"".join(bytes([k + 1, t << 4 | t])
+                                               for k, t in enumerate(tables)) + b"\x00\x3f\x00")
+    with open(path, "wb") as f:
+        f.write(out + scan + b"\xff\xd9")
+
+
 def _to_u8(x):
     return np.round(np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, background="black"):
+def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, background="black",
+                fmt="png"):
     """The synthetic sphere scene (`make_synthetic_scene`) on disk in one of
-    the loaders' layouts, its images and masks as PNGs by `write_png`:
+    the loaders' layouts, its masks as PNGs by `write_png` and its images as
+    PNGs too, or, with `fmt` "jpg", as JPEGs by `write_jpeg` (quality 95,
+    4:2:0: OpenCV's `imwrite` defaults, what BlendedMVS scans carry):
 
       * "DTU": image/, mask/, cameras.npz with world_mat_i = K [R|t] in a
         world frame x_w = DTU_SCALE x_n + DTU_SHIFT and scale_mat_i mapping
@@ -1997,7 +2231,16 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, backgr
 
     Returns the scene's normalized cameras and analytic images: {"c2w",
     "intrinsics" [n, 4, 4], "rgb" [n, H, W, 3] float, "mask" [n, H, W] bool,
-    "mask_out" [n, H, W] bool or None}."""
+    "mask_out" [n, H, W] bool or None, "encoded" [n, H, W, 3] uint8, the
+    arrays the image files were written from}."""
+    if fmt not in ("png", "jpg"):
+        raise ValueError(f"write_scene: fmt {fmt!r}, want 'png' or 'jpg'")
+
+    def write_image(path, img):
+        if fmt == "jpg":
+            write_jpeg(path, img)
+        else:
+            write_png(path, img)
     from neurecon_tpu_torch.dataio.blendedmvs import write_cam
     from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
 
@@ -2020,7 +2263,7 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, backgr
         c2w_w = c2w[i].copy()
         c2w_w[:3, 3] = DTU_SCALE * c2w[i][:3, 3] + np.asarray(DTU_SHIFT)
         world_mats.append(K @ np.linalg.inv(c2w_w))
-        write_png(os.path.join(root, dirs[0], f"{name}.png"), _to_u8(rgb[i]))
+        write_image(os.path.join(root, dirs[0], f"{name}.{fmt}"), _to_u8(rgb[i]))
         if dirs[1]:
             write_png(os.path.join(root, dirs[1], f"{name}.png"),
                       mask[i].astype(np.uint8) * 255)
@@ -2036,7 +2279,7 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, backgr
             cam[1][:3, :3] = K[:3, :3]
             cam[1][3] = (0.5, 0.01, 256, 3.06)
             write_cam(os.path.join(root, "cams_normalized", f"{name}_cam.txt"), cam)
-        write_png(os.path.join(root, dirs[0], f"{names[0]}_masked.png"), _to_u8(rgb[0] * 0))
+        write_image(os.path.join(root, dirs[0], f"{names[0]}_masked.{fmt}"), _to_u8(rgb[0] * 0))
     else:
         mask_out = np.zeros_like(mask)
         mask_out[:, :, : W // 8] = True
@@ -2045,10 +2288,10 @@ def write_scene(root, layout, n_images, H, W, radius=0.5, cam_radius=3.0, backgr
             write_png(os.path.join(root, "mask_out", f"{name}.png"),
                       mask_out[i].astype(np.uint8) * 255)
         with open(os.path.join(root, "cam.json"), "w") as f:
-            json.dump({f"{name}.png": {"P": world_mats[i].tolist(), "SCALE": S.tolist()}
+            json.dump({f"{name}.{fmt}": {"P": world_mats[i].tolist(), "SCALE": S.tolist()}
                        for i, name in enumerate(names)}, f)
     return {"c2w": c2w.astype(np.float32), "intrinsics": K.astype(np.float32),
-            "rgb": rgb, "mask": mask, "mask_out": mask_out}
+            "rgb": rgb, "mask": mask, "mask_out": mask_out, "encoded": _to_u8(rgb)}
 
 
 def _area_matrix(n_in, n_out):
@@ -3680,6 +3923,324 @@ def _pipeline_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir,
     return 0
 
 
+# ---- phases 37-39: JPEG scans, the NeRF-like head and ScalarField, the probes
+
+# configs/neus_nomask_blended.yaml and configs/volsdf_nerfpp_blended.yaml as
+# the files hold them (held equal to the files by tests/test_torch_jpeg.py):
+# NeuS without masks and VolSDF with the NeRF++ background on a BlendedMVS
+# scan, which phase 37 writes as JPEG
+NEUS_NOMASK_BLENDED = {
+    "data": {"N_rays": 512, "batch_size": 1,
+             "data_dir": "./data/BlendedMVS/BlendedMVS/5c0d13b795da9479e12e2ee9",
+             "downscale": 1, "pin_memory": True, "scale_radius": 2.0, "type": "BlendedMVS",
+             "val_downscale": 4, "val_rayschunk": 256},
+    "device_ids": -1, "expname": "neus_nomask_blended_5c0d13",
+    "model": {"N_nograd_samples": 2048, "N_outside": 32, "N_upsample_iters": 4,
+              "framework": "NeuS", "obj_bounding_radius": 1.0,
+              "radiance": {"D": 4, "W": 256, "embed_multires": -1, "embed_multires_view": 4,
+                           "skips": []},
+              "surface": {"D": 8, "W": 256, "embed_multires": 6, "radius_init": 0.5,
+                          "skips": [4]},
+              "upsample_algo": "official_solution", "variance_init": 0.05},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0005, "monitoring": "tensorboard",
+                 "num_iters": 300000, "scheduler": {"type": "warmupcosine", "warmup_steps": 5000},
+                 "speed_factor": 10.0, "w_eikonal": 0.1, "with_mask": False},
+}
+VOLSDF_NERFPP_BLENDED = {
+    "data": {"N_rays": 1024, "batch_size": 1,
+             "data_dir": "./data/BlendedMVS/BlendedMVS/5c0d13b795da9479e12e2ee9",
+             "downscale": 1, "far": 6.0, "near": 0.0, "pin_memory": True, "scale_radius": 3.0,
+             "type": "BlendedMVS", "val_downscale": 4, "val_rayschunk": 256,
+             "volume_size": 5.0},
+    "device_ids": -1, "expname": "volsdf_nerf++_blended_5c0d13",
+    "model": {"W_geometry_feature": 256, "framework": "VolSDF", "max_upsample_iter": 5,
+              "obj_bounding_radius": 3.0, "outside_scene": "nerf++",
+              "radiance": {"D": 4, "embed_multires": -1, "embed_multires_view": -1,
+                           "skips": []},
+              "surface": {"D": 8, "embed_multires": 6, "radius_init": 1.0, "skips": [4]}},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0005, "monitoring": "tensorboard",
+                 "num_iters": 200000, "scheduler": {"type": "warmupcosine", "warmup_steps": 0},
+                 "speed_factor": 10.0, "w_eikonal": 0.1},
+}
+BLENDED_SHAPE = (8, 576, 768)  # views, H, W: BlendedMVS's frame size
+BLENDED_STEPS = 30  # phase 37's cut of each file's 300,000 / 200,000 steps
+JPEG_PSNR_GATE = 40.0  # dB, a decoded q95 4:2:0 frame against the array written
+HEAD_STEPS = 20  # phase 38's steps of the NeRF-like NeuS
+_IMAGE_LIBS = ("imageio", "PIL", "cv2")
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _jpeg_route_line():
+    """The log's "images:" line as the process logs it where imageio is
+    absent, and the image libraries in sys.modules."""
+    from neurecon_tpu_torch.utils import io as io_util
+
+    lines = []
+    io_util._imageio.cache_clear()
+    with mock.patch.object(io_util.log, "info", lines.append):
+        route = io_util._imageio()
+    return route, " ".join(lines), [m for m in _IMAGE_LIBS if m in sys.modules]
+
+
+def _jpeg_scene_check(root_jpg, root_png, layout, scene, cfg_data):
+    """A JPEG scene and its PNG twin through `get_data` as a config reads
+    them: (decoded rgb's PSNR against the arrays written, cameras and masks
+    equal to the PNG scene's, load seconds, the JPEG dataset)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio import get_data
+
+    def load(root):
+        data = dict(cfg_data, type=layout, data_dir=root, downscale=1.0)
+        data.pop("val_downscale", None)
+        return get_data(ConfigDict({"data": data}))
+    t0 = time.perf_counter()
+    dj = load(root_jpg)
+    secs = time.perf_counter() - t0
+    dp = load(root_png)
+    psnr = _psnr(dj.rgb_images * 255.0, scene["encoded"].reshape(len(dj), -1, 3))
+    same = (np.array_equal(dj.c2w_all, dp.c2w_all)
+            and np.array_equal(dj.intrinsics_all, dp.intrinsics_all))
+    for name in ("object_masks", "masks_ignore"):
+        a, b = getattr(dj, name, None), getattr(dp, name, None)
+        same &= (a is None) == (b is None) and (a is None or np.array_equal(a, b))
+    return psnr, same, secs, dj
+
+
+def _blended_train(name, base, root, workdir, seed, tag, zero_counts, read_counts, by_path,
+                   want_fn, extra_cuts=()):
+    """One *_blended config through train.py on the JPEG scene at `root`,
+    with phase 37's cuts (printed); returns (ok, ms a step)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+
+    S = BLENDED_STEPS
+    tdir = os.path.join(workdir, f"{name}_train")
+    cuts = [("data.data_dir", root), ("training.num_iters", S), ("training.i_val", S),
+            ("training.i_val_mesh", S // 2), ("data.mesh_N", 64), ("training.i_log", 10),
+            ("training.i_backup", -1), ("training.monitoring", "none"),
+            ("training.log_root_dir", tdir), ("training.exp_dir", os.path.join(tdir, "run")),
+            ("expname", f"chip_smoke_{name}"), ("seed", seed), *extra_cuts]
+    print(f"phase 37: configs/{name}.yaml with the cuts "
+          + ", ".join(f"{k}={v}" for k, v in cuts))
+    targs = ConfigDict(_with_cuts(base, cuts))
+    out, launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
+    by_path[f"jpeg_{name}_train"] = launches
+    ms = float(np.median(step_ms[5:]))
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    mesh = os.path.join(out["exp_dir"], "meshes", f"{S // 2:08d}.ply")
+    n_faces = len(mesh_util.read_ply(mesh)[1]) if os.path.exists(mesh) else -1
+    want = want_fn(S)
+    rays = base["data"]["N_rays"]
+    print(f"phase 37: train.py {name} {S} steps at {rays} rays from the JPEG scene, {run_s:.1f} s "
+          f"in all: launches {launches} (want {want}; one validation at val_downscale "
+          f"{base['data']['val_downscale']}); loss mean of steps 1-10 {first:.5f}, of the last "
+          f"10 {last:.5f}; 64^3 mesh at step {S // 2}: {n_faces} faces")
+    print(f"phase 37: {name} median {ms:.2f} ms/step over steps 6-{S} ({rays * 1e3 / ms:.0f} "
+          f"rays/s); all steps ms {[round(v, 1) for v in step_ms]} {tag}")
+    ok = (all(launches[k] == v for k, v in want.items()) and launches["sdf_forward"] > 0
+          and len(totals) == S and bool(np.isfinite(totals).all()) and last < first
+          and n_faces >= 0)
+    return ok, ms
+
+
+def _jpeg_head_probe_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 37-39 (see the module docstring). Returns 0 or 1."""
+    from neurecon_tpu_torch import bridge
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.models.base import ScalarField, perturb_parameters
+    from neurecon_tpu_torch.models.frameworks import get_model
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp
+    from neurecon_tpu_torch.tools import (bench_ablate, bench_fused_upsample, bench_gradblock,
+                                          bench_render_cull, bench_roadmap, bench_volsdf_ablate,
+                                          probe_lax_map, render_view)
+    from neurecon_tpu_torch.utils import jpeg
+
+    # ---- phase 37: JPEG scans through the loaders, and the *_blended configs
+    t37 = time.perf_counter()
+    n, H, W = BLENDED_SHAPE
+    roots = {}
+    scenes = {}
+    t0 = time.perf_counter()
+    for layout, shape in (("BlendedMVS", BLENDED_SHAPE), ("custom", SMALL_SHAPE)):
+        for fmt in ("jpg", "png"):
+            roots[layout, fmt] = os.path.join(workdir, f"scene_{layout.lower()}_{fmt}")
+            scenes[layout, fmt] = write_scene(roots[layout, fmt], layout, *shape,
+                                              background="envmap", fmt=fmt)
+    write_s = time.perf_counter() - t0
+    route, line, libs = _jpeg_route_line()
+    frames = sorted(f for f in os.listdir(os.path.join(roots["BlendedMVS", "jpg"],
+                                                       "blended_images")) if "masked" not in f)
+    dec_ms = []
+    for f in frames:
+        t0 = time.perf_counter()
+        jpeg.read_jpeg(os.path.join(roots["BlendedMVS", "jpg"], "blended_images", f))
+        dec_ms.append(1e3 * (time.perf_counter() - t0))
+    ok = route is None and "utils/jpeg.py::read_jpeg" in line and not libs
+    print(f"phase 37: wrote the BlendedMVS-layout envmap scene ({n} views at {H}x{W}) and a "
+          f"custom-layout one ({SMALL_SHAPE[0]} x {SMALL_SHAPE[1]}x{SMALL_SHAPE[2]}), each as "
+          f"JPEG (q95, 4:2:0) and as PNG, in {write_s:.1f} s; images route: {line!r}; image "
+          f"libraries loaded: {libs or 'none'}")
+    print(f"phase 37: utils/jpeg.py decodes a {H}x{W} frame in {float(np.median(dec_ms)):.1f} ms "
+          f"(median of {len(dec_ms)}, host; all {[round(v, 1) for v in dec_ms]}) {tag}")
+    for layout, cfg_data in (("BlendedMVS", NEUS_NOMASK_BLENDED["data"]),
+                             ("custom", {"scale_radius": 3.0})):
+        psnr, same, secs, ds = _jpeg_scene_check(roots[layout, "jpg"], roots[layout, "png"],
+                                                 layout, scenes[layout, "jpg"], cfg_data)
+        good = psnr >= JPEG_PSNR_GATE and same and np.isfinite(ds.rgb_images).all()
+        print(f"phase 37: {layout} JPEG scene through get_data in {secs:.2f} s: {len(ds)} views "
+              f"of {ds.H}x{ds.W}; decoded rgb PSNR {psnr:.2f} dB against the arrays written "
+              f"(gate {JPEG_PSNR_GATE:g}); cameras and masks equal to the PNG scene's {same}")
+        ok &= good
+    libs = [m for m in _IMAGE_LIBS if m in sys.modules]
+    if not ok or libs:
+        print(f"FAIL phase 37: a JPEG scene did not load through the port's reader as written "
+              f"(image libraries loaded: {libs})", file=sys.stderr)
+        return 1
+    val_chunks = math.ceil((H // 4) * (W // 4) / 256)  # one validation, val_downscale 4
+    ok_n, ms_n = _blended_train(
+        "neus_nomask_blended", NEUS_NOMASK_BLENDED, roots["BlendedMVS", "jpg"], workdir, seed,
+        tag, zero_counts, read_counts, by_path,
+        lambda S: {"nablas_forward": S + val_chunks, "neus_upsample": S + val_chunks,
+                   "nablas_backward": S},
+        extra_cuts=[("training.scheduler.warmup_steps", 10)])
+    max_iter = VOLSDF_NERFPP_BLENDED["model"]["max_upsample_iter"]
+
+    def want_volsdf(S):
+        calls = S + val_chunks
+        return {"volsdf_init": calls, "volsdf_draw": calls,
+                "volsdf_checkpoint": max_iter * calls, "nablas_forward": calls,
+                "nablas_backward": S, "neus_upsample": 0}
+    ok_v, ms_v = _blended_train(
+        "volsdf_nerfpp_blended", VOLSDF_NERFPP_BLENDED, roots["BlendedMVS", "jpg"], workdir,
+        seed, tag, zero_counts, read_counts, by_path, want_volsdf)
+    print(f"phase 37: {time.perf_counter() - t37:.1f} s")
+    if not (ok_n and ok_v):
+        print("FAIL phase 37: a *_blended run from the JPEG scene missed a kernel, diverged or "
+              "did not lower the loss", file=sys.stderr)
+        return 1
+
+    # ---- phase 38: the NeRF-like head (W_geometry_feature -1) and ScalarField
+    t38 = time.perf_counter()
+    c = render_chunk_inputs(seed, dev)
+    hcfg = _with_cuts(FLAGSHIP, [("model.W_geometry_feature", -1)])
+    head, _, _, _ = get_model(ConfigDict(copy.deepcopy(hcfg)), dev, seed=seed)
+    checked = copy.deepcopy(head)
+    perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
+    surf = checked.implicit_surface
+    ok, k2_err = upsample_checks(surf, c, "phase 38 (NeRF-like head)")
+    g = torch.Generator(dev).manual_seed(seed)
+    x4 = torch.rand(2 ** 18 + 4099, 3, device=dev, generator=g) * 2 - 1
+    got = fused_mlp.fused_sdf_forward(surf, x4)
+    ref = fused_mlp.sdf_forward_plain(surf, x4)
+    torch.cuda.synchronize()
+    e4 = float((got - ref).abs().max() / ref.abs().max())
+    refused = []
+    for fn, args in ((fused_nablas.fused_forward_with_nablas, (surf, x4[:128])),
+                     (fused_nablas_vjp.fused_nablas_vjp, (surf, x4[:128], [], [], x4[:128, 0],
+                                                          x4[:128], x4[:128]))):
+        try:
+            fn(*args)
+            refused.append(False)
+        except NotImplementedError:
+            refused.append(True)
+    print(f"phase 38: NeRF-like head (final layer {surf.dims[-1]}, geometry features = the last "
+          f"hidden activation): kernel 2 vs plain max|d_all diff| det {k2_err['det']:.3e}, "
+          f"perturb {k2_err['perturb']:.3e}; kernel 4 vs plain on {x4.shape[0]} points max|diff| "
+          f"{e4:.2e} of max|sdf| (gate 1e-5); kernels 1 and 3 refuse the head on the card "
+          f"{refused}")
+    if not ok or e4 > 1e-5 or not all(refused):
+        print("FAIL phase 38: the head's kernels 2 and 4 disagree with their plain versions, or "
+              "kernel 1 or 3 took the head", file=sys.stderr)
+        return 1
+    tdir = os.path.join(workdir, "head_train")
+    S = HEAD_STEPS
+    hargs = _train_config(tdir, seed)
+    hargs["model"]["W_geometry_feature"] = -1
+    hargs["expname"] = "chip_smoke_nerf_head"
+    hargs["data"]["mesh_N"] = 64
+    hargs["training"].update({"num_iters": S, "i_val": S, "i_val_mesh": S // 2,
+                              "i_backup": -1, "exp_dir": os.path.join(tdir, "run")})
+    out, launches, step_ms, run_s = _train_timed(ConfigDict(hargs), zero_counts, read_counts)
+    by_path["nerf_head_train"] = launches
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    ms_h = float(np.median(step_ms[5:]))
+    want = {"neus_upsample": S + 1, "nablas_forward": 0, "nablas_backward": 0}
+    print(f"phase 38: train.py {S} flagship NeuS steps with the NeRF-like head, {run_s:.1f} s: "
+          f"launches {launches} (want {want}: kernel 2 once a step and for the step-0 "
+          f"validation's chunk, the nablas and eikonal on autograd; kernel 4 for the step-{S // 2}"
+          f" 64^3 mesh); loss mean of steps 1-10 {first:.5f}, of the last 10 {last:.5f}; median "
+          f"{ms_h:.2f} ms/step ({512e3 / ms_h:.0f} rays/s) {tag}")
+    vargs = ConfigDict(copy.deepcopy(hcfg))
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 1, "camera_path": "interpolation",
+                  "rayschunk": 4096})
+    zero_counts()
+    fr = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    f_launches = by_path["nerf_head_render_view"] = read_counts()
+    print(f"phase 38: render_view NeRF-like head 1 x 120x160: launches {f_launches} (kernel 2 "
+          f"want 5), s/frame {[round(v, 4) for v in fr['seconds']]} {tag}")
+    field = ScalarField(input_ch=3, W=128, D=4, skips=(2,), init_val=-2.0)
+    field.reset_parameters(torch.Generator().manual_seed(seed))
+    perturb_parameters(field.pts_linears, torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        field.output_linear.w.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(seed))
+        xf = torch.rand(4096, 3, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+        f_cpu = field(xf)
+        f_dev = field.to(dev)(xf.to(dev)).cpu()
+    e_f = float((f_cpu - f_dev).abs().max())
+    tree_ok = {k for k in bridge.net_to_tree(field)} == {"pts_linears", "output_linear"}
+    print(f"phase 38: ScalarField (W 128, D 4, skip after layer 2) on the card against the CPU: "
+          f"max|diff| {e_f:.2e} of max {float(f_cpu.abs().max()):.3f} (gate 1e-5); bridge tree "
+          f"{tree_ok}; {time.perf_counter() - t38:.1f} s")
+    if (any(launches[k] != v for k, v in want.items()) or launches["sdf_forward"] == 0
+            or len(totals) != S or not np.isfinite(totals).all() or not last < first
+            or f_launches["neus_upsample"] != 5 or f_launches["nablas_forward"] != 0
+            or not np.isfinite(fr["rgb"]).all() or e_f > 1e-5 or not tree_ok):
+        print("FAIL phase 38: the NeRF-like head's run, its frame or ScalarField is off",
+              file=sys.stderr)
+        return 1
+
+    # ---- phase 39: the probes, at cut K
+    t39 = time.perf_counter()
+    zero_counts()
+    probes = {}
+    for mod, argv in ((bench_ablate, ["--K", "3"]), (bench_volsdf_ablate, ["--K", "3"]),
+                      (bench_render_cull, ["--K", "1"]), (bench_fused_upsample, ["--K", "5"]),
+                      (bench_gradblock, ["--K", "5"]), (bench_roadmap, ["--K", "10"]),
+                      (probe_lax_map, [])):
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        probes[name] = (mod.main(["--seed", str(seed)] + argv), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    by_path["probes"] = read_counts()
+    gates = {name: (bool(probes[name][0]) and (not hasattr(mod, "passed")
+                                               or mod.passed(probes[name][0])))
+             for name, mod in (("bench_fused_upsample", bench_fused_upsample),
+                               ("bench_render_cull", bench_render_cull),
+                               ("probe_lax_map", probe_lax_map), ("bench_ablate", bench_ablate),
+                               ("bench_volsdf_ablate", bench_volsdf_ablate),
+                               ("bench_gradblock", bench_gradblock),
+                               ("bench_roadmap", bench_roadmap))}
+    print(f"phase 39: the seven probes in {time.perf_counter() - t39:.1f} s ("
+          + ", ".join(f"{k} {v[1]:.1f} s" for k, v in probes.items())
+          + f"); launches {by_path['probes']}; gates {gates} {tag}")
+    if not all(gates.values()) or any(v == 0 for v in by_path["probes"].values()):
+        print("FAIL phase 39: a probe's correctness rows failed or a kernel went unlaunched",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4197,6 +4758,9 @@ def main(argv=None):
     rc = _pipeline_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name, record)
     if rc:
         return rc
+    rc = _jpeg_head_probe_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -4232,7 +4796,7 @@ def main(argv=None):
                                  if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
         r.update(unisurf_fields.get(r["name"], {}))
     results += siren_rows
-    print(f"chip_smoke: phases 1-36 in {time.perf_counter() - t_start:.1f} s wall {tag}")
+    print(f"chip_smoke: phases 1-39 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

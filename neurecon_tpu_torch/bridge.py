@@ -10,7 +10,10 @@ The pytree, as numpy (a checkpoint's "model" entry, or
                       "feature_linear", "alpha_linear", "rgb_linear"}}
 
 `nerf_outside` (the NeRF++ background) is there only for NeuS without a
-mask and VolSDF with `outside_scene: nerf++`.
+mask and VolSDF with `outside_scene: nerf++`. The NeRF-like surface head
+(W_geo_feat <= 0) has a final layer of one row, with or without weight norm.
+A `ScalarField` on its own is {"pts_linears": [{"w", "b"}, ...],
+"output_linear": {"w", "b"}} (`net_to_tree`, `load_net_tree`).
 
 Both sides store linear weights as [out, in], so values copy one to one.
 A model wrapped for data parallelism (`DistributedDataParallel`, whose
@@ -154,3 +157,16 @@ def grads_to_tree(model) -> dict:
 def load_surface_tree(surface, tree: dict) -> None:
     """Copy an `implicit_surface` subtree (numpy) into an ImplicitSurface."""
     _load_net(surface, tree, "implicit_surface")
+
+
+def net_to_tree(net) -> dict:
+    """One network's parameters (a surface, a radiance net, a NeRF or a
+    ScalarField) as its JAX subtree of numpy arrays."""
+    return _net_to_tree(net, _value)
+
+
+@torch.no_grad()
+def load_net_tree(net, tree: dict, what: str = "net") -> None:
+    """Copy one network's JAX subtree (numpy) into the port's network, in
+    place; `what` names it in errors."""
+    _load_net(net, tree, what)

@@ -7,20 +7,21 @@
     (`w`, `b`)
   * ImplicitSurface: D+1 layers, skip concat [h, emb]/sqrt(2), IDR geometric
     sphere init, Softplus(beta=100) or (SIREN, no skips) sin(30 a) with the
-    SIREN init, final layer = sdf row + geometry rows, optional
-    sphere_residual prior sdf = (|x| - r) + f(x)
+    SIREN init, final layer = sdf row + geometry rows, or (the NeRF-like
+    head, W_geo_feat <= 0) the sdf row alone with the last hidden activation
+    as the geometry features; optional sphere_residual prior
+    sdf = (|x| - r) + f(x)
   * RadianceNet: [x_emb, view_emb, normals, geo] -> ReLU (or SIREN sine) MLP
     -> sigmoid rgb
   * NeRF: the NeRF++ background MLP (plain ReLU layers, a skip that
     concatenates [input, h] after its layer, raw sigma and sigmoid rgb), fed
     the inverted-sphere coordinates (x / r, 1 / r)
+  * ScalarField: a small ReLU MLP -> scalar whose zero output layer starts
+    the field at a constant
   * pretrain_siren_sdf: a SIREN surface fitted to a sphere's sdf before
     training (plain PyTorch, Adam on an L1 loss)
   * make_schedule / make_optimizer: the per-iteration lr factor and Adam with
     per-module learning rates
-
-The NeRF-like (W_geo_feat < 0) surface head is not in the port yet (ROADMAP
-Queue A, [A3]).
 """
 from __future__ import annotations
 
@@ -157,7 +158,18 @@ class ImplicitSurface(nn.Module):
     """SDF MLP. forward -> sdf (and geometry features); forward_with_nablas
     -> (sdf, d sdf / dx, geometry features), through the forward+nablas
     kernel on a card and its plain version on the CPU; forward_query -> sdf
-    alone, gradient-free, through the sdf-only kernel."""
+    alone, gradient-free, through the sdf-only kernel.
+
+    W_geo_feat <= 0 makes the NeRF-like head: a final layer of one row (the
+    sdf), and the last hidden activation [.., W] as the geometry features.
+    Its sdf-only queries (forward_query, the NeuS upsampler, the VolSDF
+    sampler) run on the kernels as the flagship's do, which read the final
+    layer's row 0 alone. Its forward_with_nablas runs on PyTorch autograd
+    (double backward for the eikonal term), as the JAX package runs this
+    head on `jax.grad` and never on its forward+nablas or eikonal-backward
+    kernels: the route is chosen by the head's shape at construction
+    (`nablas_by_autograd`), and the wrappers of those two kernels raise if
+    handed this head on a card."""
 
     def __init__(self,
                  W: int = 256,
@@ -175,10 +187,6 @@ class ImplicitSurface(nn.Module):
         super().__init__()
         if use_siren and len(skips):
             raise ValueError("a SIREN surface takes no skips")
-        if W_geo_feat <= 0:
-            raise NotImplementedError(
-                "the NeRF-like surface head (W_geo_feat < 0) is not ported "
-                "yet (ROADMAP Queue A, [A3])")
         self.W, self.D = W, D
         self.skips = tuple(skips)
         self.W_geo_feat = W_geo_feat
@@ -189,12 +197,13 @@ class ImplicitSurface(nn.Module):
         self.weight_norm = weight_norm
         self.use_siren = use_siren
         self.sphere_residual = sphere_residual
+        self.nablas_by_autograd = W_geo_feat <= 0  # the NeRF-like head
         self.embed_fn, self.input_ch = get_embedder(embed_multires, input_ch)
 
         self.dims = []
         for l in range(D + 1):
             if l == D:
-                out_dim = 1 + W_geo_feat
+                out_dim = 1 + W_geo_feat if W_geo_feat > 0 else 1
             elif (l + 1) in self.skips:
                 out_dim = W - self.input_ch  # reduce before skip concat
             else:
@@ -245,9 +254,10 @@ class ImplicitSurface(nn.Module):
         return softplus100(a), s, 100.0 * s * (1.0 - s)
 
     def mlp(self, x: torch.Tensor, weights=None):
-        """The MLP alone on flat points: x [M, 3] -> (sdf [M], h [M, W_geo]);
-        `weights` (lists of effective [out, in] weights and of biases)
-        replaces the layers' own."""
+        """The MLP alone on flat points: x [M, 3] -> (sdf [M], h [M, W_geo]),
+        h the last hidden activation [M, W] for the NeRF-like head; `weights`
+        (lists of effective [out, in] weights and of biases) replaces the
+        layers' own."""
         ws, bs = weights if weights is not None else fused_nablas.surface_weights(self)
         emb = self.embed_fn(x)
         h = emb
@@ -256,7 +266,7 @@ class ImplicitSurface(nn.Module):
                 h = torch.cat([h, emb], dim=-1) / np.sqrt(2)
             h = self.activation(F.linear(h, ws[i], bs[i]))
         out = F.linear(h, ws[self.D], bs[self.D])
-        return out[:, 0], out[:, 1:]
+        return out[:, 0], (h if self.nablas_by_autograd else out[:, 1:])
 
     def forward(self, x: torch.Tensor, return_h: bool = False):
         prefix = x.shape[:-1]
@@ -271,11 +281,21 @@ class ImplicitSurface(nn.Module):
         """(sdf, nablas, h) at points x [..., 3]. With grad on and trainable
         parameters (or x), through the differentiable op (forward kernel 1,
         backward kernel 3); otherwise kernel 1 alone, building no graph (the
-        render)."""
+        render). The NeRF-like head: PyTorch autograd on either device (see
+        the class note), with a graph for double backward where grad is on."""
         prefix = x.shape[:-1]
         x_flat = x.reshape(-1, 3)
-        if torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+        train = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if self.nablas_by_autograd:
+            with torch.enable_grad():
+                xg = x_flat if x_flat.requires_grad and train else (
+                    x_flat.detach().requires_grad_(True))
+                sdf, h = self.mlp(xg)
+                (nablas,) = torch.autograd.grad(sdf.sum(), xg, create_graph=train)
+            if not train:
+                sdf, h = sdf.detach(), h.detach()
+        elif train:
             sdf, nablas, h = fused_nablas_vjp.forward_with_nablas_vjp(self, x_flat)
         else:
             sdf, nablas, h = fused_nablas.fused_forward_with_nablas(self, x_flat)
@@ -423,6 +443,44 @@ class NeRF(nn.Module):
         h = torch.cat([self.feature_linear(h), self.embed_fn_view(input_views)], dim=-1)
         rgb = self.rgb_linear(torch.relu(self.views_linear(h)))
         return sigma[..., 0], torch.sigmoid(rgb)
+
+
+class ScalarField(nn.Module):
+    """A ReLU MLP -> scalar: D layers of width W on the raw input, each layer
+    in `skips` followed by the concat [x, h], and a zero-weight output layer
+    whose bias is `init_val`, so that the field starts at `init_val`
+    everywhere. Plain layers; the hidden weights kaiming-uniform for ReLU
+    (U(+-sqrt(6 / fan_in)), zero biases). Returns [...] for x [..., input_ch]."""
+
+    HEADS = ("output_linear",)
+
+    def __init__(self, input_ch: int = 3, W: int = 128, D: int = 4,
+                 skips: Sequence[int] = (), init_val: float = -2.0):
+        super().__init__()
+        self.input_ch, self.W, self.D = input_ch, W, D
+        self.skips = tuple(skips)
+        self.init_val = init_val
+        dims = [(input_ch, W)] + [(W + input_ch if i in self.skips else W, W)
+                                  for i in range(D - 1)]
+        self.pts_linears = nn.ModuleList(DenseLayer(i, o, False) for i, o in dims)
+        self.output_linear = DenseLayer(W, 1, False)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator):
+        for layer in self.pts_linears:
+            bound = math.sqrt(6.0 / layer.in_dim)
+            w = (torch.rand(layer.out_dim, layer.in_dim, generator=gen) * 2 - 1) * bound
+            layer.set_weight(w, torch.zeros(layer.out_dim))
+        self.output_linear.set_weight(torch.zeros(1, self.W),
+                                      torch.full((1,), float(self.init_val)))
+
+    def forward(self, x):
+        h = x
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(layer(h))
+            if i in self.skips:
+                h = torch.cat([x, h], dim=-1)
+        return self.output_linear(h)[..., 0]
 
 
 def outside_nerf() -> NeRF:

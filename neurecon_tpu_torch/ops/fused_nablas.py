@@ -72,6 +72,17 @@ def forward_with_nablas_plain(surface, x: torch.Tensor, weights=None):
     return sdf.detach(), nablas.detach(), h.detach()
 
 
+def refuse_nerf_head(surface, kernel: str):
+    """Raise for the NeRF-like head (W_geo_feat <= 0) on a card: the surface
+    computes its nablas by autograd (`ImplicitSurface.forward_with_nablas`),
+    as the JAX package does; this kernel and the eikonal backward take the
+    sdf and geometry-feature rows of a final layer of 1 + W_geo_feat rows."""
+    if surface.W_geo_feat <= 0:
+        raise NotImplementedError(
+            f"{kernel}: the NeRF-like surface head (W_geo_feat {surface.W_geo_feat}) runs its "
+            "nablas on autograd (ImplicitSurface.forward_with_nablas), never on this kernel")
+
+
 def _check(surface, x):
     if x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"x must be [M, 3], got {tuple(x.shape)}")
@@ -120,6 +131,7 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=Non
         return forward_with_nablas_plain(surface, x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_nerf_head(surface, "nablas_forward")
     M, geo, dev = x.shape[0], surface.W_geo_feat, x.device
     sdf = torch.empty(M, device=dev)
     nablas = torch.empty(M, 3, device=dev)

@@ -200,6 +200,8 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     kernel for a CUDA tensor (reading `packed`, a `surface_pack.Pack` of ws /
     bs, or a pack made here), the plain version for a CPU tensor."""
     fused_nablas._check(surface, x)
+    if x.device.type == "cuda":
+        fused_nablas.refuse_nerf_head(surface, "nablas_backward")
     M = x.shape[0]
     cots = [c.float().contiguous() for c in (cot_sdf, cot_nablas, cot_h)]
     for c, shape in zip(cots, ((M,), (M, 3), (M, surface.W_geo_feat))):

@@ -2,11 +2,12 @@
 
 Images load as float32 in [0, 1], HWC. Two decoders read the same bytes:
 `imageio` where it can be imported (as the JAX package reads them), else the
-port's own PNG reader (`read_png`, zlib + struct + numpy), so that a machine
-without imageio still reads PNG scenes; a JPEG there raises. The reader gives
-the array imageio gives for the same file, so both routes load the same
-scene. Downscaling is always `area_resize`, a numpy implementation of
-OpenCV's `INTER_AREA`, so no route needs cv2.
+port's own readers, so that a machine without imageio still reads a scene:
+PNG through `read_png` (zlib + struct + numpy) and baseline JPEG through
+`utils/jpeg.py::read_jpeg` (numpy). Each reader gives the array imageio
+gives for the same file, so both routes load the same scene. Downscaling is
+always `area_resize`, a numpy implementation of OpenCV's `INTER_AREA`, so no
+route needs cv2.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import List
 import numpy as np
 
 from neurecon_tpu_torch.utils.console import log
+from neurecon_tpu_torch.utils.jpeg import read_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
@@ -151,7 +153,8 @@ def _imageio():
         import imageio.v2 as imageio
     except ImportError:
         log.info("images: imageio is not installed; PNG files are read by the port's "
-                 "PNG reader (utils/io.py::read_png)")
+                 "PNG reader (utils/io.py::read_png), JPEG files by the port's JPEG reader "
+                 "(utils/jpeg.py::read_jpeg)")
         return None
     log.info("images: read through imageio")
     return imageio
@@ -179,10 +182,13 @@ def _decode(path: str) -> np.ndarray:
     imageio = _imageio()
     if imageio is not None:
         return np.asarray(imageio.imread(path))
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise ImportError(f"{path}: imageio is needed to read JPEG and other non-PNG "
-                          "images; without it only PNG is read")
-    return read_png(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        return read_png(path)
+    if ext in (".jpg", ".jpeg"):
+        return read_jpeg(path)
+    raise ImportError(f"{path}: imageio is needed to read {ext or 'extension-less'} images; "
+                      "without it only PNG and JPEG are read")
 
 
 def imread(path: str) -> np.ndarray:
@@ -302,6 +308,21 @@ def backup(backup_dir: str, source_root: str = None):
                 cond_mkdir(dst_dir)
                 shutil.copyfile(os.path.join(dirpath, fname),
                                 os.path.join(dst_dir, fname))
+
+
+def gallery(array: np.ndarray, ncols: int = 3) -> np.ndarray:
+    """[B, H, W, C] -> the images tiled row by row, `ncols` a row (fewer if
+    B is smaller), the last row padded with zeros: [rows * H, ncols * W, C]."""
+    nindex, height, width, intensity = array.shape
+    ncols = max(1, min(ncols, nindex))
+    nrows = int(np.ceil(nindex / ncols))
+    pad = nrows * ncols - nindex
+    if pad:
+        array = np.concatenate(
+            [array, np.zeros((pad, height, width, intensity), array.dtype)], 0)
+    return (array.reshape(nrows, ncols, height, width, intensity)
+            .swapaxes(1, 2)
+            .reshape(height * nrows, width * ncols, intensity))
 
 
 def save_video(imgs: np.ndarray, fname: str, fps: int = 24, quality: int = 8):

@@ -935,3 +935,48 @@ def test_linspace01_does_not_synchronize(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(t[-1]) == 1.0 and t.shape == (513,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SMALL, FLAGSHIP])
+def test_nerf_head_on_kernels_2_and_4(cuda, cfg):
+    """The NeRF-like head (W_geo_feat -1: a final layer of one row, read at
+    row 0): kernel 4 within 1e-5 max|sdf| of its plain version on 4,099
+    points, kernel 2's d_all beyond 1e-3 of the span on at most 0.1% of the
+    entries (perturb uniforms, test_upsample_kernel_matches_plain's bound);
+    forward_with_nablas runs on autograd (no launch of kernel 1 or 3, the
+    nablas equal to the plain version's), and the wrappers of kernels 1
+    and 3 raise when handed the head."""
+    surf = _model(cfg, -1, cuda).implicit_surface
+    assert surf.dims[-1][1] == 1 and surf.nablas_by_autograd
+    x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (4099, 3)).astype(np.float32),
+                     device=cuda)
+    got = fused_mlp.fused_sdf_forward(surf, x)
+    ref = fused_mlp.sdf_forward_plain(surf, x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    N = 203
+    rays_o, rays_d = _rays(N, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    u = _uniforms(N, 4, 16, True, torch.Generator(cuda).manual_seed(3), cuda)
+    d_k = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    d_p = fused_upsample.neus_upsample_plain(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    off = (d_k - d_p).abs() > 1e-3 * float((far - near).max())
+    assert float(off.float().mean()) <= 1e-3
+    before = (fused_nablas.fused_forward_with_nablas.launches,
+              fused_nablas_vjp.fused_nablas_vjp.launches)
+    xs = x[:300].clone().requires_grad_(True)
+    sdf, nablas, h = surf.forward_with_nablas(xs)
+    (nablas.square().sum() + sdf.sum() + h.sum()).backward()
+    assert (fused_nablas.fused_forward_with_nablas.launches,
+            fused_nablas_vjp.fused_nablas_vjp.launches) == before
+    assert h.shape == (300, cfg["W"]) and bool(torch.isfinite(xs.grad).all())
+    _, n_ref, _ = fused_nablas.forward_with_nablas_plain(surf, x[:300])
+    assert float((nablas.detach() - n_ref).abs().max()) <= 1e-5
+    with pytest.raises(NotImplementedError, match="NeRF-like"):
+        fused_nablas.fused_forward_with_nablas(surf, x[:128])
+    with pytest.raises(NotImplementedError, match="NeRF-like"):
+        fused_nablas_vjp.fused_nablas_vjp(surf, x[:128], [], [], x[:128, 0], x[:128], x[:128])

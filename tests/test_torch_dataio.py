@@ -182,8 +182,9 @@ def test_area_resize_matches_cv2(factor):
 
 def test_loading_without_imageio(tmp_path, monkeypatch):
     """Where imageio cannot be imported, load_rgb and load_mask read PNGs
-    through the port's reader to the same arrays; a JPEG raises ImportError
-    and an interlaced PNG a ValueError naming the file."""
+    and JPEGs through the port's readers to the same arrays; another format
+    (BMP) raises ImportError and an interlaced PNG a ValueError naming the
+    file."""
     rng = np.random.RandomState(4)
     rgb = rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)
     mask = (rng.rand(24, 32) > 0.5).astype(np.uint8) * 255
@@ -191,7 +192,10 @@ def test_loading_without_imageio(tmp_path, monkeypatch):
     chip_smoke.write_png(p_rgb, rgb)
     chip_smoke.write_png(p_mask, mask)
     imageio.imwrite(p_jpg, rgb)
+    p_bmp = str(tmp_path / "a.bmp")
+    imageio.imwrite(p_bmp, rgb)
     want = [(io_util.load_rgb(p_rgb, ds), io_util.load_mask(p_mask, ds)) for ds in (1, 1.5)]
+    want_jpg = io_util.load_rgb(p_jpg, 1.5)
     io_util._imageio.cache_clear()
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
@@ -200,8 +204,9 @@ def test_loading_without_imageio(tmp_path, monkeypatch):
         for ds, (w_rgb, w_mask) in zip((1, 1.5), want):
             np.testing.assert_array_equal(io_util.load_rgb(p_rgb, ds), w_rgb)
             np.testing.assert_array_equal(io_util.load_mask(p_mask, ds), w_mask)
-        with pytest.raises(ImportError, match="imageio is needed to read JPEG"):
-            io_util.load_rgb(p_jpg)
+        np.testing.assert_array_equal(io_util.load_rgb(p_jpg, 1.5), want_jpg)
+        with pytest.raises(ImportError, match="a.bmp: imageio is needed to read .bmp"):
+            io_util.load_rgb(p_bmp)
         with open(p_rgb, "rb") as f:
             data = bytearray(f.read())
         ihdr = bytes(data[12:29])[:-1] + b"\x01"  # the IHDR type and data, interlaced
