@@ -317,8 +317,32 @@ Phases, in order; any failure exits non-zero:
    at a cut --K: their JSON rows, and their correctness rows as gates
    (kernel 2's agreement at phase 3's bound, the culled frame's PSNR, the
    microchunk walk bit-equal).
+40. Surfaces wider than 256 (the kernels' wide tile, csrc/surface_mma.cuh):
+   kernels 1, 2, 3 and 4 on the flagship NeuS at IDR's widths (`IDR_CHIP`:
+   surface and radiance W = 512) with seeded noise on every weight, against
+   their plain versions at the gates of phases 2 (on the chunk's first
+   `WIDE_K1_RAYS` rays' points: the plain version's autograd at 1,044,480
+   points would hold ~80 GB), 3, 6 and 10 (also at W = 300 and 384,
+   `WIDTHS_K4`, whose column groups are partly or wholly empty); the whole
+   step's gradient at phase 7's gates; the VolSDF sampler on
+   configs/volsdf.yaml with surface W 512 (1,024 rays): at beta_net 0.1
+   phase 14's gates, at 0.01 and 0.001 each kernel in lockstep at phase
+   14's gates and the end to end against the plain sampler with a float64
+   sdf query (`_sampler_witness`: at this width two fp32 routes part by
+   more than phase 14's end-to-end gates at a sharp beta, so the kernels may
+   be farther from the float64 witness than the plain fp32 sampler is by
+   at most those gates); a W = 520 surface refused by all four kernels with no
+   launch counted; each kernel's time beside its plain version's and its
+   bounds at the shapes of PERF.md's table.
+41. configs/neus_w512.yaml (`NEUS_W512`, held equal to the file by
+   tests/test_torch_wide.py) through train.py on the synthetic scene, cuts
+   printed (`WIDE_STEPS` steps, validation at step 0, a 128^3 mesh at step
+   20, warm-up 10 steps): launches, finite losses that fall, ms per step and
+   rays/s, one step split by CUDA events around kernels 1-3 and the
+   radiance net and the device's busy share; one 120x160 frame of the final checkpoint through render_view and
+   a 256^3 `extract_surface`, closed, with s per frame and s per mesh.
 
-Phases 1-29 and 32-39 run in this process on one card (no launcher: a
+Phases 1-29 and 32-41 run in this process on one card (no launcher: a
 world of one); phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but
 for (4).
 
@@ -334,7 +358,9 @@ before it and read just after. Prints one JSON line of per-kernel results
 `direct_<use|more>_train`, `direct_<use|more>_render`,
 `vis_surface_and_cam` and `test_volsdf_algo`, and phases 37-39's
 `jpeg_<config>_train`, `nerf_head_train`, `nerf_head_render_view` and
-`probes`; the surface-MLP rows held to their 3xTF32
+`probes`, and phase 41's `wide_train`, `wide_render_view` and
+`wide_extract_surface`, which only the wide rows `<kernel>[wide]` count
+(their `launches` from phase 41's training run); the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
 then the run's wall seconds, then, as the last line, {"ok": true, "device":
@@ -545,10 +571,11 @@ def _upsample_check(surface, rays_o, rays_d, near, far, d_coarse, uniforms, labe
     return ok, errs
 
 
-def render_chunk_inputs(seed, dev):
-    """Phases 2-7's inputs: the flagship NeuS from the port's geometric init
-    (`seed`), its copy with seeded noise on every weight (`checked`, seed +
-    1: the geometric init zeroes the octave columns), and one render chunk
+def render_chunk_inputs(seed, dev, cfg=FLAGSHIP):
+    """Phases 2-7's inputs: the flagship NeuS (or the NeuS of `cfg`) from the
+    port's geometric init (`seed`), its copy with seeded noise on every
+    weight (`checked`, seed + 1: the geometric init zeroes the octave
+    columns), and one render chunk
     of the synthetic scene: 4,096 rays spread over a 120x160 frame (every
     ~4.7th pixel), their 64 coarse depths and the det and perturb uniforms
     of 4 rounds of 16."""
@@ -559,7 +586,7 @@ def render_chunk_inputs(seed, dev):
     from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays, _uniforms
     from neurecon_tpu_torch.ops import get_rays
 
-    model, _, kw_test, _ = get_model(ConfigDict(FLAGSHIP), dev, seed=seed)
+    model, _, kw_test, _ = get_model(ConfigDict(cfg), dev, seed=seed)
     checked = copy.deepcopy(model)
     perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
     scene = make_synthetic_scene(n_images=1, H=120, W=160)
@@ -1200,10 +1227,11 @@ SINE_POINTS = 2 ** 20  # phase 18's kernel-4 points
 SINE_RAYS = 4096  # phase 18's kernel-2 rays (a render chunk)
 
 
-def volsdf_check_inputs(seed, dev):
-    """Phase 14's inputs: the VOLSDF model from the seed, a copy with seeded
-    noise on every weight (seed + 1), the synthetic scene, its first view's
-    rays, and 1,024 of them spread over the view with their far bounds.
+def volsdf_check_inputs(seed, dev, cfg=VOLSDF):
+    """Phase 14's inputs: the VOLSDF model (or that of `cfg`) from the seed,
+    a copy with seeded noise on every weight (seed + 1), the synthetic
+    scene, its first view's rays, and 1,024 of them spread over the view
+    with their far bounds.
     Returns (args, model, checked copy, (kw_train, kw_test), dataset,
     (o_all, d_all), (rays_o, rays_d, far))."""
     from neurecon_tpu_torch.config import ConfigDict
@@ -1212,7 +1240,7 @@ def volsdf_check_inputs(seed, dev):
     from neurecon_tpu_torch.models.frameworks import get_model, volsdf
     from neurecon_tpu_torch.ops import get_rays
 
-    args = ConfigDict(copy.deepcopy(VOLSDF))
+    args = ConfigDict(copy.deepcopy(cfg))
     model, kw_train, kw_test, _ = get_model(args, dev, seed=seed)
     checked = copy.deepcopy(model)
     perturb_parameters(checked, torch.Generator().manual_seed(seed + 1))
@@ -1636,16 +1664,88 @@ def _sampler_check(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed
             for name, e in lock.items():
                 k_err[name] = max(k_err.get(name, 0.0), e.get("fine", 0.0), e.get("depths", 0.0),
                                   e.get("next_depths", 0.0))
-            shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
             finite = all(bool(torch.isfinite(t_).all()) for t_ in (gd, gb))
             if (any(b["fine_share"] > 0.02 or b["beta_off_share"] > 0.01
                     or b["iter_usage_equal"] < 0.9 for b in per_band.values())
-                    or not finite or not merged_equal or max(shares) > 0.01
-                    or max(e.get("sdf", 0.0) for e in lock.values()) > 1e-5
-                    or max(e.get("unsorted_rays", 0.0) for e in lock.values()) > 0):
+                    or not finite or not _lockstep_ok(lock, merged_equal)):
                 ok = False
             last = (ab, u)
     return ok, k_err, last
+
+
+def _lockstep_ok(lock, merged_equal):
+    """Phase 14's gates on `_lockstep`'s readings: every share within 0.01,
+    sdf within 1e-5, no unsorted ray, the merged depths equal."""
+    shares = [v for e in lock.values() for k, v in e.items() if k.endswith("share")]
+    return (merged_equal and max(shares) <= 0.01
+            and max(e.get("sdf", 0.0) for e in lock.values()) <= 1e-5
+            and max(e.get("unsorted_rays", 0.0) for e in lock.values()) == 0)
+
+
+def _end_shares(got, ref, far):
+    """Phase 14's end-to-end readings of sampler outputs `got` against `ref`
+    (fine depths, beta map, iter_usage): the share of fine depths beyond
+    1e-4 of the ray's far, of rays whose beta map is off (rtol 1e-3, atol
+    1e-5), of rays with equal iter_usage."""
+    return {"fine_share": float((~((got[0] - ref[0]).abs() <= 1e-4 * far)).float().mean()),
+            "beta_off_share": float(
+                (~((got[1] - ref[1]).abs() <= 1e-5 + 1e-3 * ref[1].abs())).float().mean()),
+            "iter_usage_equal": float((got[2] == ref[2]).float().mean())}
+
+
+def _sampler_witness(surface, rays_o, rays_d, far, betas, n0, n_up, max_iter, seed, label,
+                     n_final=64, bg_r=3.0):
+    """Phase 14's check where fp32 does not reproduce itself. At a sharp
+    beta_net the sampler turns ~1e-6 sdf differences into other fine depths
+    (the 1 / beta scaling of its density), so two fp32 routes of one
+    surface can part by more than phase 14's end-to-end gates (at IDR's
+    W=512: PERF.md section 6, PR 15). Each kernel is held in lockstep on its
+    plain stage's inputs at phase 14's gates, as `_sampler_check` holds it;
+    and the end-to-end outputs of the kernels and of the plain sampler are
+    each held against the plain sampler with a float64 sdf query rounded to
+    fp32 (the witness): the kernels' readings may be worse than the plain
+    fp32 sampler's own by at most phase 14's gates (0.02 of the fine
+    depths, 0.01 of the beta maps, 0.1 of iter_usage). Det and perturb
+    uniforms at each beta_net of `betas`. Returns (ok, [readings])."""
+    from neurecon_tpu_torch.ops import fused_fine_sample as ffs
+    from neurecon_tpu_torch.ops.sampling import linspace01
+
+    dev, N = rays_o.device, rays_o.shape[0]
+    d_init = (far * linspace01(n0, dev)).contiguous()
+    kw = {"eps": 0.1, "max_iter": max_iter, "max_bisection": 10, "n_final": n_final,
+          "n_up": n_up, "sphere_bg_r": bg_r}
+    s64 = copy.deepcopy(surface).double()
+    ok, rows = True, []
+    for beta in betas:
+        ab = (torch.tensor(1.0 / beta, device=dev), torch.tensor(beta, device=dev))
+        for mode in ("det", "perturb"):
+            u = (ffs.det_uniforms(n_final, max_iter + 2, N, dev) if mode == "det"
+                 else torch.rand(N, (max_iter + 2) * n_final, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(seed + 3)))
+            args = (surface, rays_o, rays_d, d_init, far, *ab, u)
+            got = ffs.fused_fine_sample(*args, **kw)
+            plain = ffs.fine_sample_plain(*args, **kw)
+            with mock.patch.object(surface, "forward",
+                                   lambda x: s64.forward(x.double()).float()):
+                wit = ffs.fine_sample_plain(*args, **kw)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                lock, merged_equal = _lockstep(surface, rays_o, rays_d, d_init, far, ab, u,
+                                               n_up=n_up, max_iter=max_iter, n_final=n_final,
+                                               bg_r=bg_r)
+            k, p_ = _end_shares(got, wit, far), _end_shares(plain, wit, far)
+            row = {"beta_net": beta, "uniforms": mode, "kernels_vs_plain": _end_shares(
+                got, plain, far), "kernels_vs_witness": k, "plain_vs_witness": p_,
+                "lockstep": lock, "merged_depths_equal": merged_equal}
+            print(f"{label}: sampler beta_net {beta} {mode}, {N} rays: {json.dumps(row)}")
+            rows.append(row)
+            finite = all(bool(torch.isfinite(t_).all()) for t_ in got[:2])
+            if (not finite or not _lockstep_ok(lock, merged_equal)
+                    or k["fine_share"] > p_["fine_share"] + 0.02
+                    or k["beta_off_share"] > p_["beta_off_share"] + 0.01
+                    or k["iter_usage_equal"] < p_["iter_usage_equal"] - 0.1):
+                ok = False
+    return ok, rows
 
 
 def _siren_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
@@ -4241,6 +4341,403 @@ def _jpeg_head_probe_phases(seed, dev, tag, zero_counts, read_counts, by_path, w
     return 0
 
 
+# ---- surfaces wider than 256 (phases 40-41) ----
+
+# configs/neus_w512.yaml as the file holds it (the card machine has no
+# PyYAML; tests/test_torch_wide.py holds the two equal): NeuS at IDR's
+# published width, 8 surface layers of 512 and a radiance net of 4 of 512
+NEUS_W512 = {
+    "data": {"N_rays": 512, "batch_size": 1, "cam_file": "cameras_sphere.npz",
+             "data_dir": "./data/neus/dtu_scan37", "downscale": 1, "pin_memory": True,
+             "val_downscale": 8, "val_rayschunk": 256},
+    "device_ids": -1,
+    "expname": "neus_w512_37",
+    "model": {"N_nograd_samples": 2048, "N_upsample_iters": 4, "framework": "NeuS",
+              "obj_bounding_radius": 1.0,
+              "radiance": {"D": 4, "W": 512, "embed_multires": -1, "embed_multires_view": 4,
+                           "skips": []},
+              "surface": {"D": 8, "W": 512, "embed_multires": 6, "radius_init": 0.5,
+                          "skips": [4]},
+              "upsample_algo": "official_solution", "variance_init": 0.05},
+    "training": {"ckpt_file": None, "ckpt_ignore_keys": [], "ckpt_only_use_keys": None,
+                 "i_backup": 50000, "i_save": 900, "i_val": 500, "i_val_mesh": 10000,
+                 "log_root_dir": "logs", "lr": 0.0005, "overlap_sampler": False,
+                 "fused_samplers": True, "fused_nablas_vjp": True,
+                 "monitoring": "tensorboard", "num_iters": 300000,
+                 "scheduler": {"type": "warmupcosine", "warmup_steps": 5000},
+                 "speed_factor": 10.0, "w_eikonal": 0.1, "w_mask": 1.0, "with_mask": True},
+}
+WIDE_STEPS = 40  # phase 41's cut of the file's 300,000 steps
+# phases 40's checks and timings: the flagship chip config at the file's widths
+IDR_CHIP = _with_cuts(FLAGSHIP, [("model.surface.W", 512), ("model.radiance.W", 512)])
+WIDE_K1_RAYS = 1024  # phase 40's kernel-1 check: the chunk's first 1,024 rays' points
+WIDTHS_K4 = (300, 384)  # kernel 4's partly and wholly empty column groups
+
+
+def wide_train_config(exp_root, seed):
+    """configs/neus_w512.yaml on the synthetic scene (as phase 8 trains the
+    flagship), with phase 41's cuts, and the cuts as (dotted key, value)
+    pairs (printed by the phase)."""
+    cuts = [("data", {"type": "synthetic", "downscale": 1, "n_images": 8, "H": 120,
+                      "W": 160, "N_rays": NEUS_W512["data"]["N_rays"],
+                      "val_downscale": NEUS_W512["data"]["val_downscale"],
+                      "val_rayschunk": NEUS_W512["data"]["val_rayschunk"],
+                      "obj_bounding_radius": 1.0, "mesh_N": 128}),
+            ("training.num_iters", WIDE_STEPS), ("training.i_val", WIDE_STEPS),
+            ("training.i_val_mesh", WIDE_STEPS // 2), ("training.i_log", 10),
+            ("training.scheduler.warmup_steps", 10), ("training.monitoring", "none"),
+            ("training.log_root_dir", exp_root),
+            ("training.exp_dir", os.path.join(exp_root, "neus_w512")),
+            ("expname", "chip_smoke_neus_w512"), ("seed", seed)]
+    return _with_cuts(NEUS_W512, cuts), cuts
+
+
+def _wide_surface(W, seed, dev):
+    """The flagship surface at hidden width W (256 geometry features), from
+    the geometric init with seeded noise on every weight."""
+    from neurecon_tpu_torch.models.base import ImplicitSurface, perturb_parameters
+
+    s = ImplicitSurface(W=W, D=8, skips=(4,), W_geo_feat=256, radius_init=0.5,
+                        embed_multires=6)
+    s.reset_parameters(torch.Generator().manual_seed(seed))
+    perturb_parameters(s, torch.Generator().manual_seed(seed + 1))
+    return s.to(dev)
+
+
+def _sdf_check(surface, x, label, report=print):
+    """Kernel 4 against its plain version at phase 10's gate (1e-5 of
+    max|sdf|, finite) on x; returns (ok, max|diff|)."""
+    from neurecon_tpu_torch.ops import fused_mlp
+
+    torch.full((x.shape[0],), float("nan"), device=x.device)  # freed at once
+    got = fused_mlp.fused_sdf_forward(surface, x)
+    ref = fused_mlp.sdf_forward_plain(surface, x)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    report(f"{label}: sdf_forward on {x.shape[0]} points: max|diff| {err:.3e} ({rel:.2e} of "
+           "max|sdf|)")
+    return rel <= 1e-5 and bool(torch.isfinite(got).all()), err
+
+
+def wide_kernel_checks(seed, dev, report=print):
+    """Phase 40's kernel checks (see the module docstring), which
+    tools/mutants.py's `wide` group runs on each mutant: kernels 1-4 on the
+    perturbed NeuS at IDR's widths against their plain versions at the gates
+    of phases 2, 3, 6 and 10, and kernel 4 at W = 300 and 384. Returns (the
+    kernels that failed, {kernel: max|diff|}, the inputs phase 40 goes on
+    with)."""
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample, surface_pack
+
+    c = render_chunk_inputs(seed, dev, IDR_CHIP)
+    surface = c["checked"].implicit_surface
+    fails = [] if surface_pack.packed_surface(surface).wide else ["the W=512 pack's tile"]
+
+    # kernel 1 at phase 2's gates: the first 1,024 rays of the render chunk
+    # (their 128 depths from the plain upsampler and the 127 mids) and 4,099
+    # points with a ragged last tile
+    x1 = kernel1_points(surface, c)
+    ok, errs1 = nablas_check(surface, x1[:WIDE_K1_RAYS * 255], "phase 40 (W=512)", report)
+    fails += [] if ok else ["kernel 1"]
+
+    # kernel 2 at phase 3's gates: the chunk's 4,096 rays, 512 with the prior
+    ok, k2_err = upsample_checks(surface, c, "phase 40 (W=512)", report)
+    fails += [] if ok else ["kernel 2"]
+
+    # kernel 3 at phase 6's gate: a step's 130,560 points (512 of the chunk's
+    # rays, their depths from the plain upsampler and the mids)
+    ev = slice(None, None, 8)
+    r_o, r_d = c["rays_o"][ev].contiguous(), c["rays_d"][ev].contiguous()
+    d_c, u512 = c["d_coarse"][ev].contiguous(), c["u_det"][:512]
+    d_step = fused_upsample.neus_upsample_plain(surface, r_o, r_d, d_c, u512, n_iters=4,
+                                                n_per_iter=16)
+    d_mid = 0.5 * (d_step[:, 1:] + d_step[:, :-1])
+    x3 = torch.cat([r_o[:, None] + r_d[:, None] * d_step[..., None],
+                    r_o[:, None] + r_d[:, None] * d_mid[..., None]], 1).reshape(-1, 3).contiguous()
+    M3 = x3.shape[0]
+    g3 = torch.Generator(dev).manual_seed(seed + 2)
+    cots = (torch.randn(M3, device=dev, generator=g3),
+            torch.randn(M3, 3, device=dev, generator=g3),
+            torch.randn(M3, surface.W_geo_feat, device=dev, generator=g3))
+    ws3, bs3 = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+    got3 = fused_nablas_vjp.fused_nablas_vjp(surface, x3, ws3, bs3, *cots)
+    ws_bytes = fused_nablas_vjp.fused_nablas_vjp.workspace_bytes
+    ref3 = fused_nablas_vjp.nablas_vjp_plain(surface, x3, ws3, bs3, *cots)
+    torch.cuda.synchronize()
+    ratios = _leaf_ratios(got3, ref3)
+    k3_err = max(float((g - r).abs().max()) for g, r in
+                 zip([got3[0], *got3[1], *got3[2]], [ref3[0], *ref3[1], *ref3[2]]))
+    finite3 = all(bool(torch.isfinite(g).all()) for g in [got3[0], *got3[1], *got3[2]])
+    report(f"phase 40 (W=512): nablas_backward on {M3} points (workspace {ws_bytes} bytes): "
+           "max|diff| / max|ref| per leaf "
+           + ", ".join(f"{k} {v:.2e}" for k, v in ratios.items()))
+    if max(ratios.values()) > 5e-4 or not finite3:
+        xs, cs = x3[:4096], [t_[:4096] for t_ in cots]
+        k_sub = fused_nablas_vjp.fused_nablas_vjp(surface, xs, ws3, bs3, *cs)
+        p_sub = fused_nablas_vjp.nablas_vjp_plain(surface, xs, ws3, bs3, *cs)
+        w64 = fused_nablas_vjp.nablas_vjp_plain(
+            surface, xs.double(), [w.double() for w in ws3], [b.double() for b in bs3],
+            *[t_.double() for t_ in cs])
+        report("phase 40 witness (4,096 points, vs float64): kernel "
+               + str({k: f"{v:.2e}" for k, v in _leaf_ratios(k_sub, w64).items()})
+               + ", plain fp32 "
+               + str({k: f"{v:.2e}" for k, v in _leaf_ratios(p_sub, w64).items()}))
+        fails.append("kernel 3")
+    del got3, ref3
+
+    # kernel 4 at phase 10's gate: 2^20 points and 4,099 (a ragged last
+    # tile) at W = 512; 2^18 and 4,099 at W = 300 (padded to 304: the fifth
+    # column group partly used, three empty) and 384 (two empty)
+    g10 = torch.Generator(dev).manual_seed(seed)
+    x4 = torch.rand(2 ** 20, 3, device=dev, generator=g10) * 2 - 1
+    tail = torch.rand(4099, 3, device=dev, generator=g10) * 2 - 1
+    errs4 = []
+    for xs in (x4, tail):
+        ok, e = _sdf_check(surface, xs, "phase 40 (W=512)", report)
+        errs4.append(e)
+        fails += [] if ok else ["kernel 4"]
+    for W in WIDTHS_K4:
+        sw = _wide_surface(W, seed, dev)
+        wide = surface_pack.packed_surface(sw).wide
+        for xs in (x4[:2 ** 18], tail):
+            ok, _ = _sdf_check(sw, xs, f"phase 40 (W={W}, wide tile {wide})", report)
+            fails += [] if ok and wide else [f"kernel 4 at W={W}"]
+        del sw
+    errs = {"nablas_forward": max(errs1), "neus_upsample": k2_err["det"],
+            "nablas_backward": k3_err, "sdf_forward": max(errs4)}
+    inputs = {"c": c, "surface": surface, "x1": x1, "x3": x3, "x4": x4, "cots": cots,
+              "ws3": ws3, "bs3": bs3, "step_rays": (r_o, r_d, d_c, u512),
+              "workspace_bytes": ws_bytes}
+    return fails, errs, inputs
+
+
+def _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 40-41 (see the module docstring); returns (rc, kernel rows)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import RadianceNet
+    from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, fused_upsample
+    from neurecon_tpu_torch.tools import extract_surface, render_view
+    from neurecon_tpu_torch.training import sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+
+    t40 = time.perf_counter()
+    fails, errs, inp = wide_kernel_checks(seed, dev)
+    c, surface, x1, x3, x4, cots = (inp[k] for k in ("c", "surface", "x1", "x3", "x4", "cots"))
+    ws3, bs3, ws_bytes = inp["ws3"], inp["bs3"], inp["workspace_bytes"]
+    r_o, r_d, d_c, u512 = inp["step_rays"]
+    M3 = x3.shape[0]
+    n_par = sum(p.numel() for p in surface.parameters())
+
+    # the whole-step gradient at phase 7's gates: the kernels against the
+    # plain versions of kernels 1 and 3, on the perturbed W=512 NeuS
+    targs7 = ConfigDict(wide_train_config("unused", seed)[0])
+    ray_loss = get_ray_loss_fn(targs7, c["checked"], c["kw_test"])
+    scene = make_synthetic_scene(n_images=1, H=120, W=160)
+    batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
+             "intrinsics": torch.tensor(scene["intrinsics"][:1], device=dev),
+             "rgb": torch.tensor(scene["rgb"][:1], device=dev).reshape(1, -1, 3),
+             "object_mask": torch.tensor(scene["object_mask"][:1], device=dev).reshape(1, -1)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, 120, 160, 512)
+    r7o, r7d, n7, f7 = _prepare_rays(rb["rays_o"], rb["rays_d"], 1.0)
+    t = c["t"]
+    d7 = fused_upsample.fused_neus_upsample(surface, r7o, r7d,
+                                            (n7 * (1 - t) + f7 * t).contiguous(), u512,
+                                            n_iters=4, n_per_iter=16)
+    loss_k, loss_p, step_ratios = _step_grad_check(c["checked"], ray_loss, rb, d_all=d7)
+    worst = max(step_ratios, key=step_ratios.get)
+    print(f"phase 40 (W=512): step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad "
+          f"leaf {worst} {step_ratios[worst]:.2e} over {len(step_ratios)} leaves")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or step_ratios[worst] > 5e-4:
+        fails.append("step gradient")
+
+    # the VolSDF sampler (kernels (a)-(c) and kernel 4): configs/volsdf.yaml
+    # with surface W 512, 1,024 rays, phase 14's betas. At the model's init
+    # beta_net 0.1 phase 14's gates in full; at 0.01 and 0.001, where the
+    # plain fp32 sampler itself parts from a float64-query one by more than
+    # those gates at this width, each kernel in lockstep at phase 14's gates
+    # and the end to end against the float64 witness (`_sampler_witness`)
+    vcfg = _with_cuts(VOLSDF, [("model.surface.W", 512)])
+    *_, vchecked, _, _, _, (v_o, v_d, v_far) = volsdf_check_inputs(seed, dev, vcfg)
+    vs = vchecked.implicit_surface
+    ok, _, _ = _sampler_check(vs, v_o, v_d, v_far, (0.1,), 512, 512, 6, seed,
+                              "phase 40 (VolSDF, W=512)")
+    ok_w, _ = _sampler_witness(vs, v_o, v_d, v_far, (0.01, 0.001), 512, 512, 6, seed,
+                               "phase 40 (VolSDF, W=512, float64 witness)")
+    fails += [] if ok else ["VolSDF sampler"]
+    fails += [] if ok_w else ["VolSDF sampler against the float64 witness"]
+    del vchecked, vs
+
+    # a surface wider than the kernels take raises, and launches nothing
+    s520 = _wide_surface(520, seed, dev)
+    zero_counts()
+    refused = 0
+    xr = x4[:1000]
+    o4, d4 = r_o[:4].contiguous(), r_d[:4].contiguous()
+    calls = [lambda: fused_mlp.fused_sdf_forward(s520, xr),
+             lambda: fused_nablas.fused_forward_with_nablas(s520, xr),
+             lambda: fused_nablas_vjp.fused_nablas_vjp(
+                 s520, xr, *[[w.detach() for w in ts]
+                             for ts in fused_nablas.surface_weights(s520)],
+                 cots[0][:1000], cots[1][:1000], cots[2][:1000]),
+             lambda: fused_upsample.fused_neus_upsample(s520, o4, d4, d_c[:4], u512[:4],
+                                                        n_iters=4, n_per_iter=16)]
+    for call in calls:
+        try:
+            call()
+        except NotImplementedError:
+            refused += 1
+    counts520 = read_counts()
+    print(f"phase 40: a W=520 surface: {refused} of 4 kernels refused it, launches {counts520}")
+    if refused != 4 or any(counts520.values()):
+        fails.append("W=520 refusal")
+    del s520
+
+    # times at the shapes of PERF.md's table: kernel 4 at 2^20 points,
+    # kernel 1 at a step's 130,560 and a render chunk's 1,044,480, kernel 3
+    # at 130,560, kernel 2 at a step's 512 rays and a chunk's 4,096
+    def sdf_bytes(M):
+        return 4.0 * (M * (3 + 1) + n_par)
+
+    def nab_bytes(M):
+        return 4.0 * (M * (3 + 1 + 3 + surface.W_geo_feat) + n_par)
+
+    def ups_bytes(N):
+        return 4.0 * (N * (6 + 64 + 64 + 128) + n_par)
+    macs_sdf = _surface_macs(surface, sdf_only=True)
+    macs_nab = _surface_macs(surface)
+    macs_bwd = _surface_macs(surface, backward=True)
+    times = {}
+    with torch.no_grad():
+        times["sdf_forward"] = (
+            _time_ms(lambda: fused_mlp.fused_sdf_forward(surface, x4)),
+            _time_ms(lambda: fused_mlp.sdf_forward_plain(surface, x4), reps=3),
+            _bounds(2.0 * macs_sdf * x4.shape[0], sdf_bytes(x4.shape[0])), "2^20 points")
+        times["nablas_forward"] = (
+            _time_ms(lambda: fused_nablas.fused_forward_with_nablas(surface, x3)),
+            _time_ms(lambda: fused_nablas.forward_with_nablas_plain(surface, x3), reps=3),
+            _bounds(2.0 * macs_nab * M3, nab_bytes(M3)), f"{M3} points")
+        times["neus_upsample"] = (
+            _time_ms(lambda: fused_upsample.fused_neus_upsample(
+                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16)),
+            _time_ms(lambda: fused_upsample.neus_upsample_plain(
+                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16), reps=3),
+            _bounds(2.0 * macs_sdf * 512 * 128, ups_bytes(512)), "512 rays")
+    times["nablas_backward"] = (
+        _time_ms(lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x3, ws3, bs3, *cots)),
+        _time_ms(lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x3, ws3, bs3, *cots),
+                 reps=3),
+        _bounds(2.0 * macs_bwd * M3, 4.0 * (M3 * (3 + 1 + 3 + surface.W_geo_feat + 3)
+                                            + 2 * n_par)), f"{M3} points")
+    extra = {
+        "nablas_forward": {"ms_1044480": _time_ms(
+            lambda: fused_nablas.fused_forward_with_nablas(surface, x1)),
+            "bound_ms_1044480": _bounds(2.0 * macs_nab * x1.shape[0],
+                                        nab_bytes(x1.shape[0]))[1][0]},
+        "neus_upsample": {"ms_4096_rays": _time_ms(lambda: fused_upsample.fused_neus_upsample(
+            surface, c["rays_o"], c["rays_d"], c["d_coarse"], c["u_det"], n_iters=4,
+            n_per_iter=16)),
+            "bound_ms_4096_rays": _bounds(2.0 * macs_sdf * 4096 * 128, ups_bytes(4096))[1][0]},
+        "nablas_backward": {"workspace_bytes": ws_bytes,
+                            "cuda_kernels_ms": _profile_kernels(
+                                lambda: fused_nablas_vjp.fused_nablas_vjp(
+                                    surface, x3, ws3, bs3, *cots))},
+        "sdf_forward": {}}
+    for name, (ms, pms, bb, per) in times.items():
+        print(f"phase 40 (W=512): {name} {per}: {ms:.3f} ms (plain {pms:.3f} ms, fp32 bound "
+              f"{bb[0][0]:.3f} ms, 3xTF32 bound {bb[1][0]:.3f} ms, {ms / bb[1][0]:.2f}x the "
+              f"3xTF32 bound) {json.dumps(extra[name])} {tag}")
+    del x1, x3, x4, cots
+    print(f"phase 40: {time.perf_counter() - t40:.1f} s {tag}")
+    if fails:
+        print(f"FAIL phase 40: {', '.join(fails)} disagree(s) with the plain versions at the "
+              "W=512 gates, or a wider surface was not refused", file=sys.stderr)
+        return 1, None
+
+    # ---- phase 41: configs/neus_w512.yaml through train.py, a frame, a mesh
+    t41 = time.perf_counter()
+    cfg41, cuts = wide_train_config(os.path.join(workdir, "wide"), seed)
+    print(f"phase 41: configs/neus_w512.yaml with the cuts {json.dumps(cuts)}")
+    out, launches, step_ms, secs = _train_timed(ConfigDict(cfg41), zero_counts, read_counts)
+    by_path["wide_train"] = launches
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    ms_step = float(np.median(step_ms[5:]))
+    mesh20 = os.path.join(out["exp_dir"], "meshes", f"{WIDE_STEPS // 2:08d}.ply")
+    n_f20 = len(mesh_util.read_ply(mesh20)[1]) if os.path.exists(mesh20) else 0
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    print(f"phase 41: train.py {WIDE_STEPS} W=512 steps at 512 rays ({secs:.1f} s): launches "
+          f"{launches}; loss mean of steps 1-10 {first:.5f}, of steps 31-40 {last:.5f}; "
+          f"median {ms_step:.2f} ms/step over steps 6-{WIDE_STEPS} "
+          f"({512e3 / ms_step:.0f} rays/s); all steps ms {[round(v, 1) for v in step_ms]}; "
+          f"mesh at step {WIDE_STEPS // 2} (128^3): {out['stats']['perf'].get('mesh_sec')} s, "
+          f"{n_f20} faces {tag}")
+    step_total, split, busy = _step_split(
+        ConfigDict(cfg41), dev,
+        {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
+         "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+         "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+         "radiance_forward": (RadianceNet, "forward")})
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    print(f"phase 41: one W=512 step (512 rays) {step_total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the rest (radiance backward, glue, loss) "
+          f"{step_total - sum(split.values()):.2f} ms; device over three steps {busy} {tag}")
+    vargs = ConfigDict(IDR_CHIP)
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
+                  "camera_path": "interpolation", "rayschunk": 4096})
+    zero_counts()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    by_path["wide_render_view"] = read_counts()
+    ply = os.path.join(workdir, "wide_surface_256.ply")
+    eargs = extract_surface.make_parser().parse_args(
+        ["--load_pt", out["final_ckpt"], "--out", ply, "--N", "256", "--W", "512",
+         "--init_r", "0.5"])
+    zero_counts()
+    t_mesh = time.perf_counter()
+    ext = extract_surface.main_function(eargs)
+    torch.cuda.synchronize()
+    s_mesh = time.perf_counter() - t_mesh
+    by_path["wide_extract_surface"] = read_counts()
+    v256, f256 = mesh_util.read_ply(ply)
+    closed = len(f256) > 0 and _closed(torch.as_tensor(f256, device=dev))
+    finite_view = all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))
+    print(f"phase 41: render_view 1 x 120x160 from the final checkpoint: launches "
+          f"{by_path['wide_render_view']}, s/frame {[round(v, 4) for v in frames['seconds']]}, "
+          f"finite {finite_view}; extract_surface N=256: {s_mesh:.3f} s (grid "
+          f"{ext['grid_s']:.3f} s, triangulation {ext['triangulate_s']:.3f} s), launches "
+          f"{by_path['wide_extract_surface']}, {len(v256)} verts, {len(f256)} faces, closed "
+          f"{closed}; phase 41 {time.perf_counter() - t41:.1f} s {tag}")
+    if (min(launches[k] for k in ("nablas_forward", "neus_upsample", "nablas_backward"))
+            < WIDE_STEPS or launches["sdf_forward"] == 0 or n_f20 == 0
+            or len(totals) != WIDE_STEPS or not np.isfinite(totals).all()
+            or not last < first or not finite_view
+            or by_path["wide_render_view"]["nablas_forward"] == 0
+            or by_path["wide_render_view"]["neus_upsample"] == 0
+            or by_path["wide_extract_surface"]["sdf_forward"] == 0 or not closed):
+        print("FAIL phase 41: the W=512 NeuS did not train through the kernels, did not "
+              "lower its loss, or gave no finite frame or closed mesh", file=sys.stderr)
+        return 1, None
+
+    sources = {"nablas_forward": "neurecon_tpu/ops/fused_nablas.py:74",
+               "neus_upsample": "neurecon_tpu/ops/fused_upsample.py:272",
+               "nablas_backward": "neurecon_tpu/ops/fused_nablas_vjp.py:120",
+               "sdf_forward": "neurecon_tpu/ops/fused_mlp.py:125"}
+    rows = []
+    for name, (ms, pms, bb, per) in times.items():
+        launches_by_path = {p: c_[name] for p, c_ in by_path.items() if p.startswith("wide_")}
+        rows.append({"name": f"{name}[wide]", "branch": "wide", "route": "cuda",
+                     "source": f"neurecon_tpu_torch/csrc/{name}.cu", "replaces": sources[name],
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": pms, **_bound_fields(*bb, "3xtf32"), "library_ms": None,
+                     "per": per, "width": 512, **extra[name],
+                     "launches_by_path": launches_by_path})
+    return 0, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4599,7 +5096,8 @@ def main(argv=None):
               "pack, made anew (host)": _wall_ms(lambda: surface_pack.pack(surface)),
               "kept pack's lookup (host)": _wall_ms(
                   lambda: surface_pack.packed_surface(surface)),
-              "occupancy query (host)": _wall_ms(lambda: query(packed.c_pad, packed.rows)),
+              "occupancy query (host)": _wall_ms(
+                  lambda: query(packed.c_pad, packed.rows, int(packed.wide))),
               "launch, packed (host)": _wall_ms(
                   lambda: fused_mlp.launch_sdf_forward(surface, x4k, packed)),
               "kernel (device)": _time_ms(
@@ -4761,6 +5259,9 @@ def main(argv=None):
     rc = _jpeg_head_probe_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
     if rc:
         return rc
+    rc, wide_rows = _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -4791,12 +5292,14 @@ def main(argv=None):
     ] + vol_rows
     for r in results:
         r["branch"] = "softplus" if r["name"] in counters and "volsdf" not in r["name"] else "-"
-        # a Softplus row counts no launch of its kernel's sine instantiation
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()
-                                 if r["branch"] != "softplus" or not p.startswith("volsdf_siren")}
+        # a Softplus row counts no launch of its kernel's sine or wide
+        # instantiation
+        r["launches_by_path"] = {
+            p: c[r["name"]] for p, c in by_path.items() if not p.startswith("wide_") and (
+                r["branch"] != "softplus" or not p.startswith("volsdf_siren"))}
         r.update(unisurf_fields.get(r["name"], {}))
-    results += siren_rows
-    print(f"chip_smoke: phases 1-39 in {time.perf_counter() - t_start:.1f} s wall {tag}")
+    results += siren_rows + wide_rows
+    print(f"chip_smoke: phases 1-41 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -76,15 +76,27 @@
 //      `colsum_kernel` sums the per-tile bias rows the same way, and
 //      `split_sum_kernel` adds the partials in a fixed order. No atomics:
 //      the result does not change from run to run.
+// A surface wider than 256 (hidden widths and final-layer rows up to 512)
+// runs the wide tile (surface_mma.cuh): 64 points a tile, 8 column groups,
+// 8-row weight chunks; at W = 512 the tile pass's block takes 206,848 bytes
+// (xs, n_bar, the x_bar term [4][64] each, the encoding and g_e [40][72]
+// each, the activations [512][72], the stage [2][8][520]). Its workspace,
+// blocked by 64 points, grows with W: 16,320 floats a point at W = 512
+// (8,384 at 256), ~8.5 GB at 130,560 points.
 #include "surface_mma.cuh"
 
 namespace ntt {
 
-constexpr int BWD_TILE = 128;  // points per tile of the tile pass
-constexpr int BWD_KC = 16;     // weight rows per staged chunk
-constexpr int BWD_NBUF = 2;    // staged chunks: one computed, one in flight
-constexpr int BWD_STAGE = tc::stage_floats(BWD_KC, BWD_NBUF, false);
-constexpr int THREADS = tc::Tile<BWD_TILE>::THREADS;
+// The tile pass's tile (tc::Narrow, 128 points, or tc::Wide, 64) and its
+// weight stage, the fp32 plane split in registers: chunks of 16 rows on the
+// narrow tile, of 8 on the wide one (at W = 512 a 16-row stage would take
+// the block to 240,128 bytes, past the 232,448 a block may have).
+template <class TL>
+struct Bwd {
+  static constexpr int KC = TL::CG == 4 ? 16 : 8;  // weight rows per staged chunk
+  static constexpr int NBUF = 2;  // staged chunks: one computed, one in flight
+  static constexpr int STAGE = tc::stage_floats<TL>(KC, NBUF, false);
+};
 
 constexpr int JOB = 12;  // int64 fields per layer record of the backward
 // Layer record (built by ops/fused_nablas_vjp.py::_layout): offsets in
@@ -119,19 +131,19 @@ __device__ __forceinline__ Job job_of(const long long* jobs, int l) {
 
 // Copy `rows` rows of an activation block ([rows][LDV] in shared memory) to
 // the workspace ([rows][P], contiguous).
-template <int P>
+template <class TL>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int rows) {
-  constexpr int LDV = tc::Tile<P>::LDV, Q = P / 4;
+  constexpr int P = TL::P, LDV = TL::LDV, Q = P / 4;
   float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < rows * Q; i += THREADS)
+  for (int i = threadIdx.x; i < rows * Q; i += TL::THREADS)
     d[i] = *reinterpret_cast<const float4*>(src + (i / Q) * LDV + 4 * (i % Q));
 }
 
 // Sum over the tile's points of each of `rows` rows -> dst[row].
-template <int P>
+template <class TL>
 __device__ __forceinline__ void row_sums(float* dst, const float* src, int rows) {
-  constexpr int LDV = tc::Tile<P>::LDV;
-  for (int r = threadIdx.x; r < rows; r += THREADS) {
+  constexpr int P = TL::P, LDV = TL::LDV;
+  for (int r = threadIdx.x; r < rows; r += TL::THREADS) {
     const float4* s = reinterpret_cast<const float4*>(src + r * LDV);
     float acc = 0.f;
 #pragma unroll 8
@@ -169,15 +181,17 @@ __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
 }
 
 // Phases 1-4 on point tile T, with the block's shared memory at `base` and
-// its slope scratch at `deriv` ([D][rows][P]); ACT the hidden activation.
-template <int P, int ACT>
+// its slope scratch at `deriv` ([D][rows][P]); TL the tile, ACT the hidden
+// activation.
+template <class TL, int ACT>
 __device__ __forceinline__ void
 backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
               const float* __restrict__ cot_sdf, const float* __restrict__ cot_nab,
               const float* __restrict__ cot_h, int geo_dim,
               const long long* __restrict__ jobs, float* work, float* bias_part,
               int nb, float* __restrict__ xbar, int T, float* deriv, float* base) {
-  constexpr int LDV = tc::Tile<P>::LDV;
+  constexpr int P = TL::P, LDV = TL::LDV, THREADS = TL::THREADS;
+  using S = Bwd<TL>;
   float* xs = base;                    // [4][P] points
   float* nbar = xs + 4 * P;            // [4][P] nablas cotangent
   float* xb = nbar + 4 * P;            // [4][P] x_bar, phase 3 term
@@ -185,7 +199,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
   float* gebar = emb;                  // n_bar (d e / d x), phase 3 on
   float* ge = emb + m.c_pad * LDV;     // [c_pad][LDV] g_e, then e_bar
   float* buf = ge + m.c_pad * LDV;     // [rows][LDV] activations
-  float* stage = buf + m.rows * LDV;   // BWD_STAGE
+  float* stage = buf + m.rows * LDV;   // S::STAGE
   const int D = m.n_layers - 1;
   const long p0 = (long)T * P;
   const int C = m.in_ch;
@@ -208,7 +222,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
   for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS)
     ge[(idx / P) * LDV + idx % P] = 0.f;
   __syncthreads();
-  tc::embed_tile<P>(m, xs, emb);
+  tc::embed_tile<TL>(m, xs, emb);
   __syncthreads();
 
   // ---- phase 1: forward; keep s_l (scratch) and in_l (workspace, B pair 1)
@@ -227,15 +241,15 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       __syncthreads();
     }
     const float* in = l == 0 ? emb : buf;
-    copy_rows<P>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
-    float acc[tc::Tile<P>::MT][8][4];
-    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, in, stage, acc);
-    tc::activation_out<P, ACT>(L, acc, buf, slope(l));
+    copy_rows<TL>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
+    tc::Acc<TL> acc;
+    tc::product<TL, S::KC, S::NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, in, stage, acc);
+    tc::activation_out<TL, ACT>(L, acc, buf, slope(l));
     __syncthreads();
   }
   const tc::Layer LD = tc::layer_of(m, D);
   const Job JD = job_of(jobs, D);
-  copy_rows<P>(slot(JD.b_off, JD.ldB, 0), buf, LD.in_dim);  // h_D
+  copy_rows<TL>(slot(JD.b_off, JD.ldB, 0), buf, LD.in_dim);  // h_D
   __syncthreads();
 
   // ---- phase 2: the nablas sweep; q_l to the workspace (A pair 0), g_e kept
@@ -256,9 +270,9 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS)
       buf[(idx / P) * LDV + idx % P] *= sl[idx];  // padded rows: slope 0
     __syncthreads();
-    copy_rows<P>(slot(J.a_off, J.ldA, 0), buf, L.out_dim);
-    tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, L, buf, stage);
-    tc::pull_input<P>(m, L, l, buf, ge);
+    copy_rows<TL>(slot(J.a_off, J.ldA, 0), buf, L.out_dim);
+    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage);
+    tc::pull_input<TL>(m, L, l, buf, ge);
   }
 
   // ---- phase 3: n_bar pushed forward through phase 2's chain
@@ -300,13 +314,13 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       __syncthreads();
     }
     const float* gin = l == 0 ? gebar : buf;
-    copy_rows<P>(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
-    float acc[tc::Tile<P>::MT][8][4];
-    tc::product<P, BWD_KC, BWD_NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, gin, stage,
+    copy_rows<TL>(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
+    tc::Acc<TL> acc;
+    tc::product<TL, S::KC, S::NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, gin, stage,
                                             acc);  // qbar_l
     const float* qs = slot(J.a_off, J.ldA, 0);
     float* ab = slot(J.a_off, J.ldA, 1);
-    tc::each_output<P>(acc, L.N, [&](int o, int p, float a) {
+    tc::each_output<TL>(acc, L.N, [&](int o, int p, float a) {
       float u = 0.f;
       if (o < L.out_dim) {
         const float s = sl[o * P + p];
@@ -318,7 +332,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     });
     __syncthreads();
   }
-  row_sums<P>(bias_row + JD.extra_off, buf, LD.in_dim);  // gsdfbar
+  row_sums<TL>(bias_row + JD.extra_off, buf, LD.in_dim);  // gsdfbar
   // e_bar reuses ge: phase 3's x_bar term has read it
   for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS)
     ge[(idx / P) * LDV + idx % P] = 0.f;
@@ -333,9 +347,9 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     buf[o * LDV + p] = v;
   }
   __syncthreads();
-  copy_rows<P>(slot(JD.a_off, JD.ldA, 0), buf, LD.out_dim);
-  row_sums<P>(bias_row + JD.bias_off, buf, LD.out_dim);
-  tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, LD, buf, stage);  // g_h = y_bar W_D
+  copy_rows<TL>(slot(JD.a_off, JD.ldA, 0), buf, LD.out_dim);
+  row_sums<TL>(bias_row + JD.bias_off, buf, LD.out_dim);
+  tc::reverse_product<TL, S::KC, S::NBUF, false>(m, LD, buf, stage);  // g_h = y_bar W_D
   for (int l = D - 1; l >= 0; --l) {
     const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
@@ -351,9 +365,9 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       buf[o * LDV + p] = a;
     }
     __syncthreads();
-    row_sums<P>(bias_row + J.bias_off, buf, L.out_dim);
-    tc::reverse_product<P, BWD_KC, BWD_NBUF, false>(m, L, buf, stage);
-    tc::pull_input<P>(m, L, l, buf, ge);
+    row_sums<TL>(bias_row + J.bias_off, buf, L.out_dim);
+    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage);
+    tc::pull_input<TL>(m, L, l, buf, ge);
   }
 
   // x_bar = e_bar through d e / d x, plus phase 3's term
@@ -374,8 +388,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
 // A persistent grid (one block per SM) walks the point tiles; each block
 // keeps its tile's slopes s_l ([D][rows][P]) in its own slice of `slopes`,
 // reused from tile to tile.
-template <int ACT>
-__global__ void __launch_bounds__(THREADS, 1)
+template <class TL, int ACT>
+__global__ void __launch_bounds__(TL::THREADS, 1)
 backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
                      const float* __restrict__ cot_sdf,
                      const float* __restrict__ cot_nab,
@@ -383,11 +397,11 @@ backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
                      const long long* __restrict__ jobs, float* work,
                      float* bias_part, int nb, float* slopes,
                      float* __restrict__ xbar) {
-  constexpr int P = BWD_TILE;
+  constexpr int P = TL::P;
   extern __shared__ float4 smem4[];
   float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.rows * P;
   for (int T = blockIdx.x; T < Mtiles; T += gridDim.x) {
-    backward_tile<P, ACT>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+    backward_tile<TL, ACT>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
                      bias_part, nb, xbar, T, deriv, reinterpret_cast<float*>(smem4));
     __syncthreads();  // the next tile overwrites shared memory
   }
@@ -401,19 +415,19 @@ constexpr int RED_THREADS = 128;
 // part[split][c_off + o * n_in + i] = sum over this split's rows k of
 // A[k][o] * B[k][i], for one 64 x 64 output tile of one layer, on the
 // tensor cores with the split-fp32 product of surface_mma.cuh. A and B are
-// tile-blocked: row k, column c at ((k / P) * ld + c) * P + k % P, P =
-// BWD_TILE; a k-tile is 16 consecutive rows of one point tile, staged
+// tile-blocked: row k, column c at ((k / P) * ld + c) * P + k % P, P the
+// tile pass's points a tile; a k-tile is 16 consecutive rows of one point tile, staged
 // column by column ([64][RS]: each column's 16 rows contiguous, as the MMA
 // fragments read them). Warp w owns output rows o0 + 32 (w % 2) + [0, 32)
 // and columns i0 + 32 (w / 2) + [0, 32): 2 x 4 MMA tiles. A k-tile's six
 // MMAs a tile go into a fresh fragment, added to the fp32 sum on the CUDA
 // cores (the tensor cores' accumulation truncates; over 2M rows it would
 // drift).
+template <int P>
 __global__ void __launch_bounds__(RED_THREADS)
 outer_sum_kernel(const long long* __restrict__ jobs, int n_jobs,
                  const float* __restrict__ work, float* __restrict__ part,
                  long long total, int n_split) {
-  constexpr int P = BWD_TILE;
   __shared__ __align__(16) float As[2][RT * RS];
   __shared__ __align__(16) float Bs[2][RT * RS];
   const int t_out = blockIdx.x;
@@ -541,19 +555,17 @@ __global__ void split_sum_kernel(const float* __restrict__ part, long long total
 
 }  // namespace ntt
 
-extern "C" size_t ntt_nablas_backward_smem_bytes(int c_pad, int rows) {
-  constexpr int P = ntt::BWD_TILE, LDV = ntt::tc::Tile<P>::LDV;
-  return ((size_t)12 * P + (size_t)(2 * c_pad + rows) * LDV + ntt::BWD_STAGE) *
+namespace {
+
+template <class TL>
+size_t smem_bytes(int c_pad, int rows) {
+  return ((size_t)12 * TL::P + (size_t)(2 * c_pad + rows) * TL::LDV + ntt::Bwd<TL>::STAGE) *
          sizeof(float);
 }
 
-// Blocks of the persistent tile pass for `m_tiles` tiles: as many as are
-// resident on the card at once, at most one per tile (the caller sizes the
-// slope scratch by it). Sets the kernel's dynamic shared-memory cap to the
-// card's opt-in maximum. Returns a negative cudaError_t on failure, 0 when a
-// block does not fit.
-extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
-  const size_t smem = ntt_nablas_backward_smem_bytes(c_pad, rows);
+template <class TL>
+int blocks_of(int c_pad, int rows, int m_tiles) {
+  const size_t smem = smem_bytes<TL>(c_pad, rows);
   int dev = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -561,8 +573,8 @@ extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess && smem > (size_t)optin) return 0;
   bool first = true;
-  for (auto kernel : {ntt::backward_tile_kernel<ntt::ACT_SOFTPLUS>,
-                      ntt::backward_tile_kernel<ntt::ACT_SINE>}) {
+  for (auto kernel : {ntt::backward_tile_kernel<TL, ntt::ACT_SOFTPLUS>,
+                      ntt::backward_tile_kernel<TL, ntt::ACT_SINE>}) {
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
@@ -570,7 +582,7 @@ extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
                                  cudaSharedmemCarveoutMaxShared);
     int n = 0;  // the fewer of the two instantiations' resident blocks
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, ntt::THREADS, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TL::THREADS, smem);
     per_sm = first || n < per_sm ? n : per_sm;
     first = false;
   }
@@ -579,49 +591,87 @@ extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles) {
   return blocks < m_tiles ? blocks : m_tiles;
 }
 
-// x [M,3], cot_sdf [M], cot_nab [M,3], cot_h [M,geo_dim] -> xbar [M,3] and
-// the flat gradient `flat` [total] (layout in ops/fused_nablas_vjp.py);
-// `params` (three planes of `plane` floats) and `meta` the pack of
-// ops/surface_pack.py; `act` the hidden layers' activation
-// (ACT_SOFTPLUS or ACT_SINE); `work`, `bias_part`
-// [Mtiles, nb], `part` [n_split, total] and `slopes` [blocks, n_layers - 1,
-// rows, BWD_TILE] are scratch; `blocks` comes from ntt_nablas_backward_blocks,
-// which also sets the kernel's attributes. All fp32, contiguous, on the
-// device; M > 0. Returns the first cudaError_t of the four launches.
-extern "C" int ntt_nablas_backward(
-    const void* x, int M, const void* params, long long plane, const void* meta, int n_layers,
-    int in_ch, int c_pad, int rows, int act, const void* cot_sdf, const void* cot_nab,
-    const void* cot_h, int geo_dim, const void* jobs, void* work,
-    void* bias_part, int nb, void* part, int n_split, long long total,
-    long long bias_flat_off, int n_out_tiles, int blocks, void* slopes,
-    void* flat, void* xbar, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = ntt_nablas_backward_smem_bytes(c_pad, rows);
+// The tile pass and the reduction over its tile-blocked workspace.
+template <class TL>
+int launch(const ntt::tc::Mlp& m, int act, const void* x, int M, const void* cot_sdf,
+           const void* cot_nab, const void* cot_h, int geo_dim, const void* jobs, void* work,
+           void* bias_part, int nb, void* part, int n_split, long long total,
+           long long bias_flat_off, int n_out_tiles, int blocks, void* slopes, void* flat,
+           void* xbar, cudaStream_t st) {
+  constexpr int P = TL::P;
+  const size_t smem = smem_bytes<TL>(m.c_pad, m.rows);
   cudaError_t err;
-  ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
-                 static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
-  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
-  const int Mtiles = (M + ntt::BWD_TILE - 1) / ntt::BWD_TILE;
+  const int Mtiles = (M + P - 1) / P;
   const long long* J = static_cast<const long long*>(jobs);
   float* W = static_cast<float*>(work);
   float* BP = static_cast<float*>(bias_part);
-  float* P = static_cast<float*>(part);
-  auto tile_kernel = act == ntt::ACT_SINE ? ntt::backward_tile_kernel<ntt::ACT_SINE>
-                                              : ntt::backward_tile_kernel<ntt::ACT_SOFTPLUS>;
-  tile_kernel<<<blocks, ntt::THREADS, smem, st>>>(
+  float* Pt = static_cast<float*>(part);
+  auto tile_kernel = act == ntt::ACT_SINE ? ntt::backward_tile_kernel<TL, ntt::ACT_SINE>
+                                          : ntt::backward_tile_kernel<TL, ntt::ACT_SOFTPLUS>;
+  tile_kernel<<<blocks, TL::THREADS, smem, st>>>(
       m, static_cast<const float*>(x), M, Mtiles,
       static_cast<const float*>(cot_sdf), static_cast<const float*>(cot_nab),
       static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb,
       static_cast<float*>(slopes), static_cast<float*>(xbar));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ntt::outer_sum_kernel<<<dim3(n_out_tiles, n_split), ntt::RED_THREADS, 0, st>>>(
-      J, n_layers, W, P, total, n_split);
+  ntt::outer_sum_kernel<P><<<dim3(n_out_tiles, n_split), ntt::RED_THREADS, 0, st>>>(
+      J, m.n_layers, W, Pt, total, n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ntt::colsum_kernel<<<dim3((nb + 255) / 256, n_split), 256, 0, st>>>(
-      BP, Mtiles, nb, P, total, bias_flat_off, n_split);
+      BP, Mtiles, nb, Pt, total, bias_flat_off, n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long sum_blocks = (total + 255) / 256;
   ntt::split_sum_kernel<<<(unsigned)sum_blocks, 256, 0, st>>>(
-      P, total, n_split, static_cast<float*>(flat));
+      Pt, total, n_split, static_cast<float*>(flat));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory of a tile-pass block, in bytes; `wide` picks the tile
+// (tc::Wide, 64 points, else tc::Narrow, 128), as ops/surface_pack.py
+// records it.
+extern "C" size_t ntt_nablas_backward_smem_bytes(int c_pad, int rows, int wide) {
+  return wide ? smem_bytes<ntt::tc::Wide>(c_pad, rows)
+              : smem_bytes<ntt::tc::Narrow>(c_pad, rows);
+}
+
+// Blocks of the persistent tile pass for `m_tiles` tiles: as many as are
+// resident on the card at once, at most one per tile (the caller sizes the
+// slope scratch by it). Sets the kernel's dynamic shared-memory cap to the
+// card's opt-in maximum. Returns a negative cudaError_t on failure, 0 when a
+// block does not fit.
+extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles, int wide) {
+  return wide ? blocks_of<ntt::tc::Wide>(c_pad, rows, m_tiles)
+              : blocks_of<ntt::tc::Narrow>(c_pad, rows, m_tiles);
+}
+
+// x [M,3], cot_sdf [M], cot_nab [M,3], cot_h [M,geo_dim] -> xbar [M,3] and
+// the flat gradient `flat` [total] (layout in ops/fused_nablas_vjp.py);
+// `params` (three planes of `plane` floats) and `meta` the pack of
+// ops/surface_pack.py; `act` the hidden layers' activation
+// (ACT_SOFTPLUS or ACT_SINE); `wide` the tile (the workspace is blocked by
+// its points: 64 wide, else 128); `work`, `bias_part` [Mtiles, nb], `part`
+// [n_split, total] and `slopes` [blocks, n_layers - 1, rows, the tile's
+// points] are scratch; `blocks` comes from ntt_nablas_backward_blocks, which
+// also sets the kernel's attributes. All fp32, contiguous, on the device;
+// M > 0. Returns the first cudaError_t of the four launches.
+extern "C" int ntt_nablas_backward(
+    const void* x, int M, const void* params, long long plane, const void* meta, int n_layers,
+    int in_ch, int c_pad, int rows, int act, int wide, const void* cot_sdf,
+    const void* cot_nab, const void* cot_h, int geo_dim, const void* jobs, void* work,
+    void* bias_part, int nb, void* part, int n_split, long long total,
+    long long bias_flat_off, int n_out_tiles, int blocks, void* slopes,
+    void* flat, void* xbar, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
+                 static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
+  if (wide)
+    return launch<ntt::tc::Wide>(m, act, x, M, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+                                 bias_part, nb, part, n_split, total, bias_flat_off,
+                                 n_out_tiles, blocks, slopes, flat, xbar, st);
+  return launch<ntt::tc::Narrow>(m, act, x, M, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+                                 bias_part, nb, part, n_split, total, bias_flat_off,
+                                 n_out_tiles, blocks, slopes, flat, xbar, st);
 }

@@ -33,7 +33,10 @@
 // idle. One block an SM either way (P = 64 stages both TF32 parts of the
 // weights, 164,736 bytes of shared memory at the flagship widths; P = 128
 // has room only for the fp32 stage and splits it in registers, 218,624
-// bytes). The scalar stages: elementwise over lanes, the cumprod and the
+// bytes). A surface wider than 256 (up to 512) runs the wide tile
+// (surface_mma.cuh): 4 rays on 64-point tiles, 512 threads in 8 column
+// groups, the fp32 stage in chunks of 8 rows (at W = 512: 204,160 bytes; 16
+// rows would take 237,440). The scalar stages: elementwise over lanes, the cumprod and the
 // pdf/cdf prefix sums sequentially on lane 0 (their order decides which det
 // u = 1.0 entries tie), a binary search per uniform, and the merge as a rank
 // count (own index + number of foreign elements before it). None of the TPU
@@ -43,16 +46,16 @@
 
 namespace ntt {
 
-constexpr int UP_KC = 16;    // weight rows per staged chunk
-constexpr int UP_NBUF = 2;   // staged chunks: one computed, one in flight
-
-// The weight stage of a P-point tile: both TF32 parts at 64 points, the
-// fp32 plane (split in registers) at 128, where shared memory is short.
-template <int P>
+// The weight stage of a tile: both TF32 parts on the narrow 64-point tile,
+// the fp32 plane (split in registers) on the narrow 128-point one, where
+// shared memory is short, and on the wide one in chunks of 8 rows.
+template <class TL>
 struct Up {
-  static constexpr bool PRESPLIT = P == 64;
-  static constexpr int STAGE = tc::stage_floats(UP_KC, UP_NBUF, PRESPLIT);
-  static constexpr int THREADS = tc::Tile<P>::THREADS;
+  static constexpr bool PRESPLIT = TL::P == 64 && TL::CG == 4;
+  static constexpr int KC = TL::CG == 4 ? 16 : 8;  // weight rows per staged chunk
+  static constexpr int NBUF = 2;  // staged chunks: one computed, one in flight
+  static constexpr int STAGE = tc::stage_floats<TL>(KC, NBUF, PRESPLIT);
+  static constexpr int THREADS = TL::THREADS;
 };
 
 struct Bufs {
@@ -69,14 +72,16 @@ struct Bufs {
 // sdf at depth dep[r * stride + j] of ray r, for j < n and the block's R
 // rays, written to sd[r * stride + j]: P points a tile through the hidden
 // layers (tensor cores), the sdf row and the sphere prior (sphere_r >= 0).
-template <int P, int ACT>
+template <class TL, int ACT>
 __device__ void query(const tc::Mlp& m, const Bufs& B, int R, const float* dep, float* sd,
                       int stride, int n, float sphere_r, float* xs, float* emb, float* buf,
                       float* stage) {
+  constexpr int P = TL::P;
+  using U = Up<TL>;
   const int total = R * n, D = m.n_layers - 1;
   const tc::Layer LD = tc::layer_of(m, D);
   for (int t0 = 0; t0 < total; t0 += P) {
-    for (int idx = threadIdx.x; idx < 3 * P; idx += Up<P>::THREADS) {
+    for (int idx = threadIdx.x; idx < 3 * P; idx += U::THREADS) {
       const int c = idx / P, p = idx % P, q = t0 + p;
       float v = 0.f;
       if (q < total) {
@@ -86,21 +91,21 @@ __device__ void query(const tc::Mlp& m, const Bufs& B, int R, const float* dep, 
       xs[idx] = v;
     }
     __syncthreads();
-    tc::embed_tile<P>(m, xs, emb);
+    tc::embed_tile<TL>(m, xs, emb);
     __syncthreads();
     for (int l = 0; l < D; ++l) {
       const tc::Layer L = tc::layer_of(m, l);
-      if (L.skip) tc::skip_input<P>(m, L, emb, buf);
-      tc::Acc<P> acc;
-      tc::product<P, UP_KC, UP_NBUF, Up<P>::PRESPLIT>(L.wT, m.plane, L.K, L.N, L.N,
-                                                      l == 0 ? emb : buf, stage, acc);
-      tc::activation_out<P, ACT>(L, acc, buf, nullptr);
+      if (L.skip) tc::skip_input<TL>(m, L, emb, buf);
+      tc::Acc<TL> acc;
+      tc::product<TL, U::KC, U::NBUF, U::PRESPLIT>(L.wT, m.plane, L.K, L.N, L.N,
+                                                   l == 0 ? emb : buf, stage, acc);
+      tc::activation_out<TL, ACT>(L, acc, buf, nullptr);
       __syncthreads();
     }
-    for (int p = threadIdx.x; p < P; p += Up<P>::THREADS) {
+    for (int p = threadIdx.x; p < P; p += U::THREADS) {
       const int q = t0 + p;
       if (q >= total) continue;
-      float v = tc::final_row<P>(LD, 0, buf, p);
+      float v = tc::final_row<TL>(LD, 0, buf, p);
       if (sphere_r >= 0.f) {
         const float x0 = xs[p], x1 = xs[P + p], x2 = xs[2 * P + p];
         v += sqrtf(x0 * x0 + x1 * x1 + x2 * x2 + 1e-12f) - sphere_r;
@@ -149,23 +154,23 @@ __device__ void section_cdf(const float* d, const float* s, float* cdf,
   __syncwarp();
 }
 
-template <int P, int ACT>
-__global__ void __launch_bounds__(Up<P>::THREADS, 1)
+template <class TL, int ACT>
+__global__ void __launch_bounds__(Up<TL>::THREADS, 1)
 neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
                      const float* __restrict__ rays_d,
                      const float* __restrict__ d_coarse,
                      const float* __restrict__ u, int N, int R, int n_coarse,
                      int n_iters, int n_per, float sphere_r,
                      float* __restrict__ d_out) {
-  constexpr int LDV = tc::Tile<P>::LDV, THREADS = Up<P>::THREADS;
+  constexpr int P = TL::P, LDV = TL::LDV, THREADS = Up<TL>::THREADS;
   extern __shared__ float4 smem4[];
   const int S = n_coarse + n_iters * n_per;
   float* xs = reinterpret_cast<float*>(smem4);  // [4][P]
   float* emb = xs + 4 * P;                      // [c_pad][LDV]
   float* buf = emb + m.c_pad * LDV;             // [rows][LDV]
-  float* stage = buf + m.rows * LDV;            // Up<P>::STAGE
+  float* stage = buf + m.rows * LDV;            // Up<TL>::STAGE
   Bufs B;
-  B.ray = stage + Up<P>::STAGE;
+  B.ray = stage + Up<TL>::STAGE;
   B.d = B.ray + R * 8;
   B.s = B.d + R * S;
   B.d2 = B.s + R * S;
@@ -186,7 +191,7 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
     B.d[r * S + j] = (ray0 + r < N) ? d_coarse[(ray0 + r) * n_coarse + j] : 0.f;
   }
   __syncthreads();
-  query<P, ACT>(m, B, R, B.d, B.s, S, n_coarse, sphere_r, xs, emb, buf, stage);
+  query<TL, ACT>(m, B, R, B.d, B.s, S, n_coarse, sphere_r, xs, emb, buf, stage);
 
   // warp r < R does ray r's scalar stages; the other warps only query
   const int lane = threadIdx.x % 32, r = threadIdx.x / 32;
@@ -219,7 +224,7 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
       }
     }
     __syncthreads();
-    query<P, ACT>(m, B, R, B.nd, B.ns, n_per, n_per, sphere_r, xs, emb, buf, stage);
+    query<TL, ACT>(m, B, R, B.nd, B.ns, n_per, n_per, sphere_r, xs, emb, buf, stage);
     if (mine) {
       // stable merge == stable sort of concat([old, new]) by depth
       for (int i = lane; i < nb; i += 32) {
@@ -253,10 +258,10 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
   }
 }
 
-template <int P>
+template <class TL>
 size_t smem_bytes(int c_pad, int rows, int R, int S, int n_per) {
-  constexpr int LDV = tc::Tile<P>::LDV;
-  return ((size_t)4 * P + (size_t)(c_pad + rows) * LDV + Up<P>::STAGE + (size_t)R * 8 +
+  constexpr int P = TL::P, LDV = TL::LDV;
+  return ((size_t)4 * P + (size_t)(c_pad + rows) * LDV + Up<TL>::STAGE + (size_t)R * 8 +
           (size_t)R * (5 * S + 2 * n_per)) * sizeof(float);
 }
 
@@ -272,10 +277,13 @@ extern "C" int ntt_neus_upsample_setup() {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  for (auto kernel : {ntt::neus_upsample_kernel<64, ntt::ACT_SOFTPLUS>,
-                      ntt::neus_upsample_kernel<64, ntt::ACT_SINE>,
-                      ntt::neus_upsample_kernel<128, ntt::ACT_SOFTPLUS>,
-                      ntt::neus_upsample_kernel<128, ntt::ACT_SINE>}) {
+  using Small = ntt::tc::Tile<64, 4>;
+  for (auto kernel : {ntt::neus_upsample_kernel<Small, ntt::ACT_SOFTPLUS>,
+                      ntt::neus_upsample_kernel<Small, ntt::ACT_SINE>,
+                      ntt::neus_upsample_kernel<ntt::tc::Narrow, ntt::ACT_SOFTPLUS>,
+                      ntt::neus_upsample_kernel<ntt::tc::Narrow, ntt::ACT_SINE>,
+                      ntt::neus_upsample_kernel<ntt::tc::Wide, ntt::ACT_SOFTPLUS>,
+                      ntt::neus_upsample_kernel<ntt::tc::Wide, ntt::ACT_SINE>}) {
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
@@ -286,45 +294,56 @@ extern "C" int ntt_neus_upsample_setup() {
   return sms;
 }
 
-// rays_o, rays_d [N,3] (d unit), d_coarse [N,n_coarse] sorted, u
-// [N, n_iters*n_per] sorted within each round -> d_out [N, n_coarse +
-// n_iters*n_per] sorted. Blocks of R rays on P-point tiles (P 64 with R <= 8,
-// or 128 with R <= 16; after ntt_neus_upsample_setup). `params` (three
-// planes of `plane` floats) and `meta` the pack of ops/surface_pack.py;
-// sphere_r < 0: no sphere_residual prior; `act` the hidden layers'
-// activation (ACT_SOFTPLUS or ACT_SINE). Returns the cudaError_t of the
-// launch.
-extern "C" int ntt_neus_upsample(const void* rays_o, const void* rays_d, const void* d_coarse,
-                                 const void* u, int N, int n_coarse, int n_iters, int n_per,
-                                 const void* params, long long plane, const void* meta,
-                                 int n_layers, int in_ch, int c_pad, int rows, int act,
-                                 float sphere_r, int P, int R, void* d_out, void* stream) {
-  if (N <= 0) return 0;
-  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
-  if (!((P == 64 && R >= 1 && R <= 8) || (P == 128 && R >= 1 && R <= 16)))
-    return (int)cudaErrorInvalidValue;
+namespace {
+
+template <class TL>
+int launch(const ntt::tc::Mlp& m, int act, const void* rays_o, const void* rays_d,
+           const void* d_coarse, const void* u, int N, int R, int n_coarse, int n_iters,
+           int n_per, float sphere_r, void* d_out, cudaStream_t stream) {
   const int S = n_coarse + n_iters * n_per;
-  const size_t smem = P == 64 ? ntt::smem_bytes<64>(c_pad, rows, R, S, n_per)
-                              : ntt::smem_bytes<128>(c_pad, rows, R, S, n_per);
-  ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
-                 static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
+  const size_t smem = ntt::smem_bytes<TL>(m.c_pad, m.rows, R, S, n_per);
   const int blocks = (N + R - 1) / R;
-  using Kernel = void (*)(ntt::tc::Mlp, const float*, const float*, const float*, const float*,
-                          int, int, int, int, int, float, float*);
-  Kernel kernel;
-  int threads;
-  if (P == 64) {
-    kernel = act == ntt::ACT_SINE ? ntt::neus_upsample_kernel<64, ntt::ACT_SINE>
-                                  : ntt::neus_upsample_kernel<64, ntt::ACT_SOFTPLUS>;
-    threads = ntt::Up<64>::THREADS;
-  } else {
-    kernel = act == ntt::ACT_SINE ? ntt::neus_upsample_kernel<128, ntt::ACT_SINE>
-                                  : ntt::neus_upsample_kernel<128, ntt::ACT_SOFTPLUS>;
-    threads = ntt::Up<128>::THREADS;
-  }
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = act == ntt::ACT_SINE ? ntt::neus_upsample_kernel<TL, ntt::ACT_SINE>
+                                     : ntt::neus_upsample_kernel<TL, ntt::ACT_SOFTPLUS>;
+  kernel<<<blocks, TL::THREADS, smem, stream>>>(
       m, static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(d_coarse), static_cast<const float*>(u), N, R, n_coarse,
       n_iters, n_per, sphere_r, static_cast<float*>(d_out));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// rays_o, rays_d [N,3] (d unit), d_coarse [N,n_coarse] sorted, u
+// [N, n_iters*n_per] sorted within each round -> d_out [N, n_coarse +
+// n_iters*n_per] sorted. Blocks of R rays on P-point tiles: the narrow tiles
+// (`wide` 0) at P 64 with R <= 8, or 128 with R <= 16; the wide tile
+// (`wide` 1, a surface wider than 256) at P 64 with R <= 16; after
+// ntt_neus_upsample_setup. `params` (three planes of `plane` floats) and
+// `meta` the pack of ops/surface_pack.py; sphere_r < 0: no sphere_residual
+// prior; `act` the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE).
+// Returns the cudaError_t of the launch.
+extern "C" int ntt_neus_upsample(const void* rays_o, const void* rays_d, const void* d_coarse,
+                                 const void* u, int N, int n_coarse, int n_iters, int n_per,
+                                 const void* params, long long plane, const void* meta,
+                                 int n_layers, int in_ch, int c_pad, int rows, int act,
+                                 int wide, float sphere_r, int P, int R, void* d_out,
+                                 void* stream) {
+  if (N <= 0) return 0;
+  if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
+  const bool small = !wide && P == 64 && R >= 1 && R <= 8;
+  const bool narrow = !wide && P == 128 && R >= 1 && R <= 16;
+  const bool wide64 = wide && P == 64 && R >= 1 && R <= 16;
+  if (!(small || narrow || wide64)) return (int)cudaErrorInvalidValue;
+  ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
+                 static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide64)
+    return launch<ntt::tc::Wide>(m, act, rays_o, rays_d, d_coarse, u, N, R, n_coarse, n_iters,
+                                 n_per, sphere_r, d_out, st);
+  if (narrow)
+    return launch<ntt::tc::Narrow>(m, act, rays_o, rays_d, d_coarse, u, N, R, n_coarse,
+                                   n_iters, n_per, sphere_r, d_out, st);
+  return launch<ntt::tc::Tile<64, 4>>(m, act, rays_o, rays_d, d_coarse, u, N, R, n_coarse,
+                                      n_iters, n_per, sphere_r, d_out, st);
 }

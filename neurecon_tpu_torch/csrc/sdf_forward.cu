@@ -31,27 +31,35 @@
 // (row 3 the sdf), the encoding [40][136], the activations [256][136] and
 // the weight stage [2][2][16][264]: 230,656 bytes, one block an SM. The last
 // tile may be ragged; its missing points are encoded as zeros and not
-// written.
+// written. A surface wider than 256 (up to 512) runs the wide tile
+// (surface_mma.cuh): 64 points, 8 column groups, the fp32 weight stage
+// [2][16][520] split in registers; at W = 512, xs [4][64], the encoding
+// [40][72], the activations [512][72] and the stage: 226,560 bytes.
 #include "surface_mma.cuh"
 
 namespace ntt {
 
-constexpr int SDF_TILE = 128;  // points per tile
-constexpr int SDF_KC = 16;     // weight rows per staged chunk
-constexpr int SDF_NBUF = 2;    // staged chunks: one computed, one in flight
-constexpr int SDF_STAGE = tc::stage_floats(SDF_KC, SDF_NBUF, true);
-constexpr int SDF_THREADS = tc::Tile<SDF_TILE>::THREADS;
+// The tile (tc::Narrow or tc::Wide) and its weight stage: both TF32 parts on
+// the narrow tile, the fp32 plane on the wide one, where shared memory is short.
+template <class TL>
+struct Sdf {
+  static constexpr int KC = 16;    // weight rows per staged chunk
+  static constexpr int NBUF = 2;   // staged chunks: one computed, one in flight
+  static constexpr bool PRESPLIT = TL::CG == 4;
+  static constexpr int STAGE = tc::stage_floats<TL>(KC, NBUF, PRESPLIT);
+};
 
-template <int ACT>
-__global__ void __launch_bounds__(SDF_THREADS, 1)
+template <class TL, int ACT>
+__global__ void __launch_bounds__(TL::THREADS, 1)
 sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
                    float* __restrict__ sdf) {
-  constexpr int P = SDF_TILE, LDV = tc::Tile<P>::LDV;
+  constexpr int P = TL::P, LDV = TL::LDV;
+  using S = Sdf<TL>;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [4][P]; row 3 holds the sdf
   float* emb = xs + 4 * P;                      // [c_pad][LDV]
   float* buf = emb + m.c_pad * LDV;             // [rows][LDV]
-  float* stage = buf + m.rows * LDV;            // SDF_STAGE
+  float* stage = buf + m.rows * LDV;            // S::STAGE
   float* tile_sdf = xs + 3 * P;
   const int D = m.n_layers - 1;
   const int tiles = (M + P - 1) / P;
@@ -62,20 +70,20 @@ sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
       xs[idx] = (p0 + p < M) ? x[(p0 + p) * 3 + c] : 0.f;
     }
     __syncthreads();
-    tc::embed_tile<P>(m, xs, emb);
+    tc::embed_tile<TL>(m, xs, emb);
     __syncthreads();
     for (int l = 0; l < D; ++l) {
       const tc::Layer L = tc::layer_of(m, l);
-      if (L.skip) tc::skip_input<P>(m, L, emb, buf);
-      float acc[tc::Tile<P>::MT][8][4];
-      tc::product<P, SDF_KC, SDF_NBUF, true>(L.wT, m.plane, L.K, L.N, L.N, l == 0 ? emb : buf,
-                                             stage, acc);
-      tc::activation_out<P, ACT>(L, acc, buf, nullptr);
+      if (L.skip) tc::skip_input<TL>(m, L, emb, buf);
+      tc::Acc<TL> acc;
+      tc::product<TL, S::KC, S::NBUF, S::PRESPLIT>(L.wT, m.plane, L.K, L.N, L.N,
+                                                  l == 0 ? emb : buf, stage, acc);
+      tc::activation_out<TL, ACT>(L, acc, buf, nullptr);
       __syncthreads();
     }
     // the sdf row, in fp32 on the CUDA cores
     const tc::Layer LD = tc::layer_of(m, D);
-    for (int p = threadIdx.x; p < P; p += blockDim.x) tile_sdf[p] = tc::final_row<P>(LD, 0, buf, p);
+    for (int p = threadIdx.x; p < P; p += blockDim.x) tile_sdf[p] = tc::final_row<TL>(LD, 0, buf, p);
     __syncthreads();
     for (int p = threadIdx.x; p < P; p += blockDim.x)
       if (p0 + p < M) sdf[p0 + p] = tile_sdf[p];
@@ -85,20 +93,17 @@ sdf_forward_kernel(tc::Mlp m, const float* __restrict__ x, int M,
 
 }  // namespace ntt
 
-extern "C" size_t ntt_sdf_forward_smem_bytes(int c_pad, int rows) {
-  constexpr int P = ntt::SDF_TILE, LDV = ntt::tc::Tile<P>::LDV;
-  return ((size_t)4 * P + (size_t)(c_pad + rows) * LDV + ntt::SDF_STAGE) *
+namespace {
+
+template <class TL>
+size_t smem_bytes(int c_pad, int rows) {
+  return ((size_t)4 * TL::P + (size_t)(c_pad + rows) * TL::LDV + ntt::Sdf<TL>::STAGE) *
          sizeof(float);
 }
 
-// Blocks of the kernel resident on the current card at once (the persistent
-// grid's size before it is capped at one block per tile). Sets the kernel's
-// dynamic shared-memory cap to the card's opt-in maximum (so it never needs
-// raising for a larger shape) and asks the occupancy of this shape's use.
-// The wrapper calls it once per (card, c_pad, rows) and keeps the answer.
-// Returns a negative cudaError_t on failure, and 0 when a block does not fit.
-extern "C" int ntt_sdf_forward_resident(int c_pad, int rows) {
-  const size_t smem = ntt_sdf_forward_smem_bytes(c_pad, rows);
+template <class TL>
+int resident(int c_pad, int rows) {
+  const size_t smem = smem_bytes<TL>(c_pad, rows);
   int dev = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -106,8 +111,8 @@ extern "C" int ntt_sdf_forward_resident(int c_pad, int rows) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess && smem > (size_t)optin) return 0;
   bool first = true;
-  for (auto kernel : {ntt::sdf_forward_kernel<ntt::ACT_SOFTPLUS>,
-                      ntt::sdf_forward_kernel<ntt::ACT_SINE>}) {
+  for (auto kernel : {ntt::sdf_forward_kernel<TL, ntt::ACT_SOFTPLUS>,
+                      ntt::sdf_forward_kernel<TL, ntt::ACT_SINE>}) {
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
@@ -115,7 +120,7 @@ extern "C" int ntt_sdf_forward_resident(int c_pad, int rows) {
                                  cudaSharedmemCarveoutMaxShared);
     int n = 0;  // the fewer of the two instantiations' resident blocks
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, ntt::SDF_THREADS, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TL::THREADS, smem);
     per_sm = first || n < per_sm ? n : per_sm;
     first = false;
   }
@@ -123,22 +128,52 @@ extern "C" int ntt_sdf_forward_resident(int c_pad, int rows) {
   return per_sm * sms;
 }
 
+template <class TL>
+int launch(const ntt::tc::Mlp& m, int act, const float* x, int M, float* sdf, int blocks,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes<TL>(m.c_pad, m.rows);
+  auto kernel = act == ntt::ACT_SINE ? ntt::sdf_forward_kernel<TL, ntt::ACT_SINE>
+                                     : ntt::sdf_forward_kernel<TL, ntt::ACT_SOFTPLUS>;
+  kernel<<<blocks, TL::THREADS, smem, stream>>>(m, x, M, sdf);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory of a block, in bytes; `wide` picks the tile (tc::Wide, else
+// tc::Narrow), as ops/surface_pack.py records it.
+extern "C" size_t ntt_sdf_forward_smem_bytes(int c_pad, int rows, int wide) {
+  return wide ? smem_bytes<ntt::tc::Wide>(c_pad, rows)
+              : smem_bytes<ntt::tc::Narrow>(c_pad, rows);
+}
+
+// Blocks of the kernel resident on the current card at once (the persistent
+// grid's size before it is capped at one block per tile). Sets the kernel's
+// dynamic shared-memory cap to the card's opt-in maximum (so it never needs
+// raising for a larger shape) and asks the occupancy of this shape's use.
+// The wrapper calls it once per (card, c_pad, rows, wide) and keeps the
+// answer. Returns a negative cudaError_t on failure, and 0 when a block does
+// not fit.
+extern "C" int ntt_sdf_forward_resident(int c_pad, int rows, int wide) {
+  return wide ? resident<ntt::tc::Wide>(c_pad, rows) : resident<ntt::tc::Narrow>(c_pad, rows);
+}
+
 // x [M,3] -> sdf [M]; fp32, contiguous, on the device; `params` (three
 // planes of `plane` floats) and `meta` the pack of ops/surface_pack.py;
-// `act` the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE);
-// `blocks` at most ntt_sdf_forward_resident's count. Returns the cudaError_t of the launch.
+// `act` the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE); `wide`
+// the tile; `blocks` at most ntt_sdf_forward_resident's count. Returns the
+// cudaError_t of the launch.
 extern "C" int ntt_sdf_forward(const void* x, int M, const void* params,
                                long long plane, const void* meta, int n_layers,
-                               int in_ch, int c_pad, int rows, int act, void* sdf,
+                               int in_ch, int c_pad, int rows, int act, int wide, void* sdf,
                                int blocks, void* stream) {
   if (M <= 0) return 0;
-  const size_t smem = ntt_sdf_forward_smem_bytes(c_pad, rows);
   ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
                  static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
   if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
-  auto kernel = act == ntt::ACT_SINE ? ntt::sdf_forward_kernel<ntt::ACT_SINE>
-                                         : ntt::sdf_forward_kernel<ntt::ACT_SOFTPLUS>;
-  kernel<<<blocks, ntt::SDF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      m, static_cast<const float*>(x), M, static_cast<float*>(sdf));
-  return (int)cudaGetLastError();
+  const float* xp = static_cast<const float*>(x);
+  float* out = static_cast<float*>(sdf);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wide ? launch<ntt::tc::Wide>(m, act, xp, M, out, blocks, st)
+              : launch<ntt::tc::Narrow>(m, act, xp, M, out, blocks, st);
 }

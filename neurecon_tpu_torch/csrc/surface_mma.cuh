@@ -46,13 +46,27 @@
 // cp.async, one barrier a chunk, so every weight is fetched once per tile
 // of P points.
 //
-// Work split. P / 8 warps: warp w takes 32 points from 32 (w % (P / 32))
-// and 64 columns from 64 (w / (P / 32)), i.e. 2 m-tiles x 8 n-tiles; its
-// accumulators (2 x 8 x 4 floats) stay in registers, so a layer's output
-// may overwrite its input buffer once every warp has passed the product's
-// closing barrier. Not 8 warps of 4 m-tiles: two warps a scheduler do not
-// hide the latencies of the fragment loads, splits and MMAs, and 4 m-tiles
-// need more than the 128 registers a thread of 512 may have.
+// Work split. P / 32 point groups x CG column groups of warps: warp w takes
+// 32 points from 32 (w % (P / 32)) and 64 columns from 64 (w / (P / 32)),
+// i.e. 2 m-tiles x 8 n-tiles; its accumulators (2 x 8 x 4 floats) stay in
+// registers, so a layer's output may overwrite its input buffer once every
+// warp has passed the product's closing barrier. Not 8 warps of 4 m-tiles:
+// two warps a scheduler do not hide the latencies of the fragment loads,
+// splits and MMAs, and 4 m-tiles need more than the 128 registers a thread
+// of 512 may have.
+//
+// Two tile shapes (`Tile`), picked per surface at launch (ops/surface_pack.py
+// records which): the narrow tiles, CG = 4 (products of up to 256 outputs)
+// on 128 points (or 64, kernel 2's small blocks), for every surface whose
+// padded hidden widths are at most 256; and the wide tile, CG = 8 on 64
+// points (512 threads, the same 32-point x 64-column accumulators per warp),
+// for hidden widths and final-layer rows up to 512. At 128 points a
+// 512-wide activation buffer alone would take 278 KB; at 64 points it takes
+// 147 KB, and every column of a layer is still in registers when the
+// product's closing barrier passes, so layers stay in place. The wide
+// kernels stage the fp32 plane and split it in registers (a stage of both
+// parts at SLD = 520 does not fit beside the buffer). The narrow
+// instantiations are the kernels of the W <= 256 surfaces unchanged.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,23 +81,31 @@ namespace ntt {
 namespace tc {
 
 constexpr int META = 8;       // ints per layer record of the pack
-constexpr int SLD = 264;      // stage row stride in floats (== 8 mod 32)
+
+// A tile of P_ points: P_ / 32 point groups x CG_ column groups of warps.
+template <int P_, int CG_>
+struct Tile {
+  static_assert(P_ == 64 || P_ == 128, "tiles of 64 or 128 points");
+  static_assert(CG_ == 4 || CG_ == 8, "4 or 8 column groups");
+  static constexpr int P = P_;
+  static constexpr int CG = CG_;
+  static constexpr int MT = 2;                  // m-tiles of 16 points per warp
+  static constexpr int PG = P / 32;             // point groups of warps
+  static constexpr int THREADS = 32 * CG * PG;  // threads per block
+  static_assert(THREADS <= 512, "at most 512 threads a block");
+  static constexpr int LDV = P + 8;             // activation row stride in floats
+  static constexpr int NMAX = 64 * CG;          // widest product output
+  static constexpr int SLD = NMAX + 8;          // stage row stride in floats (== 8 mod 32)
+};
+using Narrow = Tile<128, 4>;  // padded hidden widths <= 256
+using Wide = Tile<64, 8>;     // padded hidden widths and final-layer rows <= 512
 
 // Floats of a weight stage of NBUF chunks of KC rows: the big and small
 // planes (PRESPLIT), or the fp32 plane.
+template <class T>
 constexpr int stage_floats(int KC, int NBUF, bool PRESPLIT) {
-  return (PRESPLIT ? 2 : 1) * NBUF * KC * SLD;
+  return (PRESPLIT ? 2 : 1) * NBUF * KC * T::SLD;
 }
-
-// A tile of P points: P / 32 point groups x 4 column groups of warps.
-template <int P>
-struct Tile {
-  static_assert(P == 64 || P == 128, "tiles of 64 or 128 points");
-  static constexpr int MT = 2;              // m-tiles of 16 points per warp
-  static constexpr int PG = P / 32;         // point groups of warps
-  static constexpr int THREADS = 32 * 4 * PG;  // threads per block
-  static constexpr int LDV = P + 8;         // activation row stride in floats
-};
 
 // The pack (ops/surface_pack.py): per layer W^T [K][N], W [N][K] and b [N],
 // K and N the input and output counts padded to 8, in three planes (fp32,
@@ -167,29 +189,29 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int P>
-using Acc = float[Tile<P>::MT][8][4];
+template <class T>
+using Acc = float[T::MT][8][4];
 
 // acc[i][j][e] = sum_{k < K} V[k][p] M[k][n] for the warp's (p, n) of
 // fragment element (i, j, e) (see each_output), with M a weight block of
 // the pack's fp32 plane, [K][ld] of which the first N columns are read
-// (K % 8 == 0, N % 8 == 0, N <= 256, ld % 4 == 0, rows 16-byte aligned), whose TF32 big and small parts lie `plane` and 2 `plane`
+// (K % 8 == 0, N % 8 == 0, N <= T::NMAX, ld % 4 == 0, rows 16-byte aligned), whose TF32 big and small parts lie `plane` and 2 `plane`
 // floats on, and V in shared memory as [K][LDV]; `stage` holds NBUF chunks
 // of KC weight rows, both parts. Each k-step's three MMAs go into a fresh
 // fragment that is then added to the accumulator on the CUDA cores (see the
 // note on precision). Every thread of the block must call it: it
 // synchronises, and it returns after a barrier that every warp reaches once
 // done with V and the stage (so the caller may overwrite V).
-template <int P, int KC, int NBUF, bool PRESPLIT>
+template <class T, int KC, int NBUF, bool PRESPLIT>
 __device__ __forceinline__ void product(const float* __restrict__ M, size_t plane, int K,
                                         int N, int ld, const float* V, float* stage,
-                                        Acc<P>& acc) {
+                                        Acc<T>& acc) {
   static_assert(KC % 8 == 0 && NBUF >= 2, "chunks of whole k-steps, two buffers or more");
-  constexpr int MT = Tile<P>::MT, LDV = Tile<P>::LDV, CH = KC * SLD;
+  constexpr int MT = T::MT, LDV = T::LDV, SLD = T::SLD, CH = KC * SLD;
   constexpr int PARTS = PRESPLIT ? 2 : 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int pw = (warp % Tile<P>::PG) * 32, nw = (warp / Tile<P>::PG) * 64;
+  const int pw = (warp % T::PG) * 32, nw = (warp / T::PG) * 64;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -202,7 +224,7 @@ __device__ __forceinline__ void product(const float* __restrict__ M, size_t plan
       const int n = min(KC, K - ch * KC) * n4;
       float* dst = stage + (ch % NBUF) * PARTS * CH;  // big plane, then small
       const float* src = M + (PRESPLIT ? plane : 0) + (size_t)ch * KC * ld;
-      for (int idx = threadIdx.x; idx < n; idx += Tile<P>::THREADS) {
+      for (int idx = threadIdx.x; idx < n; idx += T::THREADS) {
         const int r = idx / n4, c = idx - r * n4;
         cp_async16(dst + r * SLD + 4 * c, src + (size_t)r * ld + 4 * c);
         if (PRESPLIT)
@@ -267,12 +289,12 @@ __device__ __forceinline__ void product(const float* __restrict__ M, size_t plan
 }
 
 // f(n, p, value) for every output element the thread holds, n < N.
-template <int P, class F>
-__device__ __forceinline__ void each_output(const Acc<P>& acc, int N, F&& f) {
-  constexpr int MT = Tile<P>::MT;
+template <class T, class F>
+__device__ __forceinline__ void each_output(const Acc<T>& acc, int N, F&& f) {
+  constexpr int MT = T::MT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int pw = (warp % Tile<P>::PG) * 32, nw = (warp / Tile<P>::PG) * 64;
+  const int pw = (warp % T::PG) * 32, nw = (warp / T::PG) * 64;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (nw + 8 * j < N) {
@@ -287,10 +309,10 @@ __device__ __forceinline__ void each_output(const Acc<P>& acc, int N, F&& f) {
 
 // Positional encoding of xs [3][P] into emb [c_pad][LDV]: rows [x, sin(f0
 // x), cos(f0 x), sin(f1 x), ...], f_i = 2^i, then zero rows to c_pad.
-template <int P>
+template <class T>
 __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float* emb) {
-  constexpr int LDV = Tile<P>::LDV;
-  for (int idx = threadIdx.x; idx < m.c_pad * P; idx += Tile<P>::THREADS) {
+  constexpr int P = T::P, LDV = T::LDV;
+  for (int idx = threadIdx.x; idx < m.c_pad * P; idx += T::THREADS) {
     const int c = idx / P, p = idx % P;
     float v = 0.f;
     if (c < 3) {
@@ -314,11 +336,11 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float*
 // sections a few 1e-7 apart (PERF.md). sincosf/sinf, not the fast
 // intrinsics: 30 z reaches tens of radians, where __sinf's error grows with
 // |x| (the kernels build without --use_fast_math).
-template <int P, int ACT>
-__device__ __forceinline__ void activation_out(const Layer& L, const Acc<P>& acc, float* out,
+template <class T, int ACT>
+__device__ __forceinline__ void activation_out(const Layer& L, const Acc<T>& acc, float* out,
                                                float* slope) {
-  constexpr int LDV = Tile<P>::LDV;
-  each_output<P>(acc, L.N, [&](int o, int p, float a) {
+  constexpr int P = T::P, LDV = T::LDV;
+  each_output<T>(acc, L.N, [&](int o, int p, float a) {
     float v = 0.f, s = 0.f;
     if (o < L.out_dim) {
       if constexpr (ACT == ACT_SINE) {
@@ -345,17 +367,17 @@ __device__ __forceinline__ void activation_out(const Layer& L, const Acc<P>& acc
 // - in_ch; the encoding `emb` goes to rows [h_dim, h_dim + in_ch), zeros to
 // the padded rows up to K, then all K rows are divided by sqrt(2), as the
 // plain forward does.
-template <int P>
+template <class T>
 __device__ __forceinline__ void skip_input(const Mlp& m, const Layer& L, const float* emb,
                                            float* buf) {
-  constexpr int LDV = Tile<P>::LDV;
+  constexpr int P = T::P, LDV = T::LDV;
   const int h_dim = L.in_dim - m.in_ch;
-  for (int idx = threadIdx.x; idx < (L.K - h_dim) * P; idx += Tile<P>::THREADS) {
+  for (int idx = threadIdx.x; idx < (L.K - h_dim) * P; idx += T::THREADS) {
     const int c = idx / P, p = idx % P;
     buf[(h_dim + c) * LDV + p] = c < m.in_ch ? emb[c * LDV + p] : 0.f;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < L.K * P; idx += Tile<P>::THREADS) {
+  for (int idx = threadIdx.x; idx < L.K * P; idx += T::THREADS) {
     float* cat = buf + (idx / P) * LDV + idx % P;
     *cat = *cat / 1.41421356237f;
   }
@@ -366,10 +388,10 @@ __device__ __forceinline__ void skip_input(const Mlp& m, const Layer& L, const f
 // fp32: sum_k V[k][p] W_D[row][k] + b_D[row], with V the layer's input
 // ([K][LDV]; W_D's row is K floats of its [N][K] block, padded entries zero
 // on both sides). The sdf row, and the final layer's outputs past the
-// product's 256 columns.
-template <int P>
+// product's T::NMAX columns.
+template <class T>
 __device__ __forceinline__ float final_row(const Layer& L, int row, const float* V, int p) {
-  constexpr int LDV = Tile<P>::LDV;
+  constexpr int LDV = T::LDV;
   const float* w = L.w + (size_t)row * L.K;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   for (int k = 0; k < L.K; k += 4) {
@@ -384,13 +406,13 @@ __device__ __forceinline__ float final_row(const Layer& L, int row, const float*
 // The reverse product of layer L in a sweep: g_in = g W over `buf` (depth K
 // = the layer's padded outputs, N = its padded inputs), written back over
 // it. Ends synchronised.
-template <int P, int KC, int NBUF, bool PRESPLIT>
+template <class T, int KC, int NBUF, bool PRESPLIT>
 __device__ __forceinline__ void reverse_product(const Mlp& m, const Layer& L, float* buf,
                                                 float* stage) {
-  constexpr int LDV = Tile<P>::LDV;
-  Acc<P> acc;
-  product<P, KC, NBUF, PRESPLIT>(L.w, m.plane, L.N, L.K, L.K, buf, stage, acc);
-  each_output<P>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
+  constexpr int LDV = T::LDV;
+  Acc<T> acc;
+  product<T, KC, NBUF, PRESPLIT>(L.w, m.plane, L.N, L.K, L.K, buf, stage, acc);
+  each_output<T>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
   __syncthreads();
 }
 
@@ -399,20 +421,20 @@ __device__ __forceinline__ void reverse_product(const Mlp& m, const Layer& L, fl
 // (`ge`, [c_pad][LDV]); a skip layer's input [h, e] / sqrt(2) splits, its h
 // rows staying in `buf` and its encoding rows added to g_e, both divided by
 // sqrt(2). Ends synchronised.
-template <int P>
+template <class T>
 __device__ __forceinline__ void pull_input(const Mlp& m, const Layer& L, int l, float* buf,
                                            float* ge) {
-  constexpr int LDV = Tile<P>::LDV;
+  constexpr int P = T::P, LDV = T::LDV;
   const float inv_sqrt2 = 1.f / 1.41421356237f;
   const int C = m.in_ch;
   if (l == 0) {
-    for (int idx = threadIdx.x; idx < C * P; idx += Tile<P>::THREADS) {
+    for (int idx = threadIdx.x; idx < C * P; idx += T::THREADS) {
       const int at = (idx / P) * LDV + idx % P;
       ge[at] += buf[at];
     }
   } else if (L.skip) {
     const int h_dim = L.in_dim - C;
-    for (int idx = threadIdx.x; idx < L.in_dim * P; idx += Tile<P>::THREADS) {
+    for (int idx = threadIdx.x; idx < L.in_dim * P; idx += T::THREADS) {
       const int r = idx / P, p = idx % P;
       const float v = buf[r * LDV + p] * inv_sqrt2;
       if (r < h_dim) buf[r * LDV + p] = v;

@@ -14,7 +14,8 @@ needed.
 
 The backward is bound by arithmetic (~5.8 MFLOP per point at the flagship
 widths); `csrc/nablas_backward.cu` says how it splits the work into a
-pass over 128-point tiles and a deterministic reduction of the weight
+pass over 128-point tiles (64-point tiles of the wide instantiation for a
+surface wider than 256, up to 512) and a deterministic reduction of the weight
 gradients over all points, through a device-memory workspace, both on
 split-fp32 tensor-core products.
 
@@ -34,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-_TILE = 128  # points per tile of the tile pass (csrc BWD_TILE)
+_TILE = 128  # points per tile of the tile pass (csrc tc::Narrow; tc::Wide takes 64)
 _KT = 16     # workspace rows per k-tile of the reduction (csrc)
 _RT = 64     # output tile edge of the reduction (csrc)
 
@@ -150,33 +151,34 @@ def _round(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
 
-def _layout(dims, M: int) -> dict:
+def _layout(dims, M: int, tile: int = _TILE) -> dict:
     """Workspace and flat-gradient layout of the backward kernel for layers
-    of (in, out) `dims` and M points: one int64 record per layer (fields in
+    of (in, out) `dims`, M points and the tile pass's `tile` points a tile
+    (`surface_pack.Pack.tile`): one int64 record per layer (fields in
     csrc/nablas_backward.cu), the workspace size in floats, and the flat
     gradient [W_bar_0 .. W_bar_D | b_bar_0 .. b_bar_D | gsdfbar]. The
-    workspace is tile-blocked, [pair][tile][column][128 points]; the
+    workspace is tile-blocked, [pair][tile][column][tile points]; the
     reduction walks it in k-tiles of 16 rows."""
     D = len(dims) - 1
-    m_tiles = (M + _TILE - 1) // _TILE
-    jobs, work, c_off, bias, tile = [], 0, 0, 0, 0
+    m_tiles = (M + tile - 1) // tile
+    jobs, work, c_off, bias, out_tiles = [], 0, 0, 0, 0
     for l, (n_in, n_out) in enumerate(dims):
         pairs = 1 if l == D else 2
         ld_a, ld_b = _round(n_out, _RT), _round(n_in, _RT)
         a_off = work
-        work += pairs * m_tiles * _TILE * ld_a
+        work += pairs * m_tiles * tile * ld_a
         b_off = work
-        work += pairs * m_tiles * _TILE * ld_b
+        work += pairs * m_tiles * tile * ld_b
         jobs.append([a_off, b_off, ld_a, ld_b, n_out, n_in,
-                     pairs * m_tiles * _TILE // _KT, c_off, bias, tile, pairs, 0])
+                     pairs * m_tiles * tile // _KT, c_off, bias, out_tiles, pairs, 0])
         c_off += n_out * n_in
         bias += n_out
-        tile += ((n_out + _RT - 1) // _RT) * ((n_in + _RT - 1) // _RT)
+        out_tiles += ((n_out + _RT - 1) // _RT) * ((n_in + _RT - 1) // _RT)
     jobs[D][11] = bias  # gsdfbar after the biases
     nb = bias + dims[D][0]
-    k16 = m_tiles * _TILE // _KT
+    k16 = m_tiles * tile // _KT
     return {"jobs": jobs, "work": work, "m_tiles": m_tiles, "nb": nb,
-            "bias_flat_off": c_off, "total": c_off + nb, "out_tiles": tile,
+            "bias_flat_off": c_off, "total": c_off + nb, "out_tiles": out_tiles,
             "n_split": max(1, min(32, k16 // 16))}
 
 
@@ -216,10 +218,10 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     if M == 0:
         return (torch.zeros_like(x), [torch.zeros_like(w) for w in ws],
                 [torch.zeros_like(b) for b in bs])
-    lay = _layout(dims, M)
     dev = x.device
     if packed is None:
         packed = surface_pack.pack(surface, (ws, bs))
+    lay = _layout(dims, M, packed.tile)
     rows = max(packed.rows, surface_pack.pad8(dims[-1][1]))
     lib = _build.load("nablas_backward")
     jobs = fused_nablas.upload(torch.tensor(lay["jobs"], dtype=torch.int64), dev)
@@ -227,26 +229,27 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     bias_part = torch.empty(lay["m_tiles"], lay["nb"], device=dev)
     part = torch.empty(lay["n_split"], lay["total"], device=dev)
     flat = torch.empty(lay["total"], device=dev)
-    lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I]
+    lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I, _I]
     lib.ntt_nablas_backward_blocks.restype = _I
-    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"])
+    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"],
+                                            int(packed.wide))
     _build.check(max(-blocks, 0), "nablas_backward (occupancy)")
     if blocks == 0:
         raise NotImplementedError(
             f"nablas_backward: a block for {packed.c_pad} encoding and {rows} activation "
             "rows does not fit in the card's shared memory")
-    slopes = torch.empty(blocks * (len(dims) - 1) * rows * _TILE, device=dev)
+    slopes = torch.empty(blocks * (len(dims) - 1) * rows * packed.tile, device=dev)
     xbar = torch.empty(M, 3, device=dev)
     fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
                                             + part.numel() + slopes.numel())
     fn = lib.ntt_nablas_backward
-    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
                    _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
             packed.meta.data_ptr(), len(dims), surface.input_ch, packed.c_pad, rows,
-            packed.act, cots[0].data_ptr(), cots[1].data_ptr(),
+            packed.act, int(packed.wide), cots[0].data_ptr(), cots[1].data_ptr(),
             cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
             bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
             lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,

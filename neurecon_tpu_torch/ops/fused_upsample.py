@@ -110,11 +110,15 @@ def _sms(device: torch.device) -> int:
     return sms
 
 
-def block_shape(N: int, sms: int):
+def block_shape(N: int, sms: int, wide: bool = False):
     """(P, R): points per MLP tile and rays per block for N rays. A block of
     8 rays (a round's 8 x 16 new points make one 128-point tile) where that
     gives every SM a block; else 4 rays on 64-point tiles, so that a
-    training step's 512 rays make 128 blocks, not 64."""
+    training step's 512 rays make 128 blocks, not 64. A surface wider than
+    256 (`wide`, the pack's tile) takes the wide tile's 64 points and 4 rays
+    at any N."""
+    if wide:
+        return 64, 4
     return (128, 8) if -(-N // 8) >= sms else (64, 4)
 
 
@@ -136,17 +140,18 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     if N == 0:
         return d_all
     packed = packed_surface(surface)
-    P, R = block_shape(N, _sms(dev))
+    P, R = block_shape(N, _sms(dev), packed.wide)
     fn = _build.load("neus_upsample").ntt_neus_upsample
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
-                   _I, ctypes.c_float, _I, _I, _P, _P]
+                   _I, _I, ctypes.c_float, _I, _I, _P, _P]
     fn.restype = _I
     sphere_r = float(surface.radius_init) if surface.sphere_residual else -1.0
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(), u_rounds.data_ptr(),
             N, n_coarse, n_iters, n_per_iter, packed.params.data_ptr(), packed.plane,
             packed.meta.data_ptr(), len(surface.layers), surface.input_ch, packed.c_pad,
-            packed.rows, packed.act, sphere_r, P, R, d_all.data_ptr(), stream)
+            packed.rows, packed.act, int(packed.wide), sphere_r, P, R, d_all.data_ptr(),
+            stream)
     _build.check(rc, "neus_upsample")
     fused_neus_upsample.launches += 1
     return d_all

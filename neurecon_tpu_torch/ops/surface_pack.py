@@ -15,6 +15,10 @@ they are. One int32 record of 8 per layer: K, N, out_dim, in_dim, offset of
 W^T, of W, of b, skip flag. The pack also carries the hidden activation's
 code (`fused_nablas.activation_code`), which every launch passes on: a SIREN
 surface's pack says sine, so that no kernel runs Softplus on its weights.
+And it records which of the kernels' two tiles the surface needs
+(`csrc/surface_mma.cuh`): the narrow tiles for padded hidden widths up to
+256 (final-layer rows up to 264), the wide tile for hidden widths and
+final-layer rows up to 512.
 """
 from __future__ import annotations
 
@@ -25,9 +29,12 @@ import torch
 
 from neurecon_tpu_torch.ops.fused_nablas import activation_code, surface_weights, upload
 
-_NMAX = 256   # widest product output (csrc/surface_mma.cuh: 4 column groups of 64)
-_SLD = 264    # stage row stride: the widest row a product stages
-_ALIGN = 32   # floats between block starts (128 bytes)
+# csrc/surface_mma.cuh: the narrow tiles' products take 256 outputs (4 column
+# groups of 64), the wide tile's 512 (8 column groups)
+_NARROW = 256  # widest padded hidden layer of the narrow tiles
+_NARROW_FINAL = 264  # their final-layer rows: 256 in kernel 1's product, the rest on CUDA cores
+_WIDE = 512    # widest padded hidden layer and final-layer rows of the wide tile
+_ALIGN = 32    # floats between block starts (128 bytes)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -61,28 +68,37 @@ class Pack(NamedTuple):
     c_pad: int            # encoding rows (input_ch padded to 8)
     rows: int             # activation rows of the forward (widest hidden K or N)
     act: int              # the hidden activation's code (csrc ACT_SOFTPLUS / ACT_SINE)
+    wide: bool            # the kernels' wide tile (csrc tc::Wide), else the narrow ones
+
+    @property
+    def tile(self) -> int:
+        """Points a tile of kernels 1, 3 and 4 (csrc tc::Wide 64, tc::Narrow 128)."""
+        return 64 if self.wide else 128
 
 
 def layout(surface) -> dict:
     """The pack's shape for `surface` (no values): the per-layer records,
-    the buffer size in floats, `c_pad` and `rows` (the widest hidden K or N,
-    and the final layer's K). Shapes the kernels do not take raise
-    NotImplementedError (ValueError for a skip at 0, or on a SIREN surface,
-    whose kernel-3 branch reads each sine layer's output as the next layer's
-    input)."""
+    the buffer size in floats, `c_pad`, `rows` (the widest hidden K or N,
+    and the final layer's K) and `wide` (the kernels' wide tile: a padded
+    hidden width past 256, or final-layer rows past 264). Shapes the kernels
+    do not take (a padded hidden width or final-layer rows past 512) raise
+    NotImplementedError (ValueError for a skip at 0, or on a SIREN surface
+    with skips, whose kernel-3 branch reads each sine layer's output as the
+    next layer's input)."""
     if 0 in surface.skips:
         raise ValueError("a skip at layer 0 is not supported by the kernels")
     if surface.use_siren and surface.skips:
         raise ValueError("a SIREN surface with skips is not supported by the kernels")
     c_pad = pad8(surface.input_ch)
-    records, off, rows = [], 0, 0
+    records, off, rows, wide = [], 0, 0, False
     for l, (in_dim, out_dim) in enumerate(surface.dims):
         hidden = l < surface.D
         K, N = pad8(in_dim), pad8(out_dim)
-        if (hidden and max(in_dim, out_dim) > _NMAX) or N > _SLD or K > _NMAX:
+        if max(K, N) > _WIDE:
             raise NotImplementedError(
                 f"layer {l} ({in_dim} -> {out_dim}) is wider than the kernels "
-                f"take (hidden <= {_NMAX}, rows <= {_SLD})")
+                f"take (padded hidden widths and final-layer rows <= {_WIDE})")
+        wide |= K > _NARROW or N > (_NARROW if hidden else _NARROW_FINAL)
         off_wT = off
         off_w = _align(off_wT + K * N)
         off_b = _align(off_w + N * K)
@@ -90,10 +106,10 @@ def layout(surface) -> dict:
         records.append([K, N, out_dim, in_dim, off_wT, off_w, off_b,
                         int(l in surface.skips)])
         rows = max(rows, K, N if hidden else 0)
-    return {"records": records, "size": off, "c_pad": c_pad, "rows": rows}
+    return {"records": records, "size": off, "c_pad": c_pad, "rows": rows, "wide": wide}
 
 
-_INDEX: dict = {}  # (shape signature, device) -> (meta, index, size, c_pad, rows)
+_INDEX: dict = {}  # (shape signature, device) -> (meta, index, size, c_pad, rows, wide)
 
 
 def _index(surface, device):
@@ -114,7 +130,7 @@ def _index(surface, device):
             pos_b.append(off_b + torch.arange(o, dtype=torch.int64))
         index = torch.cat(pos_T + pos_W + pos_b).to(device)
         meta = upload(torch.tensor(lay["records"], dtype=torch.int32), device)
-        hit = _INDEX[sig] = (meta, index, lay["size"], lay["c_pad"], lay["rows"])
+        hit = _INDEX[sig] = (meta, index, lay["size"], lay["c_pad"], lay["rows"], lay["wide"])
     return hit
 
 
@@ -127,13 +143,13 @@ def pack(surface, weights=None) -> Pack:
     with torch.no_grad():
         ws, bs = weights if weights is not None else surface_weights(surface)
         device = ws[0].device
-        meta, index, size, c_pad, rows = _index(surface, device)
+        meta, index, size, c_pad, rows, wide = _index(surface, device)
         flat_w = torch.cat([w.float().reshape(-1) for w in ws])
         src = torch.cat([flat_w, flat_w] + [b.float().reshape(-1) for b in bs])
         fp32 = torch.zeros(size, device=device).index_copy_(0, index, src)
         big, small = split_tf32(fp32)
         params = torch.cat([fp32, big, small])
-    return Pack(params, size, meta, c_pad, rows, activation_code(surface))
+    return Pack(params, size, meta, c_pad, rows, activation_code(surface), wide)
 
 
 pack.packs = 0

@@ -29,13 +29,19 @@ sphere of radius 3, n0 = n_up = 512, 6 rounds, 64 fine samples, perturb
 uniforms from the seed). The flagship surface (D=8, W=256) with seeded
 noise on every weight, points and cotangents from `--seed`.
 
-The sampler's outputs (fine depths, beta map, iter_usage), and every output
+The sampler's outputs (fine depths, beta map, iter_usage), every output
 of kernel (a) launched alone on the same rays (round-0 depths and sdf,
 bounds, beta+, converged, iter_usage, the checkpoint-0 draws; case
-`<case>_init`), of every copy are then held to the first copy's on the same
+`<case>_init`), and the outputs of the surface kernels on the flagship
+surface (case `surface_kernels`: kernel 1's sdf, nablas and h at 130,560
+points, kernel 2's depths at 512 and 4,096 rays, kernel 3's x_bar and
+every weight and bias gradient at 130,560 points, kernel 4's sdf at 2^20
+points) of every copy are then held to the first copy's on the same
 inputs: one JSON line per case and copy with, for each output, the largest
-difference and the share of entries that differ.
+difference and the share of entries that differ (0 when two copies' kernels
+round alike, as a change that leaves the W <= 256 instantiations alone must).
 """
+
 from __future__ import annotations
 
 import argparse
@@ -70,9 +76,13 @@ def ms(fn, reps=10):
     return float(np.median(out))
 
 res = {"root": ROOT, "card": torch.cuda.get_device_name(0)}
+outputs = {}  # the surface kernels' outputs, held to the first copy's
 for M in (130560, 197632, 1044480):
     x = torch.randn(M, 3, device=dev, generator=g) * 0.5
     res[f"nablas_forward_ms_{M}"] = ms(lambda: fused_nablas.fused_forward_with_nablas(s, x))
+    if M == 130560:
+        outputs.update(zip(("k1_sdf", "k1_nablas", "k1_h"),
+                           (t.cpu() for t in fused_nablas.fused_forward_with_nablas(s, x))))
 from neurecon_tpu_torch.models.frameworks.neus import _uniforms
 from neurecon_tpu_torch.ops import fused_upsample
 from neurecon_tpu_torch.ops.ray import near_far_from_sphere
@@ -92,11 +102,12 @@ def upsample(surf, args):
 for N in (512, 4096):
     args = rays(N, 1.0)
     res[f"neus_upsample_ms_{N}_rays"] = ms(lambda: upsample(s, args))
+    outputs[f"k2_d_all_{N}"] = upsample(s, args).cpu()
 if hasattr(fused_upsample, "block_shape"):  # each block shape in turns, A B C D D C B A
     chosen, shapes = fused_upsample.block_shape, [(64, 4), (128, 8), (128, 4), (64, 8)]
     cases = {N: rays(N, 1.0) for N in (512, 4096)}
     for shape in shapes + shapes[::-1]:
-        fused_upsample.block_shape = lambda n, sms, shape=shape: shape
+        fused_upsample.block_shape = lambda n, sms, *_, shape=shape: shape
         for N, args in cases.items():
             res.setdefault(f"neus_upsample_ms_{N}_rays_P{shape[0]}_R{shape[1]}", []).append(
                 ms(lambda: upsample(s, args)))
@@ -125,6 +136,9 @@ if fused_nablas_vjp is not None:
         run = lambda: fused_nablas_vjp.fused_nablas_vjp(s, x, ws, bs, *cots)
         if M == 130560:
             got, ref = run(), fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, *cots)
+            outputs["k3_xbar"] = got[0].cpu()
+            outputs.update({f"k3_wbar_{l}": t.cpu() for l, t in enumerate(got[1])})
+            outputs.update({f"k3_bbar_{l}": t.cpu() for l, t in enumerate(got[2])})
             res["nablas_backward_max_rel_err"] = max(
                 float((a - b).abs().max() / b.abs().max())
                 for a, b in zip([got[0], *got[1], *got[2]], [ref[0], *ref[1], *ref[2]]))
@@ -153,6 +167,7 @@ if fused_mlp is not None:
 
     x = torch.rand(2 ** 20, 3, device=dev, generator=g) * 2 - 1
     res["sdf_forward_ms_1048576"] = ms(lambda: fused_mlp.fused_sdf_forward(s, x))
+    outputs["k4_sdf_1048576"] = fused_mlp.fused_sdf_forward(s, x).cpu()
     x4 = x[:4096].contiguous()
     res["sdf_forward_call_wall_ms_4096"] = wall_ms(lambda: fused_mlp.fused_sdf_forward(s, x4))
     o = torch.tensor([0.0, 0.0, -3.0], device=dev).expand(19200, 3).contiguous()
@@ -186,7 +201,7 @@ if ffs is not None:
 
     kernels = {"volsdf_init": "launch_init", "volsdf_draw": "launch_draw",
                "volsdf_checkpoint": "launch_checkpoint"}
-    saved = {}
+    saved = {"surface_kernels": outputs}
     for N, beta in ((1024, 0.1), (1024, 0.001), (4096, 0.001)):
         th = (torch.rand(N, 2, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
               * 0.6 - 0.3)
@@ -251,12 +266,13 @@ def main(argv=None):
                 print(json.dumps({"root": root, "error": out.stderr[-2000:]}), flush=True)
                 rc = 1
         if len(outs) > 1:
-            _compare_sampler(outs)
+            _compare_outputs(outs)
     return rc
 
 
-def _compare_sampler(outs):
-    """The sampler's outputs of each copy against the first copy's."""
+def _compare_outputs(outs):
+    """The kept outputs (sampler, kernel (a), surface kernels) of each copy
+    against the first copy's."""
     import torch
 
     (root0, dump0), rest = outs[0], outs[1:]
@@ -264,8 +280,11 @@ def _compare_sampler(outs):
     for root, dump in rest:
         got = torch.load(dump)
         for case, want in ref.items():
-            line = {"sampler_outputs_vs": root0, "root": root, "case": case}
+            line = {"outputs_vs": root0, "root": root, "case": case}
             for name, b in want.items():
+                if name not in got.get(case, {}):
+                    line[f"{name}_missing"] = True
+                    continue
                 a = got[case][name]
                 diff = (a.double() - b.double()).abs()
                 line[f"{name}_max_diff"] = float(diff.max())

@@ -110,7 +110,7 @@ def main(argv=None) -> list:
         rows.append(pc.emit(PROBE, "upsampler, plain version",
                             ms=pc.median_ms(lambda: plain(u), K, dev), **common))
         for P, R in ((128, 8), (64, 4)):
-            with mock.patch.object(fused_upsample, "block_shape", lambda n, sms, s=(P, R): s):
+            with mock.patch.object(fused_upsample, "block_shape", lambda n, sms, *_, s=(P, R): s):
                 ms = pc.median_ms(lambda: kernel(u), K, dev)
             rows.append(pc.emit(PROBE, f"kernel 2 at block shape {P} points x {R} rays",
                                 ms=ms, tile_points=P, block_rays=R,

@@ -3,10 +3,11 @@ broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-Six groups, each with its unmutated copy. For the unmutated source and for
+Seven groups, each with its unmutated copy. For the unmutated source and for
 each mutant, the port's package (and `chip_smoke.py`) is copied into a
 temporary directory (under `--workdir`, the system's temporary directory by
-default; removed after), one edit is made to the copy, and a fresh process
+default; removed after), one edit (or a few, which together make one fault) is made to the copy,
+and a fresh process
 builds that copy's kernels and runs the group's check; a group's copies
 build at once and take the card one at a time, the groups one after the
 other. One JSON line per copy; the exit code is 0 when each unmutated copy
@@ -70,6 +71,16 @@ passes and every mutant fails.
   spin kernel on its stream, so that the backward, Adam and the next forward
   run first). Its mutant drops the current stream's wait on the sampler
   before Adam.
+* `wide`: the wide tile of the surface-MLP kernels (surfaces wider than
+  256), held by `chip_smoke.py` phase 40's kernel checks
+  (`wide_kernel_checks`: kernels 1-4 on the perturbed NeuS at IDR's widths,
+  W = 512, at the gates of phases 2, 3, 6 and 10, and kernel 4 at W = 300
+  and 384). Its mutants skip the second half of the column groups, leave
+  the product's stage row stride at the narrow tile's 264, write a layer in
+  place before every warp has passed the product (its closing barrier
+  dropped, and the first four column groups held back ~20 us before their
+  last chunk: the interleaving the dropped barrier allows, made certain),
+  and drop the final layer's rows past 256 from kernel 1's product.
 """
 from __future__ import annotations
 
@@ -181,6 +192,29 @@ SAMPLER_MUTANTS = {
     "(a): last depth of the round-0 buffer not written": (
         "csrc/volsdf_fine_sample.cu", "d_buf[r * S + j] = t;",
         "if (j < n0 - 1) d_buf[r * S + j] = t;"),
+}
+
+# name -> one edit as above, or a list of edits that make one fault
+WIDE_MUTANTS = {
+    "second half of the column groups skipped": (
+        "csrc/surface_mma.cuh", "    if (nw >= N) continue;",
+        "    if (nw >= N || nw >= 256) continue;"),
+    "stage row stride left at 264": (
+        "csrc/surface_mma.cuh",
+        "constexpr int MT = T::MT, LDV = T::LDV, SLD = T::SLD, CH = KC * SLD;",
+        "constexpr int MT = T::MT, LDV = T::LDV, SLD = 264, CH = KC * SLD;"),
+    "layer written in place before every warp passed the product": [
+        ("csrc/surface_mma.cuh",
+         "    if (nw >= N) continue;\n",
+         "    if (nw >= N) continue;\n"
+         "    if (ch == nch - 1 && nw < 256)\n"
+         "      for (int i = 0; i < 20; ++i) __nanosleep(1000);\n"),
+        ("csrc/surface_mma.cuh",
+         "      }\n    }\n  }\n  __syncthreads();\n}\n\n// f(n, p, value)",
+         "      }\n    }\n  }\n}\n\n// f(n, p, value)")],
+    "final layer's rows past 256 dropped": (
+        "csrc/nablas_forward.cu", "if (o < LD.out_dim && p0 + p < M) {",
+        "if (o < LD.out_dim && o < 256 && p0 + p < M) {"),
 }
 
 # the checks take the card one at a time (the nablas check's plain version
@@ -318,6 +352,22 @@ print(json.dumps({"passes": bool(ok), "errors": err, "lockstep_over_gates": over
                   "depths_equal": equal}))
 '''
 
+_WIDE_CODE = r'''
+import json, sys
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke
+from neurecon_tpu_torch.ops import _build, fused_mlp
+for mod in (chip_smoke, fused_mlp):
+    if not mod.__file__.startswith(ROOT):
+        raise SystemExit(f"imported {mod.__file__}, not the copy under {ROOT}")
+_build.build_all(force=True)
+''' + _LOCKED + r'''
+torch.backends.cuda.matmul.allow_tf32 = False
+fails, errs, _ = chip_smoke.wide_kernel_checks(SEED, torch.device("cuda"), report=lambda s: None)
+print(json.dumps({"passes": not fails, "errors": errs, "failed": fails}))
+'''
+
 _CODE = r'''
 import json, sys
 import torch
@@ -349,6 +399,14 @@ print(json.dumps({"max_rel_err": worst}))
 '''
 
 
+def edits_of(mutant):
+    """A mutant's edits as a list of (file, text, replacement): none for the
+    unmutated copy (None), one for a tuple."""
+    if mutant is None:
+        return []
+    return mutant if isinstance(mutant, list) else [mutant]
+
+
 def _run_group(tmp, group, cases, code, seed, judge):
     """Copy, mutate and check every case of one group at once; print a JSON
     line per case; return 0 when the unmutated copy passes and every mutant
@@ -359,8 +417,7 @@ def _run_group(tmp, group, cases, code, seed, judge):
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(CHIP_SMOKE, root / CHIP_SMOKE.name)
-        if edit is not None:
-            fname, text, repl = edit
+        for fname, text, repl in edits_of(edit):
             src = root / PACKAGE.name / fname
             source = src.read_text()
             if source.count(text) != 1:
@@ -414,7 +471,8 @@ def main(argv=None):
                 ("nablas", NABLAS_MUTANTS, _PHASE_CODE, _judge_phase),
                 ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase),
                 ("sampler", SAMPLER_MUTANTS, _SAMPLER_CODE, _judge_phase),
-                ("stream", STREAM_MUTANTS, _STREAM_CODE, _judge_phase)):
+                ("stream", STREAM_MUTANTS, _STREAM_CODE, _judge_phase),
+                ("wide", WIDE_MUTANTS, _WIDE_CODE, _judge_phase)):
             rc |= _run_group(tmp, group, {"unmutated": None, **mutants}, code, args.seed,
                              judge)
     return rc

@@ -1,7 +1,7 @@
 """How far `chip_smoke.py` phase 7's whole-step gradient check moves under
 sdf rounding, on one CUDA card:
 
-    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N] [--nomask]
+    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N] [--nomask | --wide]
 
 Phase 7 holds every parameter's gradient of the flagship NeuS ray loss
 through the kernels to the plain route's within 5e-4 of its max|ref|. The
@@ -19,7 +19,9 @@ its sdf, two seeds a sigma. With `--nomask` the same on phase 27's step
 (`chip_smoke.nomask_inputs`: NeuS without a mask at
 configs/synthetic_quality_nomask.yaml's widths, the NeRF++ background, 512
 rays of the envmap scene with their fixed outside jitter), whose gate
-(`chip_smoke.NOMASK_GRAD_GATE`) these readings set.
+(`chip_smoke.NOMASK_GRAD_GATE`) these readings set. With `--wide` the same
+on phase 40's step: phase 7's inputs at IDR's widths (`chip_smoke.IDR_CHIP`,
+surface and radiance W=512, the kernels' wide tile).
 """
 from __future__ import annotations
 
@@ -33,8 +35,11 @@ import torch
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--nomask", action="store_true",
-                    help="phase 27's no-mask step instead of phase 7's")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--nomask", action="store_true",
+                       help="phase 27's no-mask step instead of phase 7's")
+    which.add_argument("--wide", action="store_true",
+                       help="phase 40's step at IDR's widths (W=512) instead of phase 7's")
     opts = ap.parse_args(argv)
     seed = opts.seed
     import chip_smoke
@@ -53,7 +58,8 @@ def main(argv=None):
         ray_loss = get_ray_loss_fn(c["args"], model, c["kw_train"])
         extra = {"u_out": c["u_out"]}
     else:
-        c = chip_smoke.render_chunk_inputs(seed, dev)
+        c = chip_smoke.render_chunk_inputs(
+            seed, dev, chip_smoke.IDR_CHIP if opts.wide else chip_smoke.FLAGSHIP)
         model, t = c["checked"], c["t"]
         scene = make_synthetic_scene(n_images=1, H=120, W=160)
         batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
@@ -66,8 +72,9 @@ def main(argv=None):
         d_all = fused_upsample.fused_neus_upsample(
             model.implicit_surface, o, d, (near * (1 - t) + far * t).contiguous(),
             c["u_det"][:512], n_iters=4, n_per_iter=16)
-        ray_loss = get_ray_loss_fn(ConfigDict(chip_smoke._train_config("unused", seed)), model,
-                                   c["kw_test"])
+        cfg = (chip_smoke.wide_train_config("unused", seed)[0] if opts.wide
+               else chip_smoke._train_config("unused", seed))
+        ray_loss = get_ray_loss_fn(ConfigDict(cfg), model, c["kw_test"])
         extra = {}
     surface = model.implicit_surface
     x = (o[:, None] + d[:, None] * d_all[..., None]).reshape(-1, 3).contiguous()

@@ -138,13 +138,17 @@ class CheckpointIO:
         when `filename` is None and the directory holds none. With no
         filename, the candidate with the highest global_step is taken: after
         a crash between a numbered backup and the next `latest`, the backup
-        can be ahead of `latest`."""
+        can be ahead of `latest`. A URL (`scheme://...`; `file://` works
+        without a network) is fetched once into `<checkpoint_dir>/_zoo` and
+        read from there."""
         if filename is None:
             ckpts = sorted_ckpts(self.checkpoint_dir)
             if not ckpts:
                 log.info("CheckpointIO: no checkpoint found, starting fresh")
                 return {}
             path = self._newest_by_step(ckpts)
+        elif "://" in filename:
+            path = self._fetch_url(filename)
         elif os.path.isabs(filename) or os.path.exists(filename):
             path = filename
         else:
@@ -169,6 +173,34 @@ class CheckpointIO:
             if step >= best_step:
                 best, best_step = path, step
         return best
+
+    def _fetch_url(self, url: str) -> str:
+        """The cached copy of `url` under `<checkpoint_dir>/_zoo`, downloaded
+        first if absent. The name carries a hash of the whole URL (two URLs
+        ending in `latest.pt` do not collide), and the download goes to a
+        temporary file of this process's own, moved into place when whole, so
+        an interrupted transfer is never taken for a cached checkpoint."""
+        import hashlib
+        import tempfile
+        from urllib.parse import urlparse
+        from urllib.request import urlretrieve
+
+        cache_dir = os.path.join(self.checkpoint_dir, "_zoo")
+        os.makedirs(cache_dir, exist_ok=True)
+        digest = hashlib.sha1(url.encode()).hexdigest()[:12]
+        name = os.path.basename(urlparse(url).path) or "ckpt.pt"
+        path = os.path.join(cache_dir, f"{digest}_{name}")
+        if not os.path.exists(path):
+            log.info(f"CheckpointIO: downloading {url}")
+            fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".part")
+            os.close(fd)
+            try:
+                urlretrieve(url, tmp)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        return path
 
     def save(self, filename: str, global_step: int = 0, epoch_idx: int = 0,
              **pytrees):

@@ -79,6 +79,29 @@ class Logger:
         if self.tb is not None:
             self.tb.add_image(class_name, grid, it, dataformats="HWC")
 
+    def add_figure(self, fig, class_name: str, it: int):
+        """A matplotlib figure as an RGB image (a PNG, or a `.npy` array of
+        uint8 without imageio, as `add_imgs`), then closed. matplotlib is
+        imported here only."""
+        import matplotlib.pyplot as plt
+
+        if self.writes:
+            fig.canvas.draw()
+            w, h = fig.canvas.get_width_height()
+            img = np.frombuffer(fig.canvas.buffer_rgba(), np.uint8).reshape(h, w, 4)[..., :3]
+            outdir = os.path.join(self.img_dir, class_name)
+            os.makedirs(outdir, exist_ok=True)
+            path = os.path.join(outdir, f"{it:08d}_{self.rank}")
+            try:
+                import imageio.v2 as imageio
+            except ImportError:
+                np.save(path + ".npy", np.ascontiguousarray(img))
+            else:
+                imageio.imwrite(path + ".png", img)
+            if self.tb is not None:
+                self.tb.add_image(class_name, img, it, dataformats="HWC")
+        plt.close(fig)
+
     def _stats_path(self, filename: str) -> str:
         return os.path.join(self.log_dir, f"{filename}_{self.rank}")
 

@@ -22,6 +22,14 @@ FLAGSHIP = dict(W=256, D=8, skips=[4], radius_init=0.5, embed_multires=6)
 # configs/volsdf_siren.yaml's surface, and a narrow one
 SIREN = dict(W=256, D=5, skips=[], radius_init=1.0, embed_multires=-1, use_siren=True)
 SIREN_SMALL = dict(W=64, D=3, skips=[], radius_init=1.0, embed_multires=-1, use_siren=True)
+# surfaces wider than 256: IDR's network (W=512; configs/neus_w512.yaml), widths
+# that leave the wide tile's column groups partly (300, padded to 304) or
+# wholly (384) empty, and the flagship with 300 geometry features (final
+# layer of 301 rows: wide through its final layer alone)
+IDR = dict(W=512, D=8, skips=[4], radius_init=0.5, embed_multires=6)
+WIDE = [(IDR, 256), (dict(FLAGSHIP, W=300), 256), (dict(FLAGSHIP, W=384), 256),
+        (FLAGSHIP, 300)]
+WIDE_IDS = ["W512", "W300", "W384", "geo300"]
 
 
 @pytest.fixture
@@ -352,10 +360,102 @@ def test_sdf_grid_through_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("M", [4099, 65])
+def test_wide_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 4's wide tile (64 points, 8 column groups) against its plain
+    version at phase 10's gate, 1e-5 of max|sdf|; 4,099 and 65 points leave
+    a ragged last tile."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    assert surface_pack.packed_surface(surf).wide
+    x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (M, 3)).astype(np.float32),
+                     device=cuda)
+    before = fused_mlp.fused_sdf_forward.launches
+    got = fused_mlp.fused_sdf_forward(surf, x)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_sdf_forward.launches == before + 1
+    ref = fused_mlp.sdf_forward_plain(surf, x)
+    assert got.shape == (M,) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", WIDE, ids=WIDE_IDS)
+def test_wide_nablas_kernel_matches_plain(cuda, cfg, geo):
+    """Kernel 1's wide tile against its plain version, at the narrow test's
+    tolerances; 1,000 points leave a ragged last 64-point tile, and every
+    final-layer row (257 or 301) comes from the product."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.randn(1000, 3).astype(np.float32) * 0.6, device=cuda)
+    before = fused_nablas.fused_forward_with_nablas.launches
+    got = fused_nablas.fused_forward_with_nablas(surf, x)
+    torch.cuda.synchronize()
+    assert fused_nablas.fused_forward_with_nablas.launches == before + 1
+    ref = fused_nablas.forward_with_nablas_plain(surf, x)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("M", [4099, 0])
+def test_wide_backward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 3's wide tile (64-point tiles, a workspace blocked by 64) against
+    its plain version: every leaf within 5e-4 of its max|ref|, as the narrow
+    test; M = 0 gives zeros."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(M, 3).astype(np.float32) * 0.6, device=cuda)
+    cots = [torch.tensor(rng.randn(*s).astype(np.float32), device=cuda)
+            for s in ((M,), (M, 3), (M, geo))]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    before = fused_nablas_vjp.fused_nablas_vjp.launches
+    got = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    torch.cuda.synchronize()
+    assert fused_nablas_vjp.fused_nablas_vjp.launches == before + (M > 0)
+    ref = fused_nablas_vjp.nablas_vjp_plain(surf, x, ws, bs, *cots)
+    leaves = [(got[0], ref[0])] + list(zip(got[1], ref[1])) + list(zip(got[2], ref[2]))
+    for i, (g, r) in enumerate(leaves):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), i
+        err = float((g - r).abs().max()) if g.numel() else 0.0
+        assert err <= 5e-4 * float(r.abs().max()) if M else err == 0.0, (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("perturb", [False, True])
+def test_wide_upsample_kernel_matches_plain(cuda, cfg, geo, perturb):
+    """Kernel 2's wide tile (4 rays on 64-point tiles, 512 threads) against
+    the plain upsampler at the narrow test's shares; 203 rays leave a ragged
+    last block."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fused_upsample.block_shape(203, sms, surface_pack.packed_surface(surf).wide) == (64, 4)
+    N = 203
+    rays_o, rays_d = _rays(N, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    u = _uniforms(N, 4, 16, perturb, torch.Generator(cuda).manual_seed(3), cuda)
+    got = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    ref = fused_upsample.neus_upsample_plain(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1:] >= got[:, :-1]).all()), "output must be sorted"
+    span = float((far - near).max())
+    off = (got - ref).abs() > 1e-3 * span
+    assert float(off.float().mean()) <= (1e-3 if perturb else 5e-3), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
 def test_sdf_forward_raises_on_an_unsupported_shape(cuda):
     """A width the kernels do not take raises on the card; nothing falls
     back to the plain version."""
-    surf = _model(dict(SMALL, W=300), 64, cuda).implicit_surface
+    surf = _model(dict(SMALL, W=520), 64, cuda).implicit_surface
     before = fused_mlp.fused_sdf_forward.launches
     with pytest.raises(NotImplementedError):
         fused_mlp.fused_sdf_forward(surf, torch.zeros(10, 3, device=cuda))
@@ -587,12 +687,13 @@ def test_sharp_beta_sampler_at_phase14_gates(cuda):
     assert ok
 
 
-# ---- the sine branch (SIREN surfaces), held at the Softplus cases' limits
+# ---- the sine branch (SIREN surfaces, W=512 on the wide tile too), held at the Softplus
+# cases' limits
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN, 256, 129),
-                                      (SIREN_SMALL, 64, 1000)])
+                                      (SIREN_SMALL, 64, 1000), (dict(SIREN, W=512), 256, 4099)])
 def test_sine_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 4's sine branch on points in the scene's box [-3, 3]^3 (30 a
     reaches tens of radians on the first layer): max|diff| <= 1e-5 max|sdf|."""
@@ -607,7 +708,8 @@ def test_sine_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 1000)])
+@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 1000),
+                                      (dict(SIREN, W=512), 256, 4099)])
 def test_sine_nablas_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 1's sine branch (slopes 30 cos(30 a)): sdf and h atol 1e-4,
     nablas rtol 2e-3 / atol 2e-4, as the Softplus cases."""
@@ -623,7 +725,8 @@ def test_sine_nablas_kernel_matches_plain(cuda, cfg, geo, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 300)])
+@pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN_SMALL, 64, 300),
+                                      (dict(SIREN, W=512), 256, 4099)])
 def test_sine_backward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 3's sine branch (phi'' = -900 sin(30 a), from the next layer's
     input kept in the workspace): every leaf within 5e-4 of its max|ref|."""

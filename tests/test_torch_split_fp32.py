@@ -44,7 +44,7 @@ W60 = dict(W=60, D=4, skips=[2], W_geo_feat=60, radius_init=0.5, embed_multires=
 SIREN = dict(W=256, D=5, skips=[], W_geo_feat=256, radius_init=1.0, embed_multires=-1,
              use_siren=True)
 LIMIT = 1e-5  # kernel 4's card check (chip_smoke.py phase 10), of max|sdf|
-NMAX = 256    # final-layer outputs kernel 1's product takes (csrc NF_NMAX)
+NMAX = 256    # final-layer outputs the narrow kernel 1 product takes (csrc tc::Narrow::NMAX)
 INV_SQRT2 = torch.tensor(1.0) / torch.tensor(1.41421356237)  # the kernels' 1.f / 1.41421356237f
 
 
@@ -322,9 +322,9 @@ def test_pack_layout_and_padding(cfg):
 
 def test_pack_refuses_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError):
-        surface_pack.pack(ImplicitSurface(W=300, D=4, skips=[2], W_geo_feat=64))
+        surface_pack.pack(ImplicitSurface(W=520, D=4, skips=[2], W_geo_feat=64))
     with pytest.raises(NotImplementedError):
-        surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[2], W_geo_feat=300))
+        surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[2], W_geo_feat=520))
     with pytest.raises(ValueError):
         surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[0], W_geo_feat=64))
 
