@@ -331,9 +331,10 @@ Phases, in order; any failure exits non-zero:
    sdf query (`_sampler_witness`: at this width two fp32 routes part by
    more than phase 14's end-to-end gates at a sharp beta, so the kernels may
    be farther from the float64 witness than the plain fp32 sampler is by
-   at most those gates); a W = 520 surface refused by all four kernels with no
-   launch counted; each kernel's time beside its plain version's and its
-   bounds at the shapes of PERF.md's table.
+   at most those gates); each kernel's time beside its plain version's and
+   its bounds at the shapes of PERF.md's table (`_surface_times`). (A W =
+   520 surface, refused here before the cluster tile, now runs on it; phase
+   42 holds the refusal past 1024.)
 41. configs/neus_w512.yaml (`NEUS_W512`, held equal to the file by
    tests/test_torch_wide.py) through train.py on the synthetic scene, cuts
    printed (`WIDE_STEPS` steps, validation at step 0, a 128^3 mesh at step
@@ -341,8 +342,34 @@ Phases, in order; any failure exits non-zero:
    rays/s, one step split by CUDA events around kernels 1-3 and the
    radiance net and the device's busy share; one 120x160 frame of the final checkpoint through render_view and
    a 256^3 `extract_surface`, closed, with s per frame and s per mesh.
+42. surfaces wider than 512, on the kernels' cluster tile (a pair of wide
+   blocks on one tile, each holding half of every layer's rows;
+   `cluster_kernel_checks`, which tools/mutants.py's `cluster` group runs):
+   the flagship chip config with the surface at 1024 and the radiance net
+   at 512 (`W1024_CHIP`, configs/neus_w1024.yaml's widths), perturbed,
+   against the plain versions at phase 2's gates on the whole render chunk
+   (1,044,480 points; the plain version in pieces of 65,280), phase 3's
+   (and phase 3's on all 4,096 rays with the sphere prior: the perturbed
+   surface meets no zero on them without it), phase 6's at a step's 130,560
+   points and phase 10's at 2^20 points; the
+   same kernels at W=640 (two blocks of 320 rows) at smaller shapes;
+   kernels 1 and 3 on 256 hidden columns and 520 geometry features (the
+   final layer's rows past 512 in block 1); the step gradient at phase 7's
+   gates; a W = 1032 surface refused by all four kernels with no launch
+   counted; each kernel's time beside its plain version's and its bounds at
+   the shapes of PERF.md's table (`_surface_times`). No VolSDF sampler check
+   at this width: kernel 4, which the sampler queries, is checked here, and
+   phase 40 holds the sampler at 512.
+43. configs/neus_w1024.yaml (`NEUS_W1024`, held equal to the file by
+   tests/test_torch_cluster.py) through train.py on the synthetic scene,
+   cuts printed (`CLUSTER_STEPS` steps, validation at step 0, a 128^3 mesh
+   at step 10, warm-up 10 steps): launches, finite losses that fall, ms per
+   step and rays/s, one step split as phase 41 splits it; one 120x160 frame
+   of the final checkpoint through render_view with `--microchunk`
+   (`CLUSTER_MICROCHUNK` rays a block of each 4,096-ray chunk), its peak
+   device memory, and a 256^3 `extract_surface`, closed.
 
-Phases 1-29 and 32-41 run in this process on one card (no launcher: a
+Phases 1-29 and 32-43 run in this process on one card (no launcher: a
 world of one); phases 30-31 set CUDA_VISIBLE_DEVICES to its first card, but
 for (4).
 
@@ -360,7 +387,10 @@ before it and read just after. Prints one JSON line of per-kernel results
 `jpeg_<config>_train`, `nerf_head_train`, `nerf_head_render_view` and
 `probes`, and phase 41's `wide_train`, `wide_render_view` and
 `wide_extract_surface`, which only the wide rows `<kernel>[wide]` count
-(their `launches` from phase 41's training run); the surface-MLP rows held to their 3xTF32
+(their `launches` from phase 41's training run), and phase 43's
+`cluster_train`, `cluster_render_view` and `cluster_extract_surface`, which
+only the cluster rows `<kernel>[cluster]` count (their `launches` from phase
+43's training run); the surface-MLP rows held to their 3xTF32
 bounds, `bound_held_to`; kernel 1's `ms_130560` and kernel 2's `ms_512_rays`
 at a training step's shapes; kernels 4, 1 and 3's `ms_unisurf` at UNISURF's),
 then the run's wall seconds, then, as the last line, {"ok": true, "device":
@@ -619,13 +649,15 @@ def kernel1_points(surface, c):
     return pts.reshape(-1, 3).contiguous()
 
 
-def nablas_check(surface, x, label, report=print):
+def nablas_check(surface, x, label, report=print, piece=None):
     """Phase 2: kernel 1 against its plain version on x and on 4,099 points
     uniform in [-1, 1]^3 (a ragged last tile); before each call, NaN fills
     blocks of the outputs' sizes, which the outputs are likely to be given,
     so an unwritten entry cannot pass for a right one. sdf and h within
-    1e-4, nablas within 2e-4 + 2e-3 |ref|, all finite. Returns (ok,
-    [max|diff| of sdf, nablas, h] over both)."""
+    1e-4, nablas within 2e-4 + 2e-3 |ref|, all finite. `piece`: the plain
+    version runs on that many points at a time (its autograd holds every
+    layer's activations), the kernel on all of x. Returns (ok, [max|diff| of
+    sdf, nablas, h] over both)."""
     from neurecon_tpu_torch.ops import fused_nablas
 
     g = torch.Generator(x.device).manual_seed(11)
@@ -638,7 +670,12 @@ def nablas_check(surface, x, label, report=print):
         del nan
         got = fused_nablas.fused_forward_with_nablas(surface, pts)
         with torch.no_grad():
-            ref = fused_nablas.forward_with_nablas_plain(surface, pts)
+            if piece is None:
+                ref = fused_nablas.forward_with_nablas_plain(surface, pts)
+            else:
+                ref = [torch.cat(parts) for parts in zip(*(
+                    fused_nablas.forward_with_nablas_plain(surface, pts[i:i + piece])
+                    for i in range(0, M, piece)))]
         torch.cuda.synchronize()
         e = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
@@ -4420,6 +4457,25 @@ def _sdf_check(surface, x, label, report=print):
     return rel <= 1e-5 and bool(torch.isfinite(got).all()), err
 
 
+def _step_points(surface, c):
+    """A training step's rays and points from a render chunk
+    (`render_chunk_inputs`): every 8th of its rays (512), their coarse depths
+    and det uniforms, and the 130,560 points of their 128 depths from the
+    plain upsampler and the 127 mids. Returns ((rays_o, rays_d, d_coarse,
+    u), points)."""
+    from neurecon_tpu_torch.ops import fused_upsample
+
+    ev = slice(None, None, 8)
+    r_o, r_d = c["rays_o"][ev].contiguous(), c["rays_d"][ev].contiguous()
+    d_c, u512 = c["d_coarse"][ev].contiguous(), c["u_det"][:512]
+    d_step = fused_upsample.neus_upsample_plain(surface, r_o, r_d, d_c, u512, n_iters=4,
+                                                n_per_iter=16)
+    d_mid = 0.5 * (d_step[:, 1:] + d_step[:, :-1])
+    x = torch.cat([r_o[:, None] + r_d[:, None] * d_step[..., None],
+                   r_o[:, None] + r_d[:, None] * d_mid[..., None]], 1).reshape(-1, 3).contiguous()
+    return (r_o, r_d, d_c, u512), x
+
+
 def wide_kernel_checks(seed, dev, report=print):
     """Phase 40's kernel checks (see the module docstring), which
     tools/mutants.py's `wide` group runs on each mutant: kernels 1-4 on the
@@ -4427,7 +4483,7 @@ def wide_kernel_checks(seed, dev, report=print):
     of phases 2, 3, 6 and 10, and kernel 4 at W = 300 and 384. Returns (the
     kernels that failed, {kernel: max|diff|}, the inputs phase 40 goes on
     with)."""
-    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample, surface_pack
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, surface_pack
 
     c = render_chunk_inputs(seed, dev, IDR_CHIP)
     surface = c["checked"].implicit_surface
@@ -4446,14 +4502,7 @@ def wide_kernel_checks(seed, dev, report=print):
 
     # kernel 3 at phase 6's gate: a step's 130,560 points (512 of the chunk's
     # rays, their depths from the plain upsampler and the mids)
-    ev = slice(None, None, 8)
-    r_o, r_d = c["rays_o"][ev].contiguous(), c["rays_d"][ev].contiguous()
-    d_c, u512 = c["d_coarse"][ev].contiguous(), c["u_det"][:512]
-    d_step = fused_upsample.neus_upsample_plain(surface, r_o, r_d, d_c, u512, n_iters=4,
-                                                n_per_iter=16)
-    d_mid = 0.5 * (d_step[:, 1:] + d_step[:, :-1])
-    x3 = torch.cat([r_o[:, None] + r_d[:, None] * d_step[..., None],
-                    r_o[:, None] + r_d[:, None] * d_mid[..., None]], 1).reshape(-1, 3).contiguous()
+    step_rays, x3 = _step_points(surface, c)
     M3 = x3.shape[0]
     g3 = torch.Generator(dev).manual_seed(seed + 2)
     cots = (torch.randn(M3, device=dev, generator=g3),
@@ -4506,9 +4555,34 @@ def wide_kernel_checks(seed, dev, report=print):
     errs = {"nablas_forward": max(errs1), "neus_upsample": k2_err["det"],
             "nablas_backward": k3_err, "sdf_forward": max(errs4)}
     inputs = {"c": c, "surface": surface, "x1": x1, "x3": x3, "x4": x4, "cots": cots,
-              "ws3": ws3, "bs3": bs3, "step_rays": (r_o, r_d, d_c, u512),
-              "workspace_bytes": ws_bytes}
+              "step_rays": step_rays, "workspace_bytes": ws_bytes}
     return fails, errs, inputs
+
+
+def _refusals(surface, x, step_rays, zero_counts, read_counts):
+    """Kernels 1-4 called on `surface` at points x (kernel 2 on 4 of the
+    step's rays, `_step_points`) with the launch counters set to 0 just
+    before: returns (how many raised NotImplementedError, the counts)."""
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, fused_upsample
+
+    M, geo = x.shape[0], surface.W_geo_feat
+    ws, bs = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+    o4, d4, d_c, u = (t_[:4].contiguous() for t_ in step_rays)
+    calls = [lambda: fused_mlp.fused_sdf_forward(surface, x),
+             lambda: fused_nablas.fused_forward_with_nablas(surface, x),
+             lambda: fused_nablas_vjp.fused_nablas_vjp(
+                 surface, x, ws, bs, torch.zeros(M, device=x.device),
+                 torch.zeros(M, 3, device=x.device), torch.zeros(M, geo, device=x.device)),
+             lambda: fused_upsample.fused_neus_upsample(surface, o4, d4, d_c, u, n_iters=4,
+                                                        n_per_iter=16)]
+    zero_counts()
+    refused = 0
+    for call in calls:
+        try:
+            call()
+        except NotImplementedError:
+            refused += 1
+    return refused, read_counts()
 
 
 def _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
@@ -4518,18 +4592,15 @@ def _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     from neurecon_tpu_torch.models.base import RadianceNet
     from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
     from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays
-    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, fused_upsample
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample
     from neurecon_tpu_torch.tools import extract_surface, render_view
     from neurecon_tpu_torch.training import sample_ray_batch
     from neurecon_tpu_torch.utils import mesh as mesh_util
 
     t40 = time.perf_counter()
     fails, errs, inp = wide_kernel_checks(seed, dev)
-    c, surface, x1, x3, x4, cots = (inp[k] for k in ("c", "surface", "x1", "x3", "x4", "cots"))
-    ws3, bs3, ws_bytes = inp["ws3"], inp["bs3"], inp["workspace_bytes"]
-    r_o, r_d, d_c, u512 = inp["step_rays"]
-    M3 = x3.shape[0]
-    n_par = sum(p.numel() for p in surface.parameters())
+    c, surface = inp["c"], inp["surface"]
+    u512 = inp["step_rays"][3]
 
     # the whole-step gradient at phase 7's gates: the kernels against the
     # plain versions of kernels 1 and 3, on the perturbed W=512 NeuS
@@ -4570,86 +4641,14 @@ def _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
     fails += [] if ok_w else ["VolSDF sampler against the float64 witness"]
     del vchecked, vs
 
-    # a surface wider than the kernels take raises, and launches nothing
-    s520 = _wide_surface(520, seed, dev)
-    zero_counts()
-    refused = 0
-    xr = x4[:1000]
-    o4, d4 = r_o[:4].contiguous(), r_d[:4].contiguous()
-    calls = [lambda: fused_mlp.fused_sdf_forward(s520, xr),
-             lambda: fused_nablas.fused_forward_with_nablas(s520, xr),
-             lambda: fused_nablas_vjp.fused_nablas_vjp(
-                 s520, xr, *[[w.detach() for w in ts]
-                             for ts in fused_nablas.surface_weights(s520)],
-                 cots[0][:1000], cots[1][:1000], cots[2][:1000]),
-             lambda: fused_upsample.fused_neus_upsample(s520, o4, d4, d_c[:4], u512[:4],
-                                                        n_iters=4, n_per_iter=16)]
-    for call in calls:
-        try:
-            call()
-        except NotImplementedError:
-            refused += 1
-    counts520 = read_counts()
-    print(f"phase 40: a W=520 surface: {refused} of 4 kernels refused it, launches {counts520}")
-    if refused != 4 or any(counts520.values()):
-        fails.append("W=520 refusal")
-    del s520
 
-    # times at the shapes of PERF.md's table: kernel 4 at 2^20 points,
-    # kernel 1 at a step's 130,560 and a render chunk's 1,044,480, kernel 3
-    # at 130,560, kernel 2 at a step's 512 rays and a chunk's 4,096
-    def sdf_bytes(M):
-        return 4.0 * (M * (3 + 1) + n_par)
-
-    def nab_bytes(M):
-        return 4.0 * (M * (3 + 1 + 3 + surface.W_geo_feat) + n_par)
-
-    def ups_bytes(N):
-        return 4.0 * (N * (6 + 64 + 64 + 128) + n_par)
-    macs_sdf = _surface_macs(surface, sdf_only=True)
-    macs_nab = _surface_macs(surface)
-    macs_bwd = _surface_macs(surface, backward=True)
-    times = {}
-    with torch.no_grad():
-        times["sdf_forward"] = (
-            _time_ms(lambda: fused_mlp.fused_sdf_forward(surface, x4)),
-            _time_ms(lambda: fused_mlp.sdf_forward_plain(surface, x4), reps=3),
-            _bounds(2.0 * macs_sdf * x4.shape[0], sdf_bytes(x4.shape[0])), "2^20 points")
-        times["nablas_forward"] = (
-            _time_ms(lambda: fused_nablas.fused_forward_with_nablas(surface, x3)),
-            _time_ms(lambda: fused_nablas.forward_with_nablas_plain(surface, x3), reps=3),
-            _bounds(2.0 * macs_nab * M3, nab_bytes(M3)), f"{M3} points")
-        times["neus_upsample"] = (
-            _time_ms(lambda: fused_upsample.fused_neus_upsample(
-                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16)),
-            _time_ms(lambda: fused_upsample.neus_upsample_plain(
-                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16), reps=3),
-            _bounds(2.0 * macs_sdf * 512 * 128, ups_bytes(512)), "512 rays")
-    times["nablas_backward"] = (
-        _time_ms(lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x3, ws3, bs3, *cots)),
-        _time_ms(lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x3, ws3, bs3, *cots),
-                 reps=3),
-        _bounds(2.0 * macs_bwd * M3, 4.0 * (M3 * (3 + 1 + 3 + surface.W_geo_feat + 3)
-                                            + 2 * n_par)), f"{M3} points")
-    extra = {
-        "nablas_forward": {"ms_1044480": _time_ms(
-            lambda: fused_nablas.fused_forward_with_nablas(surface, x1)),
-            "bound_ms_1044480": _bounds(2.0 * macs_nab * x1.shape[0],
-                                        nab_bytes(x1.shape[0]))[1][0]},
-        "neus_upsample": {"ms_4096_rays": _time_ms(lambda: fused_upsample.fused_neus_upsample(
-            surface, c["rays_o"], c["rays_d"], c["d_coarse"], c["u_det"], n_iters=4,
-            n_per_iter=16)),
-            "bound_ms_4096_rays": _bounds(2.0 * macs_sdf * 4096 * 128, ups_bytes(4096))[1][0]},
-        "nablas_backward": {"workspace_bytes": ws_bytes,
-                            "cuda_kernels_ms": _profile_kernels(
-                                lambda: fused_nablas_vjp.fused_nablas_vjp(
-                                    surface, x3, ws3, bs3, *cots))},
-        "sdf_forward": {}}
+    # times at the shapes of PERF.md's table
+    times, extra = _surface_times(surface, inp, seed)
     for name, (ms, pms, bb, per) in times.items():
         print(f"phase 40 (W=512): {name} {per}: {ms:.3f} ms (plain {pms:.3f} ms, fp32 bound "
               f"{bb[0][0]:.3f} ms, 3xTF32 bound {bb[1][0]:.3f} ms, {ms / bb[1][0]:.2f}x the "
               f"3xTF32 bound) {json.dumps(extra[name])} {tag}")
-    del x1, x3, x4, cots
+    del inp
     print(f"phase 40: {time.perf_counter() - t40:.1f} s {tag}")
     if fails:
         print(f"FAIL phase 40: {', '.join(fails)} disagree(s) with the plain versions at the "
@@ -4722,19 +4721,381 @@ def _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
               "lower its loss, or gave no finite frame or closed mesh", file=sys.stderr)
         return 1, None
 
-    sources = {"nablas_forward": "neurecon_tpu/ops/fused_nablas.py:74",
-               "neus_upsample": "neurecon_tpu/ops/fused_upsample.py:272",
-               "nablas_backward": "neurecon_tpu/ops/fused_nablas_vjp.py:120",
-               "sdf_forward": "neurecon_tpu/ops/fused_mlp.py:125"}
     rows = []
     for name, (ms, pms, bb, per) in times.items():
         launches_by_path = {p: c_[name] for p, c_ in by_path.items() if p.startswith("wide_")}
         rows.append({"name": f"{name}[wide]", "branch": "wide", "route": "cuda",
-                     "source": f"neurecon_tpu_torch/csrc/{name}.cu", "replaces": sources[name],
+                     "source": f"neurecon_tpu_torch/csrc/{name}.cu", "replaces": _SOURCES[name],
                      "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": pms, **_bound_fields(*bb, "3xtf32"), "library_ms": None,
                      "per": per, "width": 512, **extra[name],
                      "launches_by_path": launches_by_path})
+    return 0, rows
+
+
+# ---- surfaces wider than 512 (phases 42-43) ----
+
+# configs/neus_w1024.yaml as the file holds it (tests/test_torch_cluster.py
+# holds the two equal): configs/neus_w512.yaml with the surface at 1024
+NEUS_W1024 = _with_cuts(NEUS_W512, [("model.surface.W", 1024), ("expname", "neus_w1024_37")])
+CLUSTER_STEPS = 20  # phase 43's cut of the file's 300,000 steps
+# phase 42's checks and timings: the flagship chip config at the file's widths
+W1024_CHIP = _with_cuts(FLAGSHIP, [("model.surface.W", 1024), ("model.radiance.W", 512)])
+CLUSTER_K1_PIECE = 65280  # phase 42's plain kernel-1 reference: 256 rays' points at a time
+CLUSTER_MICROCHUNK = 1024  # phase 43's render_view --microchunk (rays a block of a chunk)
+
+
+def cluster_train_config(exp_root, seed):
+    """configs/neus_w1024.yaml on the synthetic scene (as phase 41 trains
+    neus_w512.yaml), with phase 43's cuts, and the cuts as (dotted key,
+    value) pairs (printed by the phase)."""
+    cuts = [("data", {"type": "synthetic", "downscale": 1, "n_images": 8, "H": 120,
+                      "W": 160, "N_rays": NEUS_W1024["data"]["N_rays"],
+                      "val_downscale": NEUS_W1024["data"]["val_downscale"],
+                      "val_rayschunk": NEUS_W1024["data"]["val_rayschunk"],
+                      "obj_bounding_radius": 1.0, "mesh_N": 128}),
+            ("training.num_iters", CLUSTER_STEPS), ("training.i_val", CLUSTER_STEPS),
+            ("training.i_val_mesh", CLUSTER_STEPS // 2), ("training.i_log", 5),
+            ("training.scheduler.warmup_steps", 10), ("training.monitoring", "none"),
+            ("training.log_root_dir", exp_root),
+            ("training.exp_dir", os.path.join(exp_root, "neus_w1024")),
+            ("expname", "chip_smoke_neus_w1024"), ("seed", seed)]
+    return _with_cuts(NEUS_W1024, cuts), cuts
+
+
+def _vjp_check(surface, x, label, seed, report=print):
+    """Kernel 3 against its plain version at phase 6's gate (5e-4 of each
+    leaf's max|ref|, finite) on x with seeded cotangents; returns (ok,
+    max|diff| over the leaves, {leaf: ratio}, the workspace bytes)."""
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
+
+    M = x.shape[0]
+    g = torch.Generator(x.device).manual_seed(seed + 2)
+    cots = (torch.randn(M, device=x.device, generator=g),
+            torch.randn(M, 3, device=x.device, generator=g),
+            torch.randn(M, surface.W_geo_feat, device=x.device, generator=g))
+    ws, bs = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+    got = fused_nablas_vjp.fused_nablas_vjp(surface, x, ws, bs, *cots)
+    ws_bytes = fused_nablas_vjp.fused_nablas_vjp.workspace_bytes
+    ref = fused_nablas_vjp.nablas_vjp_plain(surface, x, ws, bs, *cots)
+    torch.cuda.synchronize()
+    leaves_g, leaves_r = [got[0], *got[1], *got[2]], [ref[0], *ref[1], *ref[2]]
+    ratios = _leaf_ratios(got, ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(leaves_g, leaves_r))
+    finite = all(bool(torch.isfinite(t_).all()) for t_ in leaves_g)
+    report(f"{label}: nablas_backward on {M} points (workspace {ws_bytes} bytes): max|diff| "
+           f"{err:.3e}, worst leaf {max(ratios.values()):.2e} of its max|ref|")
+    return max(ratios.values()) <= 5e-4 and finite, err, ratios, ws_bytes
+
+
+def cluster_kernel_checks(seed, dev, report=print):
+    """Phase 42's kernel checks (see the module docstring), which
+    tools/mutants.py's `cluster` group runs on each mutant: kernels 1-4 of
+    the perturbed NeuS at W=1024 against their plain versions at the gates
+    of phases 2, 3, 6 and 10 (the cluster tile), the same at W=640 (the first
+    width past 512: two blocks of 320 rows), and kernels 1 and 3 on a surface
+    of 256 hidden columns and 520 geometry features (final-layer rows past
+    512: block 1's product). Returns (the kernels that failed, {kernel:
+    max|diff|}, the inputs phase 42 goes on with)."""
+    from neurecon_tpu_torch.ops import surface_pack
+
+    c = render_chunk_inputs(seed, dev, W1024_CHIP)
+    surface = c["checked"].implicit_surface
+    kind = surface_pack.packed_surface(surface).kind
+    fails = [] if kind == surface_pack.CLUSTER else ["the W=1024 pack's tile"]
+
+    # kernel 1 at phase 2's gates on the whole render chunk (1,044,480
+    # points; the plain version in pieces) and 4,099 points (a ragged tile)
+    x1 = kernel1_points(surface, c)
+    ok, errs1 = nablas_check(surface, x1, "phase 42 (W=1024)", report, piece=CLUSTER_K1_PIECE)
+    fails += [] if ok else ["kernel 1"]
+
+    # kernel 2 at phase 3's gates: the chunk's 4,096 rays, 512 with the prior;
+    # and all 4,096 with the prior: the perturbed W=1024 surface crosses no
+    # zero on the chunk's rays (its sdf stays above ~0.4 there), so without
+    # the prior their depths are the pdf floor's, the same for any sdf
+    ok, k2_err = upsample_checks(surface, c, "phase 42 (W=1024)", report)
+    fails += [] if ok else ["kernel 2"]
+    prior = copy.deepcopy(surface)
+    prior.sphere_residual = True
+    ok, _ = _upsample_check(prior, c["rays_o"], c["rays_d"], c["near"], c["far"], c["d_coarse"],
+                            {"det": c["u_det"], "perturb": c["u_pert"]},
+                            "phase 42 (W=1024, 4,096 rays, sphere prior)", report)
+    fails += [] if ok else ["kernel 2 with the prior"]
+    del prior
+
+    # kernel 3 at phase 6's gate: a step's 130,560 points (512 of the chunk's
+    # rays, their depths from the plain upsampler and the mids)
+    step_rays, x3 = _step_points(surface, c)
+    r_o, r_d, d_c, u512 = step_rays
+    ev = slice(None, None, 8)
+    ok, k3_err, _, ws_bytes = _vjp_check(surface, x3, "phase 42 (W=1024)", seed, report)
+    fails += [] if ok else ["kernel 3"]
+
+    # kernel 4 at phase 10's gate: 2^20 points and 4,099 (a ragged last tile)
+    g10 = torch.Generator(dev).manual_seed(seed)
+    x4 = torch.rand(2 ** 20, 3, device=dev, generator=g10) * 2 - 1
+    tail = torch.rand(4099, 3, device=dev, generator=g10) * 2 - 1
+    errs4 = []
+    for xs in (x4, tail):
+        ok, e = _sdf_check(surface, xs, "phase 42 (W=1024)", report)
+        errs4.append(e)
+        fails += [] if ok else ["kernel 4"]
+
+    # W=640: kernels 4 (2^18 and 4,099 points), 1 (65,280 chunk points and
+    # 4,099), 3 (16,320 step points) and 2 (512 rays of the chunk, det and
+    # perturb); W_geo 520 on 256 hidden columns: kernels 1 and 3
+    s640 = _wide_surface(640, seed, dev)
+    for xs in (x4[:2 ** 18], tail):
+        ok, _ = _sdf_check(s640, xs, "phase 42 (W=640)", report)
+        fails += [] if ok else ["kernel 4 at W=640"]
+    ok, _ = nablas_check(s640, x1[:CLUSTER_K1_PIECE], "phase 42 (W=640)", report)
+    fails += [] if ok else ["kernel 1 at W=640"]
+    ok, *_ = _vjp_check(s640, x3[::8].contiguous(), "phase 42 (W=640)", seed, report)
+    fails += [] if ok else ["kernel 3 at W=640"]
+    ok, _ = _upsample_check(s640, r_o, r_d, c["near"][ev], c["far"][ev], d_c,
+                            {"det": u512, "perturb": c["u_pert"][:512]},
+                            "phase 42 (W=640, 512 rays)", report)
+    fails += [] if ok else ["kernel 2 at W=640"]
+    del s640
+    from neurecon_tpu_torch.models.base import ImplicitSurface, perturb_parameters
+
+    s520 = ImplicitSurface(W=256, D=8, skips=(4,), W_geo_feat=520, radius_init=0.5,
+                           embed_multires=6)
+    s520.reset_parameters(torch.Generator().manual_seed(seed))
+    perturb_parameters(s520, torch.Generator().manual_seed(seed + 1))
+    s520 = s520.to(dev)
+    fails += [] if surface_pack.packed_surface(s520).kind == surface_pack.CLUSTER else [
+        "the W_geo 520 pack's tile"]
+    ok, _ = nablas_check(s520, x1[:CLUSTER_K1_PIECE], "phase 42 (W=256, W_geo 520)", report)
+    fails += [] if ok else ["kernel 1 at W_geo 520"]
+    ok, *_ = _vjp_check(s520, x3[::8].contiguous(), "phase 42 (W=256, W_geo 520)", seed,
+                        report)
+    fails += [] if ok else ["kernel 3 at W_geo 520"]
+    del s520
+    errs = {"nablas_forward": max(errs1), "neus_upsample": k2_err["det"],
+            "nablas_backward": k3_err, "sdf_forward": max(errs4)}
+    inputs = {"c": c, "surface": surface, "x1": x1, "x3": x3, "x4": x4,
+              "step_rays": step_rays, "workspace_bytes": ws_bytes}
+    return fails, errs, inputs
+
+
+def _surface_times(surface, inp, seed):
+    """Each surface kernel's median ms (10 CUDA-event runs) beside its plain
+    version's (3 runs) and its fp32 and 3xTF32 bounds, at the shapes of
+    PERF.md's table: kernel 4 at 2^20 points, kernel 1 at a step's 130,560
+    and a render chunk's 1,044,480, kernel 3 at 130,560 (its CUDA kernels
+    split by torch.profiler), kernel 2 at a step's 512 rays and a chunk's
+    4,096 (`inp` as `cluster_kernel_checks` returns it). Returns ({kernel:
+    (ms, plain ms, bounds, per)}, {kernel: the extra fields})."""
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp, fused_upsample
+
+    c, x1, x3, x4 = inp["c"], inp["x1"], inp["x3"], inp["x4"]
+    r_o, r_d, d_c, u512 = inp["step_rays"]
+    M3 = x3.shape[0]
+    n_par = sum(p.numel() for p in surface.parameters())
+    g = torch.Generator(x3.device).manual_seed(seed + 2)
+    cots = (torch.randn(M3, device=x3.device, generator=g),
+            torch.randn(M3, 3, device=x3.device, generator=g),
+            torch.randn(M3, surface.W_geo_feat, device=x3.device, generator=g))
+    ws3, bs3 = [[w.detach() for w in ts] for ts in fused_nablas.surface_weights(surface)]
+
+    def sdf_bytes(M):
+        return 4.0 * (M * (3 + 1) + n_par)
+
+    def nab_bytes(M):
+        return 4.0 * (M * (3 + 1 + 3 + surface.W_geo_feat) + n_par)
+
+    def ups_bytes(N):
+        return 4.0 * (N * (6 + 64 + 64 + 128) + n_par)
+    macs_sdf = _surface_macs(surface, sdf_only=True)
+    macs_nab = _surface_macs(surface)
+    macs_bwd = _surface_macs(surface, backward=True)
+    times = {}
+    with torch.no_grad():
+        times["sdf_forward"] = (
+            _time_ms(lambda: fused_mlp.fused_sdf_forward(surface, x4)),
+            _time_ms(lambda: fused_mlp.sdf_forward_plain(surface, x4), reps=3),
+            _bounds(2.0 * macs_sdf * x4.shape[0], sdf_bytes(x4.shape[0])), "2^20 points")
+        times["nablas_forward"] = (
+            _time_ms(lambda: fused_nablas.fused_forward_with_nablas(surface, x3)),
+            _time_ms(lambda: fused_nablas.forward_with_nablas_plain(surface, x3), reps=3),
+            _bounds(2.0 * macs_nab * M3, nab_bytes(M3)), f"{M3} points")
+        times["neus_upsample"] = (
+            _time_ms(lambda: fused_upsample.fused_neus_upsample(
+                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16)),
+            _time_ms(lambda: fused_upsample.neus_upsample_plain(
+                surface, r_o, r_d, d_c, u512, n_iters=4, n_per_iter=16), reps=3),
+            _bounds(2.0 * macs_sdf * 512 * 128, ups_bytes(512)), "512 rays")
+    times["nablas_backward"] = (
+        _time_ms(lambda: fused_nablas_vjp.fused_nablas_vjp(surface, x3, ws3, bs3, *cots)),
+        _time_ms(lambda: fused_nablas_vjp.nablas_vjp_plain(surface, x3, ws3, bs3, *cots),
+                 reps=3),
+        _bounds(2.0 * macs_bwd * M3, 4.0 * (M3 * (3 + 1 + 3 + surface.W_geo_feat + 3)
+                                            + 2 * n_par)), f"{M3} points")
+    extra = {
+        "nablas_forward": {"ms_1044480": _time_ms(
+            lambda: fused_nablas.fused_forward_with_nablas(surface, x1)),
+            "bound_ms_1044480": _bounds(2.0 * macs_nab * x1.shape[0],
+                                        nab_bytes(x1.shape[0]))[1][0]},
+        "neus_upsample": {"ms_4096_rays": _time_ms(lambda: fused_upsample.fused_neus_upsample(
+            surface, c["rays_o"], c["rays_d"], c["d_coarse"], c["u_det"], n_iters=4,
+            n_per_iter=16)),
+            "bound_ms_4096_rays": _bounds(2.0 * macs_sdf * 4096 * 128, ups_bytes(4096))[1][0]},
+        "nablas_backward": {"workspace_bytes": inp["workspace_bytes"],
+                            "cuda_kernels_ms": _profile_kernels(
+                                lambda: fused_nablas_vjp.fused_nablas_vjp(
+                                    surface, x3, ws3, bs3, *cots))},
+        "sdf_forward": {}}
+    return times, extra
+
+
+_SOURCES = {"nablas_forward": "neurecon_tpu/ops/fused_nablas.py:74",
+            "neus_upsample": "neurecon_tpu/ops/fused_upsample.py:272",
+            "nablas_backward": "neurecon_tpu/ops/fused_nablas_vjp.py:120",
+            "sdf_forward": "neurecon_tpu/ops/fused_mlp.py:125"}
+
+
+def _cluster_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir):
+    """Phases 42-43 (see the module docstring); returns (rc, kernel rows)."""
+    from neurecon_tpu_torch.config import ConfigDict
+    from neurecon_tpu_torch.dataio.synthetic import make_synthetic_scene
+    from neurecon_tpu_torch.models.base import RadianceNet
+    from neurecon_tpu_torch.models.frameworks import get_ray_loss_fn
+    from neurecon_tpu_torch.models.frameworks.neus import _prepare_rays
+    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp, fused_upsample
+    from neurecon_tpu_torch.tools import extract_surface, render_view
+    from neurecon_tpu_torch.training import sample_ray_batch
+    from neurecon_tpu_torch.utils import mesh as mesh_util
+
+    t42 = time.perf_counter()
+    fails, errs, inp = cluster_kernel_checks(seed, dev)
+    c, surface = inp["c"], inp["surface"]
+    u512 = inp["step_rays"][3]
+
+    # the whole-step gradient at phase 7's gates: the kernels against the
+    # plain versions of kernels 1 and 3, on the perturbed W=1024 NeuS
+    targs7 = ConfigDict(cluster_train_config("unused", seed)[0])
+    ray_loss = get_ray_loss_fn(targs7, c["checked"], c["kw_test"])
+    scene = make_synthetic_scene(n_images=1, H=120, W=160)
+    batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
+             "intrinsics": torch.tensor(scene["intrinsics"][:1], device=dev),
+             "rgb": torch.tensor(scene["rgb"][:1], device=dev).reshape(1, -1, 3),
+             "object_mask": torch.tensor(scene["object_mask"][:1], device=dev).reshape(1, -1)}
+    rb = sample_ray_batch(torch.Generator(dev).manual_seed(seed), batch, 120, 160, 512)
+    r7o, r7d, n7, f7 = _prepare_rays(rb["rays_o"], rb["rays_d"], 1.0)
+    t = c["t"]
+    d7 = fused_upsample.fused_neus_upsample(surface, r7o, r7d,
+                                            (n7 * (1 - t) + f7 * t).contiguous(), u512,
+                                            n_iters=4, n_per_iter=16)
+    loss_k, loss_p, step_ratios = _step_grad_check(c["checked"], ray_loss, rb, d_all=d7)
+    worst = max(step_ratios, key=step_ratios.get)
+    print(f"phase 42 (W=1024): step loss kernels {loss_k:.8f} plain {loss_p:.8f}; worst grad "
+          f"leaf {worst} {step_ratios[worst]:.2e} over {len(step_ratios)} leaves")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or step_ratios[worst] > 5e-4:
+        fails.append("step gradient")
+
+    # a surface wider than the kernels take raises, and launches nothing
+    refused, counts1032 = _refusals(_wide_surface(1032, seed, dev), inp["x4"][:1000],
+                                    inp["step_rays"], zero_counts, read_counts)
+    print(f"phase 42: a W=1032 surface: {refused} of 4 kernels refused it, launches "
+          f"{counts1032}")
+    if refused != 4 or any(counts1032.values()):
+        fails.append("W=1032 refusal")
+
+    times, extra = _surface_times(surface, inp, seed)
+    for name, (ms, pms, bb, per) in times.items():
+        print(f"phase 42 (W=1024): {name} {per}: {ms:.3f} ms (plain {pms:.3f} ms, fp32 bound "
+              f"{bb[0][0]:.3f} ms, 3xTF32 bound {bb[1][0]:.3f} ms, {ms / bb[1][0]:.2f}x the "
+              f"3xTF32 bound) {json.dumps(extra[name])} {tag}")
+    del inp, c
+    print(f"phase 42: {time.perf_counter() - t42:.1f} s {tag}")
+    if fails:
+        print(f"FAIL phase 42: {', '.join(fails)} disagree(s) with the plain versions at the "
+              "W=1024 and W=640 gates, or a wider surface was not refused", file=sys.stderr)
+        return 1, None
+
+    # ---- phase 43: configs/neus_w1024.yaml through train.py, a frame by
+    # render_view --microchunk, a mesh
+    t43 = time.perf_counter()
+    cfg43, cuts = cluster_train_config(os.path.join(workdir, "cluster"), seed)
+    print(f"phase 43: configs/neus_w1024.yaml with the cuts {json.dumps(cuts)}")
+    out, launches, step_ms, secs = _train_timed(ConfigDict(cfg43), zero_counts, read_counts)
+    by_path["cluster_train"] = launches
+    totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
+    ms_step = float(np.median(step_ms[5:]))
+    mesh10 = os.path.join(out["exp_dir"], "meshes", f"{CLUSTER_STEPS // 2:08d}.ply")
+    n_f10 = len(mesh_util.read_ply(mesh10)[1]) if os.path.exists(mesh10) else 0
+    first, last = float(np.mean(totals[:5])), float(np.mean(totals[-5:]))
+    print(f"phase 43: train.py {CLUSTER_STEPS} W=1024 steps at 512 rays ({secs:.1f} s): "
+          f"launches {launches}; loss mean of steps 1-5 {first:.5f}, of steps "
+          f"{CLUSTER_STEPS - 4}-{CLUSTER_STEPS} {last:.5f}; median {ms_step:.2f} ms/step over "
+          f"steps 6-{CLUSTER_STEPS} ({512e3 / ms_step:.0f} rays/s); all steps ms "
+          f"{[round(v, 1) for v in step_ms]}; mesh at step {CLUSTER_STEPS // 2} (128^3): "
+          f"{out['stats']['perf'].get('mesh_sec')} s, {n_f10} faces {tag}")
+    step_total, split, busy = _step_split(
+        ConfigDict(cfg43), dev,
+        {"neus_upsample": (fused_upsample, "fused_neus_upsample"),
+         "nablas_forward": (fused_nablas, "fused_forward_with_nablas"),
+         "nablas_backward": (fused_nablas_vjp, "fused_nablas_vjp"),
+         "radiance_forward": (RadianceNet, "forward")})
+    if isinstance(busy, float):
+        busy = f"busy {100 * busy:.1f}%, idle {100 * (1 - busy):.1f}%"
+    print(f"phase 43: one W=1024 step (512 rays) {step_total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f", the rest (radiance backward, glue, loss) "
+          f"{step_total - sum(split.values()):.2f} ms; device over three steps {busy} {tag}")
+    vargs = ConfigDict(W1024_CHIP)
+    vargs.update({"load_pt": out["final_ckpt"], "num_views": 1,
+                  "camera_path": "interpolation", "rayschunk": 4096,
+                  "microchunk": CLUSTER_MICROCHUNK})
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    frames = render_view.render_frames(vargs, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    by_path["cluster_render_view"] = read_counts()
+    ply = os.path.join(workdir, "cluster_surface_256.ply")
+    eargs = extract_surface.make_parser().parse_args(
+        ["--load_pt", out["final_ckpt"], "--out", ply, "--N", "256", "--W", "1024",
+         "--init_r", "0.5"])
+    zero_counts()
+    t_mesh = time.perf_counter()
+    ext = extract_surface.main_function(eargs)
+    torch.cuda.synchronize()
+    s_mesh = time.perf_counter() - t_mesh
+    by_path["cluster_extract_surface"] = read_counts()
+    v256, f256 = mesh_util.read_ply(ply)
+    closed = len(f256) > 0 and _closed(torch.as_tensor(f256, device=dev))
+    finite_view = all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))
+    print(f"phase 43: render_view --microchunk {CLUSTER_MICROCHUNK} 1 x 120x160 from the "
+          f"final checkpoint: launches {by_path['cluster_render_view']}, s/frame "
+          f"{[round(v, 4) for v in frames['seconds']]}, peak device memory {peak} bytes, "
+          f"finite {finite_view}; extract_surface N=256: {s_mesh:.3f} s (grid "
+          f"{ext['grid_s']:.3f} s, triangulation {ext['triangulate_s']:.3f} s), launches "
+          f"{by_path['cluster_extract_surface']}, {len(v256)} verts, {len(f256)} faces, closed "
+          f"{closed}; phase 43 {time.perf_counter() - t43:.1f} s {tag}")
+    if (min(launches[k] for k in ("nablas_forward", "neus_upsample", "nablas_backward"))
+            < CLUSTER_STEPS or launches["sdf_forward"] == 0 or n_f10 == 0
+            or len(totals) != CLUSTER_STEPS or not np.isfinite(totals).all()
+            or not last < first or not finite_view
+            or by_path["cluster_render_view"]["nablas_forward"] == 0
+            or by_path["cluster_render_view"]["neus_upsample"] == 0
+            or by_path["cluster_extract_surface"]["sdf_forward"] == 0 or not closed):
+        print("FAIL phase 43: the W=1024 NeuS did not train through the kernels, did not "
+              "lower its loss, or gave no finite frame or closed mesh", file=sys.stderr)
+        return 1, None
+
+    rows = []
+    for name, (ms, pms, bb, per) in times.items():
+        launches_by_path = {p: c_[name] for p, c_ in by_path.items()
+                            if p.startswith("cluster_")}
+        rows.append({"name": f"{name}[cluster]", "branch": "cluster", "route": "cuda",
+                     "source": f"neurecon_tpu_torch/csrc/{name}.cu",
+                     "replaces": _SOURCES[name], "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                     **_bound_fields(*bb, "3xtf32"), "library_ms": None, "per": per,
+                     "width": 1024, **extra[name], "launches_by_path": launches_by_path})
     return 0, rows
 
 
@@ -5097,7 +5458,7 @@ def main(argv=None):
               "kept pack's lookup (host)": _wall_ms(
                   lambda: surface_pack.packed_surface(surface)),
               "occupancy query (host)": _wall_ms(
-                  lambda: query(packed.c_pad, packed.rows, int(packed.wide))),
+                  lambda: query(packed.c_pad, packed.rows, packed.kind)),
               "launch, packed (host)": _wall_ms(
                   lambda: fused_mlp.launch_sdf_forward(surface, x4k, packed)),
               "kernel (device)": _time_ms(
@@ -5262,6 +5623,10 @@ def main(argv=None):
     rc, wide_rows = _wide_phases(seed, dev, tag, zero_counts, read_counts, by_path, work.name)
     if rc:
         return rc
+    rc, cluster_rows = _cluster_phases(seed, dev, tag, zero_counts, read_counts, by_path,
+                                       work.name)
+    if rc:
+        return rc
 
     results = [
         {"name": "nablas_forward", "route": "cuda",
@@ -5295,11 +5660,12 @@ def main(argv=None):
         # a Softplus row counts no launch of its kernel's sine or wide
         # instantiation
         r["launches_by_path"] = {
-            p: c[r["name"]] for p, c in by_path.items() if not p.startswith("wide_") and (
+            p: c[r["name"]] for p, c in by_path.items()
+            if not p.startswith(("wide_", "cluster_")) and (
                 r["branch"] != "softplus" or not p.startswith("volsdf_siren"))}
         r.update(unisurf_fields.get(r["name"], {}))
-    results += siren_rows + wide_rows
-    print(f"chip_smoke: phases 1-41 in {time.perf_counter() - t_start:.1f} s wall {tag}")
+    results += siren_rows + wide_rows + cluster_rows
+    print(f"chip_smoke: phases 1-43 in {time.perf_counter() - t_start:.1f} s wall {tag}")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

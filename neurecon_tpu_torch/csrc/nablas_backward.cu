@@ -82,15 +82,25 @@
 // (xs, n_bar, the x_bar term [4][64] each, the encoding and g_e [40][72]
 // each, the activations [512][72], the stage [2][8][520]). Its workspace,
 // blocked by 64 points, grows with W: 16,320 floats a point at W = 512
-// (8,384 at 256), ~8.5 GB at 130,560 points.
+// (8,384 at 256), ~8.5 GB at 130,560 points. A surface wider than 512 (up
+// to 1024) runs the cluster tile (surface_mma.cuh): a pair of those blocks
+// on one 64-point tile, each holding half of every activation block's rows
+// ([512][72] a block at W = 1024, 206,848 bytes) and writing its own rows
+// of the workspace (the pair's tile is one tile of the workspace's
+// blocking), its own bias-row entries and its own rows of the pair's slope
+// slot; the transposed products read the peer's half of their input (u,
+// abar, y_bar over the output columns) through distributed shared memory.
+// g_e and e_bar are the two blocks' sums (phase 3's x_bar term and the
+// pullback read both); block 0 writes x_bar. The reduction is unchanged.
 #include "surface_mma.cuh"
 
 namespace ntt {
 
-// The tile pass's tile (tc::Narrow, 128 points, or tc::Wide, 64) and its
-// weight stage, the fp32 plane split in registers: chunks of 16 rows on the
-// narrow tile, of 8 on the wide one (at W = 512 a 16-row stage would take
-// the block to 240,128 bytes, past the 232,448 a block may have).
+// The tile pass's tile (tc::Narrow, 128 points, tc::Wide, 64, or
+// tc::Cluster, 64 a pair) and its weight stage, the fp32 plane split in
+// registers: chunks of 16 rows on the narrow tile, of 8 on the wide ones (at
+// W = 512 a 16-row stage would take the block to 240,128 bytes, past the
+// 232,448 a block may have).
 template <class TL>
 struct Bwd {
   static constexpr int KC = TL::CG == 4 ? 16 : 8;  // weight rows per staged chunk
@@ -182,24 +192,26 @@ __device__ __forceinline__ void enc_deriv(const float* xs, int c, int p, int& r,
 
 // Phases 1-4 on point tile T, with the block's shared memory at `base` and
 // its slope scratch at `deriv` ([D][rows][P]); TL the tile, ACT the hidden
-// activation.
+// activation, `pt` the block's part of the tile.
 template <class TL, int ACT>
 __device__ __forceinline__ void
 backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
               const float* __restrict__ cot_sdf, const float* __restrict__ cot_nab,
               const float* __restrict__ cot_h, int geo_dim,
               const long long* __restrict__ jobs, float* work, float* bias_part,
-              int nb, float* __restrict__ xbar, int T, float* deriv, float* base) {
+              int nb, float* __restrict__ xbar, int T, float* deriv, float* base,
+              const tc::Part<TL>& pt) {
   constexpr int P = TL::P, LDV = TL::LDV, THREADS = TL::THREADS;
   using S = Bwd<TL>;
+  const int lo = pt.lo();  // this block's first row of every activation block
   float* xs = base;                    // [4][P] points
   float* nbar = xs + 4 * P;            // [4][P] nablas cotangent
   float* xb = nbar + 4 * P;            // [4][P] x_bar, phase 3 term
   float* emb = xb + 4 * P;             // [c_pad][LDV] encoding (phase 1)
   float* gebar = emb;                  // n_bar (d e / d x), phase 3 on
   float* ge = emb + m.c_pad * LDV;     // [c_pad][LDV] g_e, then e_bar
-  float* buf = ge + m.c_pad * LDV;     // [rows][LDV] activations
-  float* stage = buf + m.rows * LDV;   // S::STAGE
+  float* buf = ge + m.c_pad * LDV;     // [rows][LDV] activations (a pair: its half)
+  float* stage = buf + tc::held_rows<TL>(m.rows) * LDV;  // S::STAGE
   const int D = m.n_layers - 1;
   const long p0 = (long)T * P;
   const int C = m.in_ch;
@@ -210,6 +222,8 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     return work + off + ((size_t)k * Mtiles + T) * ld * P;
   };
   auto slope = [&](int l) { return deriv + (size_t)l * m.rows * P; };
+  // a layer row held here: this block's rows of a slot or a slope
+  auto mine = [&](float* rows0) { return rows0 + (size_t)lo * P; };
 
   // rows past M get zero cotangents, so they add nothing to any gradient
   for (int idx = threadIdx.x; idx < 3 * P; idx += THREADS) {
@@ -233,28 +247,30 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       const int h_dim = L.in_dim - C;
       for (int idx = threadIdx.x; idx < (L.K - h_dim) * P; idx += THREADS) {
         const int c = idx / P, p = idx % P;
-        buf[(h_dim + c) * LDV + p] = c < C ? emb[c * LDV + p] : 0.f;
+        if (pt.holds(h_dim + c)) buf[(h_dim + c - lo) * LDV + p] = c < C ? emb[c * LDV + p] : 0.f;
       }
       __syncthreads();
-      for (int idx = threadIdx.x; idx < L.K * P; idx += THREADS)
+      for (int idx = threadIdx.x; idx < pt.cols(L.K) * P; idx += THREADS)
         buf[(idx / P) * LDV + idx % P] *= inv_sqrt2;
-      __syncthreads();
+      pt.sync();
     }
-    const float* in = l == 0 ? emb : buf;
-    copy_rows<TL>(slot(J.b_off, J.ldB, 1), in, L.in_dim);
+    const float* in = l == 0 ? emb + lo * LDV : buf;  // this block's rows of the input
+    copy_rows<TL>(mine(slot(J.b_off, J.ldB, 1)), in, pt.cols(L.in_dim));
     tc::Acc<TL> acc;
-    tc::product<TL, S::KC, S::NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, in, stage, acc);
-    tc::activation_out<TL, ACT>(L, acc, buf, slope(l));
-    __syncthreads();
+    tc::product<TL, S::KC, S::NBUF, false>(L.wT + lo, m.plane, L.K, pt.cols(L.N), L.N,
+                                           l == 0 ? pt.local(emb) : pt.src(buf), stage, acc);
+    pt.meet();
+    tc::activation_out<TL, ACT>(L, acc, buf, slope(l), pt);
+    pt.sync();
   }
   const tc::Layer LD = tc::layer_of(m, D);
   const Job JD = job_of(jobs, D);
-  copy_rows<TL>(slot(JD.b_off, JD.ldB, 0), buf, LD.in_dim);  // h_D
+  copy_rows<TL>(mine(slot(JD.b_off, JD.ldB, 0)), buf, pt.cols(LD.in_dim));  // h_D
   __syncthreads();
 
   // ---- phase 2: the nablas sweep; q_l to the workspace (A pair 0), g_e kept
-  for (int idx = threadIdx.x; idx < LD.K * P; idx += THREADS)
-    buf[(idx / P) * LDV + idx % P] = __ldg(LD.w + idx / P);  // W_D[0, :]
+  for (int idx = threadIdx.x; idx < pt.cols(LD.K) * P; idx += THREADS)
+    buf[(idx / P) * LDV + idx % P] = __ldg(LD.w + lo + idx / P);  // W_D[0, :]
   __syncthreads();
   for (int l = D - 1; l >= 0; --l) {
     const tc::Layer L = tc::layer_of(m, l);
@@ -262,18 +278,20 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     const float* sl = slope(l);
     if constexpr (ACT == ACT_SINE) {  // u_{l+1} phi''(a_l), parked in abar_l's slot
       const Job Jn = job_of(jobs, l + 1);
-      const float* hn = l + 1 == D ? slot(Jn.b_off, Jn.ldB, 0) : slot(Jn.b_off, Jn.ldB, 1);
-      float* ab = slot(J.a_off, J.ldA, 1);
-      for (int idx = threadIdx.x; idx < L.out_dim * P; idx += THREADS)
+      const float* hn =
+          mine(l + 1 == D ? slot(Jn.b_off, Jn.ldB, 0) : slot(Jn.b_off, Jn.ldB, 1));
+      float* ab = mine(slot(J.a_off, J.ldA, 1));
+      for (int idx = threadIdx.x; idx < pt.cols(L.out_dim) * P; idx += THREADS)
         ab[idx] = -SIREN_W0 * SIREN_W0 * buf[(idx / P) * LDV + idx % P] * hn[idx];
     }
-    for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS)
-      buf[(idx / P) * LDV + idx % P] *= sl[idx];  // padded rows: slope 0
-    __syncthreads();
-    copy_rows<TL>(slot(J.a_off, J.ldA, 0), buf, L.out_dim);
-    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage);
-    tc::pull_input<TL>(m, L, l, buf, ge);
+    for (int idx = threadIdx.x; idx < pt.cols(L.N) * P; idx += THREADS)
+      buf[(idx / P) * LDV + idx % P] *= sl[lo * P + idx];  // padded rows: slope 0
+    pt.sync();
+    copy_rows<TL>(mine(slot(J.a_off, J.ldA, 0)), buf, pt.cols(L.out_dim));
+    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage, pt);
+    tc::pull_input<TL>(m, L, l, buf, ge, pt);
   }
+  pt.meet();  // both halves of g_e are summed
 
   // ---- phase 3: n_bar pushed forward through phase 2's chain
   for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS) {
@@ -294,7 +312,7 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
       int r;
       float J, J2;
       enc_deriv<P>(xs, c, p, r, J, J2);
-      if (r == k) s += ge[c * LDV + p] * J2;
+      if (r == k) s += pt.merged(ge, c * LDV + p) * J2;
     }
     xb[idx] = nbar[idx] * s;
   }
@@ -305,89 +323,93 @@ backward_tile(const tc::Mlp& m, const float* __restrict__ x, int M, int Mtiles,
     const float* sl = slope(l);
     if (L.skip) {  // [ubar, gebar] * (1 / sqrt(2))
       const int h_dim = L.in_dim - C;
-      for (int idx = threadIdx.x; idx < L.K * P; idx += THREADS) {
-        const int r = idx / P, p = idx % P;
-        const float v = r < h_dim ? buf[r * LDV + p]
-                                  : (r - h_dim < C ? gebar[(r - h_dim) * LDV + p] : 0.f);
+      for (int idx = threadIdx.x; idx < pt.cols(L.K) * P; idx += THREADS) {
+        const int r = idx / P, p = idx % P, rg = lo + r;  // local and layer rows
+        const float v = rg < h_dim ? buf[r * LDV + p]
+                                   : (rg - h_dim < C ? gebar[(rg - h_dim) * LDV + p] : 0.f);
         buf[r * LDV + p] = v * inv_sqrt2;
       }
-      __syncthreads();
+      pt.sync();
     }
-    const float* gin = l == 0 ? gebar : buf;
-    copy_rows<TL>(slot(J.b_off, J.ldB, 0), gin, L.in_dim);
+    const float* gin = l == 0 ? gebar + lo * LDV : buf;  // this block's rows of the input
+    copy_rows<TL>(mine(slot(J.b_off, J.ldB, 0)), gin, pt.cols(L.in_dim));
     tc::Acc<TL> acc;
-    tc::product<TL, S::KC, S::NBUF, false>(L.wT, m.plane, L.K, L.N, L.N, gin, stage,
-                                            acc);  // qbar_l
-    const float* qs = slot(J.a_off, J.ldA, 0);
-    float* ab = slot(J.a_off, J.ldA, 1);
-    tc::each_output<TL>(acc, L.N, [&](int o, int p, float a) {
+    tc::product<TL, S::KC, S::NBUF, false>(L.wT + lo, m.plane, L.K, pt.cols(L.N), L.N,
+                                           l == 0 ? pt.local(gebar) : pt.src(buf), stage,
+                                           acc);  // qbar_l
+    const float* qs = mine(slot(J.a_off, J.ldA, 0));
+    float* ab = mine(slot(J.a_off, J.ldA, 1));
+    const float* sh = sl + (size_t)lo * P;
+    pt.meet();
+    tc::each_output<TL>(acc, pt.cols(L.N), [&](int o, int p, float a) {
       float u = 0.f;
-      if (o < L.out_dim) {
-        const float s = sl[o * P + p];
+      if (lo + o < L.out_dim) {
+        const float s = sh[o * P + p];
         if constexpr (ACT == ACT_SINE) ab[o * P + p] *= a;
         else ab[o * P + p] = 100.f * a * qs[o * P + p] * (1.f - s);
         u = a * s;
       }
       buf[o * LDV + p] = u;
     });
-    __syncthreads();
+    pt.sync();
   }
-  row_sums<TL>(bias_row + JD.extra_off, buf, LD.in_dim);  // gsdfbar
+  row_sums<TL>(bias_row + JD.extra_off + lo, buf, pt.cols(LD.in_dim));  // gsdfbar
   // e_bar reuses ge: phase 3's x_bar term has read it
   for (int idx = threadIdx.x; idx < m.c_pad * P; idx += THREADS)
     ge[(idx / P) * LDV + idx % P] = 0.f;
   __syncthreads();
 
   // ---- phase 4: the first-order down-sweep from y_bar = [sdf_bar, h_bar]
-  for (int idx = threadIdx.x; idx < LD.N * P; idx += THREADS) {
-    const int o = idx / P, p = idx % P;
-    const long pt = p0 + p;
+  for (int idx = threadIdx.x; idx < pt.cols(LD.N) * P; idx += THREADS) {
+    const int o = idx / P, p = idx % P, og = lo + o;  // local and layer rows
+    const long pm = p0 + p;
     float v = 0.f;
-    if (pt < M && o < LD.out_dim) v = (o == 0) ? cot_sdf[pt] : cot_h[pt * geo_dim + (o - 1)];
+    if (pm < M && og < LD.out_dim) v = (og == 0) ? cot_sdf[pm] : cot_h[pm * geo_dim + (og - 1)];
     buf[o * LDV + p] = v;
   }
-  __syncthreads();
-  copy_rows<TL>(slot(JD.a_off, JD.ldA, 0), buf, LD.out_dim);
-  row_sums<TL>(bias_row + JD.bias_off, buf, LD.out_dim);
-  tc::reverse_product<TL, S::KC, S::NBUF, false>(m, LD, buf, stage);  // g_h = y_bar W_D
+  pt.sync();
+  copy_rows<TL>(mine(slot(JD.a_off, JD.ldA, 0)), buf, pt.cols(LD.out_dim));
+  row_sums<TL>(bias_row + JD.bias_off + lo, buf, pt.cols(LD.out_dim));
+  tc::reverse_product<TL, S::KC, S::NBUF, false>(m, LD, buf, stage, pt);  // g_h = y_bar W_D
   for (int l = D - 1; l >= 0; --l) {
     const tc::Layer L = tc::layer_of(m, l);
     const Job J = job_of(jobs, l);
-    const float* sl = slope(l);
-    float* ab = slot(J.a_off, J.ldA, 1);
-    for (int idx = threadIdx.x; idx < L.N * P; idx += THREADS) {
+    const float* sl = mine(slope(l));
+    float* ab = mine(slot(J.a_off, J.ldA, 1));
+    for (int idx = threadIdx.x; idx < pt.cols(L.N) * P; idx += THREADS) {
       const int o = idx / P, p = idx % P;
       float a = 0.f;
-      if (o < L.out_dim) {
+      if (lo + o < L.out_dim) {
         a = buf[o * LDV + p] * sl[idx] + ab[idx];
         ab[idx] = a;
       }
       buf[o * LDV + p] = a;
     }
-    __syncthreads();
-    row_sums<TL>(bias_row + J.bias_off, buf, L.out_dim);
-    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage);
-    tc::pull_input<TL>(m, L, l, buf, ge);
+    pt.sync();
+    row_sums<TL>(bias_row + J.bias_off + lo, buf, pt.cols(L.out_dim));
+    tc::reverse_product<TL, S::KC, S::NBUF, false>(m, L, buf, stage, pt);
+    tc::pull_input<TL>(m, L, l, buf, ge, pt);
   }
+  pt.meet();  // both halves of e_bar are summed
 
   // x_bar = e_bar through d e / d x, plus phase 3's term
   for (int idx = threadIdx.x; idx < 3 * P; idx += THREADS) {
     const int k = idx / P, p = idx % P;
-    if (p0 + p >= M) continue;
-    float s = ge[k * LDV + p];
+    if (p0 + p >= M || !pt.lead()) continue;
+    float s = pt.merged(ge, k * LDV + p);
     for (int c = 3; c < C; ++c) {
       int r;
       float J, J2;
       enc_deriv<P>(xs, c, p, r, J, J2);
-      if (r == k) s += ge[c * LDV + p] * J;
+      if (r == k) s += pt.merged(ge, c * LDV + p) * J;
     }
     xbar[(p0 + p) * 3 + k] = xb[idx] + s;
   }
 }
 
-// A persistent grid (one block per SM) walks the point tiles; each block
-// keeps its tile's slopes s_l ([D][rows][P]) in its own slice of `slopes`,
-// reused from tile to tile.
+// A persistent grid (one block per SM; a pair per two SMs for the cluster
+// tile) walks the point tiles; each block (pair) keeps its tile's slopes s_l
+// ([D][rows][P]) in its own slice of `slopes`, reused from tile to tile.
 template <class TL, int ACT>
 __global__ void __launch_bounds__(TL::THREADS, 1)
 backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
@@ -398,12 +420,13 @@ backward_tile_kernel(tc::Mlp m, const float* __restrict__ x, int M, int Mtiles,
                      float* bias_part, int nb, float* slopes,
                      float* __restrict__ xbar) {
   constexpr int P = TL::P;
+  const tc::Part<TL> pt(m.rows);
   extern __shared__ float4 smem4[];
-  float* deriv = slopes + (size_t)blockIdx.x * (m.n_layers - 1) * m.rows * P;
-  for (int T = blockIdx.x; T < Mtiles; T += gridDim.x) {
+  float* deriv = slopes + (size_t)pt.slot() * (m.n_layers - 1) * m.rows * P;
+  for (int T = pt.slot(); T < Mtiles; T += pt.slots()) {
     backward_tile<TL, ACT>(m, x, M, Mtiles, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
-                     bias_part, nb, xbar, T, deriv, reinterpret_cast<float*>(smem4));
-    __syncthreads();  // the next tile overwrites shared memory
+                     bias_part, nb, xbar, T, deriv, reinterpret_cast<float*>(smem4), pt);
+    pt.sync();  // the next tile overwrites shared memory (a pair's e_bar once read)
   }
 }
 
@@ -559,14 +582,15 @@ namespace {
 
 template <class TL>
 size_t smem_bytes(int c_pad, int rows) {
-  return ((size_t)12 * TL::P + (size_t)(2 * c_pad + rows) * TL::LDV + ntt::Bwd<TL>::STAGE) *
+  return ((size_t)12 * TL::P + (size_t)(2 * c_pad + ntt::tc::held_rows<TL>(rows)) * TL::LDV +
+          ntt::Bwd<TL>::STAGE) *
          sizeof(float);
 }
 
 template <class TL>
 int blocks_of(int c_pad, int rows, int m_tiles) {
   const size_t smem = smem_bytes<TL>(c_pad, rows);
-  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  int dev = 0, sms = 0, blocks = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
@@ -575,20 +599,13 @@ int blocks_of(int c_pad, int rows, int m_tiles) {
   bool first = true;
   for (auto kernel : {ntt::backward_tile_kernel<TL, ntt::ACT_SOFTPLUS>,
                       ntt::backward_tile_kernel<TL, ntt::ACT_SINE>}) {
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
     int n = 0;  // the fewer of the two instantiations' resident blocks
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, TL::THREADS, smem);
-    per_sm = first || n < per_sm ? n : per_sm;
+    if (err == cudaSuccess) err = ntt::tc::resident<TL>(kernel, smem, optin, sms, &n);
+    blocks = first || n < blocks ? n : blocks;
     first = false;
   }
   if (err != cudaSuccess) return -(int)err;
-  const int blocks = per_sm * sms;
-  return blocks < m_tiles ? blocks : m_tiles;
+  return blocks < TL::CL * m_tiles ? blocks : TL::CL * m_tiles;
 }
 
 // The tile pass and the reduction over its tile-blocked workspace.
@@ -608,12 +625,12 @@ int launch(const ntt::tc::Mlp& m, int act, const void* x, int M, const void* cot
   float* Pt = static_cast<float*>(part);
   auto tile_kernel = act == ntt::ACT_SINE ? ntt::backward_tile_kernel<TL, ntt::ACT_SINE>
                                           : ntt::backward_tile_kernel<TL, ntt::ACT_SOFTPLUS>;
-  tile_kernel<<<blocks, TL::THREADS, smem, st>>>(
-      m, static_cast<const float*>(x), M, Mtiles,
-      static_cast<const float*>(cot_sdf), static_cast<const float*>(cot_nab),
-      static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb,
-      static_cast<float*>(slopes), static_cast<float*>(xbar));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = ntt::tc::launch<TL>(tile_kernel, blocks, smem, st, m, static_cast<const float*>(x), M,
+                            Mtiles, static_cast<const float*>(cot_sdf),
+                            static_cast<const float*>(cot_nab),
+                            static_cast<const float*>(cot_h), geo_dim, J, W, BP, nb,
+                            static_cast<float*>(slopes), static_cast<float*>(xbar));
+  if (err != cudaSuccess) return (int)err;
   ntt::outer_sum_kernel<P><<<dim3(n_out_tiles, n_split), ntt::RED_THREADS, 0, st>>>(
       J, m.n_layers, W, Pt, total, n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -628,37 +645,39 @@ int launch(const ntt::tc::Mlp& m, int act, const void* x, int M, const void* cot
 
 }  // namespace
 
-// Shared memory of a tile-pass block, in bytes; `wide` picks the tile
-// (tc::Wide, 64 points, else tc::Narrow, 128), as ops/surface_pack.py
-// records it.
-extern "C" size_t ntt_nablas_backward_smem_bytes(int c_pad, int rows, int wide) {
-  return wide ? smem_bytes<ntt::tc::Wide>(c_pad, rows)
-              : smem_bytes<ntt::tc::Narrow>(c_pad, rows);
+// Shared memory of a tile-pass block, in bytes; `tile` picks the tile (0
+// tc::Narrow, 128 points; 1 tc::Wide, 64; 2 tc::Cluster, 64 a pair), as
+// ops/surface_pack.py records it.
+extern "C" size_t ntt_nablas_backward_smem_bytes(int c_pad, int rows, int tile) {
+  return ntt::tc::by_tile(tile, [&](auto t) { return smem_bytes<decltype(t)>(c_pad, rows); });
 }
 
 // Blocks of the persistent tile pass for `m_tiles` tiles: as many as are
-// resident on the card at once, at most one per tile (the caller sizes the
-// slope scratch by it). Sets the kernel's dynamic shared-memory cap to the
+// resident on the card at once, at most one per tile (a pair of the cluster
+// tile: twice the pairs; the caller sizes the slope scratch, one slot a
+// block or a pair, by it). Sets the kernel's dynamic shared-memory cap to the
 // card's opt-in maximum. Returns a negative cudaError_t on failure, 0 when a
-// block does not fit.
-extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles, int wide) {
-  return wide ? blocks_of<ntt::tc::Wide>(c_pad, rows, m_tiles)
-              : blocks_of<ntt::tc::Narrow>(c_pad, rows, m_tiles);
+// block (or a pair) does not fit.
+extern "C" int ntt_nablas_backward_blocks(int c_pad, int rows, int m_tiles, int tile) {
+  return ntt::tc::by_tile(tile, [&](auto t) {
+    return blocks_of<decltype(t)>(c_pad, rows, m_tiles);
+  });
 }
 
 // x [M,3], cot_sdf [M], cot_nab [M,3], cot_h [M,geo_dim] -> xbar [M,3] and
 // the flat gradient `flat` [total] (layout in ops/fused_nablas_vjp.py);
 // `params` (three planes of `plane` floats) and `meta` the pack of
 // ops/surface_pack.py; `act` the hidden layers' activation
-// (ACT_SOFTPLUS or ACT_SINE); `wide` the tile (the workspace is blocked by
-// its points: 64 wide, else 128); `work`, `bias_part` [Mtiles, nb], `part`
-// [n_split, total] and `slopes` [blocks, n_layers - 1, rows, the tile's
-// points] are scratch; `blocks` comes from ntt_nablas_backward_blocks, which
-// also sets the kernel's attributes. All fp32, contiguous, on the device;
-// M > 0. Returns the first cudaError_t of the four launches.
+// (ACT_SOFTPLUS or ACT_SINE); `tile` the tile (the workspace is blocked by
+// its points: 128 narrow, else 64); `work`, `bias_part` [Mtiles, nb], `part`
+// [n_split, total] and `slopes` [slots, n_layers - 1, rows, the tile's
+// points] (a slot a block, or a pair of the cluster tile) are scratch;
+// `blocks` comes from ntt_nablas_backward_blocks, which also sets the
+// kernel's attributes. All fp32, contiguous, on the device; M > 0. Returns
+// the first cudaError_t of the four launches.
 extern "C" int ntt_nablas_backward(
     const void* x, int M, const void* params, long long plane, const void* meta, int n_layers,
-    int in_ch, int c_pad, int rows, int act, int wide, const void* cot_sdf,
+    int in_ch, int c_pad, int rows, int act, int tile, const void* cot_sdf,
     const void* cot_nab, const void* cot_h, int geo_dim, const void* jobs, void* work,
     void* bias_part, int nb, void* part, int n_split, long long total,
     long long bias_flat_off, int n_out_tiles, int blocks, void* slopes,
@@ -667,11 +686,10 @@ extern "C" int ntt_nablas_backward(
   ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
                  static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
   if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
-  if (wide)
-    return launch<ntt::tc::Wide>(m, act, x, M, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
-                                 bias_part, nb, part, n_split, total, bias_flat_off,
-                                 n_out_tiles, blocks, slopes, flat, xbar, st);
-  return launch<ntt::tc::Narrow>(m, act, x, M, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
-                                 bias_part, nb, part, n_split, total, bias_flat_off,
-                                 n_out_tiles, blocks, slopes, flat, xbar, st);
+  if (tile < 0 || tile > 2 || (tile == 2 && blocks % 2)) return (int)cudaErrorInvalidValue;
+  return ntt::tc::by_tile(tile, [&](auto t) {
+    return launch<decltype(t)>(m, act, x, M, cot_sdf, cot_nab, cot_h, geo_dim, jobs, work,
+                               bias_part, nb, part, n_split, total, bias_flat_off,
+                               n_out_tiles, blocks, slopes, flat, xbar, st);
+  });
 }

@@ -36,7 +36,13 @@
 // bytes). A surface wider than 256 (up to 512) runs the wide tile
 // (surface_mma.cuh): 4 rays on 64-point tiles, 512 threads in 8 column
 // groups, the fp32 stage in chunks of 8 rows (at W = 512: 204,160 bytes; 16
-// rows would take 237,440). The scalar stages: elementwise over lanes, the cumprod and the
+// rows would take 237,440). A surface wider than 512 (up to 1024) runs the
+// cluster tile (surface_mma.cuh): a pair of those blocks on the same 4 rays,
+// each holding half of every layer's rows (W = 1024: 204,160 bytes a
+// block), both summing the sdf row over the two halves and running the
+// rays' scalar stages alike on their own copies (the same instructions on
+// the same values), block 0 writing d_all; 512 rays make 128 pairs. The
+// scalar stages: elementwise over lanes, the cumprod and the
 // pdf/cdf prefix sums sequentially on lane 0 (their order decides which det
 // u = 1.0 entries tie), a binary search per uniform, and the merge as a rank
 // count (own index + number of foreign elements before it). None of the TPU
@@ -48,7 +54,7 @@ namespace ntt {
 
 // The weight stage of a tile: both TF32 parts on the narrow 64-point tile,
 // the fp32 plane (split in registers) on the narrow 128-point one, where
-// shared memory is short, and on the wide one in chunks of 8 rows.
+// shared memory is short, and on the wide ones in chunks of 8 rows.
 template <class TL>
 struct Up {
   static constexpr bool PRESPLIT = TL::P == 64 && TL::CG == 4;
@@ -78,6 +84,7 @@ __device__ void query(const tc::Mlp& m, const Bufs& B, int R, const float* dep, 
                       float* stage) {
   constexpr int P = TL::P;
   using U = Up<TL>;
+  const tc::Part<TL> pt(m.rows);
   const int total = R * n, D = m.n_layers - 1;
   const tc::Layer LD = tc::layer_of(m, D);
   for (int t0 = 0; t0 < total; t0 += P) {
@@ -95,24 +102,27 @@ __device__ void query(const tc::Mlp& m, const Bufs& B, int R, const float* dep, 
     __syncthreads();
     for (int l = 0; l < D; ++l) {
       const tc::Layer L = tc::layer_of(m, l);
-      if (L.skip) tc::skip_input<TL>(m, L, emb, buf);
+      if (L.skip) tc::skip_input<TL>(m, L, emb, buf, pt);
       tc::Acc<TL> acc;
-      tc::product<TL, U::KC, U::NBUF, U::PRESPLIT>(L.wT, m.plane, L.K, L.N, L.N,
-                                                   l == 0 ? emb : buf, stage, acc);
-      tc::activation_out<TL, ACT>(L, acc, buf, nullptr);
-      __syncthreads();
+      tc::product<TL, U::KC, U::NBUF, U::PRESPLIT>(L.wT + pt.lo(), m.plane, L.K,
+                                                   pt.cols(L.N), L.N,
+                                                   l == 0 ? pt.local(emb) : pt.src(buf),
+                                                   stage, acc);
+      pt.meet();
+      tc::activation_out<TL, ACT>(L, acc, buf, nullptr, pt);
+      pt.sync();
     }
     for (int p = threadIdx.x; p < P; p += U::THREADS) {
       const int q = t0 + p;
       if (q >= total) continue;
-      float v = tc::final_row<TL>(LD, 0, buf, p);
+      float v = tc::final_row<TL>(LD, 0, pt.src(buf), p);
       if (sphere_r >= 0.f) {
         const float x0 = xs[p], x1 = xs[P + p], x2 = xs[2 * P + p];
         v += sqrtf(x0 * x0 + x1 * x1 + x2 * x2 + 1e-12f) - sphere_r;
       }
       sd[(q / n) * stride + q % n] = v;
     }
-    __syncthreads();
+    pt.sync();  // (a pair: both have read the other's rows)
   }
 }
 
@@ -163,12 +173,13 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
                      int n_iters, int n_per, float sphere_r,
                      float* __restrict__ d_out) {
   constexpr int P = TL::P, LDV = TL::LDV, THREADS = Up<TL>::THREADS;
+  const tc::Part<TL> pt(m.rows);
   extern __shared__ float4 smem4[];
   const int S = n_coarse + n_iters * n_per;
   float* xs = reinterpret_cast<float*>(smem4);  // [4][P]
   float* emb = xs + 4 * P;                      // [c_pad][LDV]
-  float* buf = emb + m.c_pad * LDV;             // [rows][LDV]
-  float* stage = buf + m.rows * LDV;            // Up<TL>::STAGE
+  float* buf = emb + m.c_pad * LDV;             // [rows][LDV] (a pair: its half)
+  float* stage = buf + tc::held_rows<TL>(m.rows) * LDV;  // Up<TL>::STAGE
   Bufs B;
   B.ray = stage + Up<TL>::STAGE;
   B.d = B.ray + R * 8;
@@ -179,7 +190,7 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
   B.nd = B.cdf + R * S;
   B.ns = B.nd + R * n_per;
 
-  const long ray0 = (long)blockIdx.x * R;
+  const long ray0 = (long)pt.slot() * R;
   for (int idx = threadIdx.x; idx < R * 6; idx += THREADS) {
     const int r = idx / 6, c = idx % 6;
     float v = 0.f;
@@ -254,15 +265,15 @@ neus_upsample_kernel(tc::Mlp m, const float* __restrict__ rays_o,
   __syncthreads();
   for (int idx = threadIdx.x; idx < R * S; idx += THREADS) {
     const int rr = idx / S, j = idx % S;
-    if (ray0 + rr < N) d_out[(ray0 + rr) * S + j] = B.d[rr * S + j];
+    if (ray0 + rr < N && pt.lead()) d_out[(ray0 + rr) * S + j] = B.d[rr * S + j];
   }
 }
 
 template <class TL>
 size_t smem_bytes(int c_pad, int rows, int R, int S, int n_per) {
   constexpr int P = TL::P, LDV = TL::LDV;
-  return ((size_t)4 * P + (size_t)(c_pad + rows) * LDV + Up<TL>::STAGE + (size_t)R * 8 +
-          (size_t)R * (5 * S + 2 * n_per)) * sizeof(float);
+  return ((size_t)4 * P + (size_t)(c_pad + tc::held_rows<TL>(rows)) * LDV + Up<TL>::STAGE +
+          (size_t)R * 8 + (size_t)R * (5 * S + 2 * n_per)) * sizeof(float);
 }
 
 }  // namespace ntt
@@ -283,7 +294,9 @@ extern "C" int ntt_neus_upsample_setup() {
                       ntt::neus_upsample_kernel<ntt::tc::Narrow, ntt::ACT_SOFTPLUS>,
                       ntt::neus_upsample_kernel<ntt::tc::Narrow, ntt::ACT_SINE>,
                       ntt::neus_upsample_kernel<ntt::tc::Wide, ntt::ACT_SOFTPLUS>,
-                      ntt::neus_upsample_kernel<ntt::tc::Wide, ntt::ACT_SINE>}) {
+                      ntt::neus_upsample_kernel<ntt::tc::Wide, ntt::ACT_SINE>,
+                      ntt::neus_upsample_kernel<ntt::tc::Cluster, ntt::ACT_SOFTPLUS>,
+                      ntt::neus_upsample_kernel<ntt::tc::Cluster, ntt::ACT_SINE>}) {
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err == cudaSuccess)
@@ -302,14 +315,14 @@ int launch(const ntt::tc::Mlp& m, int act, const void* rays_o, const void* rays_
            int n_per, float sphere_r, void* d_out, cudaStream_t stream) {
   const int S = n_coarse + n_iters * n_per;
   const size_t smem = ntt::smem_bytes<TL>(m.c_pad, m.rows, R, S, n_per);
-  const int blocks = (N + R - 1) / R;
+  const int blocks = TL::CL * ((N + R - 1) / R);  // a block (a pair) per R rays
   auto kernel = act == ntt::ACT_SINE ? ntt::neus_upsample_kernel<TL, ntt::ACT_SINE>
                                      : ntt::neus_upsample_kernel<TL, ntt::ACT_SOFTPLUS>;
-  kernel<<<blocks, TL::THREADS, smem, stream>>>(
-      m, static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-      static_cast<const float*>(d_coarse), static_cast<const float*>(u), N, R, n_coarse,
-      n_iters, n_per, sphere_r, static_cast<float*>(d_out));
-  return (int)cudaGetLastError();
+  return (int)ntt::tc::launch<TL>(
+      kernel, blocks, smem, stream, m, static_cast<const float*>(rays_o),
+      static_cast<const float*>(rays_d), static_cast<const float*>(d_coarse),
+      static_cast<const float*>(u), N, R, n_coarse, n_iters, n_per, sphere_r,
+      static_cast<float*>(d_out));
 }
 
 }  // namespace
@@ -317,8 +330,9 @@ int launch(const ntt::tc::Mlp& m, int act, const void* rays_o, const void* rays_
 // rays_o, rays_d [N,3] (d unit), d_coarse [N,n_coarse] sorted, u
 // [N, n_iters*n_per] sorted within each round -> d_out [N, n_coarse +
 // n_iters*n_per] sorted. Blocks of R rays on P-point tiles: the narrow tiles
-// (`wide` 0) at P 64 with R <= 8, or 128 with R <= 16; the wide tile
-// (`wide` 1, a surface wider than 256) at P 64 with R <= 16; after
+// (`tile` 0) at P 64 with R <= 8, or 128 with R <= 16; the wide tile
+// (`tile` 1, a surface wider than 256) at P 64 with R <= 16, and the cluster
+// tile (`tile` 2, wider than 512) the same a pair; after
 // ntt_neus_upsample_setup. `params` (three planes of `plane` floats) and
 // `meta` the pack of ops/surface_pack.py; sphere_r < 0: no sphere_residual
 // prior; `act` the hidden layers' activation (ACT_SOFTPLUS or ACT_SINE).
@@ -327,17 +341,21 @@ extern "C" int ntt_neus_upsample(const void* rays_o, const void* rays_d, const v
                                  const void* u, int N, int n_coarse, int n_iters, int n_per,
                                  const void* params, long long plane, const void* meta,
                                  int n_layers, int in_ch, int c_pad, int rows, int act,
-                                 int wide, float sphere_r, int P, int R, void* d_out,
+                                 int tile, float sphere_r, int P, int R, void* d_out,
                                  void* stream) {
   if (N <= 0) return 0;
   if (act != ntt::ACT_SOFTPLUS && act != ntt::ACT_SINE) return (int)cudaErrorInvalidValue;
-  const bool small = !wide && P == 64 && R >= 1 && R <= 8;
-  const bool narrow = !wide && P == 128 && R >= 1 && R <= 16;
-  const bool wide64 = wide && P == 64 && R >= 1 && R <= 16;
-  if (!(small || narrow || wide64)) return (int)cudaErrorInvalidValue;
+  const bool small = tile == 0 && P == 64 && R >= 1 && R <= 8;
+  const bool narrow = tile == 0 && P == 128 && R >= 1 && R <= 16;
+  const bool wide64 = tile == 1 && P == 64 && R >= 1 && R <= 16;
+  const bool pair64 = tile == 2 && P == 64 && R >= 1 && R <= 16;
+  if (!(small || narrow || wide64 || pair64)) return (int)cudaErrorInvalidValue;
   ntt::tc::Mlp m{static_cast<const float*>(params), (size_t)plane,
                  static_cast<const int*>(meta), n_layers, in_ch, c_pad, rows};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pair64)
+    return launch<ntt::tc::Cluster>(m, act, rays_o, rays_d, d_coarse, u, N, R, n_coarse,
+                                    n_iters, n_per, sphere_r, d_out, st);
   if (wide64)
     return launch<ntt::tc::Wide>(m, act, rays_o, rays_d, d_coarse, u, N, R, n_coarse, n_iters,
                                  n_per, sphere_r, d_out, st);

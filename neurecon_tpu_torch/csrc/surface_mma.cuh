@@ -67,6 +67,27 @@
 // kernels stage the fp32 plane and split it in registers (a stage of both
 // parts at SLD = 520 does not fit beside the buffer). The narrow
 // instantiations are the kernels of the W <= 256 surfaces unchanged.
+//
+// The cluster tile (`Cluster`), for padded hidden widths and final-layer
+// rows up to 1024: a 1024-wide activation buffer at 64 points takes 295 KB,
+// past one block's 227 KB, so two blocks of the wide tile's shape, a
+// thread-block cluster on two SMs (launched with cluster dims (2, 1, 1)),
+// take the same 64 points. Each holds half of every activation block's
+// rows, [r H, r H + H) in block r, H = pair_rows(rows) <= 512, and computes
+// the same half of every layer's output columns, so a layer's output lands
+// where the next layer's input rows are read. The product streams this
+// block's weight columns and reads each k-step's A fragments through a
+// generic pointer to the block that holds its rows: its own shared memory,
+// or the peer's through distributed shared memory (`mapa`); a k-step lies
+// in one block, H being a multiple of 8. The output still overwrites the
+// input in place: the pair meets at a cluster barrier before a block writes
+// its half (the peer may still be reading it) and again before the next
+// product reads it. A
+// final-layer product takes rows [0, 512) in block 0 and the rest in block
+// 1, as its outputs go straight to device memory. Per-point sums over the
+// rows (kernels 1 and 3's encoding gradient) add the two blocks' halves;
+// block 0 writes the tile's per-point outputs. Every member of `Part` for a
+// lone block (Narrow, Wide) is the constant that leaves its code as it was.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -96,9 +117,110 @@ struct Tile {
   static constexpr int LDV = P + 8;             // activation row stride in floats
   static constexpr int NMAX = 64 * CG;          // widest product output
   static constexpr int SLD = NMAX + 8;          // stage row stride in floats (== 8 mod 32)
+  static constexpr int CL = 1;                  // blocks a tile
 };
 using Narrow = Tile<128, 4>;  // padded hidden widths <= 256
 using Wide = Tile<64, 8>;     // padded hidden widths and final-layer rows <= 512
+// padded hidden widths and final-layer rows <= 1024: a pair of Wide blocks
+struct Cluster : Wide {
+  static constexpr int CL = 2;
+};
+
+// Rows of every activation block that each block of a Cluster pair holds,
+// for `rows` rows in all: half, rounded up to a whole k-step of 8.
+__host__ __device__ constexpr int pair_rows(int rows) { return (rows + 15) / 16 * 8; }
+
+// Rows of the activation buffer in one block's shared memory.
+template <class T>
+__host__ __device__ constexpr int held_rows(int rows) {
+  return T::CL == 2 ? pair_rows(rows) : rows;
+}
+
+// The input rows of a Cluster pair's product, V [K][LDV]: rows [lo, lo + n)
+// in this block's shared memory at `own`, the others from row `plo` on in
+// the other block's at `peer` (a generic address of distributed shared
+// memory).
+struct Halves {
+  const float* own;
+  const float* peer;
+  int lo, n, plo;
+  __device__ bool mine(int k) const { return (unsigned)(k - lo) < (unsigned)n; }
+};
+
+template <int LDV>
+__device__ __forceinline__ const float* row_at(const float* V, int k) {
+  return V + (size_t)k * LDV;
+}
+template <int LDV>
+__device__ __forceinline__ const float* row_at(const Halves& V, int k) {
+  return V.mine(k) ? V.own + (size_t)(k - V.lo) * LDV : V.peer + (size_t)(k - V.plo) * LDV;
+}
+
+// The generic address of `p` (this block's shared memory) in the shared
+// memory of block `rank` of the cluster.
+__device__ __forceinline__ const float* cluster_map(const float* p, unsigned rank) {
+  unsigned long long q;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(q) : "l"(p), "r"(rank));
+  return reinterpret_cast<const float*>(q);
+}
+
+// Every thread of both blocks of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are seen by the peer after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;\n" :::
+               "memory");
+}
+
+// This block's part of its tile: the rows it holds of every activation
+// block, the output columns its products compute, the tiles it walks, and
+// how it meets the other block of a Cluster pair. A lone block holds every
+// row and meets no one.
+template <class T, bool PAIR = (T::CL == 2)>
+struct Part {
+  __device__ explicit Part(int) {}
+  __device__ int lo() const { return 0; }            // first row held (and column computed)
+  __device__ int cols(int n) const { return n; }     // rows held of rows [0, n)
+  __device__ bool holds(int) const { return true; }
+  __device__ bool lead() const { return true; }      // writes the tile's per-point outputs
+  __device__ unsigned slot() const { return blockIdx.x; }  // first tile; the block's scratch slot
+  __device__ unsigned slots() const { return gridDim.x; }  // tiles walked at once
+  __device__ int final_lo() const { return 0; }      // first final-layer row of its product
+  __device__ int final_cols(int n) const { return n; }
+  __device__ void meet() const {}                    // the pair's barrier
+  __device__ void sync() const { __syncthreads(); }  // the block's, or the pair's
+  template <class Q>
+  __device__ Q* src(Q* buf) const { return buf; }
+  template <class Q>
+  __device__ Q* local(Q* v) const { return v; }
+  __device__ float merged(const float* a, int at) const { return a[at]; }
+};
+
+template <class T>
+struct Part<T, true> {
+  int rank, H;
+  __device__ explicit Part(int rows) : H(pair_rows(rows)) {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    rank = (int)r;
+  }
+  __device__ int lo() const { return rank * H; }
+  __device__ int cols(int n) const { return min(max(n - rank * H, 0), H); }
+  __device__ bool holds(int r) const { return r >= rank * H && r < rank * H + H; }
+  __device__ bool lead() const { return rank == 0; }
+  __device__ unsigned slot() const { return blockIdx.x >> 1; }
+  __device__ unsigned slots() const { return gridDim.x >> 1; }
+  __device__ int final_lo() const { return rank * T::NMAX; }
+  __device__ int final_cols(int n) const { return min(max(n - rank * T::NMAX, 0), T::NMAX); }
+  __device__ void meet() const { cluster_sync(); }
+  __device__ void sync() const { cluster_sync(); }
+  __device__ Halves src(const float* buf) const {
+    return {buf, cluster_map(buf, rank ^ 1), rank * H, H, (rank ^ 1) * H};
+  }
+  __device__ Halves local(const float* v) const { return {v, v, 0, 1 << 30, 0}; }
+  __device__ float merged(const float* a, int at) const {
+    return a[at] + cluster_map(a, rank ^ 1)[at];
+  }
+};
 
 // Floats of a weight stage of NBUF chunks of KC rows: the big and small
 // planes (PRESPLIT), or the fp32 plane.
@@ -201,11 +323,13 @@ using Acc = float[T::MT][8][4];
 // fragment that is then added to the accumulator on the CUDA cores (see the
 // note on precision). Every thread of the block must call it: it
 // synchronises, and it returns after a barrier that every warp reaches once
-// done with V and the stage (so the caller may overwrite V).
-template <class T, int KC, int NBUF, bool PRESPLIT>
+// done with V and the stage (so the caller may overwrite V; a Cluster pair
+// meets first, `Part::meet`, as the peer reads V too). V is a pointer, or
+// for a Cluster pair its Halves: each k-step's rows from this block's
+// shared memory or the peer's (`row_at`).
+template <class T, int KC, int NBUF, bool PRESPLIT, class Src>
 __device__ __forceinline__ void product(const float* __restrict__ M, size_t plane, int K,
-                                        int N, int ld, const float* V, float* stage,
-                                        Acc<T>& acc) {
+                                        int N, int ld, Src V, float* stage, Acc<T>& acc) {
   static_assert(KC % 8 == 0 && NBUF >= 2, "chunks of whole k-steps, two buffers or more");
   constexpr int MT = T::MT, LDV = T::LDV, SLD = T::SLD, CH = KC * SLD;
   constexpr int PARTS = PRESPLIT ? 2 : 1;
@@ -244,7 +368,7 @@ __device__ __forceinline__ void product(const float* __restrict__ M, size_t plan
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {  // k-steps of 8 rows
       const float* S = stage + (ch % NBUF) * PARTS * CH + 8 * s * SLD + nw + g;
-      const float* Vk = V + (size_t)(ch * KC + 8 * s) * LDV + pw + g;
+      const float* Vk = row_at<LDV>(V, ch * KC + 8 * s) + pw + g;
       uint32_t a_big[MT][4], a_small[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -327,7 +451,8 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float*
 }
 
 // The activation of the product plus bias, written over `out` ([N][LDV];
-// rows out_dim..N-1 get 0); with `slope` ([N][P], device memory) also its
+// rows out_dim..N-1 get 0; a Cluster block its rows, `pt`); with `slope`
+// ([N][P], device memory, every row) also its
 // derivative (0 on the padded rows): Softplus(beta = 100) and sigmoid(100 z),
 // or (ACT_SINE) sin(30 z) and 30 cos(30 z). Softplus is the plain version's
 // formula (torch's softplus of y = 100 z, threshold 20, over 100), so that
@@ -338,13 +463,14 @@ __device__ __forceinline__ void embed_tile(const Mlp& m, const float* xs, float*
 // |x| (the kernels build without --use_fast_math).
 template <class T, int ACT>
 __device__ __forceinline__ void activation_out(const Layer& L, const Acc<T>& acc, float* out,
-                                               float* slope) {
+                                               float* slope, const Part<T>& pt) {
   constexpr int P = T::P, LDV = T::LDV;
-  each_output<T>(acc, L.N, [&](int o, int p, float a) {
+  each_output<T>(acc, pt.cols(L.N), [&](int o, int p, float a) {
     float v = 0.f, s = 0.f;
-    if (o < L.out_dim) {
+    const int og = pt.lo() + o;  // the layer's output row
+    if (og < L.out_dim) {
       if constexpr (ACT == ACT_SINE) {
-        const float y = SIREN_W0 * (a + __ldg(L.b + o));
+        const float y = SIREN_W0 * (a + __ldg(L.b + og));
         if (slope) {
           float cs;
           sincosf(y, &v, &cs);
@@ -353,95 +479,184 @@ __device__ __forceinline__ void activation_out(const Layer& L, const Acc<T>& acc
           v = sinf(y);
         }
       } else {
-        const float y = 100.f * (a + __ldg(L.b + o));
+        const float y = 100.f * (a + __ldg(L.b + og));
         v = (y > 20.f ? y : log1pf(expf(y))) / 100.f;
         s = 1.f / (1.f + expf(-y));
       }
     }
     out[o * LDV + p] = v;
-    if (slope) slope[o * P + p] = s;
+    if (slope) slope[og * P + p] = s;
   });
 }
 
 // The skip layer's input in `buf`: h is in rows [0, h_dim), h_dim = in_dim
 // - in_ch; the encoding `emb` goes to rows [h_dim, h_dim + in_ch), zeros to
 // the padded rows up to K, then all K rows are divided by sqrt(2), as the
-// plain forward does.
+// plain forward does (a Cluster block its own rows; the pair meets after).
 template <class T>
 __device__ __forceinline__ void skip_input(const Mlp& m, const Layer& L, const float* emb,
-                                           float* buf) {
+                                           float* buf, const Part<T>& pt) {
   constexpr int P = T::P, LDV = T::LDV;
   const int h_dim = L.in_dim - m.in_ch;
   for (int idx = threadIdx.x; idx < (L.K - h_dim) * P; idx += T::THREADS) {
     const int c = idx / P, p = idx % P;
-    buf[(h_dim + c) * LDV + p] = c < m.in_ch ? emb[c * LDV + p] : 0.f;
+    if (pt.holds(h_dim + c))
+      buf[(h_dim + c - pt.lo()) * LDV + p] = c < m.in_ch ? emb[c * LDV + p] : 0.f;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < L.K * P; idx += T::THREADS) {
+  for (int idx = threadIdx.x; idx < pt.cols(L.K) * P; idx += T::THREADS) {
     float* cat = buf + (idx / P) * LDV + idx % P;
     *cat = *cat / 1.41421356237f;
   }
-  __syncthreads();
+  pt.sync();
 }
 
 // Row `row` of the final layer at the tile's point p, on the CUDA cores in
 // fp32: sum_k V[k][p] W_D[row][k] + b_D[row], with V the layer's input
-// ([K][LDV]; W_D's row is K floats of its [N][K] block, padded entries zero
+// ([K][LDV], or a Cluster pair's Halves, whose 4-row groups each lie in one
+// block; W_D's row is K floats of its [N][K] block, padded entries zero
 // on both sides). The sdf row, and the final layer's outputs past the
 // product's T::NMAX columns.
-template <class T>
-__device__ __forceinline__ float final_row(const Layer& L, int row, const float* V, int p) {
+template <class T, class Src>
+__device__ __forceinline__ float final_row(const Layer& L, int row, Src V, int p) {
   constexpr int LDV = T::LDV;
   const float* w = L.w + (size_t)row * L.K;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   for (int k = 0; k < L.K; k += 4) {
-    s0 += V[k * LDV + p] * __ldg(w + k);
-    s1 += V[(k + 1) * LDV + p] * __ldg(w + k + 1);
-    s2 += V[(k + 2) * LDV + p] * __ldg(w + k + 2);
-    s3 += V[(k + 3) * LDV + p] * __ldg(w + k + 3);
+    if constexpr (T::CL == 1) {
+      s0 += V[k * LDV + p] * __ldg(w + k);
+      s1 += V[(k + 1) * LDV + p] * __ldg(w + k + 1);
+      s2 += V[(k + 2) * LDV + p] * __ldg(w + k + 2);
+      s3 += V[(k + 3) * LDV + p] * __ldg(w + k + 3);
+    } else {
+      const float* v = row_at<LDV>(V, k) + p;
+      s0 += v[0] * __ldg(w + k);
+      s1 += v[LDV] * __ldg(w + k + 1);
+      s2 += v[2 * LDV] * __ldg(w + k + 2);
+      s3 += v[3 * LDV] * __ldg(w + k + 3);
+    }
   }
   return ((s0 + s1) + (s2 + s3)) + __ldg(L.b + row);
 }
 
 // The reverse product of layer L in a sweep: g_in = g W over `buf` (depth K
 // = the layer's padded outputs, N = its padded inputs), written back over
-// it. Ends synchronised.
+// it. Ends synchronised (a Cluster pair: both blocks' halves written).
 template <class T, int KC, int NBUF, bool PRESPLIT>
 __device__ __forceinline__ void reverse_product(const Mlp& m, const Layer& L, float* buf,
-                                                float* stage) {
+                                                float* stage, const Part<T>& pt) {
   constexpr int LDV = T::LDV;
   Acc<T> acc;
-  product<T, KC, NBUF, PRESPLIT>(L.w, m.plane, L.N, L.K, L.K, buf, stage, acc);
-  each_output<T>(acc, L.K, [&](int i, int p, float v) { buf[i * LDV + p] = v; });
-  __syncthreads();
+  product<T, KC, NBUF, PRESPLIT>(L.w + pt.lo(), m.plane, L.N, pt.cols(L.K), L.K, pt.src(buf),
+                                 stage, acc);
+  pt.meet();
+  each_output<T>(acc, pt.cols(L.K), [&](int i, int p, float v) { buf[i * LDV + p] = v; });
+  pt.sync();
 }
 
 // After the reverse product of layer l (`buf` holds the gradient at its
 // input): layer 0's input is the encoding, whose rows are added to g_e
 // (`ge`, [c_pad][LDV]); a skip layer's input [h, e] / sqrt(2) splits, its h
 // rows staying in `buf` and its encoding rows added to g_e, both divided by
-// sqrt(2). Ends synchronised.
+// sqrt(2). A Cluster block adds its own rows to its own g_e (the tile's is
+// the two blocks' sum, `Part::merged`). Ends synchronised (the block).
 template <class T>
 __device__ __forceinline__ void pull_input(const Mlp& m, const Layer& L, int l, float* buf,
-                                           float* ge) {
+                                           float* ge, const Part<T>& pt) {
   constexpr int P = T::P, LDV = T::LDV;
   const float inv_sqrt2 = 1.f / 1.41421356237f;
   const int C = m.in_ch;
   if (l == 0) {
-    for (int idx = threadIdx.x; idx < C * P; idx += T::THREADS) {
+    for (int idx = threadIdx.x; idx < pt.cols(C) * P; idx += T::THREADS) {
       const int at = (idx / P) * LDV + idx % P;
-      ge[at] += buf[at];
+      ge[at + pt.lo() * LDV] += buf[at];
     }
   } else if (L.skip) {
     const int h_dim = L.in_dim - C;
-    for (int idx = threadIdx.x; idx < L.in_dim * P; idx += T::THREADS) {
-      const int r = idx / P, p = idx % P;
+    for (int idx = threadIdx.x; idx < pt.cols(L.in_dim) * P; idx += T::THREADS) {
+      const int r = idx / P, p = idx % P, rg = pt.lo() + r;  // local and layer rows
       const float v = buf[r * LDV + p] * inv_sqrt2;
-      if (r < h_dim) buf[r * LDV + p] = v;
-      else ge[(r - h_dim) * LDV + p] += v;
+      if (rg < h_dim) buf[r * LDV + p] = v;
+      else ge[(rg - h_dim) * LDV + p] += v;
     }
   }
   __syncthreads();
+}
+
+// ---- host side: the shared-memory attributes, occupancy and launch of a
+// tile's kernel
+
+// Sets `kernel`'s dynamic shared-memory cap to the card's opt-in maximum
+// (`optin` bytes; so it never needs raising for a larger shape) and its
+// carveout to the most shared memory, then counts the blocks resident on
+// the card at once at `smem` bytes a block into `blocks`: blocks an SM x
+// `sms` for a lone block's tile; for a Cluster pair twice the pairs the card
+// can place at once (cudaOccupancyMaxActiveClusters: a pair takes two SMs
+// of one GPC).
+template <class T, class Kernel>
+inline cudaError_t resident(Kernel kernel, size_t smem, int optin, int sms, int* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int n = 0;
+  if constexpr (T::CL == 1) {
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, T::THREADS, smem);
+    *blocks = n * sms;
+  } else {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = T::CL;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(T::CL);
+    cfg.blockDim = dim3(T::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+    *blocks = T::CL * n;
+  }
+  return err;
+}
+
+// f(T{}) for the tile of code `tile` as the launches take it
+// (ops/surface_pack.py: 0 Narrow, 1 Wide, 2 Cluster).
+template <class F>
+inline auto by_tile(int tile, F&& f) {
+  if (tile == 2) return f(Cluster{});
+  if (tile == 1) return f(Wide{});
+  return f(Narrow{});
+}
+
+// Launches `kernel` on `blocks` blocks of T::THREADS (a Cluster's in pairs:
+// `blocks` even, cluster dims (2, 1, 1)); returns the launch's cudaError_t.
+template <class T, class... Params, class... Args>
+inline cudaError_t launch(void (*kernel)(Params...), int blocks, size_t smem,
+                          cudaStream_t stream, Args... args) {
+  if constexpr (T::CL == 1) {
+    kernel<<<blocks, T::THREADS, smem, stream>>>(args...);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = T::CL;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(T::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
 }
 
 }  // namespace tc

@@ -6,8 +6,9 @@ Replaces the Pallas kernel `_make_kernel` of `neurecon_tpu/ops/fused_mlp.py`
 queries (mesh grids, ray casters, eval tools, the VolSDF sampler), and its
 output carries no graph. The kernel runs the hidden layers as split-fp32
 tensor-core products over 128-point tiles (64-point tiles of the wide
-instantiation for a surface wider than 256, up to 512, as the pack
-records); its source note gives the design
+instantiation for a surface wider than 256, up to 512, and of the cluster
+instantiation, two blocks a tile, up to 1024, as the pack records); its
+source note gives the design
 and what bounds it. The packed weights are kept between calls while the
 surface's parameters are unchanged (`surface_pack.packed_surface`).
 
@@ -27,7 +28,7 @@ from neurecon_tpu_torch.ops.surface_pack import Pack, packed_surface
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_RESIDENT: dict = {}  # (card index, c_pad, rows, wide) -> resident blocks
+_RESIDENT: dict = {}  # (card index, c_pad, rows, tile) -> resident blocks
 
 
 @torch.no_grad()
@@ -36,21 +37,21 @@ def sdf_forward_plain(surface, x: torch.Tensor) -> torch.Tensor:
     return surface.mlp(x)[0]
 
 
-def resident_blocks(c_pad: int, rows: int, device: torch.device, wide: bool) -> int:
+def resident_blocks(c_pad: int, rows: int, device: torch.device, tile: int) -> int:
     """Blocks of the kernel resident on `device` at once, for this encoding
-    height, activation buffer and tile (`wide`: the wide instantiation);
-    asked of the card (which also sets the kernel's shared-memory
-    attributes) once per (card, c_pad, rows, wide) and kept. Raises
-    NotImplementedError when a block does not fit."""
+    height, activation buffer and tile (`Pack.kind`; the cluster tile's
+    blocks in pairs); asked of the card (which also sets the kernel's
+    shared-memory attributes) once per (card, c_pad, rows, tile) and kept.
+    Raises NotImplementedError when a block (a pair) does not fit."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, c_pad, rows, bool(wide))
+    key = (index, c_pad, rows, int(tile))
     n = _RESIDENT.get(key)
     if n is None:
         lib = _build.load("sdf_forward")
         lib.ntt_sdf_forward_resident.argtypes = [_I, _I, _I]
         lib.ntt_sdf_forward_resident.restype = _I
         with torch.cuda.device(index):
-            n = lib.ntt_sdf_forward_resident(c_pad, rows, int(wide))
+            n = lib.ntt_sdf_forward_resident(c_pad, rows, int(tile))
         _build.check(max(-n, 0), "sdf_forward (occupancy)")
         if n == 0:
             raise NotImplementedError(
@@ -65,15 +66,15 @@ def launch_sdf_forward(surface, x: torch.Tensor, packed: Pack) -> torch.Tensor:
     `surface_pack.pack`; returns sdf [M]."""
     M = x.shape[0]
     sdf = torch.empty(M, device=x.device)
-    blocks = min(resident_blocks(packed.c_pad, packed.rows, x.device, packed.wide),
-                 -(-M // packed.tile))
+    blocks = min(resident_blocks(packed.c_pad, packed.rows, x.device, packed.kind),
+                 -(-M // packed.tile) * packed.blocks_per_tile)
     fn = _build.load("sdf_forward").ntt_sdf_forward
     fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]
     fn.restype = _I
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
             len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
-            int(packed.wide), sdf.data_ptr(), blocks, stream)
+            packed.kind, sdf.data_ptr(), blocks, stream)
     _build.check(rc, "sdf_forward")
     fused_sdf_forward.launches += 1
     return sdf

@@ -5,8 +5,9 @@ Replaces the Pallas kernel `_make_nablas_kernel` of
 `neurecon_tpu/ops/fused_nablas.py` (entry `fused_forward_with_nablas`). The
 kernel runs every layer product, forward and nablas sweep, as a split-fp32
 tensor-core product over 128-point tiles (64-point tiles of the wide
-instantiation for a surface wider than 256, up to 512, as the pack
-records); its source note gives the design
+instantiation for a surface wider than 256, up to 512, and of the cluster
+instantiation, two blocks a tile, up to 1024, as the pack records); its
+source note gives the design
 and what bounds it. Gradient-free: parameters are constants here (the
 render, the casters); `ops/fused_nablas_vjp.py` wraps it, with its backward
 kernel, for training. The packed weights are kept between calls while the
@@ -26,7 +27,7 @@ from neurecon_tpu_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_RESIDENT: dict = {}  # (card index, c_pad, rows, wide) -> resident blocks
+_RESIDENT: dict = {}  # (card index, c_pad, rows, tile) -> resident blocks
 
 ACT_SOFTPLUS, ACT_SINE = 0, 1  # the kernels' activation codes (csrc)
 
@@ -96,21 +97,21 @@ def _check(surface, x):
             raise ValueError("surface parameters must be float32 on x's device")
 
 
-def resident_blocks(c_pad: int, rows: int, device: torch.device, wide: bool) -> int:
+def resident_blocks(c_pad: int, rows: int, device: torch.device, tile: int) -> int:
     """Blocks of the kernel resident on `device` at once, for this encoding
-    height, activation buffer and tile (`wide`: the wide instantiation);
-    asked of the card (which also sets the kernel's shared-memory
-    attributes) once per (card, c_pad, rows, wide) and kept. Raises
-    NotImplementedError when a block does not fit."""
+    height, activation buffer and tile (`Pack.kind`; the cluster tile's
+    blocks in pairs); asked of the card (which also sets the kernel's
+    shared-memory attributes) once per (card, c_pad, rows, tile) and kept.
+    Raises NotImplementedError when a block (a pair) does not fit."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, c_pad, rows, bool(wide))
+    key = (index, c_pad, rows, int(tile))
     n = _RESIDENT.get(key)
     if n is None:
         lib = _build.load("nablas_forward")
         lib.ntt_nablas_forward_resident.argtypes = [_I, _I, _I]
         lib.ntt_nablas_forward_resident.restype = _I
         with torch.cuda.device(index):
-            n = lib.ntt_nablas_forward_resident(c_pad, rows, int(wide))
+            n = lib.ntt_nablas_forward_resident(c_pad, rows, int(tile))
         _build.check(max(-n, 0), "nablas_forward (occupancy)")
         if n == 0:
             raise NotImplementedError(
@@ -143,9 +144,11 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=Non
     if packed is None:
         packed = (surface_pack.packed_surface(surface) if weights is None
                   else surface_pack.pack(surface, weights))
-    blocks = min(resident_blocks(packed.c_pad, packed.rows, dev, packed.wide),
-                 -(-M // packed.tile))
-    slopes = torch.empty(blocks * surface.D * packed.rows * packed.tile, device=dev)
+    blocks = min(resident_blocks(packed.c_pad, packed.rows, dev, packed.kind),
+                 -(-M // packed.tile) * packed.blocks_per_tile)
+    # a slot of D x rows x the tile's points for each block (each pair)
+    slopes = torch.empty(blocks // packed.blocks_per_tile * surface.D * packed.rows
+                         * packed.tile, device=dev)
     fn = _build.load("nablas_forward").ntt_nablas_forward
     fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                    _I, _P, _P]
@@ -153,7 +156,7 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=Non
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
             len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
-            int(packed.wide), sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
+            packed.kind, sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
             slopes.data_ptr(), stream)
     _build.check(rc, "nablas_forward")
     fused_forward_with_nablas.launches += 1

@@ -15,7 +15,8 @@ needed.
 The backward is bound by arithmetic (~5.8 MFLOP per point at the flagship
 widths); `csrc/nablas_backward.cu` says how it splits the work into a
 pass over 128-point tiles (64-point tiles of the wide instantiation for a
-surface wider than 256, up to 512) and a deterministic reduction of the weight
+surface wider than 256, up to 512, and of the cluster instantiation, two
+blocks a tile, up to 1024) and a deterministic reduction of the weight
 gradients over all points, through a device-memory workspace, both on
 split-fp32 tensor-core products.
 
@@ -35,7 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-_TILE = 128  # points per tile of the tile pass (csrc tc::Narrow; tc::Wide takes 64)
+_TILE = 128  # points per tile of the tile pass (csrc tc::Narrow; tc::Wide, tc::Cluster 64)
 _KT = 16     # workspace rows per k-tile of the reduction (csrc)
 _RT = 64     # output tile edge of the reduction (csrc)
 
@@ -231,14 +232,15 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     flat = torch.empty(lay["total"], device=dev)
     lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I, _I]
     lib.ntt_nablas_backward_blocks.restype = _I
-    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"],
-                                            int(packed.wide))
+    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"], packed.kind)
     _build.check(max(-blocks, 0), "nablas_backward (occupancy)")
     if blocks == 0:
         raise NotImplementedError(
             f"nablas_backward: a block for {packed.c_pad} encoding and {rows} activation "
             "rows does not fit in the card's shared memory")
-    slopes = torch.empty(blocks * (len(dims) - 1) * rows * packed.tile, device=dev)
+    # a slot of D x rows x the tile's points for each block (each pair)
+    slopes = torch.empty(blocks // packed.blocks_per_tile * (len(dims) - 1) * rows
+                         * packed.tile, device=dev)
     xbar = torch.empty(M, 3, device=dev)
     fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
                                             + part.numel() + slopes.numel())
@@ -249,7 +251,7 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
             packed.meta.data_ptr(), len(dims), surface.input_ch, packed.c_pad, rows,
-            packed.act, int(packed.wide), cots[0].data_ptr(), cots[1].data_ptr(),
+            packed.act, packed.kind, cots[0].data_ptr(), cots[1].data_ptr(),
             cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
             bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
             lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,

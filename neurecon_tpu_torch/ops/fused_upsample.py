@@ -23,9 +23,8 @@ import ctypes
 
 import torch
 
-from neurecon_tpu_torch.ops import _build
+from neurecon_tpu_torch.ops import _build, surface_pack
 from neurecon_tpu_torch.ops.sampling import alpha_to_w, sample_pdf
-from neurecon_tpu_torch.ops.surface_pack import packed_surface
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,14 +109,15 @@ def _sms(device: torch.device) -> int:
     return sms
 
 
-def block_shape(N: int, sms: int, wide: bool = False):
+def block_shape(N: int, sms: int, tile: int = surface_pack.NARROW):
     """(P, R): points per MLP tile and rays per block for N rays. A block of
     8 rays (a round's 8 x 16 new points make one 128-point tile) where that
     gives every SM a block; else 4 rays on 64-point tiles, so that a
     training step's 512 rays make 128 blocks, not 64. A surface wider than
-    256 (`wide`, the pack's tile) takes the wide tile's 64 points and 4 rays
-    at any N."""
-    if wide:
+    256 (`tile` the pack's, WIDE or CLUSTER) takes 64 points and 4 rays a
+    block (a pair) at any N: 4 x 16 new points a round fill a tile, and a
+    step's 512 rays make 128 pairs of the cluster tile on the card's 66."""
+    if tile != surface_pack.NARROW:
         return 64, 4
     return (128, 8) if -(-N // 8) >= sms else (64, 4)
 
@@ -139,8 +139,8 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     d_all = torch.empty(N, n_coarse + n_iters * n_per_iter, device=dev)
     if N == 0:
         return d_all
-    packed = packed_surface(surface)
-    P, R = block_shape(N, _sms(dev), packed.wide)
+    packed = surface_pack.packed_surface(surface)
+    P, R = block_shape(N, _sms(dev), packed.kind)
     fn = _build.load("neus_upsample").ntt_neus_upsample
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
                    _I, _I, ctypes.c_float, _I, _I, _P, _P]
@@ -150,7 +150,7 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(), u_rounds.data_ptr(),
             N, n_coarse, n_iters, n_per_iter, packed.params.data_ptr(), packed.plane,
             packed.meta.data_ptr(), len(surface.layers), surface.input_ch, packed.c_pad,
-            packed.rows, packed.act, int(packed.wide), sphere_r, P, R, d_all.data_ptr(),
+            packed.rows, packed.act, packed.kind, sphere_r, P, R, d_all.data_ptr(),
             stream)
     _build.check(rc, "neus_upsample")
     fused_neus_upsample.launches += 1

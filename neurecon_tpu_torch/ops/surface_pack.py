@@ -15,10 +15,11 @@ they are. One int32 record of 8 per layer: K, N, out_dim, in_dim, offset of
 W^T, of W, of b, skip flag. The pack also carries the hidden activation's
 code (`fused_nablas.activation_code`), which every launch passes on: a SIREN
 surface's pack says sine, so that no kernel runs Softplus on its weights.
-And it records which of the kernels' two tiles the surface needs
+And it records which of the kernels' three tiles the surface needs
 (`csrc/surface_mma.cuh`): the narrow tiles for padded hidden widths up to
 256 (final-layer rows up to 264), the wide tile for hidden widths and
-final-layer rows up to 512.
+final-layer rows up to 512, and the cluster tile (a pair of wide blocks on
+one tile, each holding half of every layer's rows) up to 1024.
 """
 from __future__ import annotations
 
@@ -30,11 +31,17 @@ import torch
 from neurecon_tpu_torch.ops.fused_nablas import activation_code, surface_weights, upload
 
 # csrc/surface_mma.cuh: the narrow tiles' products take 256 outputs (4 column
-# groups of 64), the wide tile's 512 (8 column groups)
+# groups of 64), the wide tile's 512 (8 column groups), the cluster tile's
+# 1024 (two blocks of 8)
 _NARROW = 256  # widest padded hidden layer of the narrow tiles
 _NARROW_FINAL = 264  # their final-layer rows: 256 in kernel 1's product, the rest on CUDA cores
 _WIDE = 512    # widest padded hidden layer and final-layer rows of the wide tile
+_CLUSTER = 1024  # of the cluster tile
 _ALIGN = 32    # floats between block starts (128 bytes)
+
+# the kernels' tiles, as the launches take them (csrc `tile`)
+NARROW, WIDE, CLUSTER = 0, 1, 2
+TILE_NAMES = ("narrow", "wide", "cluster")
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -68,37 +75,53 @@ class Pack(NamedTuple):
     c_pad: int            # encoding rows (input_ch padded to 8)
     rows: int             # activation rows of the forward (widest hidden K or N)
     act: int              # the hidden activation's code (csrc ACT_SOFTPLUS / ACT_SINE)
-    wide: bool            # the kernels' wide tile (csrc tc::Wide), else the narrow ones
+    kind: int             # the kernels' tile: NARROW, WIDE or CLUSTER (csrc `tile`)
+
+    @property
+    def wide(self) -> bool:
+        """The wide tile (csrc tc::Wide)."""
+        return self.kind == WIDE
 
     @property
     def tile(self) -> int:
-        """Points a tile of kernels 1, 3 and 4 (csrc tc::Wide 64, tc::Narrow 128)."""
-        return 64 if self.wide else 128
+        """Points a tile of kernels 1, 3 and 4 (csrc tc::Narrow 128, tc::Wide
+        and tc::Cluster 64)."""
+        return 128 if self.kind == NARROW else 64
+
+    @property
+    def blocks_per_tile(self) -> int:
+        """Blocks that share a tile: 2 for the cluster tile (csrc
+        tc::Cluster), else 1."""
+        return 2 if self.kind == CLUSTER else 1
 
 
 def layout(surface) -> dict:
     """The pack's shape for `surface` (no values): the per-layer records,
     the buffer size in floats, `c_pad`, `rows` (the widest hidden K or N,
-    and the final layer's K) and `wide` (the kernels' wide tile: a padded
-    hidden width past 256, or final-layer rows past 264). Shapes the kernels
-    do not take (a padded hidden width or final-layer rows past 512) raise
-    NotImplementedError (ValueError for a skip at 0, or on a SIREN surface
-    with skips, whose kernel-3 branch reads each sine layer's output as the
-    next layer's input)."""
+    and the final layer's K), `tile` (NARROW; WIDE for a padded hidden
+    width past 256 or final-layer rows past 264; CLUSTER past 512) and
+    `wide` (tile == WIDE). Shapes
+    the kernels do not take (a padded hidden width or final-layer rows past
+    1024) raise NotImplementedError (ValueError for a skip at 0, or on a
+    SIREN surface with skips, whose kernel-3 branch reads each sine layer's
+    output as the next layer's input)."""
     if 0 in surface.skips:
         raise ValueError("a skip at layer 0 is not supported by the kernels")
     if surface.use_siren and surface.skips:
         raise ValueError("a SIREN surface with skips is not supported by the kernels")
     c_pad = pad8(surface.input_ch)
-    records, off, rows, wide = [], 0, 0, False
+    records, off, rows, tile = [], 0, 0, NARROW
     for l, (in_dim, out_dim) in enumerate(surface.dims):
         hidden = l < surface.D
         K, N = pad8(in_dim), pad8(out_dim)
-        if max(K, N) > _WIDE:
+        if max(K, N) > _CLUSTER:
             raise NotImplementedError(
                 f"layer {l} ({in_dim} -> {out_dim}) is wider than the kernels "
-                f"take (padded hidden widths and final-layer rows <= {_WIDE})")
-        wide |= K > _NARROW or N > (_NARROW if hidden else _NARROW_FINAL)
+                f"take (padded hidden widths and final-layer rows <= {_CLUSTER})")
+        if max(K, N) > _WIDE:
+            tile = CLUSTER
+        elif K > _NARROW or N > (_NARROW if hidden else _NARROW_FINAL):
+            tile = max(tile, WIDE)
         off_wT = off
         off_w = _align(off_wT + K * N)
         off_b = _align(off_w + N * K)
@@ -106,10 +129,11 @@ def layout(surface) -> dict:
         records.append([K, N, out_dim, in_dim, off_wT, off_w, off_b,
                         int(l in surface.skips)])
         rows = max(rows, K, N if hidden else 0)
-    return {"records": records, "size": off, "c_pad": c_pad, "rows": rows, "wide": wide}
+    return {"records": records, "size": off, "c_pad": c_pad, "rows": rows, "tile": tile,
+            "wide": tile == WIDE}
 
 
-_INDEX: dict = {}  # (shape signature, device) -> (meta, index, size, c_pad, rows, wide)
+_INDEX: dict = {}  # (shape signature, device) -> (meta, index, size, c_pad, rows, tile)
 
 
 def _index(surface, device):
@@ -130,7 +154,7 @@ def _index(surface, device):
             pos_b.append(off_b + torch.arange(o, dtype=torch.int64))
         index = torch.cat(pos_T + pos_W + pos_b).to(device)
         meta = upload(torch.tensor(lay["records"], dtype=torch.int32), device)
-        hit = _INDEX[sig] = (meta, index, lay["size"], lay["c_pad"], lay["rows"], lay["wide"])
+        hit = _INDEX[sig] = (meta, index, lay["size"], lay["c_pad"], lay["rows"], lay["tile"])
     return hit
 
 
@@ -143,13 +167,13 @@ def pack(surface, weights=None) -> Pack:
     with torch.no_grad():
         ws, bs = weights if weights is not None else surface_weights(surface)
         device = ws[0].device
-        meta, index, size, c_pad, rows, wide = _index(surface, device)
+        meta, index, size, c_pad, rows, tile = _index(surface, device)
         flat_w = torch.cat([w.float().reshape(-1) for w in ws])
         src = torch.cat([flat_w, flat_w] + [b.float().reshape(-1) for b in bs])
         fp32 = torch.zeros(size, device=device).index_copy_(0, index, src)
         big, small = split_tf32(fp32)
         params = torch.cat([fp32, big, small])
-    return Pack(params, size, meta, c_pad, rows, activation_code(surface), wide)
+    return Pack(params, size, meta, c_pad, rows, activation_code(surface), tile)
 
 
 pack.packs = 0

@@ -26,8 +26,12 @@ kernels (a), (b) and (c), each summed over one call (CUDA events around
 each launch, median of 5 calls) on 1,024 rays at beta_net 0.1 and 0.001
 and on 4,096 rays at 0.001 (rays from (0, 0, -3) into the background
 sphere of radius 3, n0 = n_up = 512, 6 rounds, 64 fine samples, perturb
-uniforms from the seed). The flagship surface (D=8, W=256) with seeded
-noise on every weight, points and cotangents from `--seed`.
+uniforms from the seed), and, where the copy takes the width, kernels 4,
+1, 3 and 2 at W=512 (the wide tile) and W=1024 (the cluster tile; a copy
+that refuses it says so) at 2^20 points, 130,560 points, 130,560 points and
+512 rays. The flagship surface (D=8, W=256) with seeded noise on every
+weight, points and cotangents from `--seed`; the wider surfaces are the
+flagship's at those hidden widths.
 
 The sampler's outputs (fine depths, beta map, iter_usage), every output
 of kernel (a) launched alone on the same rays (round-0 depths and sdf,
@@ -36,7 +40,9 @@ bounds, beta+, converged, iter_usage, the checkpoint-0 draws; case
 surface (case `surface_kernels`: kernel 1's sdf, nablas and h at 130,560
 points, kernel 2's depths at 512 and 4,096 rays, kernel 3's x_bar and
 every weight and bias gradient at 130,560 points, kernel 4's sdf at 2^20
-points) of every copy are then held to the first copy's on the same
+points; the same at W=512 and 1,024 on 16,384 points and 128 rays, cases
+`surface_kernels_w512` and `surface_kernels_w1024`) of every copy are then
+held to the first copy's on the same
 inputs: one JSON line per case and copy with, for each output, the largest
 difference and the share of entries that differ (0 when two copies' kernels
 round alike, as a change that leaves the W <= 256 instantiations alone must).
@@ -180,6 +186,39 @@ if fused_mlp is not None:
             sphere_tracing_surface_points(s.forward_query, o[c:c + 4096], d[c:c + 4096],
                                           near=0.0, far=4.8)
     res["sphere_trace_wall_ms_19200_rays"] = wall_ms(cast, reps=10)
+wider = {}  # the wide and cluster tiles' outputs, held to the first copy's
+for W in (512, 1024):
+    sw = ImplicitSurface(W=W, D=8, skips=(4,), W_geo_feat=256, embed_multires=6)
+    sw.reset_parameters(torch.Generator().manual_seed(SEED))
+    perturb_parameters(sw, torch.Generator().manual_seed(SEED + 1))
+    sw = sw.to(dev)
+    gw = torch.Generator(dev).manual_seed(SEED + 2)
+    x = torch.randn(130560, 3, device=dev, generator=gw) * 0.5
+    x4 = torch.rand(2 ** 20, 3, device=dev, generator=gw) * 2 - 1
+    cots = (torch.randn(130560, device=dev, generator=gw),
+            torch.randn(130560, 3, device=dev, generator=gw),
+            torch.randn(130560, 256, device=dev, generator=gw))
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(sw)]
+    args = rays(512, 1.0)
+    try:
+        k1 = fused_nablas.fused_forward_with_nablas(sw, x[:16384])
+    except NotImplementedError:
+        res[f"w{W}"] = "refused"
+        continue
+    out = dict(zip(("k1_sdf", "k1_nablas", "k1_h"), (t.cpu() for t in k1)))
+    k3 = fused_nablas_vjp.fused_nablas_vjp(sw, x[:16384], ws, bs, *[c[:16384] for c in cots])
+    out.update({"k3_xbar": k3[0].cpu(), **{f"k3_wbar_{l}": t.cpu() for l, t in enumerate(k3[1])},
+                **{f"k3_bbar_{l}": t.cpu() for l, t in enumerate(k3[2])}})
+    out["k4_sdf"] = fused_mlp.fused_sdf_forward(sw, x4[:16384]).cpu()
+    out["k2_d_all"] = upsample(sw, [a[:128].contiguous() for a in args]).cpu()
+    wider[f"surface_kernels_w{W}"] = out
+    res[f"sdf_forward_ms_1048576_w{W}"] = ms(lambda: fused_mlp.fused_sdf_forward(sw, x4))
+    res[f"nablas_forward_ms_130560_w{W}"] = ms(
+        lambda: fused_nablas.fused_forward_with_nablas(sw, x))
+    res[f"nablas_backward_ms_130560_w{W}"] = ms(
+        lambda: fused_nablas_vjp.fused_nablas_vjp(sw, x, ws, bs, *cots))
+    res[f"neus_upsample_ms_512_rays_w{W}"] = ms(lambda: upsample(sw, args))
+    del sw, x, x4, cots, k1, k3
 try:
     from neurecon_tpu_torch.ops import fused_fine_sample as ffs
     from neurecon_tpu_torch.ops.sampling import linspace01
@@ -201,7 +240,7 @@ if ffs is not None:
 
     kernels = {"volsdf_init": "launch_init", "volsdf_draw": "launch_draw",
                "volsdf_checkpoint": "launch_checkpoint"}
-    saved = {"surface_kernels": outputs}
+    saved = {"surface_kernels": outputs, **wider}
     for N, beta in ((1024, 0.1), (1024, 0.001), (4096, 0.001)):
         th = (torch.rand(N, 2, device=dev, generator=torch.Generator(dev).manual_seed(SEED))
               * 0.6 - 0.3)

@@ -3,7 +3,7 @@ broken kernel?
 
     python -m neurecon_tpu_torch.tools.mutants [--seed N] [--workdir DIR]
 
-Seven groups, each with its unmutated copy. For the unmutated source and for
+Eight groups, each with its unmutated copy. For the unmutated source and for
 each mutant, the port's package (and `chip_smoke.py`) is copied into a
 temporary directory (under `--workdir`, the system's temporary directory by
 default; removed after), one edit (or a few, which together make one fault) is made to the copy,
@@ -81,6 +81,16 @@ passes and every mutant fails.
   dropped, and the first four column groups held back ~20 us before their
   last chunk: the interleaving the dropped barrier allows, made certain),
   and drop the final layer's rows past 256 from kernel 1's product.
+* `cluster`: the cluster tile of the surface-MLP kernels (surfaces wider
+  than 512: a pair of blocks a tile, each holding half of every layer's
+  rows), held by `chip_smoke.py` phase 42's kernel checks
+  (`cluster_kernel_checks`: kernels 1-4 at W = 1024 and 640 at the gates of
+  phases 2, 3, 6 and 10, kernels 1 and 3 at 520 geometry features). Its
+  mutants drop the pair's barrier before a block writes its half in place
+  (and hold block 0 back ~20 us before its last chunk, whose rows are the
+  peer's: the interleaving the dropped barrier allows, made certain), read
+  the peer's half of a product's input from the block's own buffer, and
+  drop the final layer's rows past 512 (block 1's product in kernel 1).
 """
 from __future__ import annotations
 
@@ -215,6 +225,26 @@ WIDE_MUTANTS = {
     "final layer's rows past 256 dropped": (
         "csrc/nablas_forward.cu", "if (o < LD.out_dim && p0 + p < M) {",
         "if (o < LD.out_dim && o < 256 && p0 + p < M) {"),
+}
+
+# name -> one edit as above, or a list of edits that make one fault
+CLUSTER_MUTANTS = {
+    "pair's barrier before the write-back dropped": [
+        ("csrc/surface_mma.cuh", "  __device__ void meet() const { cluster_sync(); }",
+         "  __device__ void meet() const {}"),
+        ("csrc/surface_mma.cuh",
+         "    if (nw >= N) continue;\n",
+         "    if (T::CL == 2 && ch == nch - 1 && !(blockIdx.x & 1))\n"
+         "      for (int i = 0; i < 20; ++i) __nanosleep(1000);\n"
+         "    if (nw >= N) continue;\n")],
+    "peer's half read from the block's own buffer": (
+        "csrc/surface_mma.cuh", ": V.peer + (size_t)(k - V.plo) * LDV;",
+        ": V.own + (size_t)(k - V.plo) * LDV;"),
+    "final layer's rows past 512 dropped": (
+        "csrc/surface_mma.cuh",
+        "__device__ int final_cols(int n) const "
+        "{ return min(max(n - rank * T::NMAX, 0), T::NMAX); }",
+        "__device__ int final_cols(int n) const { return rank ? 0 : min(n, T::NMAX); }"),
 }
 
 # the checks take the card one at a time (the nablas check's plain version
@@ -368,6 +398,8 @@ fails, errs, _ = chip_smoke.wide_kernel_checks(SEED, torch.device("cuda"), repor
 print(json.dumps({"passes": not fails, "errors": errs, "failed": fails}))
 '''
 
+_CLUSTER_CODE = _WIDE_CODE.replace("wide_kernel_checks", "cluster_kernel_checks")
+
 _CODE = r'''
 import json, sys
 import torch
@@ -472,7 +504,8 @@ def main(argv=None):
                 ("upsample", UPSAMPLE_MUTANTS, _PHASE_CODE, _judge_phase),
                 ("sampler", SAMPLER_MUTANTS, _SAMPLER_CODE, _judge_phase),
                 ("stream", STREAM_MUTANTS, _STREAM_CODE, _judge_phase),
-                ("wide", WIDE_MUTANTS, _WIDE_CODE, _judge_phase)):
+                ("wide", WIDE_MUTANTS, _WIDE_CODE, _judge_phase),
+                ("cluster", CLUSTER_MUTANTS, _CLUSTER_CODE, _judge_phase)):
             rc |= _run_group(tmp, group, {"unmutated": None, **mutants}, code, args.seed,
                              judge)
     return rc

@@ -13,6 +13,9 @@ rasterized by `tools/mesh_raster.py` along the same path). Volume rendering
 by default; `--use_surface_render` casts rays to the surface
 (`models/ray_casting.py`) and queries the radiance once at the hit point.
 `--alter_radiance` swaps in the radiance net of another checkpoint.
+`--microchunk N` renders each chunk of `--rayschunk` rays in blocks of N
+rays, one after the other (peak memory set by the block: a 4,096-ray chunk
+of a W=1024 surface holds ~1 GB in its kernel-1 output alone).
 Checkpoints written by the JAX package load as they are.
 """
 from __future__ import annotations
@@ -116,6 +119,7 @@ def render_frames(args, device=None) -> dict:
         ret = render_full_image(
             render_fn, rays_o, rays_d, rayschunk=int(args.get("rayschunk", 4096)),
             generator=torch.Generator(device=dev).manual_seed(i),
+            microchunk=int(args.get("microchunk", 0)) or None,
             cull_sphere_r=cull_r,
             miss_rgb=1.0 if render_kwargs_test.get("white_bkgd", False) else 0.0)
         seconds.append(time.perf_counter() - t0)  # includes the device sync
@@ -162,6 +166,9 @@ def _extra_args(parser):
     parser.add_argument("--num_views", type=int, default=60)
     parser.add_argument("--downscale", type=float, default=1)
     parser.add_argument("--rayschunk", type=int, default=4096)
+    parser.add_argument("--microchunk", type=int, default=0,
+                        help="rays per block inside a chunk, rendered one after the other "
+                             "(caps the activation memory at a large rayschunk; 0: the chunk)")
     parser.add_argument("--cull_miss", action="store_true",
                         help="skip rays that miss the bounding sphere")
     parser.add_argument("--camera_path", type=str, default="interpolation")

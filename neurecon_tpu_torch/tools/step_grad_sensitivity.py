@@ -1,7 +1,8 @@
 """How far `chip_smoke.py` phase 7's whole-step gradient check moves under
 sdf rounding, on one CUDA card:
 
-    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N] [--nomask | --wide]
+    python -m neurecon_tpu_torch.tools.step_grad_sensitivity [--seed N]
+        [--nomask | --wide | --cluster]
 
 Phase 7 holds every parameter's gradient of the flagship NeuS ray loss
 through the kernels to the plain route's within 5e-4 of its max|ref|. The
@@ -21,7 +22,9 @@ configs/synthetic_quality_nomask.yaml's widths, the NeRF++ background, 512
 rays of the envmap scene with their fixed outside jitter), whose gate
 (`chip_smoke.NOMASK_GRAD_GATE`) these readings set. With `--wide` the same
 on phase 40's step: phase 7's inputs at IDR's widths (`chip_smoke.IDR_CHIP`,
-surface and radiance W=512, the kernels' wide tile).
+surface and radiance W=512, the kernels' wide tile). With `--cluster` on
+phase 42's step: phase 7's inputs at configs/neus_w1024.yaml's widths
+(`chip_smoke.W1024_CHIP`, surface W=1024, radiance 512, the cluster tile).
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ def main(argv=None):
                        help="phase 27's no-mask step instead of phase 7's")
     which.add_argument("--wide", action="store_true",
                        help="phase 40's step at IDR's widths (W=512) instead of phase 7's")
+    which.add_argument("--cluster", action="store_true",
+                       help="phase 42's step (surface W=1024) instead of phase 7's")
     opts = ap.parse_args(argv)
     seed = opts.seed
     import chip_smoke
@@ -58,8 +63,9 @@ def main(argv=None):
         ray_loss = get_ray_loss_fn(c["args"], model, c["kw_train"])
         extra = {"u_out": c["u_out"]}
     else:
-        c = chip_smoke.render_chunk_inputs(
-            seed, dev, chip_smoke.IDR_CHIP if opts.wide else chip_smoke.FLAGSHIP)
+        chip_cfg = (chip_smoke.IDR_CHIP if opts.wide else
+                    chip_smoke.W1024_CHIP if opts.cluster else chip_smoke.FLAGSHIP)
+        c = chip_smoke.render_chunk_inputs(seed, dev, chip_cfg)
         model, t = c["checked"], c["t"]
         scene = make_synthetic_scene(n_images=1, H=120, W=160)
         batch = {"c2w": torch.tensor(scene["c2w"][:1], device=dev),
@@ -73,6 +79,7 @@ def main(argv=None):
             model.implicit_surface, o, d, (near * (1 - t) + far * t).contiguous(),
             c["u_det"][:512], n_iters=4, n_per_iter=16)
         cfg = (chip_smoke.wide_train_config("unused", seed)[0] if opts.wide
+               else chip_smoke.cluster_train_config("unused", seed)[0] if opts.cluster
                else chip_smoke._train_config("unused", seed))
         ray_loss = get_ray_loss_fn(ConfigDict(cfg), model, c["kw_test"])
         extra = {}

@@ -30,6 +30,12 @@ IDR = dict(W=512, D=8, skips=[4], radius_init=0.5, embed_multires=6)
 WIDE = [(IDR, 256), (dict(FLAGSHIP, W=300), 256), (dict(FLAGSHIP, W=384), 256),
         (FLAGSHIP, 300)]
 WIDE_IDS = ["W512", "W300", "W384", "geo300"]
+# surfaces wider than 512, on the cluster tile (two blocks a tile): the widest
+# (W=1024; configs/neus_w1024.yaml), the first width past 512 (640: two
+# blocks of 320 rows), and 520 geometry features on the flagship's hidden
+# width (final-layer rows past 512: block 1's product)
+CLUSTER = [(dict(IDR, W=1024), 256), (dict(IDR, W=640), 256), (FLAGSHIP, 520)]
+CLUSTER_IDS = ["W1024", "W640", "geo520"]
 
 
 @pytest.fixture
@@ -453,15 +459,162 @@ def test_wide_upsample_kernel_matches_plain(cuda, cfg, geo, perturb):
 
 @pytest.mark.cuda
 def test_sdf_forward_raises_on_an_unsupported_shape(cuda):
-    """A width the kernels do not take raises on the card; nothing falls
-    back to the plain version."""
-    surf = _model(dict(SMALL, W=520), 64, cuda).implicit_surface
+    """A width the kernels do not take (past 1024) raises on the card;
+    nothing falls back to the plain version."""
+    surf = _model(dict(SMALL, W=1040), 64, cuda).implicit_surface
     before = fused_mlp.fused_sdf_forward.launches
     with pytest.raises(NotImplementedError):
         fused_mlp.fused_sdf_forward(surf, torch.zeros(10, 3, device=cuda))
     with pytest.raises(TypeError):
         fused_mlp.fused_sdf_forward(surf, torch.zeros(10, 3, device=cuda, dtype=torch.float64))
     assert fused_mlp.fused_sdf_forward.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", CLUSTER, ids=CLUSTER_IDS)
+@pytest.mark.parametrize("M", [4099, 65])
+def test_cluster_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 4's cluster tile (a pair of wide blocks on each 64-point tile)
+    against its plain version at phase 10's gate, 1e-5 of max|sdf|; 4,099
+    and 65 points leave a ragged last tile."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    assert surface_pack.packed_surface(surf).kind == surface_pack.CLUSTER
+    x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (M, 3)).astype(np.float32),
+                     device=cuda)
+    before = fused_mlp.fused_sdf_forward.launches
+    got = fused_mlp.fused_sdf_forward(surf, x)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_sdf_forward.launches == before + 1
+    ref = fused_mlp.sdf_forward_plain(surf, x)
+    assert got.shape == (M,) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", CLUSTER, ids=CLUSTER_IDS)
+def test_cluster_nablas_kernel_matches_plain(cuda, cfg, geo):
+    """Kernel 1's cluster tile against its plain version, at the narrow
+    test's tolerances, outputs filled with NaN beforehand (an unwritten
+    final-layer row cannot pass); 1,000 points leave a ragged last tile."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.randn(1000, 3).astype(np.float32) * 0.6, device=cuda)
+    nan = [torch.full(shape, float("nan"), device=cuda) for shape in ((1000,), (1000, 3),
+                                                                      (1000, geo))]
+    del nan
+    before = fused_nablas.fused_forward_with_nablas.launches
+    got = fused_nablas.fused_forward_with_nablas(surf, x)
+    torch.cuda.synchronize()
+    assert fused_nablas.fused_forward_with_nablas.launches == before + 1
+    ref = fused_nablas.forward_with_nablas_plain(surf, x)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", CLUSTER, ids=CLUSTER_IDS)
+@pytest.mark.parametrize("M", [4099, 0])
+def test_cluster_backward_kernel_matches_plain(cuda, cfg, geo, M):
+    """Kernel 3's cluster tile (each block of a pair writes its rows of the
+    workspace) against its plain version: every leaf within 5e-4 of its
+    max|ref|, as the narrow test; M = 0 gives zeros."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(M, 3).astype(np.float32) * 0.6, device=cuda)
+    cots = [torch.tensor(rng.randn(*s).astype(np.float32), device=cuda)
+            for s in ((M,), (M, 3), (M, geo))]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    before = fused_nablas_vjp.fused_nablas_vjp.launches
+    got = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots)
+    torch.cuda.synchronize()
+    assert fused_nablas_vjp.fused_nablas_vjp.launches == before + (M > 0)
+    ref = fused_nablas_vjp.nablas_vjp_plain(surf, x, ws, bs, *cots)
+    leaves = [(got[0], ref[0])] + list(zip(got[1], ref[1])) + list(zip(got[2], ref[2]))
+    for i, (g, r) in enumerate(leaves):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), i
+        err = float((g - r).abs().max()) if g.numel() else 0.0
+        assert err <= 5e-4 * float(r.abs().max()) if M else err == 0.0, (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,geo", CLUSTER, ids=CLUSTER_IDS)
+@pytest.mark.parametrize("perturb", [False, True])
+def test_cluster_upsample_kernel_matches_plain(cuda, cfg, geo, perturb):
+    """Kernel 2's cluster tile (a pair of blocks on 4 rays) against the
+    plain upsampler at the narrow test's shares; 203 rays leave a ragged
+    last pair."""
+    surf = _model(cfg, geo, cuda).implicit_surface
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fused_upsample.block_shape(203, sms, surface_pack.packed_surface(surf).kind) == (64, 4)
+    N = 203
+    rays_o, rays_d = _rays(N, cuda)
+    near, far = near_far_from_sphere(rays_o, rays_d, r=1.0)
+    t = torch.linspace(0, 1, 64, device=cuda)
+    d_coarse = (near * (1 - t) + far * t).contiguous()
+    u = _uniforms(N, 4, 16, perturb, torch.Generator(cuda).manual_seed(3), cuda)
+    got = fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    ref = fused_upsample.neus_upsample_plain(surf, rays_o, rays_d, d_coarse, u,
+                                             n_iters=4, n_per_iter=16)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1:] >= got[:, :-1]).all()), "output must be sorted"
+    span = float((far - near).max())
+    off = (got - ref).abs() > 1e-3 * span
+    assert float(off.float().mean()) <= (1e-3 if perturb else 5e-3), \
+        float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+def test_cluster_tile_equals_the_wide_tile_at_w512(cuda):
+    """The cluster tile forced on a W=512 surface (each block 256 rows)
+    gives kernels 4, 1 and 3 the wide tile's outputs bit for bit: every
+    output column sums its k-steps in the same order, wherever its rows
+    lie."""
+    surf = _model(IDR, 256, cuda).implicit_surface
+    wide = surface_pack.packed_surface(surf)
+    pair = wide._replace(kind=surface_pack.CLUSTER)
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(4099, 3).astype(np.float32) * 0.6, device=cuda)
+    assert torch.equal(fused_mlp.launch_sdf_forward(surf, x, wide),
+                       fused_mlp.launch_sdf_forward(surf, x, pair))
+    for a, b in zip(fused_nablas.fused_forward_with_nablas(surf, x, packed=wide),
+                    fused_nablas.fused_forward_with_nablas(surf, x, packed=pair)):
+        assert torch.equal(a, b)
+    cots = [torch.tensor(rng.randn(*s).astype(np.float32), device=cuda)
+            for s in ((4099,), (4099, 3), (4099, 256))]
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    a = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots, packed=wide)
+    b = fused_nablas_vjp.fused_nablas_vjp(surf, x, ws, bs, *cots, packed=pair)
+    for g, r in zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cluster_refuses_past_1024_with_no_launch(cuda):
+    """A W=1032 surface is refused by all four kernels (NotImplementedError,
+    the limit in the message), and none of them launches."""
+    surf = _model(dict(IDR, W=1032), 256, cuda).implicit_surface
+    fns = (fused_mlp.fused_sdf_forward, fused_nablas.fused_forward_with_nablas,
+           fused_nablas_vjp.fused_nablas_vjp, fused_upsample.fused_neus_upsample)
+    before = [f.launches for f in fns]
+    x = torch.zeros(100, 3, device=cuda)
+    ws, bs = [[t.detach() for t in ts] for ts in fused_nablas.surface_weights(surf)]
+    rays_o, rays_d = _rays(4, cuda)
+    d_coarse = torch.linspace(1, 3, 64, device=cuda).expand(4, 64).contiguous()
+    u = _uniforms(4, 4, 16, False, None, cuda)
+    calls = [lambda: fused_mlp.fused_sdf_forward(surf, x),
+             lambda: fused_nablas.fused_forward_with_nablas(surf, x),
+             lambda: fused_nablas_vjp.fused_nablas_vjp(
+                 surf, x, ws, bs, torch.zeros(100, device=cuda), torch.zeros(100, 3, device=cuda),
+                 torch.zeros(100, 256, device=cuda)),
+             lambda: fused_upsample.fused_neus_upsample(surf, rays_o, rays_d, d_coarse, u,
+                                                        n_iters=4, n_per_iter=16)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="<= 1024"):
+            call()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == before
 
 
 def _fine_sample_both(cuda, surface_cfg, geo, N, n0, n_up, max_iter, perturb, beta=0.35,

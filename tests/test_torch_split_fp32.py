@@ -322,9 +322,9 @@ def test_pack_layout_and_padding(cfg):
 
 def test_pack_refuses_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError):
-        surface_pack.pack(ImplicitSurface(W=520, D=4, skips=[2], W_geo_feat=64))
+        surface_pack.pack(ImplicitSurface(W=1040, D=4, skips=[2], W_geo_feat=64))
     with pytest.raises(NotImplementedError):
-        surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[2], W_geo_feat=520))
+        surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[2], W_geo_feat=1040))
     with pytest.raises(ValueError):
         surface_pack.pack(ImplicitSurface(W=64, D=4, skips=[0], W_geo_feat=64))
 

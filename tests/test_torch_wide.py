@@ -1,7 +1,8 @@
 """Surfaces wider than 256 (the kernels' wide tile, `csrc/surface_mma.cuh`),
 on the CPU: the port against the JAX package at IDR's width (W=512, D=8, skip
 4, 256 geometry features; configs/neus_w512.yaml) on seeded inputs, the
-pack's layout and refusals at the wide widths, chip_smoke.py's copy of the
+pack's layout and refusals at the wide widths (and the cluster tile's, past
+512, up to 1024), chip_smoke.py's copy of the
 config, the wide mutants of tools/mutants.py, and the module gaps of the
 port's utilities (a checkpoint loaded from a URL, `Logger.add_figure`).
 
@@ -177,18 +178,23 @@ def test_idr_model_builds_from_the_yaml_on_both_sides():
         ImplicitSurface(**dict(IDR, W=256)))["wide"]
 
 
-@pytest.mark.parametrize("W,geo,rows", [(300, 256, 304), (384, 256, 384), (512, 256, 512),
-                                        (256, 300, 256), (256, 256, 256)],
-                         ids=["W300", "W384", "W512", "geo300", "W256"])
-def test_layout_at_wide_widths(W, geo, rows):
+@pytest.mark.parametrize("W,geo,rows,tile", [
+    (300, 256, 304, "wide"), (384, 256, 384, "wide"), (512, 256, 512, "wide"),
+    (256, 300, 256, "wide"), (256, 256, 256, "narrow"), (520, 256, 520, "cluster"),
+    (640, 256, 640, "cluster"), (1024, 256, 1024, "cluster"), (256, 520, 256, "cluster")],
+    ids=["W300", "W384", "W512", "geo300", "W256", "W520", "W640", "W1024", "geo520"])
+def test_layout_at_wide_widths(W, geo, rows, tile):
     """The pack at the flagship depth: K and N padded to 8, blocks at
     multiples of 32 floats in order, `rows` the widest padded hidden K or N,
     and the wide tile for a padded hidden width past 256 or final-layer rows
-    past 264 (W_geo 300: 301 rows), the narrow tiles at W=256."""
+    past 264 (W_geo 300: 301 rows), the cluster tile past 512 (W=520, the
+    first padded width past it; W_geo 520: 521 rows), the narrow tiles at
+    W=256."""
     s = ImplicitSurface(**dict(IDR, W=W, W_geo_feat=geo))
     lay = surface_pack.layout(s)
     pad = surface_pack.pad8
-    assert lay["wide"] == (W > 256 or geo + 1 > 264) and lay["rows"] == rows
+    assert surface_pack.TILE_NAMES[lay["tile"]] == tile and lay["rows"] == rows
+    assert lay["wide"] == (tile == "wide")
     assert lay["c_pad"] == 40
     off = 0
     for l, (rec, (i, o)) in enumerate(zip(lay["records"], s.dims)):
@@ -201,15 +207,18 @@ def test_layout_at_wide_widths(W, geo, rows):
     assert lay["records"][3][1] == pad(W - 39) and lay["records"][4][0] == pad(W)
     assert lay["records"][-1][:3] == [pad(W), pad(geo + 1), geo + 1]
     pk = surface_pack.pack(s)
-    assert pk.wide == lay["wide"] and pk.tile == (64 if lay["wide"] else 128)
+    assert pk.kind == lay["tile"] and pk.wide == lay["wide"]
+    assert pk.tile == (128 if tile == "narrow" else 64)
+    assert pk.blocks_per_tile == (2 if tile == "cluster" else 1)
 
 
-@pytest.mark.parametrize("cfg", [dict(IDR, W=520), dict(IDR, W_geo_feat=520),
-                                 dict(IDR, W=513)], ids=["W520", "geo520", "W513"])
-def test_layout_refuses_past_512(cfg):
-    """A padded hidden width or final-layer rows past 512 raise
-    NotImplementedError (W=513 pads to 520)."""
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("cfg", [dict(IDR, W=1025), dict(IDR, W_geo_feat=1032),
+                                 dict(IDR, W=1040)], ids=["W1025", "geo1032", "W1040"])
+def test_layout_refuses_past_1024(cfg):
+    """A padded hidden width or final-layer rows past 1024 raise
+    NotImplementedError, with the limit in the message (W=1025 pads to
+    1032)."""
+    with pytest.raises(NotImplementedError, match="<= 1024"):
         surface_pack.layout(ImplicitSurface(**cfg))
 
 
@@ -231,11 +240,11 @@ def test_chip_smoke_neus_w512_is_the_file():
 
 
 @pytest.mark.parametrize("group", ["MUTANTS", "SINE_MUTANTS", "NABLAS_MUTANTS",
-                                   "UPSAMPLE_MUTANTS", "SAMPLER_MUTANTS", "WIDE_MUTANTS"])
+                                   "UPSAMPLE_MUTANTS", "SAMPLER_MUTANTS", "WIDE_MUTANTS",
+                                   "CLUSTER_MUTANTS"])
 def test_kernel_mutants_each_edit_one_place(group):
     """Every mutant of tools/mutants.py's kernel groups names a text that
-    occurs exactly once in its file (the tool refuses any other), and the
-    wide group's checks are phase 40's."""
+    occurs exactly once in its file (the tool refuses any other)."""
     from neurecon_tpu_torch.tools import mutants
     for name, mutant in getattr(mutants, group).items():
         edits = mutants.edits_of(mutant)
