@@ -35,6 +35,7 @@ from neurecon_tpu_torch.ops import fused_upsample, near_far_from_sphere
 from neurecon_tpu_torch.ops.sampling import (alpha_to_w, linspace01, sample_pdf,
                                               stratified_jitter)
 from neurecon_tpu_torch.parallel.sharding import RayShard
+from neurecon_tpu_torch.utils.trace import span
 
 
 def cdf_Phi_s(x, s):
@@ -173,13 +174,14 @@ def _sample_depths(model: NeuS, rays_o, rays_d, near, far, *, generator, perturb
                    N_importance, upsample_algo, N_upsample_iters, N_nograd_samples,
                    fixed_s_recp, u_up):
     """The coarse linspace from near to far, then the upsampler: d_all."""
-    _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
-    d_coarse = near * (1 - _t) + far * _t
-    return neus_upsample(
-        model, rays_o, rays_d, d_coarse, N_importance=N_importance,
-        N_upsample_iters=N_upsample_iters, perturb=perturb, generator=generator,
-        upsample_algo=upsample_algo, u_up=u_up, N_nograd_samples=N_nograd_samples,
-        fixed_s_recp=fixed_s_recp, near=near, far=far)
+    with span("neus.sample"):
+        _t = torch.linspace(0, 1, N_samples, device=rays_o.device)
+        d_coarse = near * (1 - _t) + far * _t
+        return neus_upsample(
+            model, rays_o, rays_d, d_coarse, N_importance=N_importance,
+            N_upsample_iters=N_upsample_iters, perturb=perturb, generator=generator,
+            upsample_algo=upsample_algo, u_up=u_up, N_nograd_samples=N_nograd_samples,
+            fixed_s_recp=fixed_s_recp, near=near, far=far)
 
 
 def compute_ray_samples(model: NeuS, rays_o, rays_d,
@@ -254,79 +256,80 @@ def volume_render_rays(model: NeuS, rays_o, rays_d,
             N_upsample_iters=N_upsample_iters, N_nograd_samples=N_nograd_samples,
             fixed_s_recp=fixed_s_recp, u_up=u_up)
 
-    # sdf on sections, radiance on midpoints; one batched query
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
-    d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
-    pts_mid = rays_o[:, None, :] + rays_d[:, None, :] * d_mid[..., None]
-    P = pts.shape[-2]
-    pts_all = torch.cat([pts, pts_mid], dim=-2)
-    sdf_all, nablas_all, h_all = model.implicit_surface.forward_with_nablas(pts_all)
-    sdf, nablas = sdf_all[:, :P], nablas_all[:, :P]
-    nablas_mid, h_mid = nablas_all[:, P:], h_all[:, P:]
-    cdf, opacity_alpha = sdf_to_alpha(sdf, model.forward_s())
-    view_dirs_mid = (rays_d[:, None, :].expand_as(pts_mid)
-                     if use_view_dirs else None)
-    radiances = model.radiance_net(pts_mid, view_dirs_mid, nablas_mid, h_mid)
+    with span("neus.render"):
+        # sdf on sections, radiance on midpoints; one batched query
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
+        d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
+        pts_mid = rays_o[:, None, :] + rays_d[:, None, :] * d_mid[..., None]
+        P = pts.shape[-2]
+        pts_all = torch.cat([pts, pts_mid], dim=-2)
+        sdf_all, nablas_all, h_all = model.implicit_surface.forward_with_nablas(pts_all)
+        sdf, nablas = sdf_all[:, :P], nablas_all[:, :P]
+        nablas_mid, h_mid = nablas_all[:, P:], h_all[:, P:]
+        cdf, opacity_alpha = sdf_to_alpha(sdf, model.forward_s())
+        view_dirs_mid = (rays_d[:, None, :].expand_as(pts_mid)
+                         if use_view_dirs else None)
+        radiances = model.radiance_net(pts_mid, view_dirs_mid, nablas_mid, h_mid)
 
-    sigma_out = radiance_out = None
-    if N_outside > 0:
-        t_out = linspace01(N_outside + 2, rays_o.device)[1:-1]
-        d_vals_out = far / torch.flip(t_out, dims=[-1])  # [N, N_outside]
-        if perturb:
-            if u_out is None:
-                u_out = torch.rand(d_vals_out.shape, generator=generator, device=rays_o.device)
-            d_vals_out = stratified_jitter(d_vals_out, u_out.reshape(d_vals_out.shape))
-        d_vals_out = torch.cat([d_mid, d_vals_out], dim=-1)  # sorted
-        pts_out = rays_o[:, None, :] + rays_d[:, None, :] * d_vals_out[..., None]
-        # the safe norm: a midpoint at the exact origin (a principal ray of a
-        # centred camera) would give 0 / 0 here; the where-merge below hides
-        # it in the forward but not in the background net's gradients, so
-        # the square is clamped before the root (zero gradient at the clamp)
-        r = torch.sqrt(torch.clamp(torch.sum(pts_out ** 2, dim=-1, keepdim=True),
-                                   min=1e-12))
-        x_out = torch.cat([pts_out / r, 1.0 / r], dim=-1)
-        views_out = rays_d[:, None, :].expand_as(pts_out) if use_view_dirs else None
-        sigma_out, radiance_out = model.nerf_outside(x_out, views_out)
-        dists = d_vals_out[..., 1:] - d_vals_out[..., :-1]
-        dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
-        # softplus, not relu, as in the official NeuS repo
-        alpha_out = 1 - torch.exp(-F.softplus(sigma_out) * dists)
-        n_mid = d_mid.shape[-1]
-        inside = torch.linalg.norm(pts_mid, dim=-1) <= obj_bounding_radius
-        opacity_alpha = torch.cat([torch.where(inside, opacity_alpha, alpha_out[:, :n_mid]),
-                                   alpha_out[:, n_mid:]], dim=-1)
-        radiances = torch.cat([torch.where(inside[..., None], radiances,
-                                           radiance_out[:, :n_mid]),
-                               radiance_out[:, n_mid:]], dim=-2)
-        d_final = d_vals_out
-    else:
-        d_final = d_mid
-
-    visibility_weights = alpha_to_w(opacity_alpha)
-    rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
-    depth_map = torch.sum(
-        visibility_weights
-        / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_final,
-        dim=-1)
-    acc_map = torch.sum(visibility_weights, dim=-1)
-    if white_bkgd:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
-
-    ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map}
-    if calc_normal:
-        normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True)
-                                + 1e-10)
-        Pn = min(visibility_weights.shape[-1], normals_map.shape[-2])
-        ret["normals_volume"] = torch.sum(
-            normals_map[:, :Pn] * visibility_weights[:, :Pn, None], dim=-2)
-    if detailed_output:
-        ret.update({"implicit_nablas": nablas, "implicit_surface": sdf,
-                    "radiance": radiances, "alpha": opacity_alpha,
-                    "cdf": cdf, "visibility_weights": visibility_weights,
-                    "d_final": d_final, "d_all": d_all})
+        sigma_out = radiance_out = None
         if N_outside > 0:
-            ret.update({"sigma_out": sigma_out, "radiance_out": radiance_out})
-    return ret
+            t_out = linspace01(N_outside + 2, rays_o.device)[1:-1]
+            d_vals_out = far / torch.flip(t_out, dims=[-1])  # [N, N_outside]
+            if perturb:
+                if u_out is None:
+                    u_out = torch.rand(d_vals_out.shape, generator=generator, device=rays_o.device)
+                d_vals_out = stratified_jitter(d_vals_out, u_out.reshape(d_vals_out.shape))
+            d_vals_out = torch.cat([d_mid, d_vals_out], dim=-1)  # sorted
+            pts_out = rays_o[:, None, :] + rays_d[:, None, :] * d_vals_out[..., None]
+            # the safe norm: a midpoint at the exact origin (a principal ray of a
+            # centred camera) would give 0 / 0 here; the where-merge below hides
+            # it in the forward but not in the background net's gradients, so
+            # the square is clamped before the root (zero gradient at the clamp)
+            r = torch.sqrt(torch.clamp(torch.sum(pts_out ** 2, dim=-1, keepdim=True),
+                                       min=1e-12))
+            x_out = torch.cat([pts_out / r, 1.0 / r], dim=-1)
+            views_out = rays_d[:, None, :].expand_as(pts_out) if use_view_dirs else None
+            sigma_out, radiance_out = model.nerf_outside(x_out, views_out)
+            dists = d_vals_out[..., 1:] - d_vals_out[..., :-1]
+            dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+            # softplus, not relu, as in the official NeuS repo
+            alpha_out = 1 - torch.exp(-F.softplus(sigma_out) * dists)
+            n_mid = d_mid.shape[-1]
+            inside = torch.linalg.norm(pts_mid, dim=-1) <= obj_bounding_radius
+            opacity_alpha = torch.cat([torch.where(inside, opacity_alpha, alpha_out[:, :n_mid]),
+                                       alpha_out[:, n_mid:]], dim=-1)
+            radiances = torch.cat([torch.where(inside[..., None], radiances,
+                                               radiance_out[:, :n_mid]),
+                                   radiance_out[:, n_mid:]], dim=-2)
+            d_final = d_vals_out
+        else:
+            d_final = d_mid
+
+        visibility_weights = alpha_to_w(opacity_alpha)
+        rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
+        depth_map = torch.sum(
+            visibility_weights
+            / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_final,
+            dim=-1)
+        acc_map = torch.sum(visibility_weights, dim=-1)
+        if white_bkgd:
+            rgb_map = rgb_map + (1.0 - acc_map[..., None])
+
+        ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map}
+        if calc_normal:
+            normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True)
+                                    + 1e-10)
+            Pn = min(visibility_weights.shape[-1], normals_map.shape[-2])
+            ret["normals_volume"] = torch.sum(
+                normals_map[:, :Pn] * visibility_weights[:, :Pn, None], dim=-2)
+        if detailed_output:
+            ret.update({"implicit_nablas": nablas, "implicit_surface": sdf,
+                        "radiance": radiances, "alpha": opacity_alpha,
+                        "cdf": cdf, "visibility_weights": visibility_weights,
+                        "d_final": d_final, "d_all": d_all})
+            if N_outside > 0:
+                ret.update({"sigma_out": sigma_out, "radiance_out": radiance_out})
+        return ret
 
 
 def make_volume_render_fn(model: NeuS, **render_kwargs):
@@ -355,38 +358,39 @@ def compute_losses(model: NeuS, rays_o, rays_d, target_rgb, *, render_fn,
     mask BCE on the clamped accumulation map (with a mask). Returns (total,
     (losses, extras)). With a `shard`, the rays are this rank's block and
     each loss is its share of the loss over the whole batch."""
-    shard = shard or RayShard()
-    rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all, u_out=u_out,
-                                    u_up=u_up)
+    with span("neus.loss"):
+        shard = shard or RayShard()
+        rgb, _depth, extras = render_fn(rays_o, rays_d, generator, d_all=d_all, u_out=u_out,
+                                        u_up=u_up)
 
-    nablas = extras["implicit_nablas"]
-    nablas_norm = torch.linalg.norm(nablas, dim=-1)
-    # clamp against the exploding BCE gradient where pred ~ 1 but GT = 0
-    mask_volume = torch.clamp(extras["mask_volume"], 1e-3, 1 - 1e-3)
-    extras["mask_volume_clipped"] = mask_volume
+        nablas = extras["implicit_nablas"]
+        nablas_norm = torch.linalg.norm(nablas, dim=-1)
+        # clamp against the exploding BCE gradient where pred ~ 1 but GT = 0
+        mask_volume = torch.clamp(extras["mask_volume"], 1e-3, 1 - 1e-3)
+        extras["mask_volume_clipped"] = mask_volume
 
-    losses = {}
-    loss_img = torch.abs(rgb - target_rgb)
-    losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
-    if with_mask:
-        tm = target_mask.float()
-        bce = -(tm * torch.log(mask_volume) + (1 - tm) * torch.log(1 - mask_volume))
-        losses["loss_mask"] = w_mask * shard.mean(bce)
-        if mask_ignore is not None:
-            tm = (target_mask.bool() & mask_ignore.bool()).float()
-        losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * tm[..., None]),
-                                               torch.sum(tm))
-    elif mask_ignore is not None:
-        mi = mask_ignore.float()
-        losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
-                                               torch.sum(mi))
-    else:
-        losses["loss_img"] = shard.mean(loss_img)
+        losses = {}
+        loss_img = torch.abs(rgb - target_rgb)
+        losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
+        if with_mask:
+            tm = target_mask.float()
+            bce = -(tm * torch.log(mask_volume) + (1 - tm) * torch.log(1 - mask_volume))
+            losses["loss_mask"] = w_mask * shard.mean(bce)
+            if mask_ignore is not None:
+                tm = (target_mask.bool() & mask_ignore.bool()).float()
+            losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * tm[..., None]),
+                                                   torch.sum(tm))
+        elif mask_ignore is not None:
+            mi = mask_ignore.float()
+            losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
+                                                   torch.sum(mi))
+        else:
+            losses["loss_img"] = shard.mean(loss_img)
 
-    losses["total"] = sum(losses.values())
-    extras["implicit_nablas_norm"] = nablas_norm
-    extras["scalars"] = {"1/s": 1.0 / model.forward_s().detach()}
-    return losses["total"], (losses, extras)
+        losses["total"] = sum(losses.values())
+        extras["implicit_nablas_norm"] = nablas_norm
+        extras["scalars"] = {"1/s": 1.0 / model.forward_s().detach()}
+        return losses["total"], (losses, extras)
 
 
 def make_ray_loss_fn(model: NeuS, args, render_kwargs_train: dict,

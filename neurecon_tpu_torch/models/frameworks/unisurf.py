@@ -36,6 +36,7 @@ from neurecon_tpu_torch.models.base import ImplicitSurface, RadianceNet
 from neurecon_tpu_torch.models.ray_casting import root_finding_surface_points
 from neurecon_tpu_torch.ops import linspace01, near_far_from_sphere
 from neurecon_tpu_torch.parallel.sharding import RayShard
+from neurecon_tpu_torch.utils.trace import span
 
 
 class UNISURF(nn.Module):
@@ -128,9 +129,10 @@ def compute_ray_samples(model: UNISURF, rays_o, rays_d,
     form `surface_override=` takes. Misses keep `far` (fill_inf off)."""
     rays_o, rays_d, near, far = _prepare_rays(
         rays_o, rays_d, radius_of_interest, near_bypass, far_bypass)
-    return root_finding_surface_points(
-        model.forward_surface_fast, rays_o, rays_d, near=near, far=far,
-        N_steps=N_steps, method=method, logit_tau=logit_tau, fill_inf=False)
+    with span("unisurf.sample"):
+        return root_finding_surface_points(
+            model.forward_surface_fast, rays_o, rays_d, near=near, far=far,
+            N_steps=N_steps, method=method, logit_tau=logit_tau, fill_inf=False)
 
 
 def volume_render_rays(model: UNISURF, rays_o, rays_d, interval,
@@ -171,76 +173,78 @@ def volume_render_rays(model: UNISURF, rays_o, rays_d, interval,
     view_dirs = rays_d if use_view_dirs else None
     d_threshold = near + (far - near) * too_close_threshold
 
-    if surface_override is not None:
-        d_pred_out, pt_pred, mask, mask_sign_change = (
-            surface_override[0].reshape(N).detach(), surface_override[1].reshape(N, 3).detach(),
-            surface_override[2].reshape(N), surface_override[3].reshape(N))
-    else:
-        d_pred_out, pt_pred, mask, mask_sign_change = root_finding_surface_points(
-            model.forward_surface_fast, rays_o, rays_d, near=near, far=far,
-            N_steps=N_steps, method=method, logit_tau=logit_tau, fill_inf=False)
+    with span("unisurf.sample"):
+        if surface_override is not None:
+            d_pred_out, pt_pred, mask, mask_sign_change = (
+                surface_override[0].reshape(N).detach(), surface_override[1].reshape(N, 3).detach(),
+                surface_override[2].reshape(N), surface_override[3].reshape(N))
+        else:
+            d_pred_out, pt_pred, mask, mask_sign_change = root_finding_surface_points(
+                model.forward_surface_fast, rays_o, rays_d, near=near, far=far,
+                N_steps=N_steps, method=method, logit_tau=logit_tau, fill_inf=False)
 
-    if uniforms is None:
-        def draw(*shape):
-            return torch.rand(*shape, generator=generator, device=dev)
-        uniforms = (draw(N, N_query) if perturb else None,
-                    draw(N, N_freespace) if perturb else None,
-                    draw(N, 3) if reg_perturb is not None else None)
-    u_interval, u_free, u_reg = uniforms
+        if uniforms is None:
+            def draw(*shape):
+                return torch.rand(*shape, generator=generator, device=dev)
+            uniforms = (draw(N, N_query) if perturb else None,
+                        draw(N, N_freespace) if perturb else None,
+                        draw(N, 3) if reg_perturb is not None else None)
+        u_interval, u_free, u_reg = uniforms
 
-    d_pred_out = torch.minimum(torch.maximum(d_pred_out, near), far)
-    d_upper = torch.minimum(d_pred_out + interval, far)
-    d_lower = torch.maximum(d_pred_out - interval, near)
-    d_samples_interval = _stratified(d_lower, d_upper, N_query, perturb, u_interval)
+        d_pred_out = torch.minimum(torch.maximum(d_pred_out, near), far)
+        d_upper = torch.minimum(d_pred_out + interval, far)
+        d_lower = torch.maximum(d_pred_out - interval, near)
+        d_samples_interval = _stratified(d_lower, d_upper, N_query, perturb, u_interval)
 
-    # the free-space samples end at the interval's start, kept past the
-    # too-close threshold; rays without a crossing, or degenerate, take far
-    d_lower = torch.maximum(d_lower, d_threshold)
-    d_lower = torch.where(mask_sign_change, d_lower, far)
-    d_lower = torch.where(d_lower < 1e-10, far, d_lower)
-    d_samples_freespace = _stratified(near, d_lower, N_freespace, perturb, u_free)
+        # the free-space samples end at the interval's start, kept past the
+        # too-close threshold; rays without a crossing, or degenerate, take far
+        d_lower = torch.maximum(d_lower, d_threshold)
+        d_lower = torch.where(mask_sign_change, d_lower, far)
+        d_lower = torch.where(d_lower < 1e-10, far, d_lower)
+        d_samples_freespace = _stratified(near, d_lower, N_freespace, perturb, u_free)
 
-    d_all = torch.sort(torch.cat([d_samples_freespace, d_samples_interval], -1), -1).values
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
-    P_render = pts.shape[-2]
-    if reg_perturb is not None:
-        neighbors = pt_pred + (u_reg - 0.5) * 2.0 * reg_perturb
-        pts = torch.cat([pts, pt_pred[:, None, :], neighbors[:, None, :]], dim=-2)
+        d_all = torch.sort(torch.cat([d_samples_freespace, d_samples_interval], -1), -1).values
+    with span("unisurf.render"):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
+        P_render = pts.shape[-2]
+        if reg_perturb is not None:
+            neighbors = pt_pred + (u_reg - 0.5) * 2.0 * reg_perturb
+            pts = torch.cat([pts, pt_pred[:, None, :], neighbors[:, None, :]], dim=-2)
 
-    views = view_dirs[:, None, :].expand_as(pts) if use_view_dirs else None
-    radiances, logits, nablas = model(pts, views)
-    nablas_surface_reg = None
-    if reg_perturb is not None:
-        nablas_surface_reg = nablas[:, P_render:]
-        radiances, logits, nablas = (radiances[:, :P_render], logits[:, :P_render],
-                                     nablas[:, :P_render])
+        views = view_dirs[:, None, :].expand_as(pts) if use_view_dirs else None
+        radiances, logits, nablas = model(pts, views)
+        nablas_surface_reg = None
+        if reg_perturb is not None:
+            nablas_surface_reg = nablas[:, P_render:]
+            radiances, logits, nablas = (radiances[:, :P_render], logits[:, :P_render],
+                                         nablas[:, :P_render])
 
-    opacity_alpha = UNISURF.get_opacity_from_surface(logits)
-    shifted_transparency = torch.cat(
-        [torch.ones_like(opacity_alpha[..., :1]),
-         torch.clamp(1.0 - opacity_alpha, min=0.0) + 1e-10], dim=-1)
-    visibility_weights = opacity_alpha * torch.cumprod(shifted_transparency, dim=-1)[..., :-1]
+        opacity_alpha = UNISURF.get_opacity_from_surface(logits)
+        shifted_transparency = torch.cat(
+            [torch.ones_like(opacity_alpha[..., :1]),
+             torch.clamp(1.0 - opacity_alpha, min=0.0) + 1e-10], dim=-1)
+        visibility_weights = opacity_alpha * torch.cumprod(shifted_transparency, dim=-1)[..., :-1]
 
-    rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
-    depth_map = torch.sum(
-        visibility_weights / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_all,
-        dim=-1)
-    acc_map = torch.sum(visibility_weights, dim=-1)
-    if white_bkgd:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+        rgb_map = torch.sum(visibility_weights[..., None] * radiances, dim=-2)
+        depth_map = torch.sum(
+            visibility_weights / (torch.sum(visibility_weights, -1, keepdim=True) + 1e-10) * d_all,
+            dim=-1)
+        acc_map = torch.sum(visibility_weights, dim=-1)
+        if white_bkgd:
+            rgb_map = rgb_map + (1.0 - acc_map[..., None])
 
-    ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map,
-           "mask_surface": mask, "depth_surface": d_pred_out}
-    if nablas_surface_reg is not None:
-        ret["nablas_surface_reg"] = nablas_surface_reg
-    if calc_normal:
-        normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True) + 1e-10)
-        ret["normals_volume"] = torch.sum(normals_map * visibility_weights[..., None], dim=-2)
-    if detailed_output:
-        ret.update({"surface_points": pt_pred, "radiance": radiances,
-                    "implicit_surface": logits, "implicit_nablas": nablas,
-                    "alpha": opacity_alpha, "visibility_weights": visibility_weights})
-    return ret
+        ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map,
+               "mask_surface": mask, "depth_surface": d_pred_out}
+        if nablas_surface_reg is not None:
+            ret["nablas_surface_reg"] = nablas_surface_reg
+        if calc_normal:
+            normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True) + 1e-10)
+            ret["normals_volume"] = torch.sum(normals_map * visibility_weights[..., None], dim=-2)
+        if detailed_output:
+            ret.update({"surface_points": pt_pred, "radiance": radiances,
+                        "implicit_surface": logits, "implicit_nablas": nablas,
+                        "alpha": opacity_alpha, "visibility_weights": visibility_weights})
+        return ret
 
 
 def interval_at(args, it) -> float:
@@ -302,22 +306,23 @@ def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict,
         return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-10)
 
     def ray_loss(rb, generator=None, it=0, surface_override=None, uniforms=None):
-        interval = _interval_f32(it, *deltas)
-        rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
-                                        interval=interval, surface_override=surface_override,
-                                        uniforms=uniforms)
-        losses = {"loss_img": shard.mean(torch.abs(rgb - rb["target_rgb"]))}
-        if w_reg > 0:
-            # the unit normals: unnormalized occupancy nablas blow up the
-            # gradient
-            reg = extras["nablas_surface_reg"]
-            losses["loss_reg"] = w_reg * shard.mean(
-                (unit(reg[..., 1, :]) - unit(reg[..., 0, :])) ** 2)
-        else:
-            losses["loss_reg"] = torch.zeros((), device=rgb.device)
-        losses["total"] = losses["loss_img"] + losses["loss_reg"]
-        extras["scalars"] = {"interval": torch.full((), interval, device=rgb.device)}
-        return losses["total"], (losses, extras)
+        with span("unisurf.loss"):
+            interval = _interval_f32(it, *deltas)
+            rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
+                                            interval=interval, surface_override=surface_override,
+                                            uniforms=uniforms)
+            losses = {"loss_img": shard.mean(torch.abs(rgb - rb["target_rgb"]))}
+            if w_reg > 0:
+                # the unit normals: unnormalized occupancy nablas blow up the
+                # gradient
+                reg = extras["nablas_surface_reg"]
+                losses["loss_reg"] = w_reg * shard.mean(
+                    (unit(reg[..., 1, :]) - unit(reg[..., 0, :])) ** 2)
+            else:
+                losses["loss_reg"] = torch.zeros((), device=rgb.device)
+            losses["total"] = losses["loss_img"] + losses["loss_reg"]
+            extras["scalars"] = {"interval": torch.full((), interval, device=rgb.device)}
+            return losses["total"], (losses, extras)
 
     return ray_loss
 

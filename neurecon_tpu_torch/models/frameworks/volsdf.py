@@ -32,6 +32,7 @@ from neurecon_tpu_torch.ops import get_dvals_from_radius, get_sphere_intersectio
 from neurecon_tpu_torch.ops.fused_fine_sample import error_bound, opacity_approx, sdf_to_sigma
 from neurecon_tpu_torch.ops.sampling import linspace01, stratified_jitter
 from neurecon_tpu_torch.parallel.sharding import RayShard
+from neurecon_tpu_torch.utils.trace import span
 
 __all__ = ["VolSDF", "sdf_to_sigma", "error_bound", "opacity_approx", "volume_render_rays",
            "compute_ray_samples", "make_volume_render_fn", "make_ray_loss_fn",
@@ -139,19 +140,20 @@ def _fine_samples(model: VolSDF, rays_o, rays_d, nears, fars, *, generator, pert
                   N_samples, N_importance, max_upsample_steps, max_bisection_steps, epsilon,
                   fine_sample_mul, u_fin):
     """The sampler on flat unit rays and their [near, far] (`_ray_bounds`)."""
-    N = rays_o.shape[0]
-    alpha, beta = model.forward_ab()
-    # a denser d_init speeds up the up-sampling's convergence (ref volsdf.py:425-435)
-    t_init = linspace01(N_samples * fine_sample_mul, rays_o.device)
-    d_init = (nears * (1 - t_init) + fars * t_init).contiguous()
-    if u_fin is None:
-        u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
-                               rays_o.device)
-    return ffs.fused_fine_sample(
-        model.implicit_surface, rays_o, rays_d, d_init, fars, alpha.detach(), beta.detach(),
-        u_fin, eps=epsilon, max_iter=max_upsample_steps,
-        max_bisection=max_bisection_steps, n_final=N_importance,
-        n_up=N_samples * fine_sample_mul, sphere_bg_r=model.sphere_bg_r)
+    with span("volsdf.sample"):
+        N = rays_o.shape[0]
+        alpha, beta = model.forward_ab()
+        # a denser d_init speeds up the up-sampling's convergence (ref volsdf.py:425-435)
+        t_init = linspace01(N_samples * fine_sample_mul, rays_o.device)
+        d_init = (nears * (1 - t_init) + fars * t_init).contiguous()
+        if u_fin is None:
+            u_fin = _draw_uniforms(N, max_upsample_steps + 2, N_importance, perturb, generator,
+                                   rays_o.device)
+        return ffs.fused_fine_sample(
+            model.implicit_surface, rays_o, rays_d, d_init, fars, alpha.detach(), beta.detach(),
+            u_fin, eps=epsilon, max_iter=max_upsample_steps,
+            max_bisection=max_bisection_steps, n_final=N_importance,
+            n_up=N_samples * fine_sample_mul, sphere_bg_r=model.sphere_bg_r)
 
 
 def compute_ray_samples(model: VolSDF, rays_o, rays_d, *,
@@ -237,66 +239,67 @@ def volume_render_rays(model: VolSDF, rays_o, rays_d,
             max_upsample_steps=max_upsample_steps, max_bisection_steps=max_bisection_steps,
             epsilon=epsilon, fine_sample_mul=fine_sample_mul, u_fin=u_fin)
 
-    # the paper samples the fine set only; the coarse concat avoids early
-    # local minima (ref volsdf.py:439-443)
-    d_all = torch.sort(torch.cat([d_coarse, d_fine], dim=-1), dim=-1).values
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
-    P = pts.shape[-2]
-    if eik_pts is not None:
-        pts = torch.cat([pts, eik_pts.reshape(N, -1, 3).float()], dim=-2)
-    views = view_dirs[:, None, :].expand_as(pts) if use_view_dirs else None
-    radiances, sdf, nablas = model(pts, views)
-    eik_nablas = None
-    if eik_pts is not None:
-        eik_nablas = nablas[:, P:]
-        radiances, sdf, nablas = radiances[:, :P], sdf[:, :P], nablas[:, :P]
-    sigma = sdf_to_sigma(sdf, alpha, beta)
+    with span("volsdf.render"):
+        # the paper samples the fine set only; the coarse concat avoids early
+        # local minima (ref volsdf.py:439-443)
+        d_all = torch.sort(torch.cat([d_coarse, d_fine], dim=-1), dim=-1).values
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * d_all[..., None]
+        P = pts.shape[-2]
+        if eik_pts is not None:
+            pts = torch.cat([pts, eik_pts.reshape(N, -1, 3).float()], dim=-2)
+        views = view_dirs[:, None, :].expand_as(pts) if use_view_dirs else None
+        radiances, sdf, nablas = model(pts, views)
+        eik_nablas = None
+        if eik_pts is not None:
+            eik_nablas = nablas[:, P:]
+            radiances, sdf, nablas = radiances[:, :P], sdf[:, :P], nablas[:, :P]
+        sigma = sdf_to_sigma(sdf, alpha, beta)
 
-    sigma_out = radiance_out = None
-    if use_nerfplusplus:
-        t_out = linspace01(N_outside + 2, rays_o.device)[1:-1]
-        rs = (obj_bounding_radius / torch.flip(t_out, dims=[-1])).expand(N, N_outside)
-        if perturb:
-            if u_out is None:
-                u_out = torch.rand(N, N_outside, generator=generator, device=rays_o.device)
-            rs = stratified_jitter(rs, u_out.reshape(N, N_outside))
-        d_out = get_dvals_from_radius(rays_o, rays_d, rs)
-        pts_out = rays_o[:, None, :] + rays_d[:, None, :] * d_out[..., None]
-        x_out = torch.cat([pts_out / rs[..., None], 1.0 / rs[..., None]], dim=-1)
-        views_out = view_dirs[:, None, :].expand_as(pts_out) if use_view_dirs else None
-        sigma_out, radiance_out = model.nerf_outside(x_out, views_out)
-        d_all = torch.cat([d_all, d_out], dim=-1)  # already sorted
-        sigma = torch.cat([sigma, sigma_out], dim=-1)
-        radiances = torch.cat([radiances, radiance_out], dim=-2)
-
-    # p_i = exp(-relu(sigma delta)); tau_i = (1 - p_i) * cumprod(shifted p)
-    delta = d_all[:, 1:] - d_all[:, :-1]
-    p_i = torch.exp(-torch.clamp(sigma[:, :-1] * delta, min=0.0))
-    tau_i = (torch.clamp(1 - p_i, min=0.0) + 1e-10) * torch.cumprod(
-        torch.cat([torch.ones_like(p_i[:, :1]), p_i], dim=-1), dim=-1)[:, :-1]
-    rgb_map = torch.sum(tau_i[..., None] * radiances[:, :-1], dim=-2)
-    depth_map = torch.sum(tau_i / (torch.sum(tau_i, -1, keepdim=True) + 1e-10)
-                          * d_all[:, :-1], dim=-1)
-    acc_map = torch.sum(tau_i, dim=-1)
-    if white_bkgd:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
-
-    ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map,
-           # per-ray diagnostics: the beta heat-map and the upsampling rounds used
-           "beta_map": beta_map, "iter_usage": iter_usage}
-    if eik_nablas is not None:
-        ret["eik_nablas"] = eik_nablas
-    if calc_normal:
-        normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True) + 1e-10)
-        Pn = min(tau_i.shape[-1], normals_map.shape[-2])
-        ret["normals_volume"] = torch.sum(normals_map[:, :Pn] * tau_i[:, :Pn, None], dim=-2)
-    if detailed_output:
-        ret.update({"implicit_surface": sdf, "implicit_nablas": nablas,
-                    "radiance": radiances, "alpha": 1.0 - p_i, "p_i": p_i,
-                    "visibility_weights": tau_i, "d_vals": d_all, "sigma": sigma})
+        sigma_out = radiance_out = None
         if use_nerfplusplus:
-            ret.update({"sigma_out": sigma_out, "radiance_out": radiance_out})
-    return ret
+            t_out = linspace01(N_outside + 2, rays_o.device)[1:-1]
+            rs = (obj_bounding_radius / torch.flip(t_out, dims=[-1])).expand(N, N_outside)
+            if perturb:
+                if u_out is None:
+                    u_out = torch.rand(N, N_outside, generator=generator, device=rays_o.device)
+                rs = stratified_jitter(rs, u_out.reshape(N, N_outside))
+            d_out = get_dvals_from_radius(rays_o, rays_d, rs)
+            pts_out = rays_o[:, None, :] + rays_d[:, None, :] * d_out[..., None]
+            x_out = torch.cat([pts_out / rs[..., None], 1.0 / rs[..., None]], dim=-1)
+            views_out = view_dirs[:, None, :].expand_as(pts_out) if use_view_dirs else None
+            sigma_out, radiance_out = model.nerf_outside(x_out, views_out)
+            d_all = torch.cat([d_all, d_out], dim=-1)  # already sorted
+            sigma = torch.cat([sigma, sigma_out], dim=-1)
+            radiances = torch.cat([radiances, radiance_out], dim=-2)
+
+        # p_i = exp(-relu(sigma delta)); tau_i = (1 - p_i) * cumprod(shifted p)
+        delta = d_all[:, 1:] - d_all[:, :-1]
+        p_i = torch.exp(-torch.clamp(sigma[:, :-1] * delta, min=0.0))
+        tau_i = (torch.clamp(1 - p_i, min=0.0) + 1e-10) * torch.cumprod(
+            torch.cat([torch.ones_like(p_i[:, :1]), p_i], dim=-1), dim=-1)[:, :-1]
+        rgb_map = torch.sum(tau_i[..., None] * radiances[:, :-1], dim=-2)
+        depth_map = torch.sum(tau_i / (torch.sum(tau_i, -1, keepdim=True) + 1e-10)
+                              * d_all[:, :-1], dim=-1)
+        acc_map = torch.sum(tau_i, dim=-1)
+        if white_bkgd:
+            rgb_map = rgb_map + (1.0 - acc_map[..., None])
+
+        ret = {"rgb": rgb_map, "depth_volume": depth_map, "mask_volume": acc_map,
+               # per-ray diagnostics: the beta heat-map and the upsampling rounds used
+               "beta_map": beta_map, "iter_usage": iter_usage}
+        if eik_nablas is not None:
+            ret["eik_nablas"] = eik_nablas
+        if calc_normal:
+            normals_map = nablas / (torch.linalg.norm(nablas, dim=-1, keepdim=True) + 1e-10)
+            Pn = min(tau_i.shape[-1], normals_map.shape[-2])
+            ret["normals_volume"] = torch.sum(normals_map[:, :Pn] * tau_i[:, :Pn, None], dim=-2)
+        if detailed_output:
+            ret.update({"implicit_surface": sdf, "implicit_nablas": nablas,
+                        "radiance": radiances, "alpha": 1.0 - p_i, "p_i": p_i,
+                        "visibility_weights": tau_i, "d_vals": d_all, "sigma": sigma})
+            if use_nerfplusplus:
+                ret.update({"sigma_out": sigma_out, "radiance_out": radiance_out})
+        return ret
 
 
 def make_volume_render_fn(model: VolSDF, **render_kwargs):
@@ -342,46 +345,47 @@ def make_ray_loss_fn(model: VolSDF, args, render_kwargs_train: dict,
 
     def ray_loss(rb, generator=None, it=0, fine_override=None, eik_pts=None, u_out=None,
                  u_fin=None):
-        target_rgb = rb["target_rgb"]
-        mask_ignore = rb.get("mask_ignore")
-        if eik_pts is None:
-            eik_pts = (torch.rand(rb["rays_o"].shape[:-1] + (1, 3), generator=generator,
-                                  device=target_rgb.device) * 2 - 1) * eik_bounding_box
-        rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
-                                        eik_pts=eik_pts, fine_override=fine_override,
-                                        u_out=u_out, u_fin=u_fin)
+        with span("volsdf.loss"):
+            target_rgb = rb["target_rgb"]
+            mask_ignore = rb.get("mask_ignore")
+            if eik_pts is None:
+                eik_pts = (torch.rand(rb["rays_o"].shape[:-1] + (1, 3), generator=generator,
+                                      device=target_rgb.device) * 2 - 1) * eik_bounding_box
+            rgb, _depth, extras = render_fn(rb["rays_o"], rb["rays_d"], generator,
+                                            eik_pts=eik_pts, fine_override=fine_override,
+                                            u_out=u_out, u_fin=u_fin)
 
-        nablas = extras["implicit_nablas"]  # [..., N_rays, P, 3]
-        # one max-visibility surface point per ray (§3.5 of the paper)
-        ind = torch.argmax(extras["visibility_weights"][..., :nablas.shape[-2]], dim=-1)
-        nablas_surf = torch.gather(
-            nablas, -2, ind[..., None, None].expand(*ind.shape, 1, 3))
-        nablas_all = torch.cat([nablas_surf, extras["eik_nablas"]], dim=-2)
-        nablas_norm = torch.linalg.norm(nablas_all, dim=-1)
+            nablas = extras["implicit_nablas"]  # [..., N_rays, P, 3]
+            # one max-visibility surface point per ray (§3.5 of the paper)
+            ind = torch.argmax(extras["visibility_weights"][..., :nablas.shape[-2]], dim=-1)
+            nablas_surf = torch.gather(
+                nablas, -2, ind[..., None, None].expand(*ind.shape, 1, 3))
+            nablas_all = torch.cat([nablas_surf, extras["eik_nablas"]], dim=-2)
+            nablas_norm = torch.linalg.norm(nablas_all, dim=-1)
 
-        losses = {}
-        loss_img = torch.abs(rgb - target_rgb)
-        losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
-        if mask_ignore is not None:
-            mi = mask_ignore.float()
-            losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
-                                                   torch.sum(mi))
-        else:
-            losses["loss_img"] = shard.mean(loss_img)
-        sdf0 = None
-        if w_anchor > 0.0:
-            sdf0 = model.forward_surface(torch.zeros(1, 3, device=target_rgb.device))
-            wt = w_anchor * max(0.0, 1.0 - it / anchor_until)
-            losses["loss_sdf_anchor"] = shard.replicated(
-                wt * torch.mean((sdf0 - anchor_target) ** 2))
+            losses = {}
+            loss_img = torch.abs(rgb - target_rgb)
+            losses["loss_eikonal"] = w_eikonal * shard.mean((nablas_norm - 1.0) ** 2)
+            if mask_ignore is not None:
+                mi = mask_ignore.float()
+                losses["loss_img"] = shard.masked_mean(torch.sum(loss_img * mi[..., None]),
+                                                       torch.sum(mi))
+            else:
+                losses["loss_img"] = shard.mean(loss_img)
+            sdf0 = None
+            if w_anchor > 0.0:
+                sdf0 = model.forward_surface(torch.zeros(1, 3, device=target_rgb.device))
+                wt = w_anchor * max(0.0, 1.0 - it / anchor_until)
+                losses["loss_sdf_anchor"] = shard.replicated(
+                    wt * torch.mean((sdf0 - anchor_target) ** 2))
 
-        losses["total"] = sum(losses.values())
-        extras["implicit_nablas_norm"] = nablas_norm
-        alpha, beta = model.forward_ab()
-        extras["scalars"] = {"beta": beta.detach(), "alpha": alpha.detach()}
-        if sdf0 is not None:
-            extras["scalars"]["sdf_origin"] = sdf0[0].detach()
-        return losses["total"], (losses, extras)
+            losses["total"] = sum(losses.values())
+            extras["implicit_nablas_norm"] = nablas_norm
+            alpha, beta = model.forward_ab()
+            extras["scalars"] = {"beta": beta.detach(), "alpha": alpha.detach()}
+            if sdf0 is not None:
+                extras["scalars"]["sdf_origin"] = sdf0[0].detach()
+            return losses["total"], (losses, extras)
 
     return ray_loss
 

@@ -44,6 +44,7 @@ from neurecon_tpu_torch.ops import _build
 from neurecon_tpu_torch.ops.fused_mlp import launch_sdf_forward
 from neurecon_tpu_torch.ops.surface_pack import packed_surface
 from neurecon_tpu_torch.ops.sampling import linspace01, sample_cdf, sample_pdf
+from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -342,39 +343,40 @@ def fused_fine_sample(surface, rays_o, rays_d, d_init, far, alpha_net, beta_net,
     """(fine [N, n_final], beta_map [N], iter_usage [N] int32) of the §3.4
     sampler; the arguments as for `fine_sample_plain` (alpha_net / beta_net
     0-dim tensors on the rays' device, or floats)."""
-    _check(surface, rays_o, rays_d, d_init, far, u_fin, max_iter, n_final, n_up)
-    if rays_o.device.type == "cpu":
-        return fine_sample_plain(surface, rays_o, rays_d, d_init, far, alpha_net, beta_net,
-                                 u_fin, eps=eps, max_iter=max_iter,
-                                 max_bisection=max_bisection, n_final=n_final, n_up=n_up,
-                                 sphere_bg_r=sphere_bg_r)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays_o.device}")
-    dev = rays_o.device
-    N, n0 = d_init.shape
-    S = n0 + max_iter * n_up
-    if S > MAX_SAMPLES:
-        raise NotImplementedError(f"{S} samples per ray; the kernels take up to {MAX_SAMPLES}")
-    ws = workspace(N, S, n_final, dev)
-    if N == 0:
-        return ws["fine"], ws["beta_out"], ws["iter_usage"]
-    with torch.no_grad():
-        ab = torch.stack([torch.as_tensor(alpha_net, device=dev).reshape(()),
-                          torch.as_tensor(beta_net, device=dev).reshape(())]).float()
-        packed = packed_surface(surface)  # kept while the weights are unchanged
-        prior_r = float(surface.radius_init) if surface.sphere_residual else -1.0
-        bg_r = -1.0 if sphere_bg_r is None else float(sphere_bg_r)
-        kw = {"n_final": n_final, "u_stride": u_fin.shape[1], "eps": float(eps),
-              "prior_r": prior_r, "bg_r": bg_r}
-        pts = (rays_o[:, None, :] + rays_d[:, None, :] * d_init[..., None]).reshape(-1, 3)
-        raw = launch_sdf_forward(surface, pts, packed)
-        launch_init(ws, rays_o, rays_d, d_init, raw, far, ab, u_fin,
-                    beta_c=beta_plus_denominator(n0, eps), **kw)
-        nd, pts = launch_draw(ws, rays_o, rays_d, 0, n0, n_up)
-        for it in range(1, max_iter + 1):
-            src, s_in = (it - 1) % 2, n0 + (it - 1) * n_up
+    with span("op.fine_sample"):
+        _check(surface, rays_o, rays_d, d_init, far, u_fin, max_iter, n_final, n_up)
+        if rays_o.device.type == "cpu":
+            return fine_sample_plain(surface, rays_o, rays_d, d_init, far, alpha_net, beta_net,
+                                     u_fin, eps=eps, max_iter=max_iter,
+                                     max_bisection=max_bisection, n_final=n_final, n_up=n_up,
+                                     sphere_bg_r=sphere_bg_r)
+        if rays_o.device.type != "cuda":
+            raise ValueError(f"unsupported device {rays_o.device}")
+        dev = rays_o.device
+        N, n0 = d_init.shape
+        S = n0 + max_iter * n_up
+        if S > MAX_SAMPLES:
+            raise NotImplementedError(f"{S} samples per ray; the kernels take up to {MAX_SAMPLES}")
+        ws = workspace(N, S, n_final, dev)
+        if N == 0:
+            return ws["fine"], ws["beta_out"], ws["iter_usage"]
+        with torch.no_grad():
+            ab = torch.stack([torch.as_tensor(alpha_net, device=dev).reshape(()),
+                              torch.as_tensor(beta_net, device=dev).reshape(())]).float()
+            packed = packed_surface(surface)  # kept while the weights are unchanged
+            prior_r = float(surface.radius_init) if surface.sphere_residual else -1.0
+            bg_r = -1.0 if sphere_bg_r is None else float(sphere_bg_r)
+            kw = {"n_final": n_final, "u_stride": u_fin.shape[1], "eps": float(eps),
+                  "prior_r": prior_r, "bg_r": bg_r}
+            pts = (rays_o[:, None, :] + rays_d[:, None, :] * d_init[..., None]).reshape(-1, 3)
             raw = launch_sdf_forward(surface, pts, packed)
-            nd, pts = launch_checkpoint(ws, rays_o, rays_d, src, s_in, nd, raw, ab, u_fin,
-                                        it=it, max_iter=max_iter,
-                                        max_bisection=max_bisection, **kw)
-    return ws["fine"], ws["beta_out"], ws["iter_usage"]
+            launch_init(ws, rays_o, rays_d, d_init, raw, far, ab, u_fin,
+                        beta_c=beta_plus_denominator(n0, eps), **kw)
+            nd, pts = launch_draw(ws, rays_o, rays_d, 0, n0, n_up)
+            for it in range(1, max_iter + 1):
+                src, s_in = (it - 1) % 2, n0 + (it - 1) * n_up
+                raw = launch_sdf_forward(surface, pts, packed)
+                nd, pts = launch_checkpoint(ws, rays_o, rays_d, src, s_in, nd, raw, ab, u_fin,
+                                            it=it, max_iter=max_iter,
+                                            max_bisection=max_bisection, **kw)
+        return ws["fine"], ws["beta_out"], ws["iter_usage"]

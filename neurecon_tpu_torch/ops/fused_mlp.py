@@ -24,6 +24,7 @@ import torch
 from neurecon_tpu_torch.ops import _build
 from neurecon_tpu_torch.ops.fused_nablas import _check
 from neurecon_tpu_torch.ops.surface_pack import Pack, packed_surface
+from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,20 +65,21 @@ def resident_blocks(c_pad: int, rows: int, device: torch.device, tile: int) -> i
 def launch_sdf_forward(surface, x: torch.Tensor, packed: Pack) -> torch.Tensor:
     """The kernel on CUDA x [M, 3] (M > 0) with weights packed by
     `surface_pack.pack`; returns sdf [M]."""
-    M = x.shape[0]
-    sdf = torch.empty(M, device=x.device)
-    blocks = min(resident_blocks(packed.c_pad, packed.rows, x.device, packed.kind),
-                 -(-M // packed.tile) * packed.blocks_per_tile)
-    fn = _build.load("sdf_forward").ntt_sdf_forward
-    fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]
-    fn.restype = _I
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
-            len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
-            packed.kind, sdf.data_ptr(), blocks, stream)
-    _build.check(rc, "sdf_forward")
-    fused_sdf_forward.launches += 1
-    return sdf
+    with span("op.sdf_forward"):
+        M = x.shape[0]
+        sdf = torch.empty(M, device=x.device)
+        blocks = min(resident_blocks(packed.c_pad, packed.rows, x.device, packed.kind),
+                     -(-M // packed.tile) * packed.blocks_per_tile)
+        fn = _build.load("sdf_forward").ntt_sdf_forward
+        fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]
+        fn.restype = _I
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
+                len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
+                packed.kind, sdf.data_ptr(), blocks, stream)
+        _build.check(rc, "sdf_forward")
+        fused_sdf_forward.launches += 1
+        return sdf
 
 
 def fused_sdf_forward(surface, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +88,8 @@ def fused_sdf_forward(surface, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError."""
     _check(surface, x)
     if x.device.type == "cpu":
-        return sdf_forward_plain(surface, x)
+        with span("op.sdf_forward"):
+            return sdf_forward_plain(surface, x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.shape[0] == 0:

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from neurecon_tpu_torch.ops import _build
+from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -127,40 +128,41 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=Non
     `forward_with_nablas_plain`. On a card the kernel reads `packed` (a
     `surface_pack.Pack` of the same weights), else a pack of `weights`, else
     the surface's kept pack."""
-    from neurecon_tpu_torch.ops import surface_pack
+    with span("op.nablas_forward"):
+        from neurecon_tpu_torch.ops import surface_pack
 
-    _check(surface, x)
-    if x.device.type == "cpu":
-        return forward_with_nablas_plain(surface, x, weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    refuse_nerf_head(surface, "nablas_forward")
-    M, geo, dev = x.shape[0], surface.W_geo_feat, x.device
-    sdf = torch.empty(M, device=dev)
-    nablas = torch.empty(M, 3, device=dev)
-    h = torch.empty(M, geo, device=dev)
-    if M == 0:
+        _check(surface, x)
+        if x.device.type == "cpu":
+            return forward_with_nablas_plain(surface, x, weights)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        refuse_nerf_head(surface, "nablas_forward")
+        M, geo, dev = x.shape[0], surface.W_geo_feat, x.device
+        sdf = torch.empty(M, device=dev)
+        nablas = torch.empty(M, 3, device=dev)
+        h = torch.empty(M, geo, device=dev)
+        if M == 0:
+            return sdf, nablas, h
+        if packed is None:
+            packed = (surface_pack.packed_surface(surface) if weights is None
+                      else surface_pack.pack(surface, weights))
+        blocks = min(resident_blocks(packed.c_pad, packed.rows, dev, packed.kind),
+                     -(-M // packed.tile) * packed.blocks_per_tile)
+        # a slot of D x rows x the tile's points for each block (each pair)
+        slopes = torch.empty(blocks // packed.blocks_per_tile * surface.D * packed.rows
+                             * packed.tile, device=dev)
+        fn = _build.load("nablas_forward").ntt_nablas_forward
+        fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                       _I, _P, _P]
+        fn.restype = _I
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
+                len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
+                packed.kind, sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
+                slopes.data_ptr(), stream)
+        _build.check(rc, "nablas_forward")
+        fused_forward_with_nablas.launches += 1
         return sdf, nablas, h
-    if packed is None:
-        packed = (surface_pack.packed_surface(surface) if weights is None
-                  else surface_pack.pack(surface, weights))
-    blocks = min(resident_blocks(packed.c_pad, packed.rows, dev, packed.kind),
-                 -(-M // packed.tile) * packed.blocks_per_tile)
-    # a slot of D x rows x the tile's points for each block (each pair)
-    slopes = torch.empty(blocks // packed.blocks_per_tile * surface.D * packed.rows
-                         * packed.tile, device=dev)
-    fn = _build.load("nablas_forward").ntt_nablas_forward
-    fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                   _I, _P, _P]
-    fn.restype = _I
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
-            len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
-            packed.kind, sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
-            slopes.data_ptr(), stream)
-    _build.check(rc, "nablas_forward")
-    fused_forward_with_nablas.launches += 1
-    return sdf, nablas, h
 
 
 fused_forward_with_nablas.launches = 0

@@ -31,6 +31,7 @@ import math
 import torch
 
 from neurecon_tpu_torch.ops import _build, fused_nablas, surface_pack
+from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -202,64 +203,65 @@ def fused_nablas_vjp(surface, x, ws, bs, cot_sdf, cot_nablas, cot_h, packed=None
     cotangents given, with ws / bs the effective weights and biases: the CUDA
     kernel for a CUDA tensor (reading `packed`, a `surface_pack.Pack` of ws /
     bs, or a pack made here), the plain version for a CPU tensor."""
-    fused_nablas._check(surface, x)
-    if x.device.type == "cuda":
-        fused_nablas.refuse_nerf_head(surface, "nablas_backward")
-    M = x.shape[0]
-    cots = [c.float().contiguous() for c in (cot_sdf, cot_nablas, cot_h)]
-    for c, shape in zip(cots, ((M,), (M, 3), (M, surface.W_geo_feat))):
-        if tuple(c.shape) != shape or c.device != x.device:
-            raise ValueError(f"a cotangent is {tuple(c.shape)} on {c.device}; "
-                             f"want {shape} on {x.device}")
-    if x.device.type == "cpu":
-        return nablas_vjp_plain(surface, x, ws, bs, *cots)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    dims = [tuple(w.shape[::-1]) for w in ws]
-    if M == 0:
-        return (torch.zeros_like(x), [torch.zeros_like(w) for w in ws],
-                [torch.zeros_like(b) for b in bs])
-    dev = x.device
-    if packed is None:
-        packed = surface_pack.pack(surface, (ws, bs))
-    lay = _layout(dims, M, packed.tile)
-    rows = max(packed.rows, surface_pack.pad8(dims[-1][1]))
-    lib = _build.load("nablas_backward")
-    jobs = fused_nablas.upload(torch.tensor(lay["jobs"], dtype=torch.int64), dev)
-    work = torch.empty(lay["work"], device=dev)
-    bias_part = torch.empty(lay["m_tiles"], lay["nb"], device=dev)
-    part = torch.empty(lay["n_split"], lay["total"], device=dev)
-    flat = torch.empty(lay["total"], device=dev)
-    lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I, _I]
-    lib.ntt_nablas_backward_blocks.restype = _I
-    blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"], packed.kind)
-    _build.check(max(-blocks, 0), "nablas_backward (occupancy)")
-    if blocks == 0:
-        raise NotImplementedError(
-            f"nablas_backward: a block for {packed.c_pad} encoding and {rows} activation "
-            "rows does not fit in the card's shared memory")
-    # a slot of D x rows x the tile's points for each block (each pair)
-    slopes = torch.empty(blocks // packed.blocks_per_tile * (len(dims) - 1) * rows
-                         * packed.tile, device=dev)
-    xbar = torch.empty(M, 3, device=dev)
-    fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
-                                            + part.numel() + slopes.numel())
-    fn = lib.ntt_nablas_backward
-    fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
-                   _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
-    fn.restype = _I
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
-            packed.meta.data_ptr(), len(dims), surface.input_ch, packed.c_pad, rows,
-            packed.act, packed.kind, cots[0].data_ptr(), cots[1].data_ptr(),
-            cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
-            bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
-            lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,
-            slopes.data_ptr(), flat.data_ptr(), xbar.data_ptr(), stream)
-    _build.check(rc, "nablas_backward")
-    fused_nablas_vjp.launches += 1
-    wbars, bbars = _unflatten(flat, dims)
-    return xbar, wbars, bbars
+    with span("op.nablas_vjp"):
+        fused_nablas._check(surface, x)
+        if x.device.type == "cuda":
+            fused_nablas.refuse_nerf_head(surface, "nablas_backward")
+        M = x.shape[0]
+        cots = [c.float().contiguous() for c in (cot_sdf, cot_nablas, cot_h)]
+        for c, shape in zip(cots, ((M,), (M, 3), (M, surface.W_geo_feat))):
+            if tuple(c.shape) != shape or c.device != x.device:
+                raise ValueError(f"a cotangent is {tuple(c.shape)} on {c.device}; "
+                                 f"want {shape} on {x.device}")
+        if x.device.type == "cpu":
+            return nablas_vjp_plain(surface, x, ws, bs, *cots)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        dims = [tuple(w.shape[::-1]) for w in ws]
+        if M == 0:
+            return (torch.zeros_like(x), [torch.zeros_like(w) for w in ws],
+                    [torch.zeros_like(b) for b in bs])
+        dev = x.device
+        if packed is None:
+            packed = surface_pack.pack(surface, (ws, bs))
+        lay = _layout(dims, M, packed.tile)
+        rows = max(packed.rows, surface_pack.pad8(dims[-1][1]))
+        lib = _build.load("nablas_backward")
+        jobs = fused_nablas.upload(torch.tensor(lay["jobs"], dtype=torch.int64), dev)
+        work = torch.empty(lay["work"], device=dev)
+        bias_part = torch.empty(lay["m_tiles"], lay["nb"], device=dev)
+        part = torch.empty(lay["n_split"], lay["total"], device=dev)
+        flat = torch.empty(lay["total"], device=dev)
+        lib.ntt_nablas_backward_blocks.argtypes = [_I, _I, _I, _I]
+        lib.ntt_nablas_backward_blocks.restype = _I
+        blocks = lib.ntt_nablas_backward_blocks(packed.c_pad, rows, lay["m_tiles"], packed.kind)
+        _build.check(max(-blocks, 0), "nablas_backward (occupancy)")
+        if blocks == 0:
+            raise NotImplementedError(
+                f"nablas_backward: a block for {packed.c_pad} encoding and {rows} activation "
+                "rows does not fit in the card's shared memory")
+        # a slot of D x rows x the tile's points for each block (each pair)
+        slopes = torch.empty(blocks // packed.blocks_per_tile * (len(dims) - 1) * rows
+                             * packed.tile, device=dev)
+        xbar = torch.empty(M, 3, device=dev)
+        fused_nablas_vjp.workspace_bytes = 4 * (work.numel() + bias_part.numel()
+                                                + part.numel() + slopes.numel())
+        fn = lib.ntt_nablas_backward
+        fn.argtypes = [_P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                       _P, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
+        fn.restype = _I
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane,
+                packed.meta.data_ptr(), len(dims), surface.input_ch, packed.c_pad, rows,
+                packed.act, packed.kind, cots[0].data_ptr(), cots[1].data_ptr(),
+                cots[2].data_ptr(), surface.W_geo_feat, jobs.data_ptr(), work.data_ptr(),
+                bias_part.data_ptr(), lay["nb"], part.data_ptr(), lay["n_split"],
+                lay["total"], lay["bias_flat_off"], lay["out_tiles"], blocks,
+                slopes.data_ptr(), flat.data_ptr(), xbar.data_ptr(), stream)
+        _build.check(rc, "nablas_backward")
+        fused_nablas_vjp.launches += 1
+        wbars, bbars = _unflatten(flat, dims)
+        return xbar, wbars, bbars
 
 
 fused_nablas_vjp.launches = 0

@@ -25,6 +25,7 @@ import torch
 
 from neurecon_tpu_torch.ops import _build, surface_pack
 from neurecon_tpu_torch.ops.sampling import alpha_to_w, sample_pdf
+from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,33 +129,34 @@ def fused_neus_upsample(surface, rays_o, rays_d, d_coarse, u_rounds, *,
     upsampler (see `neus_upsample_plain` for the arguments). A block that
     does not fit in the card's shared memory (many samples a ray) fails at
     launch."""
-    _check(surface, rays_o, rays_d, d_coarse, u_rounds, n_iters, n_per_iter)
-    if rays_o.device.type == "cpu":
-        return neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u_rounds,
-                                   n_iters=n_iters, n_per_iter=n_per_iter)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays_o.device}")
-    N, n_coarse = d_coarse.shape
-    dev = rays_o.device
-    d_all = torch.empty(N, n_coarse + n_iters * n_per_iter, device=dev)
-    if N == 0:
+    with span("op.upsample"):
+        _check(surface, rays_o, rays_d, d_coarse, u_rounds, n_iters, n_per_iter)
+        if rays_o.device.type == "cpu":
+            return neus_upsample_plain(surface, rays_o, rays_d, d_coarse, u_rounds,
+                                       n_iters=n_iters, n_per_iter=n_per_iter)
+        if rays_o.device.type != "cuda":
+            raise ValueError(f"unsupported device {rays_o.device}")
+        N, n_coarse = d_coarse.shape
+        dev = rays_o.device
+        d_all = torch.empty(N, n_coarse + n_iters * n_per_iter, device=dev)
+        if N == 0:
+            return d_all
+        packed = surface_pack.packed_surface(surface)
+        P, R = block_shape(N, _sms(dev), packed.kind)
+        fn = _build.load("neus_upsample").ntt_neus_upsample
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
+                       _I, _I, ctypes.c_float, _I, _I, _P, _P]
+        fn.restype = _I
+        sphere_r = float(surface.radius_init) if surface.sphere_residual else -1.0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(), u_rounds.data_ptr(),
+                N, n_coarse, n_iters, n_per_iter, packed.params.data_ptr(), packed.plane,
+                packed.meta.data_ptr(), len(surface.layers), surface.input_ch, packed.c_pad,
+                packed.rows, packed.act, packed.kind, sphere_r, P, R, d_all.data_ptr(),
+                stream)
+        _build.check(rc, "neus_upsample")
+        fused_neus_upsample.launches += 1
         return d_all
-    packed = surface_pack.packed_surface(surface)
-    P, R = block_shape(N, _sms(dev), packed.kind)
-    fn = _build.load("neus_upsample").ntt_neus_upsample
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I,
-                   _I, _I, ctypes.c_float, _I, _I, _P, _P]
-    fn.restype = _I
-    sphere_r = float(surface.radius_init) if surface.sphere_residual else -1.0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), d_coarse.data_ptr(), u_rounds.data_ptr(),
-            N, n_coarse, n_iters, n_per_iter, packed.params.data_ptr(), packed.plane,
-            packed.meta.data_ptr(), len(surface.layers), surface.input_ch, packed.c_pad,
-            packed.rows, packed.act, packed.kind, sphere_r, P, R, d_all.data_ptr(),
-            stream)
-    _build.check(rc, "neus_upsample")
-    fused_neus_upsample.launches += 1
-    return d_all
 
 
 fused_neus_upsample.launches = 0

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from neurecon_tpu_torch.ops.fused_nablas import activation_code, surface_weights, upload
+from neurecon_tpu_torch.utils.trace import span
 
 # csrc/surface_mma.cuh: the narrow tiles' products take 256 outputs (4 column
 # groups of 64), the wide tile's 512 (8 column groups), the cluster tile's
@@ -163,17 +164,18 @@ def pack(surface, weights=None) -> Pack:
     lists of effective [out, in] weights and biases) in the tensor-core
     kernels' layout, on the parameters' device. Counts its packs in
     `packs`."""
-    pack.packs += 1
-    with torch.no_grad():
-        ws, bs = weights if weights is not None else surface_weights(surface)
-        device = ws[0].device
-        meta, index, size, c_pad, rows, tile = _index(surface, device)
-        flat_w = torch.cat([w.float().reshape(-1) for w in ws])
-        src = torch.cat([flat_w, flat_w] + [b.float().reshape(-1) for b in bs])
-        fp32 = torch.zeros(size, device=device).index_copy_(0, index, src)
-        big, small = split_tf32(fp32)
-        params = torch.cat([fp32, big, small])
-    return Pack(params, size, meta, c_pad, rows, activation_code(surface), tile)
+    with span("op.pack"):
+        pack.packs += 1
+        with torch.no_grad():
+            ws, bs = weights if weights is not None else surface_weights(surface)
+            device = ws[0].device
+            meta, index, size, c_pad, rows, tile = _index(surface, device)
+            flat_w = torch.cat([w.float().reshape(-1) for w in ws])
+            src = torch.cat([flat_w, flat_w] + [b.float().reshape(-1) for b in bs])
+            fp32 = torch.zeros(size, device=device).index_copy_(0, index, src)
+            big, small = split_tf32(fp32)
+            params = torch.cat([fp32, big, small])
+        return Pack(params, size, meta, c_pad, rows, activation_code(surface), tile)
 
 
 pack.packs = 0

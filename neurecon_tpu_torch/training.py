@@ -24,6 +24,7 @@ from neurecon_tpu_torch.bridge import unwrap
 from neurecon_tpu_torch.parallel.sharding import (RayShard, broadcast_parameters,
                                                   make_sharded_render, shard_rays,
                                                   take_rows)
+from neurecon_tpu_torch.utils.trace import span
 
 
 def sample_ray_batch(generator, batch, H: int, W: int, N_rays: int):
@@ -55,9 +56,10 @@ def make_draw_step(H: int, W: int, N_rays: int, draw_uniforms: Callable,
     shard = shard or RayShard()
 
     def draw_step(batch, generator):
-        rb = sample_ray_batch(generator, batch, H, W, N_rays)
-        draws = draw_uniforms(N_rays, generator, rb["rays_o"].device)
-        return shard_rays(rb, shard), take_rows(draws, shard)
+        with span("step.draw"):
+            rb = sample_ray_batch(generator, batch, H, W, N_rays)
+            draws = draw_uniforms(N_rays, generator, rb["rays_o"].device)
+            return shard_rays(rb, shard), take_rows(draws, shard)
 
     return draw_step
 
@@ -141,20 +143,21 @@ def _update(model, optimizer, scheduler, group):
         broadcast_parameters(model, group)
 
     def finish(total, losses, extras, before_adam=None):
-        total.backward()
-        if shard.sharded:
-            losses, stats = _reduce_step(shard, params, losses, extras)
-        else:
-            losses, stats = {k: v.detach() for k, v in losses.items()}, extras_stats(extras)
-        metrics = {"losses": losses, "grad_norms": grad_norms_by_module(model),
-                   "extras_stats": stats}
-        if before_adam is not None:
-            before_adam()
-        optimizer.step()
-        scheduler.step()
-        if isinstance(extras, dict) and "scalars" in extras:
-            metrics["scalars"] = extras["scalars"]
-        return metrics
+        with span("step.backward"):
+            total.backward()
+            reduced = _reduce_step(shard, params, losses, extras) if shard.sharded else None
+        with span("step.update"):
+            losses, stats = reduced if shard.sharded else (
+                {k: v.detach() for k, v in losses.items()}, extras_stats(extras))
+            metrics = {"losses": losses, "grad_norms": grad_norms_by_module(model),
+                       "extras_stats": stats}
+            if before_adam is not None:
+                before_adam()
+            optimizer.step()
+            scheduler.step()
+            if isinstance(extras, dict) and "scalars" in extras:
+                metrics["scalars"] = extras["scalars"]
+            return metrics
 
     return finish
 
@@ -174,9 +177,10 @@ def make_train_step(loss_fn: Callable, model, optimizer, scheduler, group=None) 
     finish = _update(model, optimizer, scheduler, group)
 
     def step(batch, generator, it, **kw):
-        optimizer.zero_grad(set_to_none=True)
-        total, (losses, extras) = loss_fn(batch, generator, it, **kw)
-        return finish(total, losses, extras)
+        with span("step", it):
+            optimizer.zero_grad(set_to_none=True)
+            total, (losses, extras) = loss_fn(batch, generator, it, **kw)
+            return finish(total, losses, extras)
 
     return step
 
@@ -250,7 +254,7 @@ def make_pipelined_train_step(pipeline_fns: dict, model, optimizer, scheduler,
             t.record_stream(main)
         return (batch, rb, draws, samples), lambda: main.wait_event(done)
 
-    def step(batch, generator, it, next_batch=None):
+    def pipelined_step(batch, generator, it, next_batch):
         held = ahead.pop("next", None)
         if held is not None and held[0] is not batch:
             raise ValueError("the pipelined step was given another batch than the "
@@ -268,6 +272,10 @@ def make_pipelined_train_step(pipeline_fns: dict, model, optimizer, scheduler,
         if held is not None:
             ahead["next"] = held
         return metrics
+
+    def step(batch, generator, it, next_batch=None):
+        with span("step", it):
+            return pipelined_step(batch, generator, it, next_batch)
 
     return step
 
@@ -316,54 +324,58 @@ def render_full_image(render_fn, rays_o, rays_d, *, rayschunk: int = 4096,
     through the network; the others get `miss_rgb` and zeros (their depth
     and extras are visualization-only).
     """
-    rays_o = rays_o.reshape(-1, 3)
-    rays_d = rays_d.reshape(-1, 3)
-    N = rays_o.shape[0]
+    with span("render"):
+        rays_o = rays_o.reshape(-1, 3)
+        rays_d = rays_d.reshape(-1, 3)
+        N = rays_o.shape[0]
 
-    if cull_sphere_r:
-        o_np = rays_o.detach().cpu().numpy().astype(np.float64)
-        d_np = rays_d.detach().cpu().numpy().astype(np.float64)
-        dn = d_np / np.linalg.norm(d_np, axis=-1, keepdims=True)
-        t_mid = -np.sum(o_np * dn, axis=-1)
-        closest = o_np + t_mid[:, None] * dn
-        hit = ((np.linalg.norm(closest, axis=-1) <= cull_sphere_r)
-               & (t_mid + cull_sphere_r > 0))
-        if not hit.all():
-            hit_idx = np.nonzero(hit)[0]
-            # zero hits: run one ray through to learn the output structure
-            probe_idx = hit_idx if hit_idx.size else np.asarray([0])
-            idx_t = torch.as_tensor(probe_idx, device=rays_o.device)
-            sub = render_full_image(render_fn, rays_o[idx_t], rays_d[idx_t],
-                                    rayschunk=rayschunk, generator=generator,
-                                    microchunk=microchunk, group=group)
-            out = {}
-            for k, v in sub.items():
-                full = np.zeros((N,) + v.shape[1:], v.dtype)
-                if k == "rgb":
-                    full[...] = miss_rgb
-                if hit_idx.size:
-                    full[hit_idx] = v
-                out[k] = full
-            return out
+        if cull_sphere_r:
+            o_np = rays_o.detach().cpu().numpy().astype(np.float64)
+            d_np = rays_d.detach().cpu().numpy().astype(np.float64)
+            dn = d_np / np.linalg.norm(d_np, axis=-1, keepdims=True)
+            t_mid = -np.sum(o_np * dn, axis=-1)
+            closest = o_np + t_mid[:, None] * dn
+            hit = ((np.linalg.norm(closest, axis=-1) <= cull_sphere_r)
+                   & (t_mid + cull_sphere_r > 0))
+            if not hit.all():
+                hit_idx = np.nonzero(hit)[0]
+                # zero hits: run one ray through to learn the output structure
+                probe_idx = hit_idx if hit_idx.size else np.asarray([0])
+                idx_t = torch.as_tensor(probe_idx, device=rays_o.device)
+                sub = render_full_image(render_fn, rays_o[idx_t], rays_d[idx_t],
+                                        rayschunk=rayschunk, generator=generator,
+                                        microchunk=microchunk, group=group)
+                out = {}
+                for k, v in sub.items():
+                    full = np.zeros((N,) + v.shape[1:], v.dtype)
+                    if k == "rgb":
+                        full[...] = miss_rgb
+                    if hit_idx.size:
+                        full[hit_idx] = v
+                    out[k] = full
+                return out
 
-    if group is not None:
-        w = RayShard(group).world
-        rayschunk = -(-rayschunk // w) * w
-        if microchunk and microchunk > 0:
-            microchunk = -(-int(microchunk) // w) * w
-        render_fn = make_sharded_render(render_fn, group)
-    if not microchunk or microchunk <= 0 or microchunk >= rayschunk:
-        microchunk = rayschunk
-    if rayschunk % microchunk:
-        raise ValueError(f"rayschunk {rayschunk} must be a multiple of microchunk {microchunk}")
+        if group is not None:
+            w = RayShard(group).world
+            rayschunk = -(-rayschunk // w) * w
+            if microchunk and microchunk > 0:
+                microchunk = -(-int(microchunk) // w) * w
+            render_fn = make_sharded_render(render_fn, group)
+        if not microchunk or microchunk <= 0 or microchunk >= rayschunk:
+            microchunk = rayschunk
+        if rayschunk % microchunk:
+            raise ValueError(f"rayschunk {rayschunk} must be a multiple of microchunk "
+                             f"{microchunk}")
 
-    outs = []
-    with torch.no_grad():
-        for i in range(0, N, microchunk):
-            rgb, depth, extras = render_fn(rays_o[i:i + microchunk],
-                                           rays_d[i:i + microchunk], generator)
-            chunk = {"rgb": rgb, "depth_volume": depth}
-            chunk.update({k: v for k, v in extras.items()
-                          if k not in ("rgb", "depth_volume")})
-            outs.append({k: v.cpu().numpy() for k, v in chunk.items()})
-    return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}
+        outs = []
+        with torch.no_grad():
+            for i in range(0, N, microchunk):
+                with span("render.chunk"):
+                    rgb, depth, extras = render_fn(rays_o[i:i + microchunk],
+                                                   rays_d[i:i + microchunk], generator)
+                chunk = {"rgb": rgb, "depth_volume": depth}
+                chunk.update({k: v for k, v in extras.items()
+                              if k not in ("rgb", "depth_volume")})
+                with span("render.copy"):
+                    outs.append({k: v.cpu().numpy() for k, v in chunk.items()})
+        return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}
