@@ -458,6 +458,22 @@ def _time_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def _queued_ms(fn, calls, reps=10):
+    """Device ms of `calls` calls of `fn`, averaged over `reps` groups of
+    them, all queued behind a spin kernel so that the card, not the host,
+    paces them; after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))
+    a.record()
+    for _ in range(reps * calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _wall_ms(fn, reps=50):
     """Median host ms of `fn` followed by a device sync, over `reps` runs
     after one warm-up."""
@@ -1298,7 +1314,7 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, r
     from neurecon_tpu_torch.models.base import RadianceNet
     from neurecon_tpu_torch.models.frameworks import get_model, get_ray_loss_fn, volsdf
     from neurecon_tpu_torch.ops import fused_fine_sample as ffs
-    from neurecon_tpu_torch.ops import fused_nablas, fused_nablas_vjp
+    from neurecon_tpu_torch.ops import fused_mlp, fused_nablas, fused_nablas_vjp
     from neurecon_tpu_torch.ops.sampling import linspace01
     from neurecon_tpu_torch.tools import render_view
     from neurecon_tpu_torch.training import render_full_image, sample_ray_batch
@@ -1390,8 +1406,15 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, r
     targs.training.update({"num_iters": VOLSDF_STEPS, "i_val": 20, "i_log": 10,
                            "i_val_mesh": 20, "i_backup": 20, "monitoring": "none",
                            "log_root_dir": tdir, "exp_dir": os.path.join(tdir, "run")})
+    narrow0 = fused_mlp.fused_sdf_forward.launches_by_tile["narrow"]
     out, t_launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
     by_path["volsdf_train"] = t_launches
+    narrow = fused_mlp.fused_sdf_forward.launches_by_tile["narrow"] - narrow0
+    print(f"phase 16: kernel 4's launches on the narrow tile's wgmma pipeline {narrow} of "
+          f"{t_launches['sdf_forward']}")
+    if narrow != t_launches["sdf_forward"]:
+        print("FAIL phase 16: a flagship VolSDF sdf query left the narrow tile", file=sys.stderr)
+        return 1, None, None
     ms_step = float(np.median(step_ms[5:]))
     if record is not None:
         record.update(volsdf_ms=ms_step, volsdf_ckpt=out["final_ckpt"])
@@ -5445,6 +5468,16 @@ def main(argv=None):
     print(f"phase 10: sdf_forward {M4} points: {ms4:.3f} ms (plain {pms4:.3f} ms, "
           f"fp32 bound {bb4[0][0]:.3f} ms, 3xTF32 bound {bb4[1][0]:.3f} ms, "
           f"{flops4 / 1e9:.1f} GFLOP) {tag}")
+    # the main path's other shapes: a VolSDF step's seven sampler launches of
+    # 2^19 points, and UNISURF's 1,024-point secant launch (queued behind a
+    # spin, so that the launches wait on the card and not on the host)
+    x19, x1k = x10[:2 ** 19].contiguous(), x10[:1024].contiguous()
+    ms4_step = _queued_ms(lambda: fused_mlp.fused_sdf_forward(surface, x19), 7, reps=3)
+    ms4_1k = _queued_ms(lambda: fused_mlp.fused_sdf_forward(surface, x1k), 1, reps=50)
+    bb4_step = _bounds(7 * flops4 / 2, 4.0 * (7 * 2 ** 19 * (3 + 1) + n_params))
+    print(f"phase 10: sdf_forward a VolSDF step (7 x 2^19 points) {ms4_step:.3f} ms (3xTF32 "
+          f"bound {bb4_step[1][0]:.3f} ms), 1,024 points {ms4_1k:.4f} ms; launches by tile "
+          f"{fused_mlp.fused_sdf_forward.launches_by_tile} {tag}")
     # one call at a sphere-tracing step's size (a 4,096-ray chunk) split into
     # the weight packing (a pack made anew, which the wrapper keeps while the
     # weights are unchanged), the kept pack's lookup, the occupancy query
@@ -5653,7 +5686,10 @@ def main(argv=None):
          "launches": launches["sdf_forward"], "max_abs_err": max(errs4),
          "ms": ms4, "plain_ms": pms4, **_bound_fields(*bb4, "3xtf32"),
          "library_ms": None, "points": M4, "ms_grid512": ms4_grid,
-         "bound_ms_grid512": b4_grid, "ms_split_4096": split4},
+         "bound_ms_grid512": b4_grid, "ms_split_4096": split4,
+         "ms_volsdf_step": ms4_step, "bound_ms_volsdf_step": bb4_step[1][0],
+         "ms_1024": ms4_1k,
+         "launches_by_tile": dict(fused_mlp.fused_sdf_forward.launches_by_tile)},
     ] + vol_rows
     for r in results:
         r["branch"] = "softplus" if r["name"] in counters and "volsdf" not in r["name"] else "-"

@@ -1,9 +1,10 @@
 // Split-fp32 ("3xTF32") tensor-core layer products of the surface MLP over a
 // tile of P points held in shared memory, and the device routines around
-// them, shared by every surface-MLP kernel: the sdf-only forward
-// (sdf_forward.cu), the forward + nablas (nablas_forward.cu), the NeuS
-// upsampler (neus_upsample.cu) and the eikonal backward's tile pass
-// (nablas_backward.cu).
+// them, shared by the surface-MLP kernels: the forward + nablas
+// (nablas_forward.cu), the NeuS upsampler (neus_upsample.cu), the eikonal
+// backward's tile pass (nablas_backward.cu) and the sdf-only forward's wide
+// and cluster tiles (sdf_forward.cu; its narrow tile runs wgmma,
+// wgmma_tf32.cuh).
 //
 // The product. out[p][n] = sum_k V[p][k] * M[k][n] for the tile's P points,
 // with V an activation block in shared memory and M a weight block in device
@@ -20,9 +21,9 @@
 // accumulates small_a big_b + big_a small_b + big_a big_b, the small terms
 // first; small_a small_b (~2^-22 of the product) is dropped. The tensor
 // cores add into their fp32 accumulator with truncation, so a layer's 96
-// MMAs chained into one accumulator drift toward zero: the chained mutant
-// of tools/mutants.py puts kernel 4 at 1.6e-5 of max|sdf| on the card,
-// past its 1e-5 check. So each k-step's
+// MMAs chained into one accumulator drift toward zero: chained so, kernel
+// 4's narrow tile read 1.6e-5 of max|sdf| on the card when it ran this
+// product, past its 1e-5 check. So each k-step's
 // three MMAs go into a fresh fragment, and that is added to the running
 // fp32 sum on the CUDA cores (round to nearest): one FADD per accumulator
 // and k-step. The sums then keep fp32 accuracy (a single TF32 product misses
@@ -31,7 +32,7 @@
 // the pack (a big and a small plane beside the fp32 one): a product that
 // stages both parts (PRESPLIT) saves the B fragments' splits, which 4
 // warps repeat for every fragment they share, at twice the stage's shared
-// memory; the sdf-only kernel has that room, the backward has not and
+// memory; the narrow forward kernels have that room, the backward has not and
 // splits the fp32 stage in registers.
 //
 // Layout. Activations are feature-major, [rows][LDV] with LDV = P + 8

@@ -13,15 +13,16 @@ build at once and take the card one at a time, the groups one after the
 other. One JSON line per copy; the exit code is 0 when each unmutated copy
 passes and every mutant fails.
 
-* `sdf`: the sdf-only kernel (`csrc/sdf_forward.cu` on
-  `csrc/surface_mma.cuh`), held to its plain version by the check of
-  `chip_smoke.py` phase 10: the flagship surface (D=8, W=256; geometric init
-  from the seed, then seeded noise on every weight, seed + 1), 2^20 points
-  uniform in [-1, 1]^3 from the seed plus 4,099 more (a ragged last tile),
-  limit 1e-5 of max|sdf|. The last two mutants break the split-fp32
-  product's precision: one drops the correction products (a single TF32
-  product per k-step), one adds every MMA straight into the running sum (the
-  tensor cores' truncating accumulation, unflushed); the check must see both.
+* `sdf`: the sdf-only kernel's narrow tile (`csrc/sdf_forward.cu`'s wgmma
+  pipeline), held to its plain version by the check of `chip_smoke.py`
+  phase 10: the flagship surface (D=8, W=256; geometric init from the seed,
+  then seeded noise on every weight, seed + 1), 2^20 points uniform in
+  [-1, 1]^3 from the seed plus 4,099 more (a ragged last tile), limit 1e-5
+  of max|sdf|. The last two mutants break the split-fp32 product's
+  precision: one drops the correction products (a single TF32 product per
+  k-step), one chains every group's wgmmas into one accumulator over the
+  whole K (the tensor cores' truncating accumulation, never promoted into
+  the fp32 sum); the check must see both.
 * `sine`: the SIREN branch of the surface-MLP kernels, held by
   `chip_smoke.py` phase 18 (`sine_kernel_checks`: kernels 4, 1, 3 and 2 on a
   pretrained SIREN surface with seeded noise, at the SIREN path's shapes,
@@ -75,7 +76,15 @@ passes and every mutant fails.
   256), held by `chip_smoke.py` phase 40's kernel checks
   (`wide_kernel_checks`: kernels 1-4 on the perturbed NeuS at IDR's widths,
   W = 512, at the gates of phases 2, 3, 6 and 10, and kernel 4 at W = 300
-  and 384). Its mutants skip the second half of the column groups, leave
+  and 384). Its first six mutants break `surface_mma.cuh`'s routines that
+  kernels 1-3 and kernel 4's wide and cluster tiles run (the narrow kernel
+  4 of the `sdf` group runs wgmma and mutants of its own): the split-fp32
+  product's correction products dropped, and its MMAs chained into the
+  running sum; the sdf row's bias dropped (`final_row`), sin and cos
+  swapped in the encoding (`embed_tile`), the skip input's 1/sqrt(2)
+  dropped (`skip_input`), and the wide and cluster kernel 4's ragged last
+  tile skipped. Its other mutants skip the second half of the column
+  groups, leave
   the product's stage row stride at the narrow tile's 264, write a layer in
   place before every warp has passed the product (its closing barrier
   dropped, and the first four column groups held back ~20 us before their
@@ -109,37 +118,34 @@ LIMIT = 1e-5
 # name -> (file under the package, text, replacement); each text occurs once
 MUTANTS = {
     "sdf row bias dropped": (
-        "csrc/surface_mma.cuh", "return ((s0 + s1) + (s2 + s3)) + __ldg(L.b + row);",
-        "return ((s0 + s1) + (s2 + s3));"),
+        "csrc/sdf_forward.cu", "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s + __ldg(LD.b);",
+        "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s;"),
     "sin and cos swapped": (
-        "csrc/surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
+        "csrc/sdf_forward.cu", "v = (r < 3) ? sinf(ph) : cosf(ph);",
         "v = (r < 3) ? cosf(ph) : sinf(ph);"),
-    "skip 1/sqrt(2) dropped": (
-        "csrc/surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
+    "skip 1/sqrt(2) dropped": [
+        ("csrc/sdf_forward.cu", "if constexpr (SKIP) v *= 0.707106781187f;",
+         "if constexpr (SKIP) v *= 1.f;"),
+        ("csrc/sdf_forward.cu", "emb[c * LDV + q] / 1.41421356237f : 0.f;",
+         "emb[c * LDV + q] : 0.f;")],
     "ragged last tile skipped": (
-        "csrc/sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
-    "plain TF32 (no correction products)": (
-        "csrc/surface_mma.cuh",
-        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
-        "#pragma unroll\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
-        "#pragma unroll\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);",
-        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_big[i], b_big);"),
-    "accumulator chained across k-steps": (
-        "csrc/surface_mma.cuh",
-        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
-        "#pragma unroll\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
-        "#pragma unroll\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);\n"
-        "#pragma unroll\n"
-        "        for (int i = 0; i < MT; ++i)\n"
-        "#pragma unroll\n"
-        "          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][e];",
-        "for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_small[i], b_big);\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_small);\n"
-        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_big);"),
+        "csrc/sdf_forward.cu", "const int n_tiles = (M + P - 1) / P;",
+        "const int n_tiles = M / P;"),
+    "plain TF32 (no correction products)": [
+        ("csrc/sdf_forward.cu",
+         "for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, as[s], big[s], s > 0);",
+         "for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s], s > 0);"),
+        ("csrc/sdf_forward.cu",
+         "\n#pragma unroll\n"
+         "      for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s] + ((NC * SW) >> 4), 1);\n"
+         "#pragma unroll\n"
+         "      for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s], 1);",
+         "")],
+    "promotion interval removed (one accumulator over the whole K)": [
+        ("csrc/sdf_forward.cu", "wg::wgmma_m64n128k8(fresh, as[s], big[s], s > 0);",
+         "wg::wgmma_m64n128k8(fresh, as[s], big[s], q > 0 || s > 0);"),
+        ("csrc/sdf_forward.cu", "for (int i = 0; i < 64; ++i) sum[i] += fresh[i];",
+         "for (int i = 0; i < 64; ++i) sum[i] = fresh[i];")],
 }
 
 SINE_MUTANTS = {
@@ -206,6 +212,38 @@ SAMPLER_MUTANTS = {
 
 # name -> one edit as above, or a list of edits that make one fault
 WIDE_MUTANTS = {
+    "mma.sync product: plain TF32 (no correction products)": (
+        "csrc/surface_mma.cuh",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_big[i], b_big);"),
+    "mma.sync product: accumulator chained across k-steps": (
+        "csrc/surface_mma.cuh",
+        "for (int i = 0; i < MT; ++i) mma_tf32_first(d[i], a_small[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_small);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(d[i], a_big[i], b_big);\n"
+        "#pragma unroll\n"
+        "        for (int i = 0; i < MT; ++i)\n"
+        "#pragma unroll\n"
+        "          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][e];",
+        "for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_small[i], b_big);\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_small);\n"
+        "        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], a_big[i], b_big);"),
+    "mma.sync tiles: sdf row bias dropped": (
+        "csrc/surface_mma.cuh", "return ((s0 + s1) + (s2 + s3)) + __ldg(L.b + row);",
+        "return ((s0 + s1) + (s2 + s3));"),
+    "mma.sync tiles: sin and cos swapped": (
+        "csrc/surface_mma.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
+        "v = (r < 3) ? cosf(ph) : sinf(ph);"),
+    "mma.sync tiles: skip 1/sqrt(2) dropped": (
+        "csrc/surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
+    "mma.sync tiles: ragged last tile skipped": (
+        "csrc/sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
     "second half of the column groups skipped": (
         "csrc/surface_mma.cuh", "    if (nw >= N) continue;",
         "    if (nw >= N || nw >= 256) continue;"),

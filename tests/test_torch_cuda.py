@@ -295,13 +295,15 @@ def test_wrappers_reject_bad_inputs(cuda):
                                       (FLAGSHIP, 256, 128),
                                       (FLAGSHIP, 256, 129),
                                       (FLAGSHIP, 256, 1),
+                                      (FLAGSHIP, 256, 2 ** 19),
                                       (dict(SMALL, W=60), 60, 1000),
                                       (dict(FLAGSHIP, embed_multires=-1), 256, 300)])
 def test_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 4 against its plain version: max|diff| <= 1e-5 max|sdf| (fp32
     sums in another order). M = 4099, 1000, 300, 129, 127, 37 and 1 leave a
-    ragged last 128-point tile, M = 128 and 4096 none; M = 0 returns an empty
-    tensor without a launch; W = 60 is no multiple of the MMA's 8."""
+    ragged last 64-point tile, M = 128, 4096 and 2^19 (one VolSDF sampler
+    launch at the flagship widths) none; M = 0 returns an empty tensor
+    without a launch; W = 60 is no multiple of the MMA's 8."""
     surf = _model(cfg, geo, cuda).implicit_surface
     x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (M, 3)).astype(np.float32),
                      device=cuda)
@@ -313,6 +315,29 @@ def test_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     assert got.shape == (M,) and bool(torch.isfinite(got).all())
     if M:
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sdf_forward_counts_its_launches_by_tile(cuda):
+    """`fused_sdf_forward.launches_by_tile` rises for the tile that ran: the
+    narrow tile's wgmma pipeline for the flagship (the VolSDF sampler's
+    surface, at one sampler launch's 2^19 points, and at a 1,024-point
+    launch), the wide tile at W=512, the cluster tile at W=1024; each call
+    one launch."""
+    x = torch.tensor(np.random.RandomState(4).uniform(-1, 1, (2 ** 19, 3)).astype(np.float32),
+                     device=cuda)
+    for cfg, M, tile in ((FLAGSHIP, 2 ** 19, "narrow"), (FLAGSHIP, 1024, "narrow"),
+                         (IDR, 1000, "wide"), (dict(IDR, W=1024), 1000, "cluster")):
+        surf = _model(cfg, 256, cuda).implicit_surface
+        assert surface_pack.TILE_NAMES[surface_pack.packed_surface(surf).kind] == tile
+        before = dict(fused_mlp.fused_sdf_forward.launches_by_tile)
+        launches = fused_mlp.fused_sdf_forward.launches
+        fused_mlp.fused_sdf_forward(surf, x[:M])
+        torch.cuda.synchronize()
+        after = fused_mlp.fused_sdf_forward.launches_by_tile
+        assert fused_mlp.fused_sdf_forward.launches == launches + 1
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == tile) for k in surface_pack.TILE_NAMES}
 
 
 @pytest.mark.cuda
@@ -846,6 +871,7 @@ def test_sharp_beta_sampler_at_phase14_gates(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg,geo,M", [(SIREN, 256, 4099), (SIREN, 256, 129),
+                                      (SIREN, 256, 2 ** 19),
                                       (SIREN_SMALL, 64, 1000), (dict(SIREN, W=512), 256, 4099)])
 def test_sine_sdf_forward_kernel_matches_plain(cuda, cfg, geo, M):
     """Kernel 4's sine branch on points in the scene's box [-3, 3]^3 (30 a
@@ -988,14 +1014,23 @@ def test_unisurf_step_gradient_matches_plain(cuda):
     """The UNISURF ray loss on 1,024 rays with a fixed surface_override and
     fixed uniforms, backward through kernels 1 and 3 and through their plain
     versions: loss to rel 1e-5, every parameter's grad within 5e-4 of its
-    max|ref|."""
+    max|ref|. The surface points come from kernel 4's plain version, so
+    that the points both sides see do not move with kernel 4's rounding
+    (a ReLU of the radiance net whose pre-activation lies within the two
+    sides' gap of zero at some point gates that point's gradient on one
+    side only)."""
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.models.frameworks.unisurf import (compute_ray_samples,
                                                               make_ray_loss_fn)
     model = _unisurf(cuda)
     N = 1024
     o, d = _rays(N, cuda, seed=4)
-    surf = compute_ray_samples(model, o, d, **UNISURF_KW)
+    orig = fused_mlp.fused_sdf_forward
+    try:
+        fused_mlp.fused_sdf_forward = fused_mlp.sdf_forward_plain
+        surf = compute_ray_samples(model, o, d, **UNISURF_KW)
+    finally:
+        fused_mlp.fused_sdf_forward = orig
     g = torch.Generator(cuda).manual_seed(5)
     uniforms = tuple(torch.rand(N, n, device=cuda, generator=g) for n in (64, 32, 3))
     rb = {"rays_o": o, "rays_d": d, "target_rgb": torch.rand(N, 3, device=cuda, generator=g)}
