@@ -38,18 +38,20 @@ def readings(cell, seed: int, device, seconds: float, fault=None):
 
 
 def follow_reference(mix, prog: dict, **kw) -> dict:
-    """The reference against which `prog` is read: a training step's renders
-    at prog's sampled depths."""
-    if isinstance(prog.get("samples"), list):
-        return mix.reference(follow=prog["samples"], **kw)
+    """The reference against which `prog` is read: in training, the one
+    that follows prog's record of each step."""
+    if isinstance(prog.get("follow"), list):
+        return mix.reference(follow=prog["follow"], **kw)
     return mix.reference(**kw)
 
 
 def train_leaves(prog: dict, ref: dict) -> dict:
-    """The leaves left out of the comparison, and which leaf sets grad_gap
-    and which change_gap."""
+    """The leaves left out of the comparison, which leaf sets grad_gap and
+    which change_gap, the near-ties the reference settled as `prog` did and
+    the parameter values it took from `prog` (round-off components)."""
     keep = mixes.moved_leaves(ref["grads"])
-    out = {"left_out": sorted(set(ref["grads"]) - set(keep))}
+    out = {"left_out": sorted(set(ref["grads"]) - set(keep)), "ties": ref["ties"],
+           "adopted": ref["adopted"]}
     for q in ("grads", "change"):
         gaps = mixes.leaf_gaps(prog[q], ref[q], keep)
         out[f"{q}_worst"] = max(gaps, key=gaps.get)

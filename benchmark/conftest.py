@@ -5,13 +5,14 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchmark.registry import Bench
+from benchmark.registry import Bench, framework
 
 
 def shrink(cell):
     """`cell` at a size the CPU runs in seconds: a 4-layer surface of width
-    32, 16 rays a step, 4 images of 24x32, 2 frames of 12x16. Only for the
-    plain path on the CPU; the cells run at their published widths."""
+    32, 16 rays a step, 4 images of 24x32, 2 frames of 12x16, and the
+    framework's own keys as its `shrink` sets them. Only for the plain path
+    on the CPU; the cells run at their published widths."""
     c = cell.cfg
     c["scene"].update(n_images=4, H=24, W=32)
     m = c["model"]
@@ -19,10 +20,7 @@ def shrink(cell):
     m["radiance"].update(D=2, W=32)
     m["W_geometry_feature"] = 32
     c["data"]["N_rays"] = 16
-    if m["framework"] == "NeuS":
-        m.update(N_samples=8, N_importance=8, N_upsample_iters=2)
-    else:
-        m.update(N_samples=16, N_importance=8, fine_sample_mul=2, max_upsample_iter=2)
+    framework(c).shrink(m)
     cell.traffic.update(trace_units=2, check_rays=64, rayschunk=100, frames=2, downscale=2)
     return cell
 

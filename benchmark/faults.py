@@ -10,7 +10,11 @@ and the tests see `correct` come out false with each.
     rendered frame, the colour of the rays of its first chunk moved by 0.1
     (a check that samples the frames' rays finds some of them); in
     training, the colour of the first ray that the loss counts (under an
-    object mask, the first that hits), as the L1 term sees it.
+    object mask, the first that hits), as the L1 term sees it;
+  * `shifted_samples`: the sampler's answer altered where it is produced,
+    its shapes kept: every depth it returns moved by half a coarse step
+    (the framework's `shifted`; NeuS and VolSDF move each ray's depths by
+    their span over 2 N_samples).
 
 A cell on one card has no exchange between cards to leave out.
 """
@@ -18,13 +22,15 @@ from __future__ import annotations
 
 import torch
 
+from benchmark.registry import framework
+
 TRAIN = ("frozen_state", "half_batch", "altered_answer", "shifted_samples")
 RENDER = ("altered_answer",)
 
 
-def apply_train(fault, fns: dict, optimizer, n_samples: int):
-    """(pipeline functions, optimizer) with `fault` planted; `n_samples` is
-    the configuration's coarse samples a ray."""
+def apply_train(fault, fns: dict, optimizer, cfg: dict):
+    """(pipeline functions, optimizer) of configuration `cfg` with `fault`
+    planted."""
     if fault is None:
         return fns, optimizer
     fns = dict(fns)
@@ -54,10 +60,7 @@ def apply_train(fault, fns: dict, optimizer, n_samples: int):
         sample = fns["depth_sample"]
 
         def sample_shifted(rb, draws):
-            out = sample(rb, draws)
-            d = out[0] if isinstance(out, (tuple, list)) else out
-            d = d + (d.amax(-1, keepdim=True) - d.amin(-1, keepdim=True)) / (2 * n_samples)
-            return (d, *out[1:]) if isinstance(out, (tuple, list)) else d
+            return framework(cfg).shifted(cfg, sample(rb, draws))
         fns["depth_sample"] = sample_shifted
     else:
         raise KeyError(fault)

@@ -35,6 +35,7 @@ import torch
 
 from benchmark import faults
 from benchmark.reference import step as ref_step
+from benchmark.registry import framework
 from benchmark.scene import camera_path, image_rays, make_scene
 from benchmark.trace import Profiled
 from benchmark.weights import make_weights, port_name
@@ -98,8 +99,7 @@ class TrainMix:
         kw_train["H"], kw_train["W"] = self.scene["H"], self.scene["W"]
         optimizer, scheduler = make_optimizer(args, model)
         fns = get_pipeline_fns(args, model, kw_train, shard=RayShard(None))
-        fns, optimizer = faults.apply_train(self.fault, fns, optimizer,
-                                             int(cfg["model"]["N_samples"]))
+        fns, optimizer = faults.apply_train(self.fault, fns, optimizer, cfg)
         fns = self._recorder(fns)
         self.step_fn = make_pipelined_train_step(fns, model, optimizer, scheduler, group=None)
         self.model, self.optimizer = model, optimizer
@@ -112,7 +112,7 @@ class TrainMix:
         self.gen = torch.Generator(device=dev).manual_seed(self.g_seed)
         self.it = 0
 
-        names = {port_name(k): k for k in self.weights}
+        names = self.names = {port_name(k): k for k in self.weights}
         params = dict(model.named_parameters())
         checked = int(self.traffic["checked_steps"])
         self.steps, self.losses = [], []
@@ -137,22 +137,32 @@ class TrainMix:
 
     def _recorder(self, fns: dict) -> dict:
         """The pipeline functions, keeping while `recording` is set what the
-        checked steps produced: the sampler's depths (NeuS's d_all, VolSDF's
-        fine depths) and the render's rgb of every ray."""
-        self.recording, self.record = False, {"samples": [], "rgb": []}
+        checked steps produced: the parameters the step started from (by
+        their canonical names), what the framework's `recorded` keeps of
+        the sampler's output and the loss's extras (NeuS's d_all; VolSDF's
+        fine depths and each ray's eikonal sample), and the render's rgb of
+        every ray."""
+        self.recording, self.record = False, {"follow": [], "rgb": []}
         sample, loss = fns["depth_sample"], fns["loss_with_samples"]
+        fw = framework(self.cfg)
 
         def depth_sample(rb, draws):
+            if self.recording:
+                self.state = {self.names[n]: p.detach().clone()
+                              for n, p in self.model.named_parameters()}
             out = sample(rb, draws)
             if self.recording:
-                depths = out[0] if isinstance(out, (tuple, list)) else out
-                self.record["samples"].append(depths.detach().clone())
+                self.sampled = out
             return out
 
         def loss_with_samples(rb, samples, draws, generator, it):
             total, (losses, extras) = loss(rb, samples, draws, generator, it)
             if self.recording:
+                kept = fw.recorded(self.sampled, extras)
+                self.record["follow"].append(
+                    {"params": self.state, **{k: v.detach().clone() for k, v in kept.items()}})
                 self.record["rgb"].append(extras["rgb"].detach().reshape(-1, 3).clone())
+                del self.sampled, self.state
             return total, (losses, extras)
 
         return dict(fns, depth_sample=depth_sample, loss_with_samples=loss_with_samples)
@@ -200,9 +210,11 @@ class TrainMix:
 
     def release(self):
         """Keep what the check compares (on the device), free the rest."""
+        follow = self.record["follow"]
         self.prog = {"losses": [float(v) for v in self.losses], "grads": self.grads,
                      "change": {k: self.after[k] - self.weights[k] for k in self.after},
-                     "samples": self.record["samples"], "rgb": self.record["rgb"]}
+                     "samples": [f["samples"] for f in follow], "rgb": self.record["rgb"],
+                     "follow": follow}
         del self.step_fn, self.model, self.optimizer, self.after, self.data
         gc.collect()
         if self.dev.type == "cuda":
@@ -210,19 +222,20 @@ class TrainMix:
 
     def reference(self, tf32: bool = False, dtype=torch.float32, follow=None) -> dict:
         """The reference over the checked steps: their losses, sampler depths
-        and rays' rgb, the first step's gradients and the parameters' change.
-        `follow`: the depths to render each step at (see `train_steps`)."""
+        and rays' rgb, what it keeps as the program's recorder would
+        (`follow`), the near-ties it settled the program's way (`ties`), the
+        parameter values it took from the program (`adopted`), the first
+        step's gradients and the parameters' change. `follow`:
+        the program's record of each step (see `train_steps`)."""
         ref = ref_step.train_steps(self.cfg, self.weights, self.scene, self.steps, tf32=tf32,
                                    dtype=dtype, follow=follow)
-        return {"losses": ref["losses"], "grads": ref["grads"], "samples": ref["samples"],
-                "rgb": ref["rgb"],
-                "change": {k: ref["params"][k] - self.weights[k].to(dtype)
-                           for k in ref["params"]}}
+        return {k: ref[k] for k in ("losses", "grads", "samples", "rgb", "follow", "ties",
+                                    "adopted", "change")}
 
     def check(self, ref=None) -> dict:
         """The numbers compared, against `ref` (by default the reference's,
-        rendering each step at the program's sampled depths)."""
-        return train_readings(self.prog, ref or self.reference(follow=self.prog["samples"]))
+        following the program's record of each step)."""
+        return train_readings(self.prog, ref or self.reference(follow=self.prog["follow"]))
 
 
 def leaf_gaps(prog: dict, ref: dict, keep) -> dict:
@@ -233,6 +246,13 @@ def leaf_gaps(prog: dict, ref: dict, keep) -> dict:
     med = float(np.median(list(norms.values())))
     return {k: abs(float(torch.linalg.norm(prog[k].double())) - r) / max(r, med)
             for k, r in norms.items()}
+
+
+def settled(change: dict, ref_grads: dict) -> dict:
+    """Of each leaf's change, the components Adam moves by more than
+    round-off (`ref_step.round_off` of the reference's first gradient)."""
+    loose = ref_step.round_off(ref_grads)
+    return {k: v[~loose[k]] for k, v in change.items()}
 
 
 def moved_leaves(ref_grads: dict) -> list:
@@ -267,7 +287,8 @@ def train_readings(prog: dict, ref: dict) -> dict:
     largest channel); loss_gap, the worst step's |loss - reference| over the
     reference, and loss_gap_first, the first step's; grad_gap, the first step's gradients by the worst leaf
     (`leaf_gaps`); change_gap, the parameters' change over the steps,
-    likewise. Over the leaves the reference moves."""
+    likewise, over the components Adam moves by more than round-off
+    (`settled`). Over the leaves the reference moves."""
     keep = moved_leaves(ref["grads"])
     spans = [(r.amax(-1) - r.amin(-1)).clamp_min(1e-12) for r in ref["samples"]]
     loss = max(abs(p - r) / abs(r) for p, r in zip(prog["losses"], ref["losses"]))
@@ -277,8 +298,11 @@ def train_readings(prog: dict, ref: dict) -> dict:
     out["loss_gap"] = loss if math.isfinite(loss) else float("inf")
     first = abs(prog["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
     out["loss_gap_first"] = first if math.isfinite(first) else float("inf")
+    compared = {"grads": (prog["grads"], ref["grads"]),
+                "change": (settled(prog["change"], ref["grads"]),
+                           settled(ref["change"], ref["grads"]))}
     for name, q in (("grad_gap", "grads"), ("change_gap", "change")):
-        worst = max(leaf_gaps(prog[q], ref[q], keep).values())
+        worst = max(leaf_gaps(*compared[q], keep).values())
         out[name] = worst if math.isfinite(worst) else float("inf")
     return out
 

@@ -4,7 +4,8 @@ rows) with its nablas by autograd, and the radiance net (ReLU, sigmoid rgb).
 
 `spec(cfg)` reads the widths from a configuration as the program's config
 dict states them; the parameters are the benchmark's canonical dict
-(`surface.<l>.v|g|b`, `radiance.<l>.v|g|b`, `ln_s` or `ln_beta`).
+(`surface.<l>.v|g|b`, `radiance.<l>.v|g|b`, and the framework's own
+beside them, such as NeuS's `ln_s`).
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ def embed_dim(multires: int) -> int:
 
 
 def spec(cfg: dict) -> dict:
-    """The shapes and scalars of a NeuS or VolSDF configuration."""
-    m, t = cfg["model"], cfg["training"]
+    """The shapes of a configuration's surface and radiance nets."""
+    m = cfg["model"]
     s, r = m["surface"], m["radiance"]
     W_geo = int(m["W_geometry_feature"])
     c_in = embed_dim(int(s["embed_multires"]))
@@ -37,18 +38,12 @@ def spec(cfg: dict) -> dict:
     rD, rW, rskips = int(r["D"]), int(r["W"]), tuple(r["skips"])
     rdims = [(rin if l == 0 else (rin + rW if l in rskips else rW), 3 if l == rD else rW)
              for l in range(rD + 1)]
-    out = {"framework": m["framework"], "W_geo": W_geo,
-           "surface": {"D": D, "W": W, "skips": skips, "multires": int(s["embed_multires"]),
-                       "dims": sdims, "radius_init": float(s["radius_init"])},
-           "radiance": {"D": rD, "skips": rskips, "multires": int(r["embed_multires"]),
-                        "multires_view": int(r["embed_multires_view"]), "dims": rdims,
-                        "use_view_dirs": bool(r.get("use_view_dirs", True))},
-           "speed_factor": float(t["speed_factor"])}
-    if m["framework"] == "NeuS":
-        out["ln_s_init"] = float(-np.log(m["variance_init"]) / out["speed_factor"])
-    else:
-        out["ln_beta_init"] = float(np.log(t["beta_init"]) / out["speed_factor"])
-    return out
+    return {"W_geo": W_geo,
+            "surface": {"D": D, "W": W, "skips": skips, "multires": int(s["embed_multires"]),
+                        "dims": sdims, "radius_init": float(s["radius_init"])},
+            "radiance": {"D": rD, "skips": rskips, "multires": int(r["embed_multires"]),
+                         "multires_view": int(r["embed_multires_view"]), "dims": rdims,
+                         "use_view_dirs": bool(r.get("use_view_dirs", True))}}
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,11 @@
 the `official_solution` hierarchical upsampler (gradient-free), the one
 batched sdf + nablas query over sections and midpoints, the radiance net on
 the midpoints, sdf -> alpha -> visibility weights, and the L1 + eikonal +
-mask BCE loss. With a mask, no NeRF++ background."""
+mask BCE loss. With a mask, no NeRF++ background. The harness's framework
+interface (`benchmark.registry.framework`) is at the end."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from benchmark.reference.sampling import alpha_to_w, sample_pdf
@@ -74,7 +76,7 @@ def render(nets, params, kw: dict, rays_o, rays_d, u_up, train: bool, follow=Non
     nablas_all = nablas_all.reshape(N, 2 * P - 1, 3)
     h_all = h_all.reshape(N, 2 * P - 1, -1)
     sdf, nablas = sdf_all[:, :P], nablas_all[:, :P]
-    s = torch.exp(params["ln_s"][0] * nets.sp["speed_factor"])
+    s = torch.exp(params["ln_s"][0] * kw["speed_factor"])
     cdf = torch.sigmoid(sdf * s)
     alpha = torch.clamp((cdf[:, :-1] - cdf[:, 1:]) / (cdf[:, :-1] + 1e-10), min=0.0)
     views = rays_d[:, None, :].expand_as(pts_mid)
@@ -101,3 +103,77 @@ def loss(out, target_rgb, target_mask, train_cfg: dict):
     mask = float(train_cfg["w_mask"]) * torch.mean(bce)
     img = torch.sum(torch.abs(out["rgb"] - target_rgb) * tm[..., None]) / (torch.sum(tm) + 1e-10)
     return eik + mask + img
+
+
+def render_kwargs(cfg: dict) -> dict:
+    """The upsampler's and renderer's settings of a configuration."""
+    m, d = cfg["model"], cfg["data"]
+    return {"obj_bounding_radius": d.get("obj_bounding_radius", 1.0),
+            "N_samples": m["N_samples"], "N_importance": m["N_importance"],
+            "N_upsample_iters": m["N_upsample_iters"],
+            "speed_factor": float(cfg["training"]["speed_factor"])}
+
+
+def extra_weights(cfg: dict, gen, device) -> dict:
+    """ln_s at its init: s = exp(ln_s * speed_factor) starts at
+    1 / variance_init. Draws nothing."""
+    init = float(-np.log(cfg["model"]["variance_init"]) / float(cfg["training"]["speed_factor"]))
+    return {"ln_s": torch.tensor([init], dtype=torch.float32, device=device)}
+
+
+def draws(cfg: dict, n: int, gen, device) -> dict:
+    """The upsampler's uniforms, sorted within each round."""
+    m = cfg["model"]
+    k = int(m["N_upsample_iters"])
+    u = torch.rand(n, k, int(m["N_importance"]) // k, generator=gen, device=device)
+    return {"u_up": torch.sort(u, dim=-1).values.reshape(n, -1)}
+
+
+def train_loss(nets, params, cfg: dict, rays_o, rays_d, dr: dict, target, mask, step: int,
+               follow=None):
+    """One step's render at the program's d_all (`follow["samples"]`) and its
+    loss; the reference keeps its own upsampler's d_all."""
+    out = render(nets, params, render_kwargs(cfg), rays_o, rays_d, dr["u_up"], train=True,
+                 follow=None if follow is None else follow["samples"])
+    return (loss(out, target, mask, cfg["training"]), out["rgb"],
+            {"samples": out["samples"]}, 0)
+
+
+def render_eval(nets, params, cfg: dict, rays_o, rays_d) -> dict:
+    """The novel-view render: each round's uniforms a linspace over [0, 1]."""
+    m = cfg["model"]
+    k = int(m["N_upsample_iters"])
+    u = torch.linspace(0.0, 1.0, int(m["N_importance"]) // k, device=rays_o.device).to(
+        rays_o.dtype).repeat(k).expand(rays_o.shape[0], -1).contiguous()
+    out = render(nets, params, render_kwargs(cfg), rays_o, rays_d, u, train=False)
+    return {k2: out[k2] for k2 in ("rgb", "depth", "normals")}
+
+
+def recorded(sampled, extras: dict) -> dict:
+    """Of a program's step: the upsampler's d_all."""
+    return {"samples": sampled}
+
+
+def shifted(cfg: dict, sampled):
+    """d_all moved by half a coarse step: each ray's span over 2 N_samples."""
+    d = sampled
+    return d + (d.amax(-1, keepdim=True) - d.amin(-1, keepdim=True)) / (
+        2 * int(cfg["model"]["N_samples"]))
+
+
+def points(cfg: dict, n: int, train: bool) -> dict:
+    """The upsampler's sdf-only queries at the P = N_samples + N_importance
+    sections, sdf + nablas at the sections and their midpoints, the
+    radiance net at the midpoints."""
+    m = cfg["model"]
+    P = int(m["N_samples"]) + int(m["N_importance"])
+    return {"upsample": n * P, "sampler": 0, "nablas": n * (2 * P - 1), "radiance": n * (P - 1)}
+
+
+def sdf_launches(cfg: dict) -> int:
+    """None: the upsampler queries inside its own kernel (kernel 2)."""
+    return 0
+
+
+def shrink(m: dict) -> None:
+    m.update(N_samples=8, N_importance=8, N_upsample_iters=2)

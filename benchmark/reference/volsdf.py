@@ -2,7 +2,9 @@
 it: the §3.4 error-bounded fine sampler (gradient-free, a fixed number of
 rounds), the batched sdf + nablas + radiance query over the coarse and fine
 samples and one eikonal point a ray, the builtin background sphere (sdf min
-R - |x|), the p_i / tau_i compositor, and the L1 + eikonal loss."""
+R - |x|), the p_i / tau_i compositor, and the L1 + eikonal loss. The
+harness's framework interface (`benchmark.registry.framework`) is at the
+end."""
 from __future__ import annotations
 
 import numpy as np
@@ -107,7 +109,7 @@ def render(nets, params, kw: dict, rays_o, rays_d, u_fin, eik_pts, train: bool, 
     N, dev = rays_o.shape[0], rays_o.device
     nears = torch.full((N, 1), float(kw["near"]), device=dev, dtype=rays_o.dtype)
     fars = torch.full((N, 1), float(kw["far"]), device=dev, dtype=rays_o.dtype)
-    beta = torch.exp(params["ln_beta"][0] * nets.sp["speed_factor"])
+    beta = torch.exp(params["ln_beta"][0] * kw["speed_factor"])
     alpha = 1.0 / beta
     n0 = int(kw["N_samples"]) * int(kw["fine_sample_mul"])
     t_init = linspace01(n0, dev)
@@ -151,12 +153,126 @@ def render(nets, params, kw: dict, rays_o, rays_d, u_fin, eik_pts, train: bool, 
     return out
 
 
-def loss(out, target_rgb, train_cfg: dict):
-    """L1 over all rays + w_eikonal * the eikonal term on each ray's
-    max-visibility sample and its eikonal point."""
+TIE = 1e-4  # a ray's weights this close (relative) to its maximum tie with it
+
+
+def eikonal_index(tau, program=None):
+    """(each ray's eikonal sample [N], how many rays took the program's): the
+    argmax of the ray's visibility weights tau [N, P], or the program's
+    index (`program` [N]) where the reference's own weight there lies
+    within a relative TIE of its own maximum: a near-tie that the
+    rounding of float32 may settle either way. Elsewhere the reference
+    keeps its own argmax, so a program that takes another sample fails."""
+    tau = tau.detach()
+    own = torch.argmax(tau, dim=-1)
+    if program is None or program.numel() != own.numel():
+        return own, 0
+    program = program.reshape(own.shape).to(own.device)
+    top = torch.gather(tau, 1, own[:, None])[:, 0]
+    at = torch.gather(tau, 1, program[:, None])[:, 0]
+    take = (top - at <= TIE * top) & (program != own)
+    return torch.where(take, program, own), int(take.sum())
+
+
+def loss(out, target_rgb, train_cfg: dict, program_index=None):
+    """(L1 over all rays + w_eikonal * the eikonal term on each ray's
+    max-visibility sample (`eikonal_index`, against the program's
+    `program_index`) and its eikonal point, how many rays took the
+    program's sample at a near-tie)."""
     nablas = out["nablas"]
-    ind = torch.argmax(out["tau"][:, :nablas.shape[1]], dim=-1)
+    ind, ties = eikonal_index(out["tau"][:, :nablas.shape[1]], program_index)
     surf = torch.gather(nablas, 1, ind[:, None, None].expand(-1, 1, 3))
     norm = torch.linalg.norm(torch.cat([surf, out["eik_nablas"]], dim=1), dim=-1)
     eik = float(train_cfg["w_eikonal"]) * torch.mean((norm - 1.0) ** 2)
-    return eik + torch.mean(torch.abs(out["rgb"] - target_rgb))
+    return eik + torch.mean(torch.abs(out["rgb"] - target_rgb)), ties
+
+
+def render_kwargs(cfg: dict) -> dict:
+    """The sampler's and renderer's settings of a configuration."""
+    m, d = cfg["model"], cfg["data"]
+    return {"near": d["near"], "far": d["far"], "N_samples": m["N_samples"],
+            "N_importance": m["N_importance"], "fine_sample_mul": m["fine_sample_mul"],
+            "epsilon": m["epsilon"], "max_upsample_steps": m["max_upsample_iter"],
+            "max_bisection_steps": m["max_bisection_steps"],
+            "obj_bounding_radius": m["obj_bounding_radius"],
+            "speed_factor": float(cfg["training"]["speed_factor"])}
+
+
+def extra_weights(cfg: dict, gen, device) -> dict:
+    """ln_beta at its init: beta = exp(ln_beta * speed_factor) starts at
+    beta_init. Draws nothing."""
+    t = cfg["training"]
+    init = float(np.log(t["beta_init"]) / float(t["speed_factor"]))
+    return {"ln_beta": torch.tensor([init], dtype=torch.float32, device=device)}
+
+
+def draws(cfg: dict, n: int, gen, device) -> dict:
+    """The eikonal box points, then the sampler's uniforms."""
+    m = cfg["model"]
+    box = float(m["obj_bounding_radius"])
+    eik_pts = (torch.rand(n, 1, 3, generator=gen, device=device) * 2 - 1) * box
+    u_fin = torch.rand(n, (int(m["max_upsample_iter"]) + 2) * int(m["N_importance"]),
+                       generator=gen, device=device)
+    return {"eik_pts": eik_pts, "u_fin": u_fin}
+
+
+def train_loss(nets, params, cfg: dict, rays_o, rays_d, dr: dict, target, mask, step: int,
+               follow=None):
+    """One step's render at the program's fine depths (`follow["samples"]`)
+    and its loss, with the program's eikonal samples at near-ties
+    (`follow["eik_ind"]`); the reference keeps its own sampler's depths and
+    its own argmax."""
+    out = render(nets, params, render_kwargs(cfg), rays_o, rays_d, dr["u_fin"], dr["eik_pts"],
+                 train=True, follow=None if follow is None else follow["samples"])
+    total, ties = loss(out, target, cfg["training"],
+                       None if follow is None else follow["eik_ind"])
+    own, _ = eikonal_index(out["tau"][:, :out["nablas"].shape[1]])
+    return total, out["rgb"], {"samples": out["samples"], "eik_ind": own}, ties
+
+
+def render_eval(nets, params, cfg: dict, rays_o, rays_d) -> dict:
+    """The novel-view render: each draw's uniforms a linspace over [0, 1]."""
+    m = cfg["model"]
+    k = int(m["max_upsample_iter"]) + 2
+    u = linspace01(int(m["N_importance"]), rays_o.device).to(rays_o.dtype).repeat(k).expand(
+        rays_o.shape[0], -1).contiguous()
+    out = render(nets, params, render_kwargs(cfg), rays_o, rays_d, u, None, train=False)
+    return {k2: out[k2] for k2 in ("rgb", "depth", "normals")}
+
+
+def recorded(sampled, extras: dict) -> dict:
+    """Of a program's step: the sampler's fine depths (the first of its
+    (d_fine, beta_map, iter_usage)) and each ray's eikonal sample, the
+    argmax of its visibility weights as the program's loss takes it."""
+    tau = extras["visibility_weights"][..., :extras["implicit_nablas"].shape[-2]]
+    return {"samples": sampled[0], "eik_ind": torch.argmax(tau, dim=-1).reshape(-1)}
+
+
+def shifted(cfg: dict, sampled):
+    """The fine depths moved by half a coarse step: each ray's span over
+    2 N_samples."""
+    d = sampled[0]
+    d = d + (d.amax(-1, keepdim=True) - d.amin(-1, keepdim=True)) / (
+        2 * int(cfg["model"]["N_samples"]))
+    return (d, *sampled[1:])
+
+
+def points(cfg: dict, n: int, train: bool) -> dict:
+    """The sampler's sdf-only queries (the n0 = N_samples * fine_sample_mul
+    initial depths and n0 new ones in each of max_upsample_iter rounds),
+    sdf + nablas at the N_samples + N_importance samples (and in training
+    one eikonal point a ray), the radiance net at the samples."""
+    m = cfg["model"]
+    n0 = int(m["N_samples"]) * int(m["fine_sample_mul"])
+    P = int(m["N_samples"]) + int(m["N_importance"])
+    return {"upsample": 0, "sampler": n * n0 * (1 + int(m["max_upsample_iter"])),
+            "nablas": n * (P + (1 if train else 0)), "radiance": n * P}
+
+
+def sdf_launches(cfg: dict) -> int:
+    """Kernel 4 once for the initial depths and once a round."""
+    return 1 + int(cfg["model"]["max_upsample_iter"])
+
+
+def shrink(m: dict) -> None:
+    m.update(N_samples=16, N_importance=8, fine_sample_mul=2, max_upsample_iter=2)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from benchmark import calibrate, faults, mixes
+from benchmark.reference import volsdf
 from benchmark.registry import Bench
 from benchmark.run import execute
 
@@ -50,6 +51,31 @@ def test_fault_is_not_correct(small_cell, name, fault):
     for seed in (4, 5):
         out = execute(small_cell(name), seed, 0.3, False, CPU, 0.0, fault=fault)
         assert out["correct"] is False, (fault, out["checks"])
+
+
+def test_eikonal_sample_off_a_tie_is_not_correct(small_cell, monkeypatch):
+    """A VolSDF program whose loss takes one ray's eikonal point at a sample
+    that is not tied with the ray's largest visibility weight fails: the
+    reference takes the program's sample only at a near-tie. The program
+    here is the reference made to take the moved sample whatever its
+    weight."""
+    cell = small_cell("volsdf.train")
+    mix = mixes.make(cell.cfg, cell.traffic, 6, CPU)
+    mix.setup()
+    mix.release()
+    assert not fails(cell, mix.check())
+    moved = [dict(f) for f in mix.prog["follow"]]
+    ind = moved[0]["eik_ind"].clone()
+    ind[0] = 1 if int(ind[0]) == 0 else 0  # a ray's first sample: far from its surface
+    moved[0]["eik_ind"] = ind
+    with monkeypatch.context() as m:
+        m.setattr(volsdf, "TIE", float("inf"))
+        bad = mix.reference(follow=moved)
+    assert bad["ties"] == 1
+    bad.update(follow=moved, samples=mix.prog["samples"])
+    ref = mix.reference(follow=moved)
+    assert ref["ties"] == 0
+    assert fails(cell, mixes.train_readings(bad, ref)), mixes.train_readings(bad, ref)
 
 
 @pytest.mark.cuda

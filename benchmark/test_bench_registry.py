@@ -1,11 +1,13 @@
 """BENCHMARK.json against the forms it must take, and a new configuration,
-traffic mix and per-layer metric dropped into a copy of the benchmark and
-found by name, with no file edited."""
+traffic mix and per-layer metric, and a new framework, dropped into a copy
+of the benchmark and found by name, with no file edited."""
 from __future__ import annotations
 
 import json
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -101,6 +103,171 @@ def test_new_config_traffic_and_metric_found_without_edits(tmp_path):
     assert out["correct"] is True
     for p, data in before.items():  # BENCHMARK.json only gained entries
         assert p.read_bytes() == data, f"{p} was edited"
+
+
+# A framework the program does not know: one module of the reference
+# interface (`benchmark.registry.framework`), logging each call it serves.
+TOY = '''"""A toy framework: the radiance net's mean over sorted depths, scaled."""
+import torch
+
+CALLS = []
+
+
+def extra_weights(cfg, gen, device):
+    CALLS.append("extra_weights")
+    return {"toy_gain": 1.0 + torch.rand(1, generator=gen, device=device)}
+
+
+def draws(cfg, n, gen, device):
+    CALLS.append("draws")
+    return {"u_toy": torch.rand(n, int(cfg["model"]["N_toy"]), generator=gen, device=device)}
+
+
+def _render(nets, params, rays_o, rays_d, u, train):
+    d = torch.sort(u, dim=-1).values * 2.0
+    n, k = d.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * d[..., None]
+    sdf, nablas, h = nets.surface_with_nablas(pts.reshape(-1, 3), train)
+    views = rays_d[:, None, :].expand(n, k, 3).reshape(-1, 3)
+    rad = nets.radiance(pts.reshape(-1, 3), views, nablas, h).reshape(n, k, 3)
+    return rad.mean(1) * params["toy_gain"], d, nablas.reshape(n, k, 3)
+
+
+def train_loss(nets, params, cfg, rays_o, rays_d, dr, target, mask, step, follow=None):
+    CALLS.append(f"train_loss {step}")
+    rgb, d, nablas = _render(nets, params, rays_o, rays_d, dr["u_toy"], True)
+    eik = torch.mean((torch.linalg.norm(nablas, dim=-1) - 1.0) ** 2)
+    return torch.mean(torch.abs(rgb - target)) + 0.1 * eik, rgb, {"samples": d}, 0
+
+
+def render_eval(nets, params, cfg, rays_o, rays_d):
+    CALLS.append("render_eval")
+    u = torch.linspace(0.0, 1.0, int(cfg["model"]["N_toy"])).expand(rays_o.shape[0], -1)
+    rgb, d, nablas = _render(nets, params, rays_o, rays_d, u, False)
+    return {"rgb": rgb, "depth": d.mean(-1), "normals": nablas.mean(1)}
+
+
+def recorded(sampled, extras):
+    CALLS.append("recorded")
+    return {"samples": sampled["depths"]}
+
+
+def shifted(cfg, sampled):
+    CALLS.append("shifted")
+    return dict(sampled, depths=sampled["depths"] + 0.25)
+
+
+def points(cfg, n, train):
+    CALLS.append("points")
+    k = int(cfg["model"]["N_toy"])
+    return {"upsample": 0, "sampler": 7 * n, "nablas": n * k, "radiance": n * k}
+
+
+def sdf_launches(cfg):
+    CALLS.append("sdf_launches")
+    return 3
+
+
+def shrink(m):
+    CALLS.append("shrink")
+    m.update(N_toy=5)
+'''
+
+_TOY_RUN = """
+import json, sys, torch
+sys.path.insert(0, {root!r})
+from benchmark import faults, mixes, work
+from benchmark.conftest import shrink
+from benchmark.reference import nets, step, toy
+from benchmark.registry import Bench
+from benchmark.scene import make_scene
+from benchmark.weights import make_weights
+assert mixes.__file__.startswith({root!r})
+dev = torch.device("cpu")
+cell = shrink(Bench().cell("toy.train"))
+cfg, tr = cell.cfg, cell.traffic
+sp = nets.spec(cfg)
+w = make_weights(cfg, 3, dev)
+scene = make_scene(cfg["scene"], dev)
+gen = torch.Generator().manual_seed(4)
+steps = []
+for k in range(3):
+    steps.append((k, gen.get_state()))
+    step.draws(cfg, 16, 24, 32, gen, dev)
+ref = step.train_steps(cfg, w, scene, steps)
+again = step.train_steps(cfg, w, scene, steps, follow=ref["follow"])
+out = step.render_rays(cfg, w, scene["c2w"][:1, :3, 3].expand(8, 3), torch.randn(8, 3))
+fns, _ = faults.apply_train("shifted_samples", {{"depth_sample": lambda rb, dr: {{
+    "depths": torch.zeros(2, 3)}}, "loss_with_samples": lambda *a: (
+    torch.zeros(()), ({{}}, {{"rgb": torch.zeros(1, 2, 3)}}))}}, None, cfg)
+mix = mixes.TrainMix(cfg, tr, 1, dev)
+mix.model, mix.names = torch.nn.Linear(1, 1), {{"weight": "w", "bias": "b"}}
+fns = mix._recorder(fns)
+mix.recording = True
+fns["loss_with_samples"](None, fns["depth_sample"](None, None), None, None, 0)
+print(json.dumps({{
+    "calls": toy.CALLS, "N_toy": cfg["model"]["N_toy"], "surface_dims": sp["surface"]["dims"],
+    "weights": sorted(k for k in w if "." not in k), "gain": float(w["toy_gain"]),
+    "losses": ref["losses"], "again": again["losses"],
+    "samples": list(ref["samples"][0].shape), "render": list(out["rgb"].shape),
+    "points": work.points(cfg, tr), "flops": work.unit_flops(cfg, tr),
+    "fused_mlp": work.kernel_work(cfg, tr, "fused_mlp"),
+    "surface_bytes": work.weight_bytes(sp, "surface"),
+    "recorded": mix.record["follow"][0]["samples"].tolist(),
+    "state": sorted(mix.record["follow"][0]["params"])}}))
+"""
+
+
+def test_new_framework_found_without_edits(tmp_path):
+    """A framework the harness has never seen is one new module under
+    `benchmark/reference/` and its configuration: the nets' spec, the
+    weights, the reference's training steps and render, the work counts,
+    the recorder, the planted sampler fault and the CPU sizes all go
+    through that module, and no other file changes. The program is not
+    run: it does not know the framework."""
+    root = tmp_path / "checkout"
+    shutil.copytree(HERE, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+
+    (root / "benchmark/reference/toy.py").write_text(TOY)
+    cfg = json.loads((root / "benchmark/configs/neus.json").read_text())
+    cfg["model"] = {k: v for k, v in cfg["model"].items()
+                    if k not in ("N_samples", "N_importance", "N_upsample_iters",
+                                 "variance_init")}
+    cfg["model"].update(framework="Toy", N_toy=9)
+    del cfg["training"]["speed_factor"]
+    (root / "benchmark/configs/toy.json").write_text(json.dumps(cfg))
+    s = json.loads((root / "BENCHMARK.json").read_text())
+    s["configs"].append({"name": "toy", "source": "https://example.org/toy",
+                         "file": "benchmark/configs/toy.json", "reduced": [], "why": "a test's"})
+    s["workloads"].append({"name": "toy.train", "config": "toy", "traffic": "train",
+                           "chips": 1, "why": "a test's"})
+    (root / "BENCHMARK.json").write_text(json.dumps(s))
+
+    run = subprocess.run([sys.executable, "-c", _TOY_RUN.format(root=str(root))], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["N_toy"] == 5 and got["calls"][0] == "shrink"
+    assert {"extra_weights", "draws", "render_eval", "points", "sdf_launches", "shifted",
+            "recorded"} <= set(got["calls"])
+    assert [c for c in got["calls"] if c.startswith("train_loss")] == [
+        "train_loss 0", "train_loss 1", "train_loss 2"] * 2
+    assert got["surface_dims"][0] == [15, 32] and got["weights"] == ["toy_gain"]
+    assert 1.0 <= got["gain"] < 2.0
+    assert got["losses"] == got["again"] and all(x == x for x in got["losses"])
+    assert got["samples"] == [16, 5] and got["render"] == [8, 3]
+    assert got["points"] == {"rays": 16, "upsample": 0, "sampler": 112, "nablas": 80,
+                             "backward": 80, "radiance": 80}
+    assert got["fused_mlp"][1] == 112 * 16 + 3 * got["surface_bytes"]
+    assert got["flops"] > 0
+    assert got["recorded"] == [[0.25] * 3] * 2 and got["state"] == ["b", "w"]
+    for p, data in before.items():
+        assert p.read_bytes() == data, f"{p} was edited"
+    assert {p for p in (root / "benchmark").rglob("*") if p.is_file()
+            and "__pycache__" not in p.parts} == set(before) | {
+        root / "benchmark/reference/toy.py", root / "benchmark/configs/toy.json"}
 
 
 def test_silent_metric_is_named(small_cell):

@@ -10,10 +10,12 @@ on each weight, 1% on each bias, and a factor 1 + 0.1 N(0, 1) on the weight
 norm's g, so that no octave column or geometry row is zero. Weight norm is
 stored as v (the perturbed weight) and g (its row norms, scaled).
 
-All draws come from one torch.Generator on the device, in two large calls.
-Returns the canonical dict that the program's parameters and the reference
-are both loaded from: `surface.<l>.v|g|b`, `radiance.<l>.v|g|b`, and
-`ln_s` (NeuS) or `ln_beta` (VolSDF) at their init.
+All draws come from one torch.Generator on the device, in two large calls,
+and after them the framework's (`extra_weights` of its reference module;
+NeuS's `ln_s` and VolSDF's `ln_beta` at their init draw nothing). Returns
+the canonical dict that the program's parameters and the reference are
+both loaded from: `surface.<l>.v|g|b`, `radiance.<l>.v|g|b` and the
+framework's own, named as the program names them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 import torch
 
 from benchmark.reference.nets import spec
+from benchmark.registry import framework
 
 
 def make_weights(cfg: dict, seed: int, device) -> dict:
@@ -68,14 +71,15 @@ def make_weights(cfg: dict, seed: int, device) -> dict:
         b = b + 0.01 * take("n", o)
         g = torch.linalg.norm(w, dim=1, keepdim=True) * (1 + 0.1 * take("n", o, 1))
         out[f"{net}.{l}.v"], out[f"{net}.{l}.g"], out[f"{net}.{l}.b"] = w, g, b
-    key = "ln_s" if sp["framework"] == "NeuS" else "ln_beta"
-    out[key] = torch.tensor([sp[key + "_init"]], dtype=torch.float32, device=device)
+    out.update(framework(cfg).extra_weights(cfg, gen, device))
     return {k: v.contiguous() for k, v in out.items()}
 
 
+NETS = {"surface": "implicit_surface", "radiance": "radiance_net"}
+
+
 def port_name(name: str) -> str:
-    """The program's parameter name of a canonical weight."""
+    """The program's parameter name of a canonical weight (a framework's
+    own weights carry the program's names already)."""
     net, _, rest = name.partition(".")
-    if not rest:
-        return name
-    return {"surface": "implicit_surface", "radiance": "radiance_net"}[net] + ".layers." + rest
+    return NETS[net] + ".layers." + rest if net in NETS else name

@@ -23,6 +23,7 @@ backward in training (input and weight gradients).
 from __future__ import annotations
 
 from benchmark.reference.nets import spec
+from benchmark.registry import framework
 
 TF32_PEAK = 495e12   # FLOP/s, H100 SXM dense TF32
 HBM_BYTES = 3.35e12  # bytes/s, H100 SXM HBM3
@@ -51,23 +52,15 @@ def frame_rays(cfg: dict, traffic: dict) -> int:
 
 def points(cfg: dict, traffic: dict) -> dict:
     """Points a unit of the traffic (a training step, or a rendered frame)
-    evaluates: `upsample` (NeuS's sdf-only queries), `sampler` (VolSDF's
-    sdf-only queries: the initial depths and every round's new ones, as
-    the fixed-trip algorithm queries them), `nablas` (sdf, nablas and
-    geometry features), `backward` (the eikonal backward, training only),
-    `radiance`; and `rays`."""
-    m = cfg["model"]
+    evaluates, by the framework's count (`points` of its reference module):
+    `upsample` (NeuS's sdf-only queries), `sampler` (VolSDF's sdf-only
+    queries: the initial depths and every round's new ones, as the
+    fixed-trip algorithm queries them), `nablas` (sdf, nablas and geometry
+    features), `backward` (the eikonal backward, training only: one a
+    `nablas` point), `radiance`; and `rays`."""
     train = traffic["kind"] == "train"
     N = int(cfg["data"]["N_rays"]) if train else frame_rays(cfg, traffic)
-    out = {"rays": N, "upsample": 0, "sampler": 0}
-    if m["framework"] == "NeuS":
-        P = int(m["N_samples"]) + int(m["N_importance"])
-        out.update(upsample=N * P, nablas=N * (2 * P - 1), radiance=N * (P - 1))
-    else:
-        n0 = int(m["N_samples"]) * int(m["fine_sample_mul"])
-        P = int(m["N_samples"]) + int(m["N_importance"])
-        out.update(sampler=N * n0 * (1 + int(m["max_upsample_iter"])),
-                   nablas=N * (P + (1 if train else 0)), radiance=N * P)
+    out = {"rays": N, **framework(cfg).points(cfg, N, train)}
     out["backward"] = out["nablas"] if train else 0
     return out
 
@@ -89,7 +82,7 @@ def kernel_work(cfg: dict, traffic: dict, kernel: str) -> tuple:
     `fused_mlp` (kernel 4, the VolSDF sampler's queries). Bytes: each input
     read once and each output written once."""
     sp, pt = spec(cfg), points(cfg, traffic)
-    m, geo = cfg["model"], sp["W_geo"]
+    geo = sp["W_geo"]
     wb = weight_bytes(sp, "surface")
     if kernel == "fused_nablas":
         n = pt["nablas"]
@@ -99,11 +92,11 @@ def kernel_work(cfg: dict, traffic: dict, kernel: str) -> tuple:
         return 2.0 * n * surface_macs(sp, "backward"), n * (12 + 16 + 4 * geo) + 2 * wb
     if kernel == "fused_upsample":
         rays, n = pt["rays"], pt["upsample"]
-        per_ray = 24 + 4 * (int(m["N_samples"]) + int(m["N_importance"]))
+        per_ray = 24 + 4 * (n // rays)  # origin and direction in, d_all out
         return 2.0 * n * surface_macs(sp, "sdf"), rays * per_ray + 4 * n + wb
     if kernel == "fused_mlp":
         n = pt["sampler"]
-        launches = 1 + int(m["max_upsample_iter"])
+        launches = framework(cfg).sdf_launches(cfg)
         return 2.0 * n * surface_macs(sp, "sdf"), n * 16 + launches * wb
     raise KeyError(kernel)
 
