@@ -327,19 +327,27 @@ def make_ray_loss_fn(model: UNISURF, args, render_kwargs_train: dict,
     return ray_loss
 
 
+DRAWS = ("u_interval", "u_free", "u_reg")  # `volume_render_rays`' `uniforms`, in order
+
+
 def draw_step_uniforms(render_kwargs_train: dict, w_reg: float, N: int, generator,
-                       device) -> tuple:
+                       device) -> dict:
     """A training step's draws after its pixels, at N rays, in the order the
-    render makes them (`volume_render_rays`' `uniforms`): the interval's and
-    the free space's under `perturb`, then the regularisation neighbours'
-    (with `w_reg` > 0)."""
+    render makes them, by their names in `DRAWS` (flat per-ray tensors, as
+    NeuS's and VolSDF's draws): the interval's (`u_interval`) and the free
+    space's (`u_free`) under `perturb`, then the regularisation neighbours'
+    (`u_reg`, with `w_reg` > 0)."""
     kw = render_kwargs_train
 
     def draw(*shape):
         return torch.rand(*shape, generator=generator, device=device)
-    return (draw(N, kw["N_query"]) if kw["perturb"] else None,
-            draw(N, kw["N_freespace"]) if kw["perturb"] else None,
-            draw(N, 3) if w_reg > 0 else None)
+    draws = {}
+    if kw["perturb"]:
+        draws["u_interval"] = draw(N, kw["N_query"])
+        draws["u_free"] = draw(N, kw["N_freespace"])
+    if w_reg > 0:
+        draws["u_reg"] = draw(N, 3)
+    return draws
 
 
 def _draw_step(args, render_kwargs_train: dict, shard: RayShard):
@@ -354,11 +362,12 @@ def _draw_step(args, render_kwargs_train: dict, shard: RayShard):
 def make_pipeline_fns(model: UNISURF, args, render_kwargs_train: dict,
                       shard: Optional[RayShard] = None) -> dict:
     """The training step split for the pipelined step, as
-    `neus.make_pipeline_fns`: depth_sample(rb, uniforms) is the root find
+    `neus.make_pipeline_fns`: depth_sample(rb, draws) is the root find
     (`compute_ray_samples`: a march and 8 secant steps through kernel 4 on a
-    card; it draws nothing), and loss_with_samples(rb, surface, uniforms,
+    card; it draws nothing), and loss_with_samples(rb, surface, draws,
     generator, it) the loss with the root find's output as
-    `surface_override`, at step `it`'s interval."""
+    `surface_override`, at step `it`'s interval, on draw_step's draws
+    (`draw_step_uniforms`)."""
     shard = shard or RayShard()
     ray_loss = make_ray_loss_fn(model, args, render_kwargs_train, shard=shard)
     sample_kwargs = {k: v for k, v in render_kwargs_train.items()
@@ -367,8 +376,9 @@ def make_pipeline_fns(model: UNISURF, args, render_kwargs_train: dict,
     def depth_sample(rb, uniforms):
         return compute_ray_samples(model, rb["rays_o"], rb["rays_d"], **sample_kwargs)
 
-    def loss_with_samples(rb, surface, uniforms, generator, it):
-        return ray_loss(rb, generator, it, surface_override=surface, uniforms=uniforms)
+    def loss_with_samples(rb, surface, draws, generator, it):
+        return ray_loss(rb, generator, it, surface_override=surface,
+                        uniforms=tuple(draws.get(k) for k in DRAWS))
 
     return {"draw_step": _draw_step(args, render_kwargs_train, shard),
             "depth_sample": depth_sample, "loss_with_samples": loss_with_samples}

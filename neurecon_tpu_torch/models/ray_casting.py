@@ -6,6 +6,9 @@ Every fixed-trip iteration runs on all rays with masked updates, as in the
 JAX package. The sdf queries go through `forward_surface_fast` (the sdf-only
 CUDA kernel on a card); the hit-point query is the model's `forward`
 (forward+nablas kernel and the radiance net). Everything runs without a graph.
+The root find's march and secant steps open the spans `cast.march` and
+`cast.secant` (`utils/trace.py`), so a trace separates the root find's host
+time from the rest of a framework's sampler.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable, Union
 import torch
 
 from neurecon_tpu_torch.ops.sampling import linspace01
+from neurecon_tpu_torch.utils.trace import span
 
 
 def run_secant(f_low, f_high, d_low, d_high, rays_o, rays_d,
@@ -62,36 +66,38 @@ def root_finding_surface_points(
     near = torch.broadcast_to(torch.as_tensor(near, dtype=torch.float32, device=dev), prefix)
     far = torch.broadcast_to(torch.as_tensor(far, dtype=torch.float32, device=dev), prefix)
 
-    t = linspace01(N_steps, dev)
-    d_proposal = near[..., None] * (1 - t) + far[..., None] * t  # [..., S]
-    p_proposal = rays_o[..., None, :] + d_proposal[..., :, None] * rays_d[..., None, :]
-
-    val = surface_query_fn(p_proposal) - logit_tau  # [..., S]
-    mask_0_not_occupied = val[..., 0] > 0
-
-    # cost-matrix argmin: the first sign change wins (earlier indices get a
-    # larger magnitude); torch.argmin, like jnp.argmin, takes the first of
-    # equal minima, which decides ties between zero products
-    sign_matrix = torch.cat([torch.sign(val[..., :-1] * val[..., 1:]),
-                             torch.ones(prefix + (1,), device=dev)], -1)
-    cost_matrix = sign_matrix * torch.arange(N_steps, 0, -1, dtype=torch.float32, device=dev)
-    values = cost_matrix.min(-1).values
-    indices = torch.argmin(cost_matrix, -1)
-
     def take(a, idx):
         return torch.gather(a, -1, idx[..., None])[..., 0]
 
-    mask_sign_change = values < 0
-    mask_pos_to_neg = take(val, indices) > 0
-    mask = mask_sign_change & mask_pos_to_neg & mask_0_not_occupied
+    with span("cast.march"):
+        t = linspace01(N_steps, dev)
+        d_proposal = near[..., None] * (1 - t) + far[..., None] * t  # [..., S]
+        p_proposal = rays_o[..., None, :] + d_proposal[..., :, None] * rays_d[..., None, :]
 
-    d_high, f_high = take(d_proposal, indices), take(val, indices)
-    ind1 = torch.clamp(indices + 1, max=N_steps - 1)
-    d_low, f_low = take(d_proposal, ind1), take(val, ind1)
+        val = surface_query_fn(p_proposal) - logit_tau  # [..., S]
+        mask_0_not_occupied = val[..., 0] > 0
+
+        # cost-matrix argmin: the first sign change wins (earlier indices get a
+        # larger magnitude); torch.argmin, like jnp.argmin, takes the first of
+        # equal minima, which decides ties between zero products
+        sign_matrix = torch.cat([torch.sign(val[..., :-1] * val[..., 1:]),
+                                 torch.ones(prefix + (1,), device=dev)], -1)
+        cost_matrix = sign_matrix * torch.arange(N_steps, 0, -1, dtype=torch.float32, device=dev)
+        values = cost_matrix.min(-1).values
+        indices = torch.argmin(cost_matrix, -1)
+
+        mask_sign_change = values < 0
+        mask_pos_to_neg = take(val, indices) > 0
+        mask = mask_sign_change & mask_pos_to_neg & mask_0_not_occupied
+
+        d_high, f_high = take(d_proposal, indices), take(val, indices)
+        ind1 = torch.clamp(indices + 1, max=N_steps - 1)
+        d_low, f_low = take(d_proposal, ind1), take(val, ind1)
 
     if method == "secant":
-        d_pred = run_secant(f_low, f_high, d_low, d_high, rays_o, rays_d,
-                            surface_query_fn, N_secant_steps, logit_tau)
+        with span("cast.secant"):
+            d_pred = run_secant(f_low, f_high, d_low, d_high, rays_o, rays_d,
+                                surface_query_fn, N_secant_steps, logit_tau)
     else:
         d_pred = torch.ones(prefix, device=dev)
 

@@ -84,7 +84,7 @@ def _round_uniforms(key, n, n_iters, n_per):
 def jax_draws(case, cfg, k_render, n=N):
     """The uniforms JAX's pipelined step draws from a step's render key, in
     the port's seams: NeuS's `u_up`; VolSDF's `eik_pts` and `u_fin`;
-    UNISURF's `uniforms`."""
+    UNISURF's `u_interval`, `u_free` and `u_reg` (its render's `uniforms`)."""
     m = cfg["model"]
     if case.startswith("neus"):
         key_up, _ = jax.random.split(k_render)
@@ -101,9 +101,9 @@ def jax_draws(case, cfg, k_render, n=N):
     k_r, _ = jax.random.split(k_render)
     k_int, k_free = jax.random.split(k_r)
     k_reg = jax.random.fold_in(k_r, 7)
-    return (_t(jax.random.uniform(k_int, (n, m["N_query"]))),
-            _t(jax.random.uniform(k_free, (n, m["N_freespace"]))),
-            _t(jax.random.uniform(k_reg, (n, 3))))
+    return {"u_interval": _t(jax.random.uniform(k_int, (n, m["N_query"]))),
+            "u_free": _t(jax.random.uniform(k_free, (n, m["N_freespace"]))),
+            "u_reg": _t(jax.random.uniform(k_reg, (n, 3)))}
 
 
 def _inputs(case, cfg):
@@ -165,7 +165,7 @@ def run_port(case, cfg, inputs, training_module=None, pipelined=True, k=K):
         def loss_fn(b, g, it):
             d = draws[b["i"]]
             return ray_loss(rbs_t[b["i"]], g, it,
-                            **(d if isinstance(d, dict) else {"uniforms": d}))
+                            **(d if case != "unisurf" else {"uniforms": tuple(d.values())}))
         step = make_train_step(loss_fn, tm, opt, sched)
     losses = []
     for i in range(K):

@@ -22,8 +22,8 @@ FRAMEWORK = {"neus_mask": "neus", "volsdf_mask": "volsdf", "unisurf": "unisurf"}
 # every span name the port opens, without its "ntt." prefix
 SPANS = {"step", "step.draw", "step.backward", "step.update", "render", "render.chunk",
          "render.copy", "op.nablas_forward", "op.upsample", "op.nablas_vjp", "op.sdf_forward",
-         "op.fine_sample", "op.pack"} | {f"{fw}.{part}" for fw in FRAMEWORK.values()
-                                         for part in ("sample", "render", "loss")}
+         "op.fine_sample", "op.pack", "cast.march", "cast.secant"} | {
+             f"{fw}.{part}" for fw in FRAMEWORK.values() for part in ("sample", "render", "loss")}
 
 
 def _spans(prof):
@@ -101,7 +101,8 @@ def test_training_step_spans_nest(case):
     if fw == "volsdf":
         assert parents["op.fine_sample"] == {"volsdf.sample"}
     if fw == "unisurf":
-        assert parents["op.sdf_forward"] == {"unisurf.sample"}
+        assert parents["op.sdf_forward"] == {"cast.march", "cast.secant"}
+        assert parents["cast.march"] == parents["cast.secant"] == {"unisurf.sample"}
 
 
 @pytest.mark.parametrize("case", ["neus_mask", "volsdf_mask"])
