@@ -670,7 +670,12 @@ def nablas_check(surface, x, label, report=print, piece=None):
     uniform in [-1, 1]^3 (a ragged last tile); before each call, NaN fills
     blocks of the outputs' sizes, which the outputs are likely to be given,
     so an unwritten entry cannot pass for a right one. sdf and h within
-    1e-4, nablas within 2e-4 + 2e-3 |ref|, all finite. `piece`: the plain
+    1e-4, nablas within 2e-4 + 2e-3 |ref|, all finite; and the mean |diff|
+    of sdf and of h each within 1e-5 of the plain values' mean |value|: the
+    split-fp32 product's precision (the wgmma tile with one truncating
+    accumulator over each layer, never promoted into the fp32 sums, reads
+    3.6e-5 and 2.3e-5 there on the render chunk, the kernel 2.4e-6 and
+    1.6e-6, while its largest |diff| stays under 1e-4). `piece`: the plain
     version runs on that many points at a time (its autograd holds every
     layer's activations), the kernel on all of x. Returns (ok, [max|diff| of
     sdf, nablas, h] over both)."""
@@ -695,9 +700,11 @@ def nablas_check(surface, x, label, report=print, piece=None):
         torch.cuda.synchronize()
         e = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         nab_ok = bool(((got[1] - ref[1]).abs() <= 2e-4 + 2e-3 * ref[1].abs()).all())
+        mean = [float((got[i] - ref[i]).abs().mean() / ref[i].abs().mean()) for i in (0, 2)]
         report(f"{label}: nablas_forward on {M} points: max|diff| sdf {e[0]:.3e}, "
-               f"nablas {e[1]:.3e}, h {e[2]:.3e}")
-        ok = ok and (e[0] <= 1e-4 and e[2] <= 1e-4 and nab_ok
+               f"nablas {e[1]:.3e}, h {e[2]:.3e}; mean|diff| / mean|ref| sdf {mean[0]:.2e}, "
+               f"h {mean[1]:.2e} (gate 1e-5)")
+        ok = ok and (e[0] <= 1e-4 and e[2] <= 1e-4 and nab_ok and max(mean) <= 1e-5
                      and all(bool(torch.isfinite(t).all()) for t in got))
         errs = [max(a, b) if b == b else float("nan") for a, b in zip(errs, e)]
         del got, ref
@@ -792,6 +799,19 @@ def _launch_counters():
     def read_counts():
         return {k: fn.launches for k, fn in counters.items()}
     return counters, zero_counts, read_counts
+
+
+def _kernel1_narrow(label, narrow0, launches):
+    """Phases 4, 8, 15, 16 and 23 (the surface widths of the benchmark's five
+    cells): every kernel-1 launch of the run took the narrow tile's wgmma
+    pipeline (`fused_forward_with_nablas.launches_by_tile["narrow"]`, read
+    against `narrow0`, its count before the run). Returns whether it did."""
+    from neurecon_tpu_torch.ops import fused_nablas
+
+    narrow = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"] - narrow0
+    print(f"{label}: kernel 1's launches on the narrow tile's wgmma pipeline {narrow} of "
+          f"{launches['nablas_forward']}")
+    return narrow == launches["nablas_forward"] > 0
 
 
 def _train_timed(targs, zero_counts, read_counts, around_make=None, order="side"):
@@ -1346,11 +1366,15 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, r
     vargs.update({"load_pt": ckpt, "num_views": 2, "camera_path": "interpolation",
                   "rayschunk": 4096})
     zero_counts()
+    k1_narrow0 = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"]
     frames = render_view.render_frames(vargs, device="cuda")
     torch.cuda.synchronize()
     launches = by_path["volsdf_render_view"] = read_counts()
     print(f"phase 15: render_view VolSDF 2 x 120x160: launches {launches}, s/frame "
           f"{[round(v, 4) for v in frames['seconds']]} {tag}")
+    if not _kernel1_narrow("phase 15", k1_narrow0, launches):
+        print("FAIL phase 15: a VolSDF kernel-1 launch left the narrow tile", file=sys.stderr)
+        return 1, None, None
     # 5 chunks of 4,096 rays per frame: per chunk one sampler call (1 + 1 + 6
     # launches of (a)-(c), 7 of kernel 4) and one forward+nablas query
     want = {"nablas_forward": 10, "neus_upsample": 0, "nablas_backward": 0,
@@ -1407,8 +1431,12 @@ def _volsdf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, r
                            "i_val_mesh": 20, "i_backup": 20, "monitoring": "none",
                            "log_root_dir": tdir, "exp_dir": os.path.join(tdir, "run")})
     narrow0 = fused_mlp.fused_sdf_forward.launches_by_tile["narrow"]
+    k1_narrow0 = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"]
     out, t_launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
     by_path["volsdf_train"] = t_launches
+    if not _kernel1_narrow("phase 16", k1_narrow0, t_launches):
+        print("FAIL phase 16: a VolSDF kernel-1 launch left the narrow tile", file=sys.stderr)
+        return 1, None, None
     narrow = fused_mlp.fused_sdf_forward.launches_by_tile["narrow"] - narrow0
     print(f"phase 16: kernel 4's launches on the narrow tile's wgmma pipeline {narrow} of "
           f"{t_launches['sdf_forward']}")
@@ -2565,8 +2593,12 @@ def _unisurf_phases(seed, dev, tag, zero_counts, read_counts, by_path, workdir, 
     targs = ConfigDict(copy.deepcopy(cfg))
     S, N = UNISURF_STEPS, int(cfg["data"]["N_rays"])
     n_steps = int(targs.model.get("N_steps", 256))
+    k1_narrow0 = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"]
     out, t_launches, step_ms, run_s = _train_timed(targs, zero_counts, read_counts)
     by_path["unisurf_train"] = t_launches
+    if not _kernel1_narrow("phase 23", k1_narrow0, t_launches):
+        print("FAIL phase 23: a UNISURF kernel-1 launch left the narrow tile", file=sys.stderr)
+        return 1, None
     ms_step = float(np.median(step_ms[5:]))
     if record is not None:
         record.update(unisurf_ms=ms_step, dtu_root=dtu_root)
@@ -3525,10 +3557,12 @@ def _ddp_phases(seed, dev, tag, by_path, workdir, phase8):
         ok &= bool(np.isfinite(v["totals"]).all())
     ok &= res[1]["tasks"]["neus"]["pack"]["before"] != res[0]["tasks"]["neus"]["pack"]["before"]
     t2 = np.asarray(res[0]["tasks"]["neus"]["totals"])
-    rel2 = float(np.max(np.abs(t2 - t1[:10]) / np.abs(t1[:10])))
+    rels = np.abs(t2 - t1[:10]) / np.abs(t1[:10])
+    rel2 = float(np.max(rels))
     ms2 = float(np.median(res[0]["tasks"]["neus"]["step_ms"][5:]))
     print(f"phase 30: two ranks' global step losses against the one-rank run's first 10: max rel "
-          f"{rel2:.3e} (gate {DDP_LOSS_REL:g}); rank 1 started from other weights and after the "
+          f"{rel2:.3e} (gate {DDP_LOSS_REL:g}; by step {', '.join(f'{r:.1e}' for r in rels)}); "
+          f"rank 1 started from other weights and after the "
           f"broadcast packs rank 0's; median {ms2:.2f} ms/step over steps 6-10 (two processes "
           f"on one card, gloo through the host) {tag}")
     if not ok or rel2 > DDP_LOSS_REL:
@@ -5208,11 +5242,16 @@ def main(argv=None):
         vargs.update({"load_pt": ckpt, "num_views": 2, "camera_path": "interpolation",
                       "rayschunk": 4096})
         zero_counts()
+        k1_narrow0 = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"]
         frames = render_view.render_frames(vargs, device="cuda")
         torch.cuda.synchronize()
         launches = by_path["render_view"] = read_counts()
     print(f"phase 4: render_view 2 x 120x160: launches {launches}, "
           f"s/frame {[round(s, 4) for s in frames['seconds']]} {tag}")
+    if not _kernel1_narrow("phase 4", k1_narrow0, launches):
+        print("FAIL phase 4: a kernel-1 launch of the render left the narrow tile",
+              file=sys.stderr)
+        return 1
     finite = all(np.isfinite(frames[k]).all() for k in ("rgb", "depth", "normal"))
     # 5 chunks of 4,096 rays per frame, one launch of each forward kernel per
     # chunk; the render builds no graph, so the backward kernel never runs,
@@ -5351,8 +5390,13 @@ def main(argv=None):
     # ---- phase 8: the training slice through train.py (its directory stays
     # for phase 13)
     targs = ConfigDict(_train_config(os.path.join(work.name, "train"), seed))
+    k1_narrow0 = fused_nablas.fused_forward_with_nablas.launches_by_tile["narrow"]
     out, launches, step_ms, _ = _train_timed(targs, zero_counts, read_counts)
     by_path["train"] = launches
+    if not _kernel1_narrow("phase 8", k1_narrow0, launches):
+        print("FAIL phase 8: a kernel-1 launch of the training left the narrow tile",
+              file=sys.stderr)
+        return 1
     ms_step = float(np.median(step_ms[5:]))
     totals = [v for _, v in out["stats"]["losses"]["total_per_step"]]
     phase8 = {"totals": list(totals), "ms_step": ms_step, "final_ckpt": out["final_ckpt"]}

@@ -1,10 +1,10 @@
 // Split-fp32 ("3xTF32") tensor-core layer products of the surface MLP over a
 // tile of P points held in shared memory, and the device routines around
-// them, shared by the surface-MLP kernels: the forward + nablas
-// (nablas_forward.cu), the NeuS upsampler (neus_upsample.cu), the eikonal
-// backward's tile pass (nablas_backward.cu) and the sdf-only forward's wide
-// and cluster tiles (sdf_forward.cu; its narrow tile runs wgmma,
-// wgmma_tf32.cuh).
+// them, shared by the surface-MLP kernels: the NeuS upsampler
+// (neus_upsample.cu), the eikonal backward's tile pass (nablas_backward.cu),
+// and the wide and cluster tiles of the forward + nablas (nablas_forward.cu)
+// and of the sdf-only forward (sdf_forward.cu; both their narrow tiles run
+// wgmma, narrow_tile.cuh).
 //
 // The product. out[p][n] = sum_k V[p][k] * M[k][n] for the tile's P points,
 // with V an activation block in shared memory and M a weight block in device
@@ -32,8 +32,8 @@
 // the pack (a big and a small plane beside the fp32 one): a product that
 // stages both parts (PRESPLIT) saves the B fragments' splits, which 4
 // warps repeat for every fragment they share, at twice the stage's shared
-// memory; the narrow forward kernels have that room, the backward has not and
-// splits the fp32 stage in registers.
+// memory; the upsampler's 64-point narrow blocks have that room, the
+// backward has not and splits the fp32 stage in registers.
 //
 // Layout. Activations are feature-major, [rows][LDV] with LDV = P + 8
 // floats, so the A fragments' loads (lanes over 8 points x 4 inputs) fall
@@ -67,7 +67,7 @@
 // product's closing barrier passes, so layers stay in place. The wide
 // kernels stage the fp32 plane and split it in registers (a stage of both
 // parts at SLD = 520 does not fit beside the buffer). The narrow
-// instantiations are the kernels of the W <= 256 surfaces unchanged.
+// instantiations are kernels 2 and 3 of the W <= 256 surfaces.
 //
 // The cluster tile (`Cluster`), for padded hidden widths and final-layer
 // rows up to 1024: a 1024-wide activation buffer at 64 points takes 295 KB,

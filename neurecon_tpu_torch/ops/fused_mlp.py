@@ -22,19 +22,17 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from neurecon_tpu_torch.ops import _build
 from neurecon_tpu_torch.ops.fused_nablas import _check
-from neurecon_tpu_torch.ops.surface_pack import TILE_NAMES, Pack, layout, packed_surface
+from neurecon_tpu_torch.ops.surface_pack import TILE_NAMES, Pack, host_meta, packed_surface
 from neurecon_tpu_torch.utils.trace import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 _RESIDENT: dict = {}  # (card index, c_pad, rows, tile) -> resident blocks
-_HOST_META: dict = {}  # (dims, skips, input_ch) -> (the pack's records, int32, their address)
 
 
 @torch.no_grad()
@@ -65,19 +63,6 @@ def resident_blocks(c_pad: int, rows: int, device: torch.device, tile: int) -> i
                 "rows does not fit in the card's shared memory")
         _RESIDENT[key] = n
     return n
-
-
-def host_meta(surface) -> int:
-    """The address of the pack's per-layer records (`surface_pack.layout`)
-    as a contiguous int32 [D + 1, 8] array in host memory, made once per
-    shape and kept: the narrow tile's launch makes its tensor maps of the
-    weights from them (once a pack; the kernel's source keeps them)."""
-    key = (tuple(surface.dims), tuple(surface.skips), surface.input_ch)
-    meta = _HOST_META.get(key)
-    if meta is None:
-        records = np.ascontiguousarray(layout(surface)["records"], np.int32)
-        meta = _HOST_META[key] = (records, records.ctypes.data)
-    return meta[1]
 
 
 def launch_sdf_forward(surface, x: torch.Tensor, packed: Pack) -> torch.Tensor:

@@ -4,17 +4,21 @@
 Replaces the Pallas kernel `_make_nablas_kernel` of
 `neurecon_tpu/ops/fused_nablas.py` (entry `fused_forward_with_nablas`). The
 kernel runs every layer product, forward and nablas sweep, as a split-fp32
-tensor-core product over 128-point tiles (64-point tiles of the wide
-instantiation for a surface wider than 256, up to 512, and of the cluster
-instantiation, two blocks a tile, up to 1024, as the pack records); its
-source note gives the design
-and what bounds it. Gradient-free: parameters are constants here (the
-render, the casters); `ops/fused_nablas_vjp.py` wraps it, with its backward
-kernel, for training. The packed weights are kept between calls while the
-surface's parameters are unchanged (`surface_pack.packed_surface`).
+tensor-core product over 64-point tiles: a warp-specialised TMA + wgmma
+pipeline for every surface whose padded hidden widths are at most 256 (the
+narrow tile), and `mma.sync` products for a surface wider than 256, up to
+512 (the wide tile), and up to 1024 (the cluster tile, two blocks a tile),
+as the pack records; its source note gives the design and what bounds it.
+Gradient-free: parameters are constants here (the render, the casters);
+`ops/fused_nablas_vjp.py` wraps it, with its backward kernel, for training.
+The packed weights are kept between calls while the surface's parameters
+are unchanged (`surface_pack.packed_surface`).
 
 `fused_forward_with_nablas` takes the kernel for a CUDA tensor and the plain
-version for a CPU tensor; there is no other route and no fallback.
+version for a CPU tensor; there is no other route and no fallback. It counts
+its launches in `launches` and, by the tile that ran
+(`surface_pack.TILE_NAMES`: "narrow" is the wgmma pipeline), in
+`launches_by_tile`.
 """
 from __future__ import annotations
 
@@ -146,23 +150,31 @@ def fused_forward_with_nablas(surface, x: torch.Tensor, weights=None, packed=Non
         if packed is None:
             packed = (surface_pack.packed_surface(surface) if weights is None
                       else surface_pack.pack(surface, weights))
-        blocks = min(resident_blocks(packed.c_pad, packed.rows, dev, packed.kind),
-                     -(-M // packed.tile) * packed.blocks_per_tile)
-        # a slot of D x rows x the tile's points for each block (each pair)
-        slopes = torch.empty(blocks // packed.blocks_per_tile * surface.D * packed.rows
-                             * packed.tile, device=dev)
-        fn = _build.load("nablas_forward").ntt_nablas_forward
-        fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                       _I, _P, _P]
+        blocks = resident_blocks(packed.c_pad, packed.rows, dev, packed.kind)
+        lib = _build.load("nablas_forward")
+        scratch = lib.ntt_nablas_forward_scratch_floats
+        scratch.argtypes = [_I, _I, _I, _I, _I]
+        scratch.restype = ctypes.c_longlong
+        slopes = torch.empty(scratch(M, len(surface.layers), packed.rows, packed.kind, blocks),
+                             device=dev)
+        fn = lib.ntt_nablas_forward
+        fn.argtypes = [_P, _I, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _I, _I, _P, _P]
         fn.restype = _I
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), M, packed.params.data_ptr(), packed.plane, packed.meta.data_ptr(),
-                len(surface.layers), surface.input_ch, packed.c_pad, packed.rows, packed.act,
-                packed.kind, sdf.data_ptr(), nablas.data_ptr(), h.data_ptr(), geo, blocks,
-                slopes.data_ptr(), stream)
+                surface_pack.host_meta(surface), len(surface.layers), surface.input_ch,
+                packed.c_pad, packed.rows, packed.act, packed.kind, sdf.data_ptr(),
+                nablas.data_ptr(), h.data_ptr(), geo, blocks, slopes.data_ptr(), stream)
         _build.check(rc, "nablas_forward")
         fused_forward_with_nablas.launches += 1
+        _LAUNCHES_BY_TILE[surface_pack.TILE_NAMES[packed.kind]] += 1
         return sdf, nablas, h
 
 
 fused_forward_with_nablas.launches = 0
+# keyed by surface_pack.TILE_NAMES (which imports this module); the body counts
+# into the dict itself, so a caller that swaps the module's name for a wrapper
+# (tools/step_grad_sensitivity.py) still counts the launches
+_LAUNCHES_BY_TILE = fused_forward_with_nablas.launches_by_tile = dict.fromkeys(
+    ("narrow", "wide", "cluster"), 0)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from neurecon_tpu_torch.ops.fused_nablas import activation_code, surface_weights, upload
@@ -85,8 +86,8 @@ class Pack(NamedTuple):
 
     @property
     def tile(self) -> int:
-        """Points a tile of kernels 1, 3 and 4 (csrc tc::Narrow 128, tc::Wide
-        and tc::Cluster 64)."""
+        """Points a tile of kernel 3 (csrc tc::Narrow 128, tc::Wide and
+        tc::Cluster 64); kernels 1 and 4 walk 64-point tiles on every tile."""
         return 128 if self.kind == NARROW else 64
 
     @property
@@ -132,6 +133,22 @@ def layout(surface) -> dict:
         rows = max(rows, K, N if hidden else 0)
     return {"records": records, "size": off, "c_pad": c_pad, "rows": rows, "tile": tile,
             "wide": tile == WIDE}
+
+
+_HOST_META: dict = {}  # (dims, skips, input_ch) -> (the pack's records, int32, their address)
+
+
+def host_meta(surface) -> int:
+    """The address of the pack's per-layer records (`layout`) as a
+    contiguous int32 [D + 1, 8] array in host memory, made once per shape and
+    kept: the narrow tile's launches (kernels 1 and 4) make their tensor maps
+    of the weights from them (once a pack; the kernels' sources keep them)."""
+    key = (tuple(surface.dims), tuple(surface.skips), surface.input_ch)
+    meta = _HOST_META.get(key)
+    if meta is None:
+        records = np.ascontiguousarray(layout(surface)["records"], np.int32)
+        meta = _HOST_META[key] = (records, records.ctypes.data)
+    return meta[1]
 
 
 _INDEX: dict = {}  # (shape signature, device) -> (meta, index, size, c_pad, rows, tile)

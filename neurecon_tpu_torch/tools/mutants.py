@@ -34,9 +34,14 @@ passes and every mutant fails.
 * `nablas`: the forward + nablas kernel (`csrc/nablas_forward.cu`), held by
   `chip_smoke.py` phase 2 (`nablas_check`: the perturbed flagship surface,
   one render chunk's 1,044,480 points and 4,099 more, outputs filled with
-  NaN beforehand). Its mutants drop the skip's 1/sqrt(2) from the reverse
-  sweep, leave the final layer's last geometry column (the 257th output, off
-  the product) unwritten, and skip the ragged last tile.
+  NaN beforehand; sdf and h held by their largest and their mean |diff|).
+  Its mutants break the narrow tile: the skip's 1/sqrt(2) dropped from the
+  reverse sweep, the final layer's last geometry column (the 257th output,
+  off the product) unwritten, the sdf row's bias dropped (the row runs on
+  the CUDA cores), the ragged last tile skipped, one accumulator over the
+  whole K with no promotion (in the shared `narrow_pass`), the sweep reading
+  layer l + 1's slopes for layer l, and the sweep's tensor maps pointed at W
+  instead of W^T.
 * `upsample`: the NeuS upsampler (`csrc/neus_upsample.cu`), held by
   `chip_smoke.py` phase 3 (`upsample_checks`: 4,096 rays of a render chunk,
   and 512 of them with the sphere prior, det and perturb). Its mutants flip
@@ -121,30 +126,30 @@ MUTANTS = {
         "csrc/sdf_forward.cu", "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s + __ldg(LD.b);",
         "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s;"),
     "sin and cos swapped": (
-        "csrc/sdf_forward.cu", "v = (r < 3) ? sinf(ph) : cosf(ph);",
+        "csrc/narrow_tile.cuh", "v = (r < 3) ? sinf(ph) : cosf(ph);",
         "v = (r < 3) ? cosf(ph) : sinf(ph);"),
     "skip 1/sqrt(2) dropped": [
-        ("csrc/sdf_forward.cu", "if constexpr (SKIP) v *= 0.707106781187f;",
+        ("csrc/narrow_tile.cuh", "if constexpr (SKIP) v *= 0.707106781187f;",
          "if constexpr (SKIP) v *= 1.f;"),
-        ("csrc/sdf_forward.cu", "emb[c * LDV + q] / 1.41421356237f : 0.f;",
+        ("csrc/narrow_tile.cuh", "emb[c * LDV + q] / 1.41421356237f : 0.f;",
          "emb[c * LDV + q] : 0.f;")],
     "ragged last tile skipped": (
         "csrc/sdf_forward.cu", "const int n_tiles = (M + P - 1) / P;",
         "const int n_tiles = M / P;"),
     "plain TF32 (no correction products)": [
-        ("csrc/sdf_forward.cu",
+        ("csrc/narrow_tile.cuh",
          "for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, as[s], big[s], s > 0);",
          "for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s], s > 0);"),
-        ("csrc/sdf_forward.cu",
+        ("csrc/narrow_tile.cuh",
          "\n#pragma unroll\n"
          "      for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s] + ((NC * SW) >> 4), 1);\n"
          "#pragma unroll\n"
          "      for (int s = 0; s < G; ++s) wg::wgmma_m64n128k8(fresh, ab[s], big[s], 1);",
          "")],
     "promotion interval removed (one accumulator over the whole K)": [
-        ("csrc/sdf_forward.cu", "wg::wgmma_m64n128k8(fresh, as[s], big[s], s > 0);",
+        ("csrc/narrow_tile.cuh", "wg::wgmma_m64n128k8(fresh, as[s], big[s], s > 0);",
          "wg::wgmma_m64n128k8(fresh, as[s], big[s], q > 0 || s > 0);"),
-        ("csrc/sdf_forward.cu", "for (int i = 0; i < 64; ++i) sum[i] += fresh[i];",
+        ("csrc/narrow_tile.cuh", "for (int i = 0; i < 64; ++i) sum[i] += fresh[i];",
          "for (int i = 0; i < 64; ++i) sum[i] = fresh[i];")],
 }
 
@@ -155,19 +160,31 @@ SINE_MUTANTS = {
     "phi'' sign flipped in kernel 3": (
         "csrc/nablas_backward.cu", "ab[idx] = -SIREN_W0 * SIREN_W0 * buf",
         "ab[idx] = SIREN_W0 * SIREN_W0 * buf"),
-    "omega0 dropped from kernel 1's slope": (
-        "csrc/surface_mma.cuh", "s = SIREN_W0 * cs;", "s = cs;"),
+    "omega0 dropped from the slope kernels 1 and 3 keep": [
+        ("csrc/narrow_tile.cuh", "s = SIREN_W0 * c;", "s = c;"),
+        ("csrc/surface_mma.cuh", "s = SIREN_W0 * cs;", "s = cs;")],
 }
 
 NABLAS_MUTANTS = {
     "skip 1/sqrt(2) dropped from the reverse sweep": (
-        "csrc/surface_mma.cuh", "const float v = buf[r * LDV + p] * inv_sqrt2;",
-        "const float v = buf[r * LDV + p];"),
+        "csrc/nablas_forward.cu", "      if (skip) g *= 0.707106781187f;\n", ""),
     "final layer's last geometry column not written": (
-        "csrc/nablas_forward.cu", "idx < (LD.out_dim - n0) * P;", "idx < (LD.out_dim - n0 - 1) * P;"),
+        "csrc/nablas_forward.cu", "for (int o = nf; o < LD.out_dim; ++o) {",
+        "for (int o = nf; o < LD.out_dim - 1; ++o) {"),
+    "sdf row's bias dropped": (
+        "csrc/nablas_forward.cu", "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s + __ldg(LD.b);",
+        "if (lane < 16 && p0 + q < M) sdf[p0 + q] = s;"),
     "ragged last tile skipped": (
-        "csrc/nablas_forward.cu", "const int tiles = (M + P - 1) / P;",
-        "const int tiles = M / P;"),
+        "csrc/nablas_forward.cu", "const int n_tiles = (M + P - 1) / P;",
+        "const int n_tiles = M / P;"),
+    "promotion interval removed (one accumulator over the whole K)":
+        MUTANTS["promotion interval removed (one accumulator over the whole K)"],
+    "sweep reads layer l + 1's slopes for layer l": (
+        "csrc/nablas_forward.cu", "slope[SLOPE_LAYER * (l - 1) + 256 * j]",
+        "slope[SLOPE_LAYER * l + 256 * j]"),
+    "sweep's tensor maps pointed at W instead of W^T": (
+        "csrc/nablas_forward.cu", "weight_map<SW>(&mp->wT[l], big + r[4], m.plane, r[1], r[0])",
+        "weight_map<SW>(&mp->wT[l], big + r[5], m.plane, r[1], r[0])"),
 }
 
 UPSAMPLE_MUTANTS = {
@@ -244,6 +261,12 @@ WIDE_MUTANTS = {
         "csrc/surface_mma.cuh", "*cat = *cat / 1.41421356237f;", "*cat = *cat;"),
     "mma.sync tiles: ragged last tile skipped": (
         "csrc/sdf_forward.cu", "const int tiles = (M + P - 1) / P;", "const int tiles = M / P;"),
+    "mma.sync tiles: skip 1/sqrt(2) dropped from the reverse sweeps": (
+        "csrc/surface_mma.cuh", "const float v = buf[r * LDV + p] * inv_sqrt2;",
+        "const float v = buf[r * LDV + p];"),
+    "mma.sync tiles: kernel 1's ragged last tile skipped": (
+        "csrc/nablas_forward.cu", "const int tiles = (M + P - 1) / P;",
+        "const int tiles = M / P;"),
     "second half of the column groups skipped": (
         "csrc/surface_mma.cuh", "    if (nw >= N) continue;",
         "    if (nw >= N || nw >= 256) continue;"),

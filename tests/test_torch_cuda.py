@@ -183,20 +183,26 @@ def test_backward_kernel_is_deterministic(cuda, cfg, geo, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 127, 128, 129, 300])
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 127, 128, 129, 300, 130560])
 def test_nablas_kernel_ragged_sizes(cuda, M):
-    """Kernel 1 on 128-point tiles at the flagship widths: fewer points than
-    a tile, one short of it, exactly one, one past it, and a caster's few
-    hundred hit points; outputs filled with NaN beforehand, so an unwritten
-    entry cannot pass."""
+    """Kernel 1 at the flagship widths on one point, sizes about one and two
+    of its 64-point tiles (one short, exactly, one past), a caster's few
+    hundred hit points and a NeuS step's 130,560 points; outputs filled with
+    NaN beforehand, so an unwritten entry cannot pass; each call is one
+    launch of the narrow tile."""
     surf = _model(FLAGSHIP, 256, cuda).implicit_surface
     x = torch.tensor(np.random.RandomState(M).randn(M, 3).astype(np.float32) * 0.6,
                      device=cuda)
     nan = [torch.full(shape, float("nan"), device=cuda) for shape in ((M,), (M, 3), (M, 256))]
     del nan
-    got = fused_nablas.fused_forward_with_nablas(surf, x)
+    fn = fused_nablas.fused_forward_with_nablas
+    before = dict(fn.launches_by_tile)
+    got = fn(surf, x)
     torch.cuda.synchronize()
-    ref = fused_nablas.forward_with_nablas_plain(surf, x)
+    assert {k: fn.launches_by_tile[k] - before[k] for k in before} == {
+        "narrow": 1, "wide": 0, "cluster": 0}
+    ref = [torch.cat(parts) for parts in zip(*(
+        fused_nablas.forward_with_nablas_plain(surf, x[i:i + 32768]) for i in range(0, M, 32768)))]
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
     torch.testing.assert_close(got[1], ref[1], rtol=2e-3, atol=2e-4)
     torch.testing.assert_close(got[2], ref[2], rtol=0, atol=1e-4)
@@ -1014,11 +1020,14 @@ def test_unisurf_step_gradient_matches_plain(cuda):
     """The UNISURF ray loss on 1,024 rays with a fixed surface_override and
     fixed uniforms, backward through kernels 1 and 3 and through their plain
     versions: loss to rel 1e-5, every parameter's grad within 5e-4 of its
-    max|ref|. The surface points come from kernel 4's plain version, so
-    that the points both sides see do not move with kernel 4's rounding
-    (a ReLU of the radiance net whose pre-activation lies within the two
-    sides' gap of zero at some point gates that point's gradient on one
-    side only)."""
+    max|ref|. The surface points come from kernel 4's plain version, and the
+    gradients are compared with kernel 1's forward values taken from its
+    plain version on both sides (kernel 3 behind it), so that the inputs both
+    sides' radiance nets see do not move with kernels 4's and 1's rounding: a
+    ReLU of the radiance net whose pre-activation lies within the two sides'
+    gap of zero at some point gates that point's gradient on one side only
+    (kernel 1's wgmma tile flips 16 of the first layer's, each within 5e-7 of
+    zero, which moves that layer's weight gradient by 1.6e-3 of its max)."""
     from neurecon_tpu_torch.config import ConfigDict
     from neurecon_tpu_torch.models.frameworks.unisurf import (compute_ray_samples,
                                                               make_ray_loss_fn)
@@ -1045,19 +1054,22 @@ def test_unisurf_step_gradient_matches_plain(cuda):
         total.backward()
         return total.item(), [p.grad.clone() for p in model.parameters()]
 
+    orig1, orig3 = fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp
+    plain1 = (lambda s, x, weights=None, packed=None:
+              fused_nablas.forward_with_nablas_plain(s, x, weights))
+    plain3 = (lambda s, x, ws, bs, c0, c1, c2, packed=None:
+              fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, c0, c1, c2))
     b1 = fused_nablas.fused_forward_with_nablas.launches
     b3 = fused_nablas_vjp.fused_nablas_vjp.launches
-    loss_k, g_k = grads()
+    loss_k, _ = grads()
     assert fused_nablas.fused_forward_with_nablas.launches - b1 == 1
     assert fused_nablas_vjp.fused_nablas_vjp.launches - b3 == 1
-    orig1, orig3 = fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp
     try:
-        fused_nablas.fused_forward_with_nablas = (
-            lambda s, x, weights=None, packed=None:
-            fused_nablas.forward_with_nablas_plain(s, x, weights))
-        fused_nablas_vjp.fused_nablas_vjp = (
-            lambda s, x, ws, bs, c0, c1, c2, packed=None:
-            fused_nablas_vjp.nablas_vjp_plain(s, x, ws, bs, c0, c1, c2))
+        fused_nablas.fused_forward_with_nablas = plain1
+        b3 = fused_nablas_vjp.fused_nablas_vjp.launches
+        _, g_k = grads()
+        assert fused_nablas_vjp.fused_nablas_vjp.launches - b3 == 1
+        fused_nablas_vjp.fused_nablas_vjp = plain3
         loss_p, g_p = grads()
     finally:
         fused_nablas.fused_forward_with_nablas, fused_nablas_vjp.fused_nablas_vjp = orig1, orig3

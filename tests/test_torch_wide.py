@@ -212,6 +212,19 @@ def test_layout_at_wide_widths(W, geo, rows, tile):
     assert pk.blocks_per_tile == (2 if tile == "cluster" else 1)
 
 
+def test_kernel1_counts_launches_by_tile_names():
+    """`fused_forward_with_nablas.launches_by_tile` is keyed by the pack's tile
+    names, and a CPU call (the plain version) counts no launch."""
+    from neurecon_tpu_torch.ops import fused_nablas
+    fn = fused_nablas.fused_forward_with_nablas
+    assert tuple(fn.launches_by_tile) == surface_pack.TILE_NAMES
+    before, by_tile = fn.launches, dict(fn.launches_by_tile)
+    s = ImplicitSurface(W=16, D=2, skips=[], W_geo_feat=4, radius_init=0.5, embed_multires=2)
+    sdf, nablas, h = fn(s, torch.zeros(5, 3))
+    assert sdf.shape == (5,) and nablas.shape == (5, 3) and h.shape == (5, 4)
+    assert fn.launches == before and fn.launches_by_tile == by_tile
+
+
 @pytest.mark.parametrize("cfg", [dict(IDR, W=1025), dict(IDR, W_geo_feat=1032),
                                  dict(IDR, W=1040)], ids=["W1025", "geo1032", "W1040"])
 def test_layout_refuses_past_1024(cfg):
